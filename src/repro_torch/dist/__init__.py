@@ -1,0 +1,23 @@
+"""CaPGNN partition-parallel substrate of the port.
+
+- :mod:`.exchange` — compile a JACA cache plan into static gather/scatter
+  index sets; stack partitions into the padded ``[P, ...]`` layout (numpy).
+- :mod:`.capgnn_sim` — the tier primitives and the stacked aggregation
+  backends.
+- :mod:`.host_store` — the host-resident store behind the serve engine's
+  host tier.
+"""
+from .exchange import (ExchangeCapacity, ExchangePlan, ExchangeTier,
+                       GlobalTier, HostTier, StackedEllPack, StackedParts,
+                       build_exchange_plan, exchange_capacity,
+                       stack_partitions)
+from .host_store import HostFeatureStore, StagedFetch, halo_dtype_info
+from .capgnn_sim import RUNTIME_BACKENDS, check_backend, make_adj_builder
+
+__all__ = [
+    "ExchangeCapacity", "ExchangePlan", "ExchangeTier", "GlobalTier",
+    "HostTier", "StackedEllPack", "StackedParts", "build_exchange_plan",
+    "exchange_capacity", "stack_partitions",
+    "HostFeatureStore", "StagedFetch", "halo_dtype_info",
+    "RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
+]

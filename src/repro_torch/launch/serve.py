@@ -1,0 +1,229 @@
+"""Serving entry point of the port.
+
+``python -m repro_torch.launch.serve gnn ...`` — partitioned GNN query
+serving: precompute per-layer embeddings through the CaPGNN exchange
+machinery, stand up the two-tier cache engine, and drive a synthetic query
+stream through the micro-batcher; prints QPS, latency percentiles and
+per-tier hit rates as one JSON object (the fields of the JAX package's
+``repro.launch.serve gnn``).
+
+It runs on ``--device cuda`` (the default) or ``--device cpu``.  With
+``--backend ell`` or ``hybrid`` on the card, every layer's aggregation is
+the hand-written ELL-SpMM kernel, and hot-tier queries go through the
+row-gather kernel.  f32 matrix products run in full f32: TF32 is off.
+
+Not ported yet: ``--ckpt-dir``, ``--store-dir`` and ``--load-store``
+(checkpoint slice), ``--trace`` (observability slice) and the ``lm``
+subcommand; passing one of the flags exits with a message.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+_NOT_PORTED_FLAGS = (("ckpt_dir", "--ckpt-dir"), ("store_dir", "--store-dir"),
+                     ("load_store", "--load-store"), ("trace", "--trace"))
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA request on a machine
+    without CUDA raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available; pass device='cpu' to run the plain "
+                           "versions on the CPU")
+    return dev
+
+
+def set_fp32_numerics() -> None:
+    """Full-f32 matrix products and convolutions on the card (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def prepare_gnn(args):
+    """The slice's task, partition set, device profiles and model config:
+    ``(task, ps, profiles, cfg)``, the same for the same ``args.seed``."""
+    from ..core import PROFILES, PAPER_GROUPS, make_group
+    from ..data import make_task
+    from ..graph import metis_partition, random_partition, build_partition
+    from ..models.gnn import GNNConfig
+
+    task = make_task(args.dataset, scale=args.scale, feat_dim=args.feat_dim,
+                     seed=args.seed)
+    g = task.graph
+    p = args.parts
+    part_fn = {"metis": metis_partition,
+               "random": random_partition}[args.partitioner]
+    ps = build_partition(g, part_fn(g, p, seed=args.seed), hops=1)
+    profiles = make_group(PAPER_GROUPS[f"x{p}"]) if f"x{p}" in PAPER_GROUPS \
+        else [PROFILES["rtx3090"]] * p
+    cfg = GNNConfig(model=args.model, in_dim=task.features.shape[1],
+                    hidden_dim=args.hidden, out_dim=task.num_classes,
+                    num_layers=args.layers)
+    return task, ps, profiles, cfg
+
+
+def plan_and_stack(args, task, ps, profiles, cfg):
+    """JACA capacity and cache plan compiled to the exchange plan, and the
+    stacked ``[P, ...]`` layout with ``args.backend``'s pack:
+    ``(xplan, sp)``."""
+    from ..core import cal_capacity, build_cache_plan
+    from ..dist import build_exchange_plan, stack_partitions
+
+    cap = cal_capacity(ps, cfg.feat_dims, profiles,
+                       m_cpu_gib=args.cpu_cache_gib)
+    plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
+    xplan = build_exchange_plan(ps, plan)
+    sp = stack_partitions(ps, task, backend=args.backend)
+    return xplan, sp
+
+
+def slice_stream(args, g):
+    """The query stream ``args`` asks for over graph ``g``."""
+    from ..serve import make_stream, rank_hot_nodes
+
+    if args.popularity == "degree":
+        # popularity rank == hot-tier degree rank: the zipf head hits HBM
+        rank_to_node = rank_hot_nodes(g, g.num_nodes, policy="degree")
+    else:
+        rank_to_node = None
+    return make_stream(args.workload, g.num_nodes, args.queries,
+                       qps=args.qps, alpha=args.alpha, seed=args.seed,
+                       rank_to_node=rank_to_node)
+
+
+def serve_gnn(args):
+    """Run the ``gnn`` serving slice; returns ``(report, engine)``."""
+    from ..models.gnn import init_gnn
+    from ..serve import (BatchConfig, GNNServeEngine, precompute_embeddings,
+                         rank_hot_nodes, serve_stream)
+
+    for attr, flag in _NOT_PORTED_FLAGS:
+        if getattr(args, attr):
+            raise SystemExit(f"{flag} is not ported to repro_torch yet "
+                             "(see ROADMAP.md); run without it")
+    device = resolve_device(args.device)
+    set_fp32_numerics()
+
+    task, ps, profiles, cfg = prepare_gnn(args)
+    g = task.graph
+    p = args.parts
+    backend = args.backend
+    params = init_gnn(cfg, torch.Generator().manual_seed(args.seed), device)
+
+    t0 = time.perf_counter()
+    xplan, sp = plan_and_stack(args, task, ps, profiles, cfg)
+    store = precompute_embeddings(cfg, ps, sp, xplan, params,
+                                  backend=backend, device=device)
+    precompute_s = time.perf_counter() - t0
+
+    hot_capacity = int(round(args.hot_frac * g.num_nodes))
+    hot = rank_hot_nodes(g, hot_capacity, ps=ps, policy=args.hot_rank)
+    engine = GNNServeEngine(store, params, g, hot, features=task.features,
+                            fresh_hops=args.fresh_hops, device=device)
+
+    rng = np.random.default_rng(args.seed)
+    if args.update_frac > 0:
+        upd = rng.choice(g.num_nodes,
+                         max(1, int(args.update_frac * g.num_nodes)),
+                         replace=False)
+        engine.update_features(
+            upd, task.features[upd]
+            + rng.normal(scale=0.5, size=(upd.size,
+                                          task.features.shape[1])))
+
+    report = serve_stream(engine, slice_stream(args, g),
+                          BatchConfig(max_batch=args.max_batch,
+                                      deadline_ms=args.deadline_ms))
+    out = {
+        "dataset": args.dataset, "model": cfg.model,
+        "backend": backend, "parts": p,
+        "nodes": g.num_nodes, "layers": cfg.num_layers,
+        "hot_capacity": hot_capacity, "hot_rank": args.hot_rank,
+        "stale_nodes": int(engine.stale.sum()),
+        "precompute_s": round(precompute_s, 3),
+        **{k: (round(v, 4) if isinstance(v, float) else v)
+           for k, v in report.items()},
+    }
+    return out, engine
+
+
+def run_gnn(args) -> dict:
+    out, _ = serve_gnn(args)
+    print(json.dumps(out, indent=1))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("gnn")
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the hand-written kernels; cpu runs "
+                        "their plain versions")
+    g.add_argument("--dataset", default="flickr")
+    g.add_argument("--scale", type=float, default=0.02)
+    g.add_argument("--feat-dim", type=int, default=64)
+    g.add_argument("--model", default="gcn",
+                   choices=["gcn", "sage", "gat", "gin"],
+                   help="only gcn is ported; the others raise")
+    g.add_argument("--backend", default="edges",
+                   choices=["edges", "ell", "hybrid"],
+                   help="aggregation backend for the precompute pass "
+                        "(ell/hybrid run the ELL-SpMM kernel on the card)")
+    g.add_argument("--hidden", type=int, default=64)
+    g.add_argument("--layers", type=int, default=3)
+    g.add_argument("--parts", type=int, default=4)
+    g.add_argument("--partitioner", default="metis",
+                   choices=["metis", "random"])
+    g.add_argument("--refresh-every", type=int, default=4)
+    g.add_argument("--cpu-cache-gib", type=float, default=4.0)
+    g.add_argument("--ckpt-dir", default="", help="not ported yet")
+    g.add_argument("--store-dir", default="", help="not ported yet")
+    g.add_argument("--load-store", action="store_true",
+                   help="not ported yet")
+    g.add_argument("--hot-frac", type=float, default=0.1,
+                   help="fraction of nodes resident in the device hot tier")
+    g.add_argument("--hot-rank", default="degree",
+                   choices=["degree", "overlap"])
+    g.add_argument("--workload", default="zipf",
+                   choices=["uniform", "zipf", "bursty"])
+    g.add_argument("--queries", type=int, default=2048)
+    g.add_argument("--qps", type=float, default=500.0,
+                   help="mean simulated arrival rate (keep below the "
+                        "engine's service QPS to measure latency rather "
+                        "than queue backlog)")
+    g.add_argument("--alpha", type=float, default=1.1,
+                   help="zipf popularity exponent")
+    g.add_argument("--popularity", default="degree",
+                   choices=["degree", "random"],
+                   help="map popularity ranks to node ids by degree "
+                        "(aligned with the hot tier) or a random permutation")
+    g.add_argument("--max-batch", type=int, default=64)
+    g.add_argument("--deadline-ms", type=float, default=2.0)
+    g.add_argument("--update-frac", type=float, default=0.0,
+                   help="perturb this fraction of node features before "
+                        "serving (exercises the fresh=k recompute path)")
+    g.add_argument("--fresh-hops", type=int, default=None,
+                   help="k for the fresh recompute (default: num layers, "
+                        "which is exact)")
+    g.add_argument("--trace", action="store_true", help="not ported yet")
+    g.add_argument("--seed", type=int, default=0)
+    g.set_defaults(fn=run_gnn)
+    return ap
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

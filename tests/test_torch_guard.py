@@ -1,0 +1,153 @@
+"""Guards of the port's boundaries, on the CPU.
+
+- ``repro_torch`` (every module) and ``chip_smoke.py`` import neither
+  ``jax`` nor anything of ``repro``, at import time or in their sources;
+- the kernel dispatch goes by tensor device: CPU tensors take the plain
+  versions and launch nothing, the kernel wrappers refuse CPU tensors;
+- a CUDA request on a machine without CUDA raises instead of falling back
+  to the CPU, and so does ``chip_smoke.py``;
+- the parts of the JAX package that are not ported yet fail loudly.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cache_gather, ell_spmm, ops
+from repro_torch.launch import serve as tlaunch
+from repro_torch.models.gnn import GNNConfig, init_gnn
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
+                       re.MULTILINE)
+
+
+def _run(code: str, cwd=ROOT, **env) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=cwd, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **env})
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    res = _run(
+        "import importlib, pkgutil, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import repro_torch, repro_torch.launch.serve, chip_smoke\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or\n"
+        "             n.startswith('jax.') or n == 'repro' or\n"
+        "             n.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+        "print('N', sum(n.startswith('repro_torch.') for n in sys.modules))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    n_mods = int(res.stdout.split("N ")[1])
+    assert n_mods >= 30, f"only {n_mods} repro_torch modules imported"
+
+
+def test_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert offenders == []
+
+
+def test_forbidden_pattern_catches_imports():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "from repro.kernels import ops", "import repro",
+                 "    from repro.dist import y"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.kernels import ops",
+                 "from .ops import x", "import jaxtyping"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_cpu_tensors_take_plain_path_and_launch_nothing():
+    ell_spmm.ell_spmm.launches = 0
+    cache_gather.gather_rows.launches = 0
+    rng = np.random.default_rng(0)
+    cols = torch.from_numpy(rng.integers(0, 30, (2, 20, 4)).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(2, 20, 4)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(2, 30, 8)).astype(np.float32))
+    tail = (torch.tensor([[1, 2], [3, 0]]), torch.tensor([[0, 20], [5, 20]]),
+            torch.tensor([[1.0, 0.0], [2.0, 0.0]]))
+    assert ops.ell_spmm(cols, vals, h).shape == (2, 20, 8)
+    assert ops.hybrid_spmm(cols, vals, *tail, h).shape == (2, 20, 8)
+    assert ops.gather_rows(h[0], torch.tensor([3, 1])).shape == (2, 8)
+    assert ell_spmm.ell_spmm.launches == 0
+    assert cache_gather.gather_rows.launches == 0
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No fallback: the wrapper of a CUDA kernel raises on a CPU tensor."""
+    cols = torch.zeros((1, 4, 2), dtype=torch.int32)
+    vals = torch.zeros((1, 4, 2))
+    h = torch.zeros((1, 6, 3))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ell_spmm.ell_spmm(cols, vals, h)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        cache_gather.gather_rows(h[0], torch.zeros(2, dtype=torch.int32))
+    assert ell_spmm.ell_spmm.launches == 0
+    assert cache_gather.gather_rows.launches == 0
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlaunch.resolve_device("cuda")
+    assert tlaunch.resolve_device("cpu") == torch.device("cpu")
+    # the CLI's default device is cuda
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlaunch.main(["gnn", "--scale", "0.01", "--queries", "8"])
+
+
+def test_profiler_refuses_the_cpu():
+    from repro_torch.launch import profile_serve
+    with pytest.raises(SystemExit, match="--device cuda"):
+        profile_serve.main(["gnn", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--store-dir", "st"],
+                                  ["--load-store"], ["--trace"]])
+def test_unported_cli_flags_exit(flag):
+    with pytest.raises(SystemExit, match="not ported"):
+        tlaunch.main(["gnn", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("model", ["sage", "gat", "gin"])
+def test_unported_models_raise(model):
+    cfg = GNNConfig(model=model, in_dim=8, hidden_dim=8, out_dim=3)
+    with pytest.raises(NotImplementedError, match=model):
+        init_gnn(cfg, torch.Generator().manual_seed(0))
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without CUDA the smoke run exits non-zero and prints no result."""
+    res = _run("import runpy, torch\n"
+               "torch.cuda.is_available = lambda: False\n"
+               "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "is_available() is False" in res.stderr
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds nothing else of the repo, the smoke run
+    fails before any result, whatever the machine has."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    res = _run("import runpy, torch\n"
+               "torch.cuda.is_available = lambda: True\n"
+               "runpy.run_path('chip_smoke.py', run_name='__main__')\n",
+               cwd=tmp_path, PYTHONPATH="")
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
