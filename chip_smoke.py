@@ -9,19 +9,33 @@ raises, and the script exits non-zero:
 1. ``device`` - the card's name and power limit (the ``nvidia-smi`` line is
    also printed as it is).  Without CUDA the script stops here, before any
    result, with a non-zero exit.
-2. ``build`` - both kernels compiled from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a``.
-3. ``kernel`` lines - each kernel against its plain PyTorch version on the
-   card, at the shapes the serving slice gives it (the slice's own hybrid
-   ELL pack) and at a few ragged shapes; kernel, plain and library-call
-   times (CUDA events) beside the least time the card could take.
+2. ``build`` - every kernel source of ``src/repro_torch/kernels/csrc``
+   compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all at
+   once.
+3. ``kernel`` lines - the ELL forward (f32 and bf16 h) and the row gather
+   against their plain PyTorch versions on the card, at the shapes the
+   serving slice gives them (its own hybrid ELL pack) and at a few ragged
+   shapes; kernel, plain and library-call times (CUDA events) beside the
+   least time the card could take.
 4. ``main_path`` - the serving slice through ``repro_torch.launch.serve``
    on ``cuda``: GCN 500 -> 256 -> 256 -> 7 over Flickr at scale 1.0 in 4
    METIS partitions with the hybrid backend, then a 2048-query zipf stream.
    The launch counters are zeroed just before and read just after; the
    precompute's tables are held against the same pass on the CPU (plain
    versions, same parameters).
-5. ``kernels`` - every ported kernel with its launches on the main path,
+5. ``train`` - the training slice through ``repro_torch.launch.train``'s
+   own entry on ``cuda``: the same GCN over Flickr at scale 1.0, 4 METIS
+   partitions weighted by the x4 device group, RAPA, JACA, hybrid backend,
+   8 epochs of Adam (refresh, 3 cached, pipelined, 3 cached).  Counters
+   zeroed just before and read just after: 3 ELL-forward launches per step
+   and per evaluation, 2 ``d_h`` launches per step, no ``d_vals``.  Losses
+   finite and falling; byte counts equal to the exchange plan's; one
+   refresh step's loss and gradients equal to the CPU's at full scale; an
+   8-step SGD run equal to the CPU's at scale 0.1.
+6. ``kernel`` lines - the ``d_h`` and ``d_vals`` backward kernels and the
+   column-chunked forward against their plain versions at the training
+   slice's shapes (its hybrid pack, d = 256), timed as in phase 3.
+7. ``kernels`` - every ported kernel with its launches on the main paths,
    its largest error against the plain version and its times.
 
 The last line is ``{"ok": true, "device": {...}}``.  TF32 is off for every
@@ -53,17 +67,41 @@ SLICE_ARGV = [
     "--max-batch", "64", "--deadline-ms", "2", "--seed", "0",
 ]
 
+# The training slice: launch/train.py's flags with the ELL backend (all
+# others at their defaults: JACA, RAPA, uneven x4 group, pipelined refresh,
+# static cache policy, f32 halo).
+TRAIN_ARGV = [
+    "gnn", "--device", "cuda", "--dataset", "flickr", "--scale", "1.0",
+    "--feat-dim", "500", "--model", "gcn", "--hidden", "256", "--layers", "3",
+    "--parts", "4", "--partitioner", "metis", "--backend", "hybrid",
+    "--refresh-every", "4", "--epochs", "8", "--lr", "0.01", "--seed", "0",
+]
+TRAIN_SGD_SCALE = "0.1"   # the card-vs-CPU trajectory check
+COL_CHUNK = 8192          # 8 MB of h rows at d = 256: an L2 tile
+
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth and
 # f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 ELL_ATOL, ELL_RTOL = 1e-4, 1e-5   # f32 sums in another order than the plain loop
+BF16_TOL = 1e-2                   # one bf16 rounding of the output
 LOGITS_ATOL = 1e-4                # card pass vs CPU pass of the whole slice
+# training, card vs CPU (same parameters): f32 sums in other orders, the
+# d_h kernel's atomics in an order that changes from run to run
+LOSS_ATOL = 1e-5                  # one refresh step at full scale
+# of each gradient's largest magnitude: a ReLU whose input lies within
+# rounding of 0 on one device and not the other passes or drops one
+# row's whole term of a weight gradient that sums ~1e5 rows
+GRAD_RTOL = 2e-3
+TRAJ_ATOL = 1e-5                  # 8 SGD steps at scale 0.1
 
 ELL_SOURCE = "src/repro_torch/kernels/csrc/ell_spmm.cu"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/ell_spmm_bwd.cu"
 GATHER_SOURCE = "src/repro_torch/kernels/csrc/gather_rows.cu"
 ELL_REPLACES = "src/repro/kernels/ell_spmm.py:116"
+CHUNK_REPLACES = "src/repro/kernels/ell_spmm.py:154"
+BWD_REPLACES = "src/repro/kernels/ell_spmm.py:80"   # _spmm_vjp.bwd (jnp)
 GATHER_REPLACES = "src/repro/kernels/cache_gather.py:38"
 
 
@@ -148,33 +186,51 @@ def ell_csr(cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
                                    check_invariants=True)
 
 
+def referenced_rows(cols: torch.Tensor, live: torch.Tensor,
+                    n_cols: int) -> int:
+    """Distinct h rows (over all partitions) that the slots in ``live``
+    name."""
+    offs = torch.arange(cols.shape[0], device=cols.device)[:, None, None]
+    return torch.unique((cols.long() + offs * n_cols)[live]).numel()
+
+
 def ell_work(cols: torch.Tensor, vals: torch.Tensor, n_cols: int,
-             d: int) -> tuple[float, float, int]:
+             d: int, elem: int = 4) -> tuple[float, float, int]:
     """(bytes, flops, nnz) the ELL product needs on these inputs: cols and
     vals read once, each h row that a live slot names read once, the output
-    written once; two operations per live slot and feature column."""
+    written once (``elem`` bytes per h and output value); two operations
+    per live slot and feature column."""
     live = vals != 0
     nnz = int(live.sum())
-    offs = torch.arange(cols.shape[0], device=cols.device)[:, None, None]
-    rows = torch.unique((cols.long() + offs * n_cols)[live]).numel()
+    rows = referenced_rows(cols, live, n_cols)
     out_elems = cols.shape[0] * cols.shape[1] * d
-    nbytes = cols.numel() * 4 + vals.numel() * 4 + rows * d * 4 + out_elems * 4
+    nbytes = (cols.numel() * 4 + vals.numel() * 4 + rows * d * elem
+              + out_elems * elem)
     return float(nbytes), 2.0 * nnz * d, nnz
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                atol: float = ELL_ATOL, rtol: float = ELL_RTOL) -> float:
+    """Largest abs difference of a kernel's result from its plain
+    version's; raises past the tolerance."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}, "
+                             f"want {tuple(want.shape)} {want.dtype}")
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs err {err}")
+    return err
 
 
 def check_ell(cols, vals, h) -> float:
     from repro_torch.kernels import ell_spmm as kell, ref
-    got = kell.ell_spmm(cols, vals, h)
-    want = ref.ell_spmm_ref(cols, vals, h)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != torch.float32:
-        raise AssertionError(f"ell_spmm: got {tuple(got.shape)} {got.dtype}, "
-                             f"want {tuple(want.shape)} float32")
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not torch.allclose(got, want, atol=ELL_ATOL, rtol=ELL_RTOL):
-        raise AssertionError(f"ell_spmm disagrees with its plain version: "
-                             f"max abs err {err}")
-    return err
+    tol = ({"atol": BF16_TOL, "rtol": BF16_TOL}
+           if h.dtype == torch.bfloat16 else {})
+    return check_close(f"ell_spmm ({h.dtype})", kell.ell_spmm(cols, vals, h),
+                       ref.ell_spmm_ref(cols, vals, h), **tol)
 
 
 def phase_ell(sp, gen) -> dict:
@@ -192,7 +248,9 @@ def phase_ell(sp, gen) -> dict:
         vals[torch.rand((p, n, k), generator=gen, device=dev) < 0.9] = 0.0
         h = torch.randn((p, nc, d), generator=gen, device=dev)
         err = check_ell(cols, vals, h)
-        emit("kernel", name="ell_spmm", shape=[p, n, k, nc, d], max_abs_err=err)
+        errb = check_ell(cols, vals, h.to(torch.bfloat16))
+        emit("kernel", name="ell_spmm", shape=[p, n, k, nc, d], max_abs_err=err,
+             bf16_max_abs_err=errb)
     err2d = check_ell(cols[0], vals[0], h[0])
     emit("kernel", name="ell_spmm", shape=[n, k, nc, d], unstacked=True,
          max_abs_err=err2d)
@@ -220,6 +278,21 @@ def phase_ell(sp, gen) -> dict:
         emit("kernel", name="ell_spmm", shape=[*cols.shape, n_cols, d],
              nnz=nnz, slots=cols.numel(), library_max_abs_diff=lib_err,
              **per_width[d])
+        if d == 500:
+            # bf16 h, as the TPU kernel takes it: f32 sums, bf16 output
+            hb = h.to(torch.bfloat16)
+            errb = check_ell(cols, vals, hb)
+            tb = time_calls({
+                "kernel_ms": lambda: kell.ell_spmm(cols, vals, hb),
+                "plain_ms": lambda: ref.ell_spmm_ref(cols, vals, hb),
+            }, reps=5)
+            nb, fb, _ = ell_work(cols, vals, n_cols, d, elem=2)
+            bb, byb = bound_ms(nb, fb)
+            bf16 = dict(max_abs_err=errb, bound_ms=bb, bound_by=byb,
+                        bytes=nb, **tb)
+            emit("kernel", name="ell_spmm", dtype="bfloat16",
+                 shape=[*cols.shape, n_cols, d], **bf16)
+            del hb
         del h, lib_out
     # one precompute pass launches it once at d=500 and twice at d=256
     mix = {500: 1, 256: 2}
@@ -238,6 +311,7 @@ def phase_ell(sp, gen) -> dict:
                                     ("kernel_ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by")}
                            for d, v in per_width.items()},
+            "bf16_d500": bf16,
             "timed_over": "one precompute pass: d=500 once, d=256 twice"}
 
 
@@ -394,6 +468,287 @@ def phase_main(args, ctx) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+
+def plan_bytes(cfg, spec, xplan, kinds: list[str]) -> tuple[int, int]:
+    """(comm_bytes, comm_bytes_vanilla) of a run with these step kinds,
+    from the exchange plan's own per-step byte model."""
+    dims = cfg.feat_dims[:cfg.num_layers]
+    if not spec.exchange_layer0:
+        dims = dims[1:]
+    width = 2 if spec.halo_dtype == "bf16" else 4
+    comm = sum(xplan.bytes_per_step(d, refresh=k != "cached",
+                                    dtype_bytes=width)
+               for k in kinds for d in dims)
+    vanilla = len(kinds) * sum(xplan.total_halo * d * width for d in dims)
+    return comm, vanilla
+
+
+def grads_err(got, want) -> list[dict]:
+    """Per layer and parameter: the largest abs gradient difference over
+    the gradient's largest magnitude (``max_rel``, raises past
+    ``GRAD_RTOL``) and the difference's Frobenius norm over the
+    gradient's (``fro_rel``)."""
+    out = []
+    for li, (gl, wl) in enumerate(zip(got, want)):
+        for k in wl:
+            diff = gl[k].cpu() - wl[k]
+            rel = float(diff.abs().max()) / (float(wl[k].abs().max()) + 1e-12)
+            fro = float(diff.norm()) / (float(wl[k].norm()) + 1e-12)
+            if rel > GRAD_RTOL:
+                raise AssertionError(f"layer {li} gradient {k!r} differs "
+                                     f"from the CPU's by {rel} of its "
+                                     "magnitude")
+            out.append({"layer": li, "param": k, "max_rel": rel,
+                        "fro_rel": fro})
+    return out
+
+
+def phase_train() -> tuple[dict, dict]:
+    """The training slice through launch.train's entry; returns the kernel
+    launches on it and its context (stacked layout, plan, runtime)."""
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.kernels import ell_spmm as kell
+    from repro_torch.launch.train import build_parser, prepare_train, train_gnn
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.optim import adam, sgd
+
+    args = build_parser().parse_args(TRAIN_ARGV)
+    counters = {"ell_spmm": kell.ell_spmm,
+                "ell_spmm_chunked": kell.ell_spmm_chunked,
+                "ell_spmm_dh": kell.ell_spmm_dh,
+                "ell_spmm_dvals": kell.ell_spmm_dvals}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, ctx = train_gnn(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    rep, cfg, spec, xplan = ctx["report"], ctx["cfg"], ctx["spec"], ctx["xplan"]
+    epochs, layers = args.epochs, cfg.num_layers
+    # each step and the closing evaluation run every layer's forward once;
+    # the backward needs d_h from layer 1 on (layer 0's input is constant)
+    # and d_vals never (the ELL values are constants of the graph)
+    want = {"ell_spmm": layers * (epochs + 1), "ell_spmm_chunked": 0,
+            "ell_spmm_dh": (layers - 1) * epochs, "ell_spmm_dvals": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    losses = rep.losses
+    if len(losses) != epochs or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    kinds = rep.step_kinds
+    if kinds != ["refresh", "cached", "cached", "cached", "pipelined",
+                 "cached", "cached", "cached"]:
+        raise AssertionError(f"step kinds {kinds}")
+    comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
+    if (rep.comm_bytes, rep.comm_bytes_vanilla) != (comm, vanilla):
+        raise AssertionError(f"bytes {rep.comm_bytes}/{rep.comm_bytes_vanilla}"
+                             f", the plan gives {comm}/{vanilla}")
+
+    # one refresh step's loss and gradients, card vs CPU, same parameters
+    rt = ctx["runtime"]
+    params0 = init_gnn(cfg, torch.Generator().manual_seed(args.seed),
+                       rt.device)
+    cpu_rt = make_sim_runtime(cfg, ctx["sp"], xplan, adam(args.lr),
+                              spec=spec, device="cpu")
+    loss_g, grads_g = rt.loss_and_grads(params0, rt.caches0)
+    t0 = time.perf_counter()
+    loss_c, grads_c = cpu_rt.loss_and_grads(
+        [{k: v.cpu() for k, v in p.items()} for p in params0],
+        cpu_rt.caches0)
+    cpu_step_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_g) - float(loss_c))
+    if loss_err > LOSS_ATOL:
+        raise AssertionError(f"refresh-step loss differs from the CPU's by "
+                             f"{loss_err}")
+    grad_err = grads_err(grads_g, grads_c)
+    del cpu_rt, grads_c
+
+    # an 8-step SGD trajectory at scale 0.1, card vs CPU
+    argv01 = list(TRAIN_ARGV)
+    argv01[argv01.index("--scale") + 1] = TRAIN_SGD_SCALE
+    args01 = build_parser().parse_args(argv01)
+    ctx01 = prepare_train(args01)
+    trajs = {}
+    for dev in (rt.device.type, "cpu"):
+        rt01 = make_sim_runtime(ctx01["cfg"], ctx01["sp"], ctx01["xplan"],
+                                sgd(args.lr), spec=ctx01["spec"], device=dev)
+        _, r01 = train_capgnn(
+            ctx01["cfg"], rt01, ctx01["xplan"], args.parts, sgd(args.lr),
+            epochs=epochs,
+            controller=StalenessController(refresh_every=args.refresh_every),
+            spec=ctx01["spec"])
+        trajs[dev] = r01.losses
+    traj_err = float(np.abs(np.subtract(trajs[rt.device.type],
+                                        trajs["cpu"])).max())
+    if traj_err > TRAJ_ATOL:
+        raise AssertionError(f"SGD trajectory differs from the CPU's by "
+                             f"{traj_err}: {trajs}")
+
+    step_ms = {k: statistics.median(1e3 * t for t, kk in
+                                    zip(rep.step_s, kinds) if kk == k)
+               for k in sorted(set(kinds))}
+    emit("train", argv=TRAIN_ARGV, nodes=ctx["task"].graph.num_nodes,
+         hybrid_pack=list(ctx["sp"].ell.cols.shape),
+         tail_width=ctx["sp"].ell.tail_width,
+         n_inner_max=ctx["sp"].n_inner_max, n_halo_max=ctx["sp"].n_halo_max,
+         total_halo=xplan.total_halo,
+         tier_rows={"uncached": xplan.uncached.n_rows,
+                    "local": xplan.local.n_rows,
+                    "global": xplan.glob.n_unique},
+         losses=losses, final_loss=losses[-1], test_acc=out["test_acc"],
+         comm_bytes=rep.comm_bytes, comm_bytes_vanilla=rep.comm_bytes_vanilla,
+         comm_reduction=rep.comm_reduction,
+         refresh_steps=rep.refresh_steps, cached_steps=rep.cached_steps,
+         step_kinds=kinds, compile_s=rep.compile_s,
+         wall_time_s=rep.wall_time_s,
+         wall_time_per_epoch_s=rep.wall_time_s / (epochs - 1),
+         step_ms=[1e3 * t for t in rep.step_s], median_step_ms=step_ms,
+         host_plan_s=ctx["host_plan_s"], launch_wall_s=wall_s,
+         launches=launches, refresh_loss_card=float(loss_g),
+         refresh_loss_cpu=float(loss_c), refresh_loss_err=loss_err,
+         refresh_grad_err=grad_err, cpu_refresh_step_s=cpu_step_s,
+         sgd_scale=float(TRAIN_SGD_SCALE), sgd_losses=trajs,
+         sgd_traj_err=traj_err,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the backward kernels and the chunked forward, training shapes
+# ---------------------------------------------------------------------------
+
+def ell_csr_t(cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
+    """The transpose of :func:`ell_csr`'s matrix, ``[P * n_cols,
+    P * n_rows]`` as CSR, for the library yardstick of ``d_h = A^T g``."""
+    n_parts, n_rows, _ = cols.shape
+    live = vals != 0
+    offs = torch.arange(n_parts, device=cols.device)[:, None, None]
+    col = (cols.long() + offs * n_cols)[live]
+    row = (torch.arange(n_rows, device=cols.device)[None, :, None]
+           + offs * n_rows).expand_as(cols)[live]
+    coo = torch.sparse_coo_tensor(torch.stack([col, row]), vals[live],
+                                  size=(n_parts * n_cols, n_parts * n_rows),
+                                  check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_backward(sp, gen) -> list[dict]:
+    """d_h, d_vals and the chunked forward at the training slice's shapes
+    (its hybrid pack, d = 256, random g and h); returns their kernels-line
+    entries."""
+    from repro_torch.kernels import ell_spmm as kell, ref
+    dev = torch.device("cuda")
+    cols = torch.as_tensor(sp.ell.cols, device=dev)
+    vals = torch.as_tensor(sp.ell.vals, device=dev)
+    n_parts, n_rows, k = cols.shape
+    n_cols = sp.n_inner_max + sp.n_halo_max
+    d = 256
+    live = vals != 0
+    nnz = int(live.sum())
+    g = torch.randn((n_parts, n_rows, d), generator=gen, device=dev)
+    h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev)
+    entries = []
+
+    # d_h = A^T g: the step's backward through layers 1 and 2
+    err = check_close("ell_spmm_dh", kell.ell_spmm_dh(cols, vals, g, n_cols),
+                      ref.ell_spmm_bwd_ref(cols, vals, None, g, n_cols,
+                                           need_vals=False)[1])
+    csr_t = ell_csr_t(cols, vals, n_cols)
+    lib = torch.sparse.mm(csr_t, g.view(-1, d)).view(n_parts, n_cols, d)
+    lib_err = float((lib - kell.ell_spmm_dh(cols, vals, g, n_cols))
+                    .abs().max())
+    del lib
+    t = time_calls({
+        "kernel_ms": lambda: kell.ell_spmm_dh(cols, vals, g, n_cols),
+        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, None, g, n_cols,
+                                                 need_vals=False),
+        "library_ms": lambda: torch.sparse.mm(csr_t, g.view(-1, d)),
+    }, reps=5)
+    nbytes = cols.numel() * 8 + g.numel() * 4 + n_parts * n_cols * d * 4
+    b, by = bound_ms(nbytes, 2.0 * nnz * d)
+    emit("kernel", name="ell_spmm_dh", shape=[n_parts, n_rows, k, n_cols, d],
+         nnz=nnz, max_abs_err=err, library_max_abs_diff=lib_err,
+         bound_ms=b, bound_by=by, bytes=nbytes, **t)
+    entries.append({"name": "ell_spmm_dh", "route": "cuda",
+                    "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+                    "max_abs_err": err, "ms": t["kernel_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+                    "library_ms": t["library_ms"],
+                    "timed_over": f"one launch at d={d} (layers 1 and 2 of "
+                                  "a step launch it once each)"})
+    del csr_t
+
+    # d_vals: every slot's <g[i], h[cols[i, k]]>, padding slots included
+    err = check_close("ell_spmm_dvals", kell.ell_spmm_dvals(cols, g, h),
+                      ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
+                                           need_h=False)[0])
+    t = time_calls({
+        "kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
+        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
+                                                 need_h=False),
+    }, reps=5)
+    rows = referenced_rows(cols, torch.ones_like(live), n_cols)
+    nbytes = cols.numel() * 4 + g.numel() * 4 + rows * d * 4 + cols.numel() * 4
+    b, by = bound_ms(nbytes, 2.0 * cols.numel() * d)
+    emit("kernel", name="ell_spmm_dvals",
+         shape=[n_parts, n_rows, k, n_cols, d], max_abs_err=err, bound_ms=b,
+         bound_by=by, bytes=nbytes, **t)
+    entries.append({"name": "ell_spmm_dvals", "route": "cuda",
+                    "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+                    "max_abs_err": err, "ms": t["kernel_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+                    "library_ms": None,
+                    "timed_over": f"one launch at d={d}, every slot (on no "
+                                  "path of the slice: the ELL values are "
+                                  "constants)"})
+
+    # the column-chunked forward, h rows padded to a multiple of COL_CHUNK
+    n_pad = -(-n_cols // COL_CHUNK) * COL_CHUNK
+    hp = torch.zeros((n_parts, n_pad, d), device=dev)
+    hp[:, :n_cols] = h
+    del h
+    from repro_torch.kernels import ops
+    err = check_close("ell_spmm_chunked",
+                      ops.ell_spmm(cols, vals, hp, col_chunk=COL_CHUNK),
+                      ref.ell_spmm_chunked_ref(cols, vals, hp, COL_CHUNK))
+    unchunked_diff = float((kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK)
+                            - kell.ell_spmm(cols, vals, hp)).abs().max())
+    csr = ell_csr(cols, vals, n_pad)
+    t = time_calls({
+        "kernel_ms": lambda: kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK),
+        "unchunked_ms": lambda: kell.ell_spmm(cols, vals, hp),
+        "plain_ms": lambda: ref.ell_spmm_chunked_ref(cols, vals, hp,
+                                                     COL_CHUNK),
+        "library_ms": lambda: torch.sparse.mm(csr, hp.view(-1, d)),
+    }, reps=5)
+    nbytes, flops, _ = ell_work(cols, vals, n_pad, d)
+    b, by = bound_ms(nbytes, flops)
+    emit("kernel", name="ell_spmm_chunked",
+         shape=[n_parts, n_rows, k, n_pad, d], col_chunk=COL_CHUNK,
+         n_chunks=n_pad // COL_CHUNK, max_abs_err=err,
+         unchunked_max_abs_diff=unchunked_diff, bound_ms=b, bound_by=by,
+         bytes=nbytes, **t)
+    entries.append({"name": "ell_spmm_chunked", "route": "cuda",
+                    "source": ELL_SOURCE, "replaces": CHUNK_REPLACES,
+                    "max_abs_err": err, "ms": t["kernel_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+                    "library_ms": t["library_ms"],
+                    "unchunked_ms": t["unchunked_ms"],
+                    "timed_over": f"one launch at d={d}, col_chunk="
+                                  f"{COL_CHUNK} (reached through "
+                                  "ops.ell_spmm(col_chunk=); on no path of "
+                                  "the slice)"})
+    return entries
+
+
 def main() -> None:
     device = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -416,9 +771,18 @@ def main() -> None:
                             cfg.out_dim, args.max_batch, gen)]
     torch.cuda.empty_cache()
 
-    launches = phase_main(args, ctx)
+    serve_launches = phase_main(args, ctx)
+    torch.cuda.empty_cache()
+    train_launches, tctx = phase_train()
+    del tctx["runtime"]
+    torch.cuda.empty_cache()
+    entries += phase_backward(tctx["sp"], gen)
+    # launches: the serving path's plus the training path's
+    by_path = {"serve": serve_launches, "train": train_launches}
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()
+                                 if e["name"] in v}
+        e["launches"] = sum(e["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys}, **e}

@@ -1,12 +1,21 @@
-"""CaPGNN core planning: device profiles and JACA cache capacity/plans."""
+"""CaPGNN core planning: device profiles, JACA cache capacity/plans, RAPA
+partitioning and the staleness schedule (numpy)."""
 from .device_profile import (DeviceProfile, PROFILES, PAPER_GROUPS,
-                             make_group, detect_host_mem_gib)
+                             make_group, capability_weights,
+                             detect_host_mem_gib)
 from .jaca import (CacheCapacity, cal_capacity, CachePlan, WorkerCachePlan,
                    build_cache_plan)
+from .rapa import (RapaConfig, RapaResult, comm_cost, comp_cost,
+                   influence_scores, adjust_subgraph, do_partition,
+                   memory_bytes, partition_lambdas)
+from .staleness import StalenessController, theorem1_bound
 
 __all__ = [
     "DeviceProfile", "PROFILES", "PAPER_GROUPS", "make_group",
-    "detect_host_mem_gib",
+    "capability_weights", "detect_host_mem_gib",
     "CacheCapacity", "cal_capacity", "CachePlan", "WorkerCachePlan",
     "build_cache_plan",
+    "RapaConfig", "RapaResult", "comm_cost", "comp_cost", "influence_scores",
+    "adjust_subgraph", "do_partition", "memory_bytes", "partition_lambdas",
+    "StalenessController", "theorem1_bound",
 ]

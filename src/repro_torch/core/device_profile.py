@@ -10,8 +10,10 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
+
 __all__ = ["DeviceProfile", "PROFILES", "PAPER_GROUPS", "make_group",
-           "detect_host_mem_gib"]
+           "capability_weights", "detect_host_mem_gib"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +64,23 @@ PAPER_GROUPS: dict[str, list[str]] = {
 def make_group(names: list[str]) -> list[DeviceProfile]:
     """Paper Table 4 style groups, e.g. ['rtx3090','rtx3090','a40',...]."""
     return [PROFILES[n] for n in names]
+
+
+def capability_weights(profiles: list[DeviceProfile],
+                       alpha: float = 0.7) -> np.ndarray:
+    """Per-device partition target fractions from compute capability.
+
+    Inverts the Eq. 14 cost mix: device i's share is proportional to
+    ``1 / (alpha * spmm_i + (1 - alpha) * mm_i)`` so the weakest device
+    receives the smallest inner vertex set.  ``alpha`` is the SpMM-vs-MM
+    weight (same meaning as :class:`repro_torch.core.rapa.RapaConfig.alpha`).
+    Returns weights normalised to sum to 1, suitable for the ``weights=``
+    argument of the partitioners in :mod:`repro_torch.graph.partition`.
+    """
+    t = np.array([alpha * p.spmm + (1.0 - alpha) * p.mm for p in profiles],
+                 dtype=np.float64)
+    w = 1.0 / np.maximum(t, 1e-12)
+    return w / w.sum()
 
 
 def detect_host_mem_gib(default: float = 16.0) -> float:

@@ -2,8 +2,10 @@
 
 - :mod:`.exchange` — compile a JACA cache plan into static gather/scatter
   index sets; stack partitions into the padded ``[P, ...]`` layout (numpy).
-- :mod:`.capgnn_sim` — the tier primitives and the stacked aggregation
-  backends.
+- :mod:`.capgnn_sim` — the single-process stacked training runtime
+  (tier primitives, aggregation backends, steps, ``train_capgnn``);
+- :mod:`.spec`, :mod:`.strategy` — ``TrainSpec`` and the ``halo_1d``
+  strategy front door.
 - :mod:`.host_store` — the host-resident store behind the serve engine's
   host tier.
 """
@@ -12,7 +14,11 @@ from .exchange import (ExchangeCapacity, ExchangePlan, ExchangeTier,
                        build_exchange_plan, exchange_capacity,
                        stack_partitions)
 from .host_store import HostFeatureStore, StagedFetch, halo_dtype_info
-from .capgnn_sim import RUNTIME_BACKENDS, check_backend, make_adj_builder
+from .capgnn_sim import (RUNTIME_BACKENDS, check_backend, make_adj_builder,
+                         exchange_arrays, init_caches, SimRuntime,
+                         make_sim_runtime, TrainReport, train_capgnn)
+from .spec import TrainSpec
+from .strategy import Halo1DStrategy, get_strategy
 
 __all__ = [
     "ExchangeCapacity", "ExchangePlan", "ExchangeTier", "GlobalTier",
@@ -20,4 +26,7 @@ __all__ = [
     "exchange_capacity", "stack_partitions",
     "HostFeatureStore", "StagedFetch", "halo_dtype_info",
     "RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
+    "exchange_arrays", "init_caches", "SimRuntime", "make_sim_runtime",
+    "TrainReport", "train_capgnn", "TrainSpec", "Halo1DStrategy",
+    "get_strategy",
 ]

@@ -1,12 +1,30 @@
-"""Tier primitives of the CaPGNN stacked runtime, and the aggregation
-backends over the stacked ``[P, ...]`` layout.
+"""Single-process stacked runtime of CaPGNN training (the JAX package's
+``capgnn_sim``), with device-resident features.
 
 Every partition's state lives in one padded ``[P, ...]`` tensor; the
 inter-worker exchange is gather/scatter index arithmetic over the stacked
 inner matrix, compiled by :func:`repro_torch.dist.exchange.build_exchange_plan`.
-These are the primitives the JAX package's ``capgnn_sim`` shares between
-its runtimes; the serving precompute uses them in this slice.  The
-training runtime (steps, caches, ``train_capgnn``) comes with a later one.
+The JAX package's ``vmap`` over partitions is the explicit batch: one
+aggregation call per layer covers all P partitions (with ``ell`` or
+``hybrid`` on the card, one ELL-SpMM kernel launch forward and, from
+layer 1 on, one ``d_h`` kernel launch backward).
+
+Three step flavours (paper §4.2/§4.3), the same numerics as the reference:
+
+- ``step_refresh``   — all three tiers pulled fresh (inside the autograd
+  graph: gradients reach the owners' rows); caches rewritten;
+- ``step_cached``    — local/global tiers read stale from the caches
+  (constants); only the uncached tier is exchanged;
+- ``step_pipelined`` — ``step_cached``'s numerics, and this step's fresh
+  tier rows emitted as the next caches.
+
+Stored caches are always detached.  PyTorch runs eagerly, so a cached
+step pulls no fresh tier it would discard, and a pipelined step pulls its
+emitted rows outside the autograd graph.  Updates return new tensors: a
+step consumes nothing of its arguments.
+
+Not ported yet: ``features="host"``, the adaptive planner, the tracer and
+the fault guard; asking for one raises.
 
 The reference drops out-of-range scatter indices (``mode="drop"``); torch
 raises on them instead, so :func:`_scatter` writes into one spare row and
@@ -14,13 +32,25 @@ slices it off.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Callable
+
 import numpy as np
 import torch
 
-from ..models.gnn import EdgeListAdj, EllAdj, HybridAdj
-from .exchange import ExchangeTier, GlobalTier, StackedParts
+from ..core.staleness import StalenessController
+from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
+                          _layer_apply, accuracy, cross_entropy_loss,
+                          init_gnn)
+from ..optim import Optimizer, tree_leaves, tree_map
+from .exchange import ExchangePlan, ExchangeTier, GlobalTier, StackedParts
+from .host_store import halo_dtype_info
+from .spec import TrainSpec
 
-__all__ = ["RUNTIME_BACKENDS", "check_backend", "make_adj_builder"]
+__all__ = ["RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
+           "exchange_arrays", "init_caches", "SimRuntime",
+           "make_sim_runtime", "TrainReport", "train_capgnn"]
 
 RUNTIME_BACKENDS = ("edges", "ell", "hybrid")
 
@@ -158,3 +188,384 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cpu"):
             return HybridAdj(lv["cols"], lv["vals"], lv["tail_src"],
                              lv["tail_dst"], lv["tail_w"], ni + nh)
     return leaves, build
+
+
+def exchange_arrays(xplan: ExchangePlan, device="cpu") -> dict:
+    """One plan's tier index tensors and valid masks on ``device``."""
+    return {"un": _tier_dict(xplan.uncached, device),
+            "loc": _tier_dict(xplan.local, device),
+            "gl": _glob_dict(xplan.glob, device)}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               "(see ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: GNNConfig, xplan: ExchangePlan, num_parts: int,
+                features: str = "device", device="cuda") -> dict:
+    """Zero-filled stale tiers, one entry per cached exchange layer.
+
+    Entry ``l-1`` holds the halo inputs of layer ``l`` (layers ``1..L-1``);
+    layer 0 consumes the static input features, which never go stale.
+    """
+    if features != "device":
+        raise _not_ported(f"features={features!r}")
+    dims = cfg.feat_dims[1: cfg.num_layers]
+    r_local = int(np.asarray(xplan.local.recv_halo_pos).shape[1])
+    g = xplan.glob.buf_size
+    return {
+        "local": [torch.zeros((num_parts, r_local, d), device=device)
+                  for d in dims],
+        "global": [torch.zeros((g, d), device=device) for d in dims],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Runtime
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SimRuntime:
+    cfg: GNNConfig
+    xplan: ExchangePlan
+    comm_dims: list        # per-exchange-layer feature dims (byte accounting)
+    forward_fresh: Callable
+    step_refresh: Callable
+    step_cached: Callable
+    step_pipelined: Callable
+    evaluate: Callable
+    # (params, caches, use_stale) -> (loss, grads): one step's loss and
+    # parameter gradients without the update (card-vs-CPU checks)
+    loss_and_grads: Callable
+    caches0: dict
+    backend: str = "edges"
+    halo_dtype_bytes: int = 4   # actual wire width per halo payload entry
+    features: str = "device"
+    device: torch.device = torch.device("cpu")
+    _state: dict | None = dataclasses.field(default=None, repr=False)
+    stacked: StackedParts | None = dataclasses.field(default=None, repr=False)
+    spec: TrainSpec | None = dataclasses.field(default=None, repr=False)
+
+    def padding_stats(self) -> dict:
+        """Valid vs padded stacked-row counts (see
+        :meth:`repro_torch.dist.StackedParts.padding_stats`)."""
+        return self.stacked.padding_stats() if self.stacked else {}
+
+    def set_plan(self, xplan: ExchangePlan) -> None:
+        """Install a re-ranked plan.  The caches' content still reflects
+        the old tiering, so the next step must be a refresh (or have been
+        emitted by :meth:`step_transition`)."""
+        self.xplan = xplan
+        self._state["xarr"] = exchange_arrays(xplan, self.device)
+
+    def step_transition(self, params, opt_state, caches,
+                        new_xplan: ExchangePlan):
+        """Pipelined plan switch: consume the current plan's stale tiers
+        (and its uncached exchange) while pulling the **new** plan's tier
+        rows; the emitted caches are laid out for ``new_xplan``, which
+        becomes the installed plan."""
+        xe = exchange_arrays(new_xplan, self.device)
+        out = self._state["step"](True, True, params, opt_state, caches,
+                                  self._state["xarr"], xe)
+        self._state["xarr"] = xe
+        self.xplan = new_xplan
+        return out
+
+
+def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
+                     opt: Optimizer, *, spec: TrainSpec,
+                     device="cuda") -> SimRuntime:
+    """Build the stacked runtime on ``device`` (the card unless the caller
+    asks for the CPU) from ``spec`` (a :class:`repro_torch.dist.TrainSpec`,
+    the only configuration surface).
+
+    ``spec.exchange_layer0=False`` models pre-replicated input features:
+    layer 0 drops out of the byte accounting, the numerics are unchanged.
+    ``spec.backend`` picks the aggregation operator (``edges``,
+    ``ell`` or ``hybrid``; the latter two need the matching stacked pack).
+    ``spec.halo_dtype="bf16"`` casts every tier's payload before the
+    exchange and dequantises on scatter.  ``spec.features="host"`` is not
+    ported yet and raises.
+    """
+    if spec.features != "device":
+        raise _not_ported(f"features={spec.features!r}")
+    device = torch.device(device)
+    p, ni, nh = sp.num_parts, sp.n_inner_max, sp.n_halo_max
+    hdt, hd_bytes = halo_dtype_info(spec.halo_dtype)
+    layers = cfg.num_layers
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    feats, halo_feats = put(sp.feats), put(sp.halo_feats)
+    labels = put(sp.labels).reshape(-1)
+    masks = {k: put(m).reshape(-1)
+             for k, m in (("train", sp.train_mask), ("val", sp.val_mask),
+                          ("test", sp.test_mask))}
+    adj_leaves, build_adj = make_adj_builder(sp, spec.backend, device)
+    adj = build_adj(adj_leaves)
+
+    def forward(params, caches, xr, xe, use_stale: bool, emit_fresh: bool):
+        """``xr`` is the installed (read) plan: stale caches are scattered
+        at its positions and its uncached tier is exchanged.  ``xe`` is
+        the emit plan whose tier rows are pulled fresh (``xr`` except on a
+        plan-transition step).  Returns the logits and the fresh tier rows
+        (empty lists unless ``emit_fresh``)."""
+        h = feats
+        fresh = {"local": [], "global": []}
+        for li, lp in enumerate(params):
+            if li == 0:
+                halo = halo_feats
+            else:
+                halo = h.new_zeros((p, nh, h.shape[-1]))
+                halo = _scatter(halo, xr["un"]["recv_halo_pos"],
+                                _pull(xr["un"], h, hdt),
+                                xr["un"]["recv_valid"])
+                if use_stale:
+                    if emit_fresh:
+                        # emitted only: pulled outside the autograd graph
+                        with torch.no_grad():
+                            fresh["local"].append(_pull(xe["loc"], h, hdt))
+                            fresh["global"].append(
+                                _build_global(xe["gl"], h, hdt))
+                    loc_use, loc_t = caches["local"][li - 1], xr["loc"]
+                    buf_use, gl_t = caches["global"][li - 1], xr["gl"]
+                else:
+                    # fresh tiers feed the loss: gradients reach the owners
+                    loc_use, loc_t = _pull(xe["loc"], h, hdt), xe["loc"]
+                    buf_use, gl_t = _build_global(xe["gl"], h, hdt), xe["gl"]
+                    fresh["local"].append(loc_use.detach())
+                    fresh["global"].append(buf_use.detach())
+                halo = _scatter(halo, loc_t["recv_halo_pos"], loc_use,
+                                loc_t["recv_valid"])
+                halo = _read_global(gl_t, buf_use, halo)
+            h_local = torch.cat([h, halo], dim=1)
+            h = _layer_apply(cfg, lp, adj, h_local, ni,
+                             is_last=(li == layers - 1))
+        return h, fresh
+
+    def loss_fn(params, caches, xr, xe, use_stale, emit_fresh):
+        logits, fresh = forward(params, caches, xr, xe, use_stale,
+                                emit_fresh)
+        flat = logits.reshape(-1, logits.shape[-1])
+        loss = cross_entropy_loss(flat, labels, masks["train"])
+        return loss, flat, fresh
+
+    def value_and_grad(params, caches, xr, xe, use_stale, emit_fresh):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        loss, flat, fresh = loss_fn(live, caches, xr, xe, use_stale,
+                                    emit_fresh)
+        gl = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(gl), params)
+        return loss.detach(), flat.detach(), fresh, grads
+
+    @torch.no_grad()
+    def _metrics_and_caches(loss, flat, fresh, caches, use_stale: bool,
+                            emit_fresh: bool):
+        metrics = {"loss": loss,
+                   "acc": accuracy(flat, labels, masks["train"])}
+        # drift compares the fresh rows against this step's stale source
+        if emit_fresh:
+            pairs = list(zip(fresh["local"] + fresh["global"],
+                             caches["local"] + caches["global"]))
+            drifts = [torch.max(torch.abs(a - b)) for a, b in pairs
+                      if a.numel()]
+            metrics["drift"] = (torch.max(torch.stack(drifts)) if drifts
+                                else loss.new_zeros(()))
+            # per-row drift stats (max over layers and feature dim)
+            n_ex = len(fresh["local"])
+            if n_ex:
+                rows = [torch.amax(torch.abs(a - b), dim=-1)
+                        for a, b in pairs]
+                metrics["drift_local_rows"] = torch.stack(
+                    rows[:n_ex]).amax(0)                      # [P, Rloc]
+                metrics["drift_global_rows"] = torch.stack(
+                    rows[n_ex:]).amax(0)                      # [G]
+        return metrics, (fresh if emit_fresh else caches)
+
+    def step(use_stale, emit_fresh, params, opt_state, caches, xr, xe):
+        loss, flat, fresh, grads = value_and_grad(params, caches, xr, xe,
+                                                  use_stale, emit_fresh)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        metrics, out_caches = _metrics_and_caches(loss, flat, fresh, caches,
+                                                  use_stale, emit_fresh)
+        return new_params, new_state, out_caches, metrics
+
+    caches0 = init_caches(cfg, xplan, p, device=device)
+    state = {"xarr": exchange_arrays(xplan, device), "step": step}
+
+    def wrap(use_stale, emit_fresh):
+        def stepper(params, opt_state, caches):
+            xa = state["xarr"]
+            return step(use_stale, emit_fresh, params, opt_state, caches,
+                        xa, xa)
+        return stepper
+
+    @torch.no_grad()
+    def forward_fresh(params):
+        xa = state["xarr"]
+        return forward(params, caches0, xa, xa, False, False)[0]
+
+    def evaluate(params, split: str = "val"):
+        flat = forward_fresh(params).reshape(-1, cfg.out_dim)
+        m = masks[split]
+        return (float(cross_entropy_loss(flat, labels, m)),
+                float(accuracy(flat, labels, m)))
+
+    def loss_and_grads(params, caches, use_stale: bool = False):
+        xa = state["xarr"]
+        loss, _, _, grads = value_and_grad(params, caches, xa, xa,
+                                           use_stale, False)
+        return loss, grads
+
+    comm_dims = list(cfg.feat_dims[:layers])
+    if not spec.exchange_layer0:
+        comm_dims = comm_dims[1:]
+
+    return SimRuntime(cfg=cfg, xplan=xplan, comm_dims=comm_dims,
+                      forward_fresh=forward_fresh,
+                      step_refresh=wrap(False, True),
+                      step_cached=wrap(True, False),
+                      step_pipelined=wrap(True, True),
+                      evaluate=evaluate, loss_and_grads=loss_and_grads,
+                      caches0=caches0, backend=spec.backend,
+                      halo_dtype_bytes=hd_bytes, features=spec.features,
+                      device=device, _state=state, stacked=sp, spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# Training loop with exact byte accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainReport:
+    losses: list
+    val_acc: list
+    comm_bytes: int
+    comm_bytes_vanilla: int
+    comm_reduction: float
+    refresh_steps: int
+    cached_steps: int
+    wall_time_s: float
+    replan_events: int = 0
+    hit_rate: float | None = None    # planner-observed (adaptive runs only)
+    final_opt_state: object = None
+    # out-of-core traffic: zero in device mode (the only mode ported)
+    host_fetch_rows: int = 0
+    host_fetch_bytes: int = 0
+    host_writeback_bytes: int = 0
+    # step 0 wall time, fenced separately so ``wall_time_s`` above is
+    # steady-state only; on the card it holds the first-use kernel builds
+    # and the CUDA context's first work
+    compile_s: float = 0.0
+    # the serialised TrainSpec (spec.to_dict()) of the run
+    spec: dict | None = None
+    # per step: its kind (refresh / cached / pipelined) and host wall
+    # seconds, each step fenced by reading its loss
+    step_kinds: list = dataclasses.field(default_factory=list)
+    step_s: list = dataclasses.field(default_factory=list)
+
+
+def _step_rows(x_read: ExchangePlan, x_emit: ExchangePlan,
+               refresh: bool) -> int:
+    """Exact per-layer wire rows of one step: the *read* plan's uncached
+    tier moves every step; on a refresh the *emit* plan's cached tiers are
+    (pre)fetched.  ``x_read is x_emit`` except on a plan-transition step."""
+    n = x_read.uncached.n_rows
+    if refresh:
+        n += x_emit.local.n_rows + x_emit.glob.n_unique
+    return n
+
+
+def train_capgnn(cfg: GNNConfig, runtime: SimRuntime, xplan: ExchangePlan,
+                 num_parts: int, opt: Optimizer, epochs: int = 100,
+                 eval_every: int = 0,
+                 controller: StalenessController | None = None,
+                 params0=None, opt_state0=None, planner=None, tracer=None,
+                 faults=None, guard=None,
+                 spec: TrainSpec | None = None) -> tuple[list, TrainReport]:
+    """Full-batch CaPGNN training under the staleness schedule.
+
+    ``spec`` (default: the runtime's) supplies ``pipeline`` and ``seed``
+    and is recorded into ``report.spec``.  One step per epoch (full
+    batch).  Per-step bytes are the plan's exact figures: a vanilla
+    runtime would move every halo row at every layer of every step;
+    CaPGNN moves only the uncached tier on cached steps and a
+    deduplicated refresh on refresh steps.  With ``spec.pipeline`` the
+    scheduled refreshes after warm-up run as ``step_pipelined``; bytes are
+    identical.
+
+    ``params0``/``opt_state0`` start from given state (the parity tests
+    pass the JAX package's initial parameters); otherwise the parameters
+    are initialised from ``spec.seed`` with a ``torch.Generator``, which
+    does not replay the reference's ``jax.random`` draw.
+
+    Step 0 is timed separately (``report.compile_s``); ``wall_time_s``
+    covers the remaining steps.  ``planner``, ``tracer``, ``faults`` and
+    ``guard`` are not ported yet and raise when given.
+    """
+    for name, obj in (("the adaptive planner", planner),
+                      ("the tracer", tracer), ("fault injection", faults),
+                      ("the fault guard", guard)):
+        if obj is not None:
+            raise _not_ported(name)
+    spec = spec if spec is not None else runtime.spec
+    pipeline = spec.pipeline
+    if controller is None:
+        controller = StalenessController(refresh_every=xplan.refresh_every)
+    params = params0 if params0 is not None else init_gnn(
+        cfg, torch.Generator().manual_seed(spec.seed), runtime.device)
+    opt_state = opt_state0 if opt_state0 is not None else opt.init(params)
+    caches = init_caches(cfg, xplan, num_parts, device=runtime.device)
+    dims = runtime.comm_dims
+    # actual wire width of one halo payload entry (2 under bf16); the
+    # vanilla baseline ships the same payload dtype
+    dim_bytes = sum(d * runtime.halo_dtype_bytes for d in dims)
+
+    losses: list[float] = []
+    val_acc: list[float] = []
+    kinds: list[str] = []
+    step_s: list[float] = []
+    comm = vanilla = refresh_steps = 0
+    compile_s = 0.0
+    t0 = time.perf_counter()
+    for e in range(epochs):
+        ts = time.perf_counter()
+        refresh = controller.should_refresh()
+        if refresh and pipeline and controller.step > 0:
+            kind, step_fn = "pipelined", runtime.step_pipelined
+        elif refresh:
+            kind, step_fn = "refresh", runtime.step_refresh
+        else:
+            kind, step_fn = "cached", runtime.step_cached
+        params, opt_state, caches, m = step_fn(params, opt_state, caches)
+        losses.append(float(m["loss"]))      # fences the step
+        step_s.append(time.perf_counter() - ts)
+        kinds.append(kind)
+        if e == 0:
+            compile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        comm += _step_rows(xplan, xplan, refresh=refresh) * dim_bytes
+        vanilla += xplan.total_halo * dim_bytes
+        refresh_steps += int(refresh)
+        drift = float(m["drift"]) if "drift" in m else None
+        controller.observe(drift, refreshed=refresh)
+        if eval_every and (e + 1) % eval_every == 0:
+            val_acc.append(runtime.evaluate(params, "val")[1])
+    wall = time.perf_counter() - t0
+
+    report = TrainReport(
+        losses=losses, val_acc=val_acc, comm_bytes=comm,
+        comm_bytes_vanilla=vanilla,
+        comm_reduction=1.0 - comm / max(vanilla, 1),
+        refresh_steps=refresh_steps, cached_steps=epochs - refresh_steps,
+        wall_time_s=wall, final_opt_state=opt_state, compile_s=compile_s,
+        spec=spec.to_dict(), step_kinds=kinds, step_s=step_s)
+    return params, report

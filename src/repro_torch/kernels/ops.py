@@ -5,7 +5,10 @@ versions.
 A CPU tensor takes the plain version in :mod:`.ref`; a CUDA tensor
 launches the hand-written kernel (:mod:`.ell_spmm`, :mod:`.cache_gather`),
 whose wrapper raises on anything it does not take.  There is no fallback
-from the card to the plain version.
+from the card to the plain version.  The ELL product is differentiable on
+both devices through one autograd Function; the COO tail of the hybrid
+product stays plain torch autograd (``index_add_``), as the JAX package's
+tail is a plain ``segment_sum``.
 """
 from __future__ import annotations
 
@@ -91,13 +94,27 @@ def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     return out if batched else out[0]
 
 
-def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
-             h: torch.Tensor) -> torch.Tensor:
-    """Blocked-ELL SpMM ``[..., n_rows, d]``: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if h.device.type == "cpu":
-        return _ref.ell_spmm_ref(cols, vals, h)
-    return _ell.ell_spmm(cols, vals, h)
+def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
+             col_chunk: int | None = None) -> torch.Tensor:
+    """Blocked-ELL SpMM ``[..., n_rows, d]``, differentiable in ``vals`` and
+    ``h`` (:class:`~.ell_spmm.EllSpmmFn`): the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors.
+
+    ``col_chunk`` walks the h rows in chunks of that many rows (the TPU
+    kernel's column-chunked variant; the same product).  As in the JAX
+    package, a chunk of at least ``n_cols`` rows is the unchunked kernel,
+    and a smaller one must divide ``n_cols``.
+    """
+    if col_chunk is not None:
+        n_cols = h.shape[-2]
+        if col_chunk < 1:
+            raise ValueError(f"col_chunk must be >= 1, got {col_chunk}")
+        if col_chunk >= n_cols:
+            col_chunk = None
+        elif n_cols % col_chunk:
+            raise ValueError(f"n_cols={n_cols} is not a multiple of "
+                             f"col_chunk={col_chunk}; pad the h rows")
+    return _ell.EllSpmmFn.apply(cols, vals, h, col_chunk)
 
 
 def hybrid_spmm(cols: torch.Tensor, vals: torch.Tensor,

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_spmm_ref", "gather_rows_ref"]
+__all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
+           "gather_rows_ref"]
 
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -34,6 +35,72 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
         out += vals[..., j, None].float() * h32[pidx, cols[..., j]]
     out = out.to(h.dtype)
     return out if batched else out[0]
+
+
+def ell_spmm_chunked_ref(cols: torch.Tensor, vals: torch.Tensor,
+                         h: torch.Tensor, col_chunk: int) -> torch.Tensor:
+    """:func:`ell_spmm_ref` accumulated over ``col_chunk``-row chunks of
+    ``h``, as the TPU kernel's ``chunk_kernel`` does: chunk ``c`` adds the
+    slots whose column lies in ``[c * col_chunk, (c + 1) * col_chunk)``."""
+    batched = h.dim() == 3
+    if not batched:
+        cols, vals, h = cols[None], vals[None], h[None]
+    n_parts, n_rows, k = cols.shape
+    n_cols = h.shape[1]
+    pidx = torch.arange(n_parts, device=h.device)[:, None]
+    cols = cols.long()
+    h32 = h.float()
+    out = torch.zeros((n_parts, n_rows, h.shape[-1]), dtype=torch.float32,
+                      device=h.device)
+    for lo in range(0, n_cols, col_chunk):
+        in_chunk = (cols >= lo) & (cols < lo + col_chunk)
+        v = torch.where(in_chunk, vals.float(), 0.0)
+        for j in range(k):
+            out += v[..., j, None] * h32[pidx, cols[..., j]]
+    out = out.to(h.dtype)
+    return out if batched else out[0]
+
+
+def ell_spmm_bwd_ref(cols: torch.Tensor, vals: torch.Tensor,
+                     h: torch.Tensor | None, g: torch.Tensor, n_cols: int,
+                     need_vals: bool = True, need_h: bool = True):
+    """The ELL product's backward, ``(d_vals, d_h)`` in f32, as the JAX
+    package's ``_spmm_vjp.bwd`` computes it:
+
+    - ``d_vals[..., i, k] = <g[..., i, :], h[..., cols[..., i, k], :]>`` for
+      every slot, padding included;
+    - ``d_h = A^T g`` ``[..., n_cols, d]``, ``vals[..., i, k] * g[..., i, :]``
+      added into row ``cols[..., i, k]``.
+
+    An output not asked for is ``None`` (``h`` may then be ``None`` too).
+    Walks the slots one at a time, as :func:`ell_spmm_ref` does, and never
+    builds ``[n_rows, K, d]`` whole.
+    """
+    batched = g.dim() == 3
+    if not batched:
+        cols, vals, g = cols[None], vals[None], g[None]
+        h = None if h is None else h[None]
+    n_parts, n_rows, k = cols.shape
+    d = g.shape[2]
+    pidx = torch.arange(n_parts, device=g.device)[:, None]
+    cols = cols.long()
+    g32 = g.float()
+    d_vals = d_h = None
+    if need_vals:
+        h32 = h.float()
+        d_vals = torch.stack([(g32 * h32[pidx, cols[..., j]]).sum(-1)
+                              for j in range(k)], dim=-1)
+        d_vals = d_vals if batched else d_vals[0]
+    if need_h:
+        flat = torch.zeros((n_parts * n_cols, d), dtype=torch.float32,
+                           device=g.device)
+        offs = pidx * n_cols
+        for j in range(k):
+            flat.index_add_(0, (cols[..., j] + offs).reshape(-1),
+                            (vals[..., j, None].float() * g32).reshape(-1, d))
+        d_h = flat.view(n_parts, n_cols, d)
+        d_h = d_h if batched else d_h[0]
+    return d_vals, d_h
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,250 @@
+"""Training entry point of the port.
+
+``python -m repro_torch.launch.train gnn ...`` — CaPGNN full-batch GNN
+training (the paper's workload): partitions, RAPA balance, JACA plan,
+staleness schedule and exact byte accounting, in the single-process
+stacked runtime (:mod:`repro_torch.dist.capgnn_sim`) with the features on
+the device.  It prints one JSON object with the keys of the JAX package's
+``repro.launch.train gnn``.
+
+It runs on ``--device cuda`` (the default) or ``--device cpu``.  With
+``--backend ell`` or ``hybrid`` on the card, every layer's aggregation is
+the hand-written ELL-SpMM kernel, and its backward the ``d_h`` kernel.
+f32 matrix products run in full f32: TF32 is off.  ``compile_s`` is the
+first step's wall time; on the card it holds the first-use ``nvcc`` builds
+of the kernels and the CUDA context's first work.
+
+Not ported yet, each exiting with a message: ``--features host``,
+``--cache-policy`` other than ``static``, ``--strategy spmm_15d``,
+``--trace``, ``--device-trace-dir``, ``--faults``, ``--guard-every``,
+``--checksums``, ``--fetch-retries``, ``--ckpt-dir``/``--resume``, and the
+``lm`` subcommand.  ``--model sage|gat|gin`` raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+from .serve import resolve_device, set_fp32_numerics
+
+# (attribute, flag, value that asks for it)
+_NOT_PORTED_FLAGS = (
+    ("features", "--features host", lambda v: v != "device"),
+    ("cache_policy", "--cache-policy other than static",
+     lambda v: v != "static"),
+    ("strategy", "--strategy spmm_15d", lambda v: v != "halo_1d"),
+    ("trace", "--trace", bool), ("device_trace_dir", "--device-trace-dir", bool),
+    ("faults", "--faults", bool), ("guard_every", "--guard-every", bool),
+    ("checksums", "--checksums", bool),
+    ("fetch_retries", "--fetch-retries", lambda v: v is not None),
+    ("ckpt_dir", "--ckpt-dir", bool), ("resume", "--resume", bool),
+)
+
+
+def check_ported(args) -> None:
+    """Exit with a message for a flag whose machinery is not ported yet;
+    raise for a model that is not."""
+    from ..models.gnn import PORTED_MODELS
+    for attr, flag, asks in _NOT_PORTED_FLAGS:
+        if asks(getattr(args, attr)):
+            raise SystemExit(f"{flag} is not ported to repro_torch yet "
+                             "(see ROADMAP.md); run without it")
+    if args.model not in PORTED_MODELS:
+        raise NotImplementedError(
+            f"model {args.model!r} is not ported to repro_torch yet: the "
+            "SAGE, GIN and GAT layers come with a later slice; use --model gcn")
+
+
+def prepare_train(args) -> dict:
+    """The host pipeline of ``run_gnn``: task, profile-weighted partition,
+    RAPA, JACA capacity and cache plan, exchange plan and stacked layout.
+    Returns them with their spec and the seconds the pipeline took
+    (``host_plan_s``)."""
+    from ..core import (PROFILES, PAPER_GROUPS, make_group, cal_capacity,
+                        build_cache_plan, do_partition, RapaConfig,
+                        CacheCapacity, capability_weights)
+    from ..data import make_task
+    from ..dist import build_exchange_plan, stack_partitions
+    from ..dist.spec import TrainSpec
+    from ..graph import metis_partition, random_partition, build_partition
+    from ..models.gnn import GNNConfig
+
+    t0 = time.perf_counter()
+    task = make_task(args.dataset, scale=args.scale, feat_dim=args.feat_dim,
+                     seed=args.seed)
+    g = task.graph
+    p = args.parts
+    try:
+        spec = TrainSpec.from_cli_args(args)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+    group = args.group
+    if group == "auto":
+        group = f"x{p}" if f"x{p}" in PAPER_GROUPS else "uniform"
+    profiles = ([PROFILES["rtx3090"]] * p if group == "uniform"
+                else make_group(PAPER_GROUPS[group]))
+    if len(profiles) != p:
+        raise SystemExit(f"device group {group!r} has {len(profiles)} "
+                         f"devices but the run needs {p} partitions")
+    weights = capability_weights(profiles) if args.uneven else None
+    part_fn = {"metis": metis_partition,
+               "random": random_partition}[args.partitioner]
+    assign = part_fn(g, p, seed=args.seed, weights=weights)
+    ps = build_partition(g, assign, hops=1, parts=p)
+    if args.rapa:
+        ps = do_partition(ps, profiles,
+                          RapaConfig(feat_dim=args.feat_dim)).partition_set
+
+    cfg = GNNConfig(model=args.model, in_dim=task.features.shape[1],
+                    hidden_dim=args.hidden, out_dim=task.num_classes,
+                    num_layers=args.layers)
+    if args.jaca:
+        cap = cal_capacity(ps, cfg.feat_dims, profiles,
+                           m_cpu_gib=args.cpu_cache_gib)
+    else:
+        cap = CacheCapacity(c_gpu=[0] * p, c_cpu=0)
+    plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
+    xplan = build_exchange_plan(ps, plan)
+    sp = stack_partitions(ps, task, backend=args.backend)
+    return {"task": task, "ps": ps, "profiles": profiles, "group": group,
+            "cfg": cfg, "spec": spec, "xplan": xplan, "sp": sp,
+            "host_plan_s": time.perf_counter() - t0}
+
+
+def train_gnn(args):
+    """Run the ``gnn`` training slice: ``(out, ctx)`` with ``out`` the
+    JSON report and ``ctx`` :func:`prepare_train`'s dict plus the runtime,
+    the final parameters and the :class:`TrainReport`."""
+    from ..core import StalenessController
+    from ..dist.capgnn_sim import make_sim_runtime, train_capgnn
+    from ..optim import adam
+
+    check_ported(args)
+    device = resolve_device(args.device)
+    set_fp32_numerics()
+    ctx = prepare_train(args)
+    cfg, spec, xplan, ps = ctx["cfg"], ctx["spec"], ctx["xplan"], ctx["ps"]
+    opt = adam(args.lr)
+    runtime = make_sim_runtime(cfg, ctx["sp"], xplan, opt, spec=spec,
+                               device=device)
+    ctl = StalenessController(refresh_every=args.refresh_every,
+                              adaptive=args.adaptive_staleness,
+                              replan_every=args.replan_every)
+    params, report = train_capgnn(cfg, runtime, xplan, args.parts, opt,
+                                  epochs=args.epochs, controller=ctl,
+                                  spec=spec)
+    _, test_acc = runtime.evaluate(params, "test")
+    out = {
+        "dataset": args.dataset, "model": args.model, "parts": args.parts,
+        "strategy": spec.strategy, "replication": spec.replication,
+        "group": ctx["group"], "uneven": bool(args.uneven),
+        "inner_sizes": [pt.n_inner for pt in ps.parts],
+        "stack_waste_frac": runtime.padding_stats().get("waste_frac"),
+        "epochs": args.epochs, "resumed_from": 0,
+        "final_loss": report.losses[-1] if report.losses else None,
+        "halo_dtype": spec.halo_dtype,
+        "features": spec.features, "prefetch_depth": spec.prefetch_depth,
+        "host_fetch_rows": report.host_fetch_rows,
+        "host_fetch_bytes": report.host_fetch_bytes,
+        "host_writeback_bytes": report.host_writeback_bytes,
+        "cache_policy": spec.cache_policy,
+        "replan_events": report.replan_events,
+        "planner_hit_rate": report.hit_rate,
+        "test_acc": test_acc, "comm_bytes": report.comm_bytes,
+        "comm_reduction_vs_vanilla": report.comm_reduction,
+        "refresh_steps": report.refresh_steps,
+        "cached_steps": report.cached_steps,
+        # compile_s is the fenced step-0 time; wall_time_s is steady state
+        "compile_s": round(report.compile_s, 3),
+        "wall_time_s": round(report.wall_time_s, 2),
+    }
+    ctx.update(runtime=runtime, params=params, report=report)
+    return out, ctx
+
+
+def run_gnn(args) -> dict:
+    out, _ = train_gnn(args)
+    print(json.dumps(out, indent=1))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from ..core.device_profile import PAPER_GROUPS
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("gnn")
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the hand-written kernels; cpu runs "
+                        "their plain versions")
+    g.add_argument("--dataset", default="flickr")
+    g.add_argument("--scale", type=float, default=0.02)
+    g.add_argument("--feat-dim", type=int, default=64)
+    g.add_argument("--model", default="gcn",
+                   choices=["gcn", "sage", "gat", "gin"],
+                   help="only gcn is ported; the others raise")
+    g.add_argument("--strategy", default="halo_1d",
+                   choices=["halo_1d", "spmm_15d"],
+                   help="spmm_15d is not ported yet")
+    g.add_argument("--replication", type=int, default=1)
+    g.add_argument("--backend", default="edges",
+                   choices=["edges", "ell", "hybrid"],
+                   help="local aggregation backend (ell/hybrid run the "
+                        "ELL-SpMM kernels on the card)")
+    g.add_argument("--halo-dtype", default="f32", choices=["f32", "bf16"],
+                   help="halo payload dtype on the wire: bf16 halves every "
+                        "tier's exchange bytes (dequantised on scatter)")
+    g.add_argument("--features", default="device",
+                   choices=["device", "host"], help="host: not ported yet")
+    g.add_argument("--prefetch-depth", type=int, default=2)
+    g.add_argument("--hidden", type=int, default=256)
+    g.add_argument("--layers", type=int, default=3)
+    g.add_argument("--parts", type=int, default=4)
+    g.add_argument("--partitioner", default="metis",
+                   choices=["metis", "random"])
+    g.add_argument("--epochs", type=int, default=200)
+    g.add_argument("--lr", type=float, default=0.01)
+    g.add_argument("--jaca", action="store_true", default=True)
+    g.add_argument("--no-jaca", dest="jaca", action="store_false")
+    g.add_argument("--rapa", action="store_true", default=True)
+    g.add_argument("--no-rapa", dest="rapa", action="store_false")
+    g.add_argument("--uneven", action="store_true", default=True,
+                   help="profile-weighted uneven partition sizes")
+    g.add_argument("--even", dest="uneven", action="store_false")
+    g.add_argument("--group", default="auto",
+                   choices=["auto", "uniform"] + sorted(PAPER_GROUPS))
+    g.add_argument("--pipeline", action="store_true", default=True)
+    g.add_argument("--no-pipeline", dest="pipeline", action="store_false")
+    g.add_argument("--refresh-every", type=int, default=4)
+    g.add_argument("--cache-policy", default="static",
+                   choices=["static", "overlap", "lru", "fifo", "drift"],
+                   help="only static is ported")
+    g.add_argument("--replan-every", type=int, default=1)
+    g.add_argument("--adaptive-staleness", action="store_true")
+    g.add_argument("--cpu-cache-gib", type=float, default=4.0)
+    g.add_argument("--trace", action="store_true", help="not ported yet")
+    g.add_argument("--trace-dir", default="experiments")
+    g.add_argument("--device-trace-dir", default="", help="not ported yet")
+    g.add_argument("--faults", default="", help="not ported yet")
+    g.add_argument("--guard-every", type=int, default=0,
+                   help="not ported yet")
+    g.add_argument("--fetch-retries", type=int, default=None,
+                   help="not ported yet")
+    g.add_argument("--checksums", action="store_true", help="not ported yet")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--ckpt-dir", default="", help="not ported yet")
+    g.add_argument("--resume", action="store_true", help="not ported yet")
+    g.set_defaults(fn=run_gnn)
+    return ap
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,8 @@ from ..kernels import ops
 from ..nn import glorot, zeros_init
 
 __all__ = ["Adjacency", "EdgeListAdj", "EllAdj", "HybridAdj", "GNNConfig",
-           "init_gnn", "gnn_forward", "PORTED_MODELS"]
+           "init_gnn", "gnn_forward", "cross_entropy_loss", "bce_loss",
+           "accuracy", "PORTED_MODELS"]
 
 PORTED_MODELS = ("gcn",)
 _NOT_PORTED = ("sage", "gat", "gin")
@@ -67,7 +68,8 @@ class EdgeListAdj(Adjacency):
 
 @dataclasses.dataclass(frozen=True)
 class EllAdj(Adjacency):
-    """Blocked-ELL adjacency backed by the ELL-SpMM kernel."""
+    """Blocked-ELL adjacency backed by the ELL-SpMM kernel (differentiable:
+    its backward is the ``d_h`` kernel on the card)."""
     cols: torch.Tensor     # [(P,) n_rows, max_deg] int32 local col ids
     vals: torch.Tensor     # [(P,) n_rows, max_deg] weights (0 at padding)
     n_cols_: int
@@ -183,3 +185,39 @@ def gnn_forward(cfg: GNNConfig, params: list[dict], adj: Adjacency,
         h = _layer_apply(cfg, p, adj, h_local, n_inner,
                          is_last=(li == len(params) - 1))
     return h
+
+
+# ---------------------------------------------------------------------------
+# Losses / metrics
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean softmax cross entropy over the rows where ``mask`` is set
+    (the sum over masked rows divided by ``max(mask.sum(), 1)``)."""
+    logp = torch.log_softmax(logits, -1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def bce_loss(logits: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean binary cross entropy with logits, in the JAX package's
+    numerically stable form."""
+    per = (torch.clamp(logits, min=0) - logits * targets
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    per = per.mean(-1)
+    if mask is not None:
+        return torch.sum(per * mask) / torch.clamp(mask.sum(), min=1.0)
+    return per.mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Share of rows (where ``mask`` is set) whose argmax is the label."""
+    correct = (torch.argmax(logits, -1) == labels).float()
+    if mask is not None:
+        return torch.sum(correct * mask) / torch.clamp(mask.sum(), min=1.0)
+    return correct.mean()

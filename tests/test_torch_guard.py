@@ -5,7 +5,8 @@
 - the kernel dispatch goes by tensor device: CPU tensors take the plain
   versions and launch nothing, the kernel wrappers refuse CPU tensors;
 - a CUDA request on a machine without CUDA raises instead of falling back
-  to the CPU, and so does ``chip_smoke.py``;
+  to the CPU (``launch.serve`` and ``launch.train``), and so does
+  ``chip_smoke.py``;
 - the parts of the JAX package that are not ported yet fail loudly.
 """
 import os
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.kernels import cache_gather, ell_spmm, ops
 from repro_torch.launch import serve as tlaunch
+from repro_torch.launch import train as ttrain
 from repro_torch.models.gnn import GNNConfig, init_gnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,6 +42,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.launch.serve, chip_smoke\n"
+        "import repro_torch.launch.train\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or\n"
@@ -72,8 +75,11 @@ def test_forbidden_pattern_catches_imports():
 
 
 def test_cpu_tensors_take_plain_path_and_launch_nothing():
-    ell_spmm.ell_spmm.launches = 0
-    cache_gather.gather_rows.launches = 0
+    counters = (ell_spmm.ell_spmm, ell_spmm.ell_spmm_chunked,
+                ell_spmm.ell_spmm_dh, ell_spmm.ell_spmm_dvals,
+                cache_gather.gather_rows)
+    for fn in counters:
+        fn.launches = 0
     rng = np.random.default_rng(0)
     cols = torch.from_numpy(rng.integers(0, 30, (2, 20, 4)).astype(np.int32))
     vals = torch.from_numpy(rng.normal(size=(2, 20, 4)).astype(np.float32))
@@ -83,8 +89,11 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
     assert ops.ell_spmm(cols, vals, h).shape == (2, 20, 8)
     assert ops.hybrid_spmm(cols, vals, *tail, h).shape == (2, 20, 8)
     assert ops.gather_rows(h[0], torch.tensor([3, 1])).shape == (2, 8)
-    assert ell_spmm.ell_spmm.launches == 0
-    assert cache_gather.gather_rows.launches == 0
+    x = h.clone().requires_grad_(True)
+    v = vals.clone().requires_grad_(True)
+    ops.ell_spmm(cols, v, x, col_chunk=10).sum().backward()
+    assert x.grad.shape == h.shape and v.grad.shape == vals.shape
+    assert [fn.launches for fn in counters] == [0] * len(counters)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -96,6 +105,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ell_spmm.ell_spmm(cols, vals, h)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         cache_gather.gather_rows(h[0], torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ell_spmm.ell_spmm_chunked(cols, vals, h, 3)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ell_spmm.ell_spmm_dh(cols, vals, torch.zeros((1, 4, 3)), 6)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ell_spmm.ell_spmm_dvals(cols, torch.zeros((1, 4, 3)), h)
     assert ell_spmm.ell_spmm.launches == 0
     assert cache_gather.gather_rows.launches == 0
 
@@ -105,15 +120,29 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlaunch.resolve_device("cuda")
     assert tlaunch.resolve_device("cpu") == torch.device("cpu")
-    # the CLI's default device is cuda
+    # the CLIs' default device is cuda
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlaunch.main(["gnn", "--scale", "0.01", "--queries", "8"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.main(["gnn", "--scale", "0.01", "--epochs", "1"])
 
 
-def test_profiler_refuses_the_cpu():
-    from repro_torch.launch import profile_serve
+def test_train_import_pulls_in_neither_jax_nor_repro():
+    res = _run("import sys\n"
+               "import repro_torch.launch.train\n"
+               "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
+               "      n.startswith('jax.') or n == 'repro' or\n"
+               "      n.startswith('repro.')))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", ["profile_serve", "profile_train"])
+def test_profiler_refuses_the_cpu(module):
+    import importlib
+    prof = importlib.import_module(f"repro_torch.launch.{module}")
     with pytest.raises(SystemExit, match="--device cuda"):
-        profile_serve.main(["gnn", "--device", "cpu"])
+        prof.main(["gnn", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--store-dir", "st"],
@@ -121,6 +150,32 @@ def test_profiler_refuses_the_cpu():
 def test_unported_cli_flags_exit(flag):
     with pytest.raises(SystemExit, match="not ported"):
         tlaunch.main(["gnn", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--features", "host"], ["--cache-policy", "lru"],
+    ["--strategy", "spmm_15d"], ["--trace"], ["--device-trace-dir", "dt"],
+    ["--faults", "grad_nan@3"], ["--guard-every", "2"], ["--checksums"],
+    ["--fetch-retries", "1"], ["--ckpt-dir", "ck"], ["--resume"]])
+def test_unported_train_flags_exit(flag):
+    with pytest.raises(SystemExit, match="not ported"):
+        ttrain.main(["gnn", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("model", ["sage", "gat", "gin"])
+def test_unported_train_models_raise(model):
+    with pytest.raises(NotImplementedError, match=model):
+        ttrain.main(["gnn", "--device", "cpu", "--model", model])
+
+
+def test_unported_runtime_options_raise():
+    from repro_torch.dist import get_strategy, init_caches, train_capgnn
+    with pytest.raises(NotImplementedError, match="spmm_15d"):
+        get_strategy("spmm_15d")
+    with pytest.raises(NotImplementedError, match="features='host'"):
+        init_caches(GNNConfig(), None, 4, features="host")
+    with pytest.raises(NotImplementedError, match="tracer"):
+        train_capgnn(GNNConfig(), None, None, 4, None, tracer=object())
 
 
 @pytest.mark.parametrize("model", ["sage", "gat", "gin"])

@@ -1,10 +1,11 @@
 """The port's kernel ops on the CPU (their plain versions) against the JAX
 package's Pallas kernels run in interpret mode, as its own tests run them.
 
-ELL SpMM and the hybrid SpMM agree within 1e-5 (f32 sums in another
-order); the row gather is bit-exact, for f32 and bf16, any width, and an
-empty index.
+ELL SpMM (unchunked and column-chunked), its backward and the hybrid SpMM
+agree within 1e-5 (f32 sums in another order); the row gather is
+bit-exact, for f32 and bf16, any width, and an empty index.
 """
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -67,6 +68,86 @@ def test_ell_spmm_stacked_equals_per_partition():
         want = jops.ell_spmm(jnp.asarray(cols[i]), jnp.asarray(vals[i]),
                              jnp.asarray(h[i]), interpret=True)
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("n_rows,max_deg,n_cols,d,chunk", [
+    (128, 4, 256, 128, 64), (128, 4, 256, 128, 128), (256, 9, 384, 128, 128),
+    (70, 5, 128, 48, 64)])
+def test_chunked_ell_spmm_matches_pallas_chunk_kernel(n_rows, max_deg, n_cols,
+                                                      d, chunk):
+    rng = np.random.default_rng(n_rows + chunk)
+    cols, vals, h = _rand_ell(rng, n_rows, max_deg, n_cols, d)
+    got = tops.ell_spmm(torch.from_numpy(cols), torch.from_numpy(vals),
+                        torch.from_numpy(h), col_chunk=chunk)
+    want = jops.ell_spmm(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(h),
+                         col_chunk=chunk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        tref.ell_spmm_chunked_ref(torch.from_numpy(cols),
+                                  torch.from_numpy(vals),
+                                  torch.from_numpy(h), chunk).numpy(),
+        np.asarray(want), **TOL)
+
+
+def test_chunked_ell_spmm_needs_a_divisor():
+    cols = torch.zeros((8, 2), dtype=torch.int32)
+    vals = torch.ones((8, 2))
+    h = torch.ones((100, 4))
+    with pytest.raises(ValueError, match="multiple of col_chunk"):
+        tops.ell_spmm(cols, vals, h, col_chunk=64)
+    with pytest.raises(ValueError, match=">= 1"):
+        tops.ell_spmm(cols, vals, h, col_chunk=0)
+    # a chunk of at least n_cols rows is the unchunked product
+    torch.testing.assert_close(tops.ell_spmm(cols, vals, h, col_chunk=100),
+                               tops.ell_spmm(cols, vals, h))
+
+
+@pytest.mark.parametrize("n_rows,max_deg,n_cols,d", SHAPES[:3] + SHAPES[4:])
+def test_ell_spmm_backward_matches_jax_vjp(n_rows, max_deg, n_cols, d):
+    """``ell_spmm_bwd_ref`` and the autograd Function's gradients against
+    ``jax.vjp`` of the Pallas kernel's custom VJP (interpret mode)."""
+    rng = np.random.default_rng(n_rows * max_deg + d)
+    cols, vals, h = _rand_ell(rng, n_rows, max_deg, n_cols, d)
+    g = rng.normal(size=(n_rows, d)).astype(np.float32)
+
+    def fwd(v, x):
+        if n_rows % 128 == 0 and d % 128 == 0:
+            return ell_spmm_pallas(jnp.asarray(cols), v, x, interpret=True)
+        return jops.ell_spmm(jnp.asarray(cols), v, x, interpret=True)
+    _, pull = jax.vjp(fwd, jnp.asarray(vals), jnp.asarray(h))
+    want_dv, want_dh = (np.asarray(a) for a in pull(jnp.asarray(g)))
+
+    tc, tv, th, tg = (torch.from_numpy(a) for a in (cols, vals, h, g))
+    dv, dh = tref.ell_spmm_bwd_ref(tc, tv, th, tg, n_cols)
+    np.testing.assert_allclose(dv.numpy(), want_dv, **TOL)
+    np.testing.assert_allclose(dh.numpy(), want_dh, **TOL)
+
+    v = tv.clone().requires_grad_(True)
+    x = th.clone().requires_grad_(True)
+    out = tops.ell_spmm(tc, v, x)
+    assert out.grad_fn is not None
+    out.backward(tg)
+    np.testing.assert_allclose(v.grad.numpy(), want_dv, **TOL)
+    np.testing.assert_allclose(x.grad.numpy(), want_dh, **TOL)
+
+
+def test_ell_spmm_backward_asks_only_for_what_is_needed():
+    """With constant ``vals`` (every training step of the port) the
+    backward computes ``d_h`` only; a stacked call's gradient is each
+    partition's own."""
+    rng = np.random.default_rng(12)
+    parts = [_rand_ell(rng, 30, 4, 40, 8) for _ in range(2)]
+    cols, vals, h = (torch.from_numpy(np.stack([p[i] for p in parts]))
+                     for i in range(3))
+    g = torch.from_numpy(rng.normal(size=(2, 30, 8)).astype(np.float32))
+    dv, dh = tref.ell_spmm_bwd_ref(cols, vals, None, g, 40, need_vals=False)
+    assert dv is None and dh.shape == (2, 40, 8)
+    x = h.clone().requires_grad_(True)
+    tops.ell_spmm(cols, vals, x).backward(g)
+    np.testing.assert_allclose(x.grad.numpy(), dh.numpy(), **TOL)
+    for i in range(2):
+        _, want = tref.ell_spmm_bwd_ref(cols[i], vals[i], h[i], g[i], 40)
+        np.testing.assert_allclose(dh[i].numpy(), want.numpy(), **TOL)
 
 
 def test_ell_spmm_ref_keeps_bf16_dtype():
