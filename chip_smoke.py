@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep]
 
 Phases, each printing one JSON line (``{"phase": ...}``); a phase that fails
 raises, and the script exits non-zero:
@@ -14,9 +14,13 @@ raises, and the script exits non-zero:
    once.
 3. ``kernel`` lines - the ELL forward (f32 and bf16 h) and the row gather
    against their plain PyTorch versions on the card, at the shapes the
-   serving slice gives them (its own hybrid ELL pack) and at a few ragged
-   shapes; kernel, plain and library-call times (CUDA events) beside the
-   least time the card could take.
+   serving slice gives them (its own hybrid ELL pack and ``row_end``, as
+   the main path passes them) and at ragged shapes; kernel, plain and
+   library-call times (CUDA events) beside the least time the card could
+   take.  The gather's time is split into host microseconds per call
+   (``perf_counter`` over 1,000 calls, then one synchronize), device
+   microseconds per call (CUDA events around a CUDA graph of 1,000 calls)
+   and the host cost of each piece of its wrapper.
 4. ``main_path`` - the serving slice through ``repro_torch.launch.serve``
    on ``cuda``: GCN 500 -> 256 -> 256 -> 7 over Flickr at scale 1.0 in 4
    METIS partitions with the hybrid backend, then a 2048-query zipf stream.
@@ -32,18 +36,28 @@ raises, and the script exits non-zero:
    finite and falling; byte counts equal to the exchange plan's; one
    refresh step's loss and gradients equal to the CPU's at full scale; an
    8-step SGD run equal to the CPU's at scale 0.1.
-6. ``kernel`` lines - the ``d_h`` and ``d_vals`` backward kernels and the
-   column-chunked forward against their plain versions at the training
-   slice's shapes (its hybrid pack, d = 256), timed as in phase 3.
+6. ``kernel`` lines - the ELL forward at d = 500 and 256, the ``d_h`` and
+   ``d_vals`` backward kernels and the column-chunked forward against their
+   plain versions at the training slice's shapes (its hybrid pack), timed
+   as in phase 3.
 7. ``kernels`` - every ported kernel with its launches on the main paths,
    its largest error against the plain version and its times.
+
+``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
+(and the chosen one without ``row_end``) checked against the plain version
+and timed in turns on both slices' packs, and ``ptxas`` lines: each
+kernel's registers, shared memory and spills as ``nvcc -Xptxas -v``
+reports them, with the occupancy they allow.
 
 The last line is ``{"ok": true, "device": {...}}``.  TF32 is off for every
 f32 product here, as in the port's entry points.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,15 +131,17 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_calls(fns: dict, reps: int, rounds: int = 3) -> dict:
+def time_calls(fns: dict, reps: int, rounds: int = 4) -> dict:
     """Median over ``rounds`` of the mean CUDA-event time of ``reps``
-    back-to-back calls, the callables taken in turns within each round."""
+    back-to-back calls, the callables taken in turns within each round, in
+    reverse order every other round (a, b, b, a, ...)."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     times = {k: [] for k in fns}
-    for _ in range(rounds):
-        for name, fn in fns.items():
+    for r in range(rounds):
+        order = list(fns.items())
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -194,18 +210,20 @@ def referenced_rows(cols: torch.Tensor, live: torch.Tensor,
     return torch.unique((cols.long() + offs * n_cols)[live]).numel()
 
 
-def ell_work(cols: torch.Tensor, vals: torch.Tensor, n_cols: int,
-             d: int, elem: int = 4) -> tuple[float, float, int]:
-    """(bytes, flops, nnz) the ELL product needs on these inputs: cols and
-    vals read once, each h row that a live slot names read once, the output
+def ell_work(cols: torch.Tensor, vals: torch.Tensor, row_end: torch.Tensor,
+             n_cols: int, d: int, elem: int = 4) -> tuple[float, float, int]:
+    """(bytes, flops, nnz) the ELL product needs on these inputs, given the
+    per-row slot bound ``row_end``: ``row_end`` read once, the cols and
+    vals of each row's slots below it read once (those past it are known
+    padding), each h row that a live slot names read once, the output
     written once (``elem`` bytes per h and output value); two operations
     per live slot and feature column."""
     live = vals != 0
     nnz = int(live.sum())
     rows = referenced_rows(cols, live, n_cols)
     out_elems = cols.shape[0] * cols.shape[1] * d
-    nbytes = (cols.numel() * 4 + vals.numel() * 4 + rows * d * elem
-              + out_elems * elem)
+    nbytes = (row_end.numel() * 4 + int(row_end.long().sum()) * 8
+              + rows * d * elem + out_elems * elem)
     return float(nbytes), 2.0 * nnz * d, nnz
 
 
@@ -225,100 +243,160 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def check_ell(cols, vals, h) -> float:
-    from repro_torch.kernels import ell_spmm as kell, ref
-    tol = ({"atol": BF16_TOL, "rtol": BF16_TOL}
-           if h.dtype == torch.bfloat16 else {})
-    return check_close(f"ell_spmm ({h.dtype})", kell.ell_spmm(cols, vals, h),
-                       ref.ell_spmm_ref(cols, vals, h), **tol)
+def ell_tol(dtype) -> dict:
+    return ({"atol": BF16_TOL, "rtol": BF16_TOL} if dtype == torch.bfloat16
+            else {})
 
 
-def phase_ell(sp, gen) -> dict:
-    """ELL SpMM at the slice's shapes (its own hybrid pack, h random) and at
-    ragged shapes; returns the kernels-line entry."""
+def check_ell(cols, vals, h, row_end=None, want=None) -> float:
     from repro_torch.kernels import ell_spmm as kell, ref
+    if want is None:
+        want = ref.ell_spmm_ref(cols, vals, h)
+    return check_close(f"ell_spmm ({h.dtype})",
+                       kell.ell_spmm(cols, vals, h, row_end), want,
+                       **ell_tol(h.dtype))
+
+
+def row_end_of(vals: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import ops
+    return torch.as_tensor(ops.ell_row_end(vals.cpu().numpy()),
+                           device=vals.device)
+
+
+def phase_ell_ragged(gen) -> None:
+    """The ELL forward at ragged shapes: rows, slots, h rows and widths that
+    fit no block or vector (d = 7, 130, 499), several stripes (d = 700),
+    with and without ``row_end``, and one unstacked 2-D call."""
     dev = torch.device("cuda")
-    # ragged shapes: rows, slots, h rows and widths that fit no block,
-    # several feature blocks (d=700), and one unstacked 2-D call
     for p, n, k, nc, d in [(1, 70, 5, 90, 48), (3, 33, 37, 50, 7),
-                           (2, 1000, 144, 1500, 500), (2, 100, 20, 300, 700)]:
+                           (2, 1000, 144, 1500, 500), (2, 100, 20, 300, 700),
+                           (2, 257, 40, 300, 499), (1, 90, 70, 200, 130)]:
         cols = torch.randint(0, nc, (p, n, k), generator=gen, device=dev,
                              dtype=torch.int32)
         vals = torch.randn((p, n, k), generator=gen, device=dev)
         vals[torch.rand((p, n, k), generator=gen, device=dev) < 0.9] = 0.0
         h = torch.randn((p, nc, d), generator=gen, device=dev)
-        err = check_ell(cols, vals, h)
-        errb = check_ell(cols, vals, h.to(torch.bfloat16))
-        emit("kernel", name="ell_spmm", shape=[p, n, k, nc, d], max_abs_err=err,
-             bf16_max_abs_err=errb)
-    err2d = check_ell(cols[0], vals[0], h[0])
+        row_end = row_end_of(vals)
+        err = max(check_ell(cols, vals, h), check_ell(cols, vals, h, row_end))
+        errb = check_ell(cols, vals, h.to(torch.bfloat16), row_end)
+        emit("kernel", name="ell_spmm", shape=[p, n, k, nc, d],
+             max_abs_err=err, bf16_max_abs_err=errb)
+    err2d = check_ell(cols[0], vals[0], h[0], row_end[0])
     emit("kernel", name="ell_spmm", shape=[n, k, nc, d], unstacked=True,
          max_abs_err=err2d)
 
+
+def ell_case(pack: str, cols, vals, row_end, csr, n_cols: int, d: int,
+             dtype, gen) -> dict:
+    """The ELL forward on one pack at one width: the kernel (with the
+    pack's ``row_end``, as on the main path) against its plain version,
+    timed in turns with the plain version and ``torch.sparse.mm``, beside
+    the bound."""
+    from repro_torch.kernels import ell_spmm as kell, ref
+    n_parts = cols.shape[0]
+    h = torch.randn((n_parts, n_cols, d), generator=gen,
+                    device=cols.device).to(dtype)
+    want = ref.ell_spmm_ref(cols, vals, h)
+    err = check_ell(cols, vals, h, row_end, want)
+    fns = {"kernel_ms": lambda: kell.ell_spmm(cols, vals, h, row_end),
+           "plain_ms": lambda: ref.ell_spmm_ref(cols, vals, h)}
+    extra = {}
+    if dtype != torch.float32:
+        csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                      csr.values().to(dtype), size=csr.shape)
+    try:
+        lib_out = torch.sparse.mm(csr, h.view(-1, d))
+    except RuntimeError as exc:    # the library may not take bf16 CSR
+        extra["library"] = f"none: {str(exc).splitlines()[0]}"
+    else:
+        extra["library_max_abs_diff"] = float(
+            (lib_out.view(n_parts, -1, d).float() - want.float()).abs().max())
+        fns["library_ms"] = lambda: torch.sparse.mm(csr, h.view(-1, d))
+        del lib_out
+    t = time_calls(fns, reps=5)
+    t.setdefault("library_ms", None)
+    nbytes, flops, nnz = ell_work(cols, vals, row_end, n_cols, d,
+                                  h.element_size())
+    b, by = bound_ms(nbytes, flops)
+    rec = dict(pack=pack, dtype=str(dtype).replace("torch.", ""),
+               shape=[*cols.shape, n_cols, d], nnz=nnz, slots=cols.numel(),
+               max_abs_err=err, bound_ms=b, bound_by=by, bytes=nbytes,
+               **t, **extra)
+    emit("kernel", name="ell_spmm", **rec)
+    return rec
+
+
+def ell_pack_cases(pack: str, sp, gen) -> dict:
+    """:func:`ell_case` at the slices' widths on one slice's pack: f32 at
+    d = 500 (layer 0 reads the features) and 256 (layers 1 and 2), bf16 at
+    d = 500; keyed ``f32_500``, ``f32_256``, ``bf16_500``."""
+    dev = torch.device("cuda")
     cols = torch.as_tensor(sp.ell.cols, device=dev)
     vals = torch.as_tensor(sp.ell.vals, device=dev)
+    row_end = row_end_of(vals)
     n_cols = sp.n_inner_max + sp.n_halo_max
     csr = ell_csr(cols, vals, n_cols)
-    per_width = {}
-    for d in (500, 256):     # layer 0 reads the features, layers 1-2 hidden
-        h = torch.randn((sp.num_parts, n_cols, d), generator=gen, device=dev)
-        err = check_ell(cols, vals, h)
-        lib_out = torch.sparse.mm(csr, h.view(-1, d))
-        lib_err = float((lib_out.view(sp.num_parts, -1, d)
-                         - kell.ell_spmm(cols, vals, h)).abs().max())
-        t = time_calls({
-            "kernel_ms": lambda: kell.ell_spmm(cols, vals, h),
-            "plain_ms": lambda: ref.ell_spmm_ref(cols, vals, h),
-            "library_ms": lambda: torch.sparse.mm(csr, h.view(-1, d)),
-        }, reps=5)
-        nbytes, flops, nnz = ell_work(cols, vals, n_cols, d)
-        b, by = bound_ms(nbytes, flops)
-        per_width[d] = dict(max_abs_err=err, bound_ms=b, bound_by=by,
-                            bytes=nbytes, flops=flops, **t)
-        emit("kernel", name="ell_spmm", shape=[*cols.shape, n_cols, d],
-             nnz=nnz, slots=cols.numel(), library_max_abs_diff=lib_err,
-             **per_width[d])
-        if d == 500:
-            # bf16 h, as the TPU kernel takes it: f32 sums, bf16 output
-            hb = h.to(torch.bfloat16)
-            errb = check_ell(cols, vals, hb)
-            tb = time_calls({
-                "kernel_ms": lambda: kell.ell_spmm(cols, vals, hb),
-                "plain_ms": lambda: ref.ell_spmm_ref(cols, vals, hb),
-            }, reps=5)
-            nb, fb, _ = ell_work(cols, vals, n_cols, d, elem=2)
-            bb, byb = bound_ms(nb, fb)
-            bf16 = dict(max_abs_err=errb, bound_ms=bb, bound_by=byb,
-                        bytes=nb, **tb)
-            emit("kernel", name="ell_spmm", dtype="bfloat16",
-                 shape=[*cols.shape, n_cols, d], **bf16)
-            del hb
-        del h, lib_out
-    # one precompute pass launches it once at d=500 and twice at d=256
-    mix = {500: 1, 256: 2}
+    out = {}
+    for dtype, d in ((torch.float32, 500), (torch.float32, 256),
+                     (torch.bfloat16, 500)):
+        key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{d}"
+        out[key] = ell_case(pack, cols, vals, row_end, csr, n_cols, d, dtype,
+                            gen)
+        torch.cuda.empty_cache()
+    return out
 
-    def total(key):
-        return sum(per_width[d][key] * c for d, c in mix.items())
 
+# ELL forward launches on the main paths, by pack and width: one precompute
+# pass (layer 0 at d = 500, layers 1-2 at 256) and the 8-epoch training run
+# with its closing evaluation (9 passes of the same three layers)
+ELL_LAUNCH_MIX = {("serve", "f32_500"): 1, ("serve", "f32_256"): 2,
+                  ("train", "f32_500"): 9, ("train", "f32_256"): 18}
+
+
+def ell_entry(cases: dict) -> dict:
+    """The ELL forward's kernels-line entry: ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``library_ms`` over one serving precompute pass (as in
+    earlier runs), the training pack's per-launch numbers, and every time
+    weighted by the main paths' launches."""
+    serve = cases["serve"]
+
+    def total(key, mix):
+        """Sum of launches x time; None where a time is (no library call)."""
+        times = [case[key] for case, _ in mix]
+        if None in times:
+            return None
+        return sum(t * c for t, (_, c) in zip(times, mix))
+
+    path_mix = [(cases[p][w], c) for (p, w), c in ELL_LAUNCH_MIX.items()]
+    serve_mix = [(cases[p][w], c) for (p, w), c in ELL_LAUNCH_MIX.items()
+                 if p == "serve"]
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "library")
     return {"name": "ell_spmm", "route": "cuda", "source": ELL_SOURCE,
             "replaces": ELL_REPLACES,
-            "max_abs_err": max(v["max_abs_err"] for v in per_width.values()),
-            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": per_width[500]["bound_by"],
-            "library_ms": total("library_ms"),
-            "per_launch": {str(d): {k: v[k] for k in
-                                    ("kernel_ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by")}
-                           for d, v in per_width.items()},
-            "bf16_d500": bf16,
-            "timed_over": "one precompute pass: d=500 once, d=256 twice"}
+            "max_abs_err": max(c["max_abs_err"] for p in cases.values()
+                               for c in p.values()),
+            "ms": total("kernel_ms", serve_mix),
+            "plain_ms": total("plain_ms", serve_mix),
+            "bound_ms": total("bound_ms", serve_mix),
+            "bound_by": serve["f32_500"]["bound_by"],
+            "library_ms": total("library_ms", serve_mix),
+            "timed_over": "one precompute pass: d=500 once, d=256 twice "
+                          "(serving pack)",
+            "per_launch": {p: {w: {k: c[k] for k in keys if k in c}
+                               for w, c in pc.items()}
+                           for p, pc in cases.items()},
+            "main_paths_ms": {k: total(k, path_mix) for k in
+                              ("kernel_ms", "library_ms", "bound_ms")},
+            "main_paths_mix": {f"{p}/{w}": c
+                               for (p, w), c in ELL_LAUNCH_MIX.items()}}
 
 
 def check_gather(src, idx) -> float:
     from repro_torch.kernels import cache_gather as kgather, ref
     got = kgather.gather_rows(src, idx)
-    want = ref.gather_rows_ref(src, idx)
+    want = ref.gather_rows_ref(src, idx.clamp(0, src.shape[0] - 1))
+    want[(idx < 0) | (idx >= src.shape[0])] = 0
     torch.cuda.synchronize()
     word = torch.int16 if src.element_size() == 2 else torch.int32
     if got.shape != want.shape or got.dtype != src.dtype \
@@ -328,22 +406,84 @@ def check_gather(src, idx) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call: ``perf_counter`` over ``calls`` calls,
+    then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def device_us(fn, calls: int = 1000) -> float:
+    """Device microseconds per call: CUDA events around one replay of a
+    CUDA graph of ``calls`` calls, which takes the host out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
+def gather_host_pieces(src, idx) -> dict:
+    """Host microseconds of each piece of a gather call."""
+    from repro_torch.kernels import cache_gather as kgather
+    di = src.get_device()
+    n_out, d = idx.shape[0], src.shape[1]
+    out = src.new_empty((n_out, d))
+    fn = kgather._entry()
+    stream = torch._C._cuda_getCurrentRawStream(di)
+    args = (src.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out,
+            src.shape[0], d * src.element_size(), di, stream)
+    pieces = {
+        "check": lambda: kgather._takes(src, idx),
+        "new_empty": lambda: src.new_empty((n_out, d)),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(di),
+        "pointers_and_device": lambda: (src.data_ptr(), idx.data_ptr(),
+                                        out.data_ptr(), src.get_device()),
+        "ctypes_call": lambda: fn(*args),
+    }
+    return {k: host_us(f) for k, f in pieces.items()}
+
+
 def phase_gather(n_hot: int, out_dim: int, max_batch: int, gen) -> dict:
-    """Row gather bit-exact at d in {7, 500}, f32 and bf16, an empty index,
-    and timed at the slice's hot tier ``[n_hot, out_dim]`` f32 with one
-    full micro-batch of hits."""
+    """Row gather bit-exact at d in {7, 500}, f32 and bf16, at aligned and
+    unaligned base addresses, with indices out of range, an empty index;
+    timed at the slice's hot tier ``[n_hot, out_dim]`` f32 with one full
+    micro-batch of hits."""
     from repro_torch.kernels import cache_gather as kgather, ref
     dev = torch.device("cuda")
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
         for d in (out_dim, 500):
-            src = torch.randn((n_hot, d), generator=gen,
-                              device=dev).to(dtype)
-            idx = torch.randint(0, n_hot, (max_batch,), generator=gen,
-                                device=dev, dtype=torch.int32)
-            errs.append(check_gather(src, idx))
-            emit("kernel", name="gather_rows", shape=[n_hot, d, max_batch],
-                 dtype=str(dtype), bit_exact=True)
+            base = torch.randn((n_hot + 1, d), generator=gen,
+                               device=dev).to(dtype)
+            for offset in (0, 1):    # row 1 on: an unaligned base address
+                src = base[offset:offset + n_hot]
+                idx = torch.randint(-2, n_hot + 2, (max_batch,),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+                errs.append(check_gather(src, idx))
+                emit("kernel", name="gather_rows",
+                     shape=[n_hot, d, max_batch], dtype=str(dtype),
+                     base_offset_bytes=offset * d * src.element_size(),
+                     bit_exact=True)
     before = kgather.gather_rows.launches
     empty = kgather.gather_rows(src, idx[:0])
     if empty.shape != (0, src.shape[1]) or \
@@ -357,22 +497,113 @@ def phase_gather(n_hot: int, out_dim: int, max_batch: int, gen) -> dict:
     idx = torch.randint(0, n_hot, (max_batch,), generator=gen, device=dev,
                         dtype=torch.int32)
     errs.append(check_gather(src, idx))
-    t = time_calls({
-        "kernel_ms": lambda: kgather.gather_rows(src, idx),
-        "plain_ms": lambda: ref.gather_rows_ref(src, idx),
-        "library_ms": lambda: src.index_select(0, idx),
-    }, reps=200)
+    calls = {"kernel": lambda: kgather.gather_rows(src, idx),
+             "plain": lambda: ref.gather_rows_ref(src, idx),
+             "library": lambda: src.index_select(0, idx)}
+    t = time_calls({f"{k}_ms": f for k, f in calls.items()}, reps=200)
+    hosts = {f"{k}_host_us": host_us(f) for k, f in calls.items()}
+    devices = {f"{k}_device_us": device_us(f) for k, f in calls.items()}
+    pieces = gather_host_pieces(src, idx)
     nbytes = idx.numel() * 4 + 2 * max_batch * out_dim * 4
     b, by = bound_ms(nbytes, 0.0)
     emit("kernel", name="gather_rows", shape=[n_hot, out_dim, max_batch],
-         dtype="torch.float32", bound_ms=b, bound_by=by, bytes=nbytes, **t)
+         dtype="torch.float32", bound_ms=b, bound_by=by, bytes=nbytes, **t,
+         **hosts, **devices, host_pieces_us=pieces)
     return {"name": "gather_rows", "route": "cuda", "source": GATHER_SOURCE,
             "replaces": GATHER_REPLACES, "max_abs_err": max(errs),
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"],
-            "bound_ms": b, "bound_by": by,
+            "bound_ms": b, "bound_by": by, **hosts, **devices,
             "timed_over": f"one micro-batch: {max_batch} rows of "
                           f"[{n_hot}, {out_dim}] f32"}
+
+
+# ---------------------------------------------------------------------------
+# --sweep: the ELL forward's feature stripes, and ptxas's report
+# ---------------------------------------------------------------------------
+
+SWEEP_STRIPE_BYTES = (256, 512, 1024, 2048)
+
+
+def sweep_ell(packs: dict, gen) -> None:
+    """Every feature stripe of the ELL forward at the slices' widths on
+    each pack (``STRIPE_BYTES`` set to it for the call), each checked
+    against the plain version, timed in turns; plus the chosen stripe
+    without ``row_end``."""
+    from repro_torch.kernels import ell_spmm as kell, ref
+    dev = torch.device("cuda")
+    chosen_bytes = kell.STRIPE_BYTES
+
+    def with_stripe(stripe_bytes, *args):
+        kell.STRIPE_BYTES = stripe_bytes
+        try:
+            return kell.ell_spmm(*args)
+        finally:
+            kell.STRIPE_BYTES = chosen_bytes
+
+    for pack, sp in packs.items():
+        cols = torch.as_tensor(sp.ell.cols, device=dev)
+        vals = torch.as_tensor(sp.ell.vals, device=dev)
+        row_end = row_end_of(vals)
+        n_cols = sp.n_inner_max + sp.n_halo_max
+        for dtype, d in ((torch.float32, 500), (torch.float32, 256),
+                         (torch.bfloat16, 500)):
+            h = torch.randn((cols.shape[0], n_cols, d), generator=gen,
+                            device=dev).to(dtype)
+            want = ref.ell_spmm_ref(cols, vals, h)
+            elem = h.element_size()
+            vec, chosen = kell.ell_launch_config(d, elem, 0)
+            fns = {f"stripe{sb}B": (lambda sb=sb: with_stripe(
+                sb, cols, vals, h, row_end)) for sb in SWEEP_STRIPE_BYTES
+                if sb // (vec * elem) in kell.STRIPE_VECTORS}
+            fns["chosen_without_row_end"] = lambda: kell.ell_spmm(cols, vals,
+                                                                  h)
+            errs = {k: check_close(f"ell_spmm {k}", f(), want,
+                                   **ell_tol(dtype)) for k, f in fns.items()}
+            t = time_calls(fns, reps=5)
+            emit("sweep", name="ell_spmm", pack=pack,
+                 dtype=str(dtype).replace("torch.", ""), d=d, vec=vec,
+                 chosen=f"stripe{chosen * vec * elem}B", ms=t,
+                 max_abs_err=errs)
+            del h, want
+            torch.cuda.empty_cache()
+
+
+def ptxas_report() -> None:
+    """Each kernel's registers, shared memory and spills as ``nvcc -Xptxas
+    -v`` reports them, and the occupancy its registers allow (4-warp
+    blocks for the ELL forward, 8 for the others)."""
+    from repro_torch.kernels import build
+    nvcc = build._nvcc()
+    cuda_filt = Path(nvcc).with_name("cu++filt")
+    demangle = (str(cuda_filt) if cuda_filt.exists()
+                else shutil.which("c++filt"))
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    entry = re.compile(r"Function properties for (\S+)\n\s*\d+ bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads\n[^\n]*Used (\d+) registers([^\n]*)")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in build.SOURCES:
+        proc = subprocess.run(
+            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
+             str(build.BUILD_DIR / f"{name}.ptxas.cubin"),
+             str(build.CSRC / f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+        for m in entry.finditer(proc.stdout + proc.stderr):
+            fn, st, ld, regs, rest = m.groups()
+            smem = re.search(r"(\d+) bytes smem", rest)
+            if demangle:
+                fn = subprocess.run([demangle, fn], capture_output=True,
+                                    text=True).stdout.strip() or fn
+            regs = int(regs)
+            warps = 4 if name == "ell_spmm" else 8
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(32, 65536 // (per_warp * warps))
+            emit("ptxas", source=f"csrc/{name}.cu", kernel=fn,
+                 registers=regs, smem_bytes=int(smem[1]) if smem else 0,
+                 spill_stores=int(st), spill_loads=int(ld),
+                 warps_per_sm=min(64, blocks * warps))
 
 
 # ---------------------------------------------------------------------------
@@ -643,7 +874,7 @@ def ell_csr_t(cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
 def phase_backward(sp, gen) -> list[dict]:
     """d_h, d_vals and the chunked forward at the training slice's shapes
     (its hybrid pack, d = 256, random g and h); returns their kernels-line
-    entries."""
+    entries.  (The unchunked forward on this pack: :func:`ell_pack_cases`.)"""
     from repro_torch.kernels import ell_spmm as kell, ref
     dev = torch.device("cuda")
     cols = torch.as_tensor(sp.ell.cols, device=dev)
@@ -710,26 +941,33 @@ def phase_backward(sp, gen) -> list[dict]:
                                   "path of the slice: the ELL values are "
                                   "constants)"})
 
-    # the column-chunked forward, h rows padded to a multiple of COL_CHUNK
+    # the column-chunked forward, h rows padded to a multiple of COL_CHUNK;
+    # timed with the pack's row_end, as the unchunked kernel beside it
     n_pad = -(-n_cols // COL_CHUNK) * COL_CHUNK
     hp = torch.zeros((n_parts, n_pad, d), device=dev)
     hp[:, :n_cols] = h
     del h
     from repro_torch.kernels import ops
-    err = check_close("ell_spmm_chunked",
-                      ops.ell_spmm(cols, vals, hp, col_chunk=COL_CHUNK),
-                      ref.ell_spmm_chunked_ref(cols, vals, hp, COL_CHUNK))
+    row_end = row_end_of(vals)
+    want = ref.ell_spmm_chunked_ref(cols, vals, hp, COL_CHUNK)
+    err = max(check_close("ell_spmm_chunked",
+                          ops.ell_spmm(cols, vals, hp, col_chunk=COL_CHUNK),
+                          want),
+              check_close("ell_spmm_chunked (row_end)",
+                          kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK,
+                                                row_end), want))
     unchunked_diff = float((kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK)
                             - kell.ell_spmm(cols, vals, hp)).abs().max())
     csr = ell_csr(cols, vals, n_pad)
     t = time_calls({
-        "kernel_ms": lambda: kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK),
-        "unchunked_ms": lambda: kell.ell_spmm(cols, vals, hp),
+        "kernel_ms": lambda: kell.ell_spmm_chunked(cols, vals, hp, COL_CHUNK,
+                                                   row_end),
+        "unchunked_ms": lambda: kell.ell_spmm(cols, vals, hp, row_end),
         "plain_ms": lambda: ref.ell_spmm_chunked_ref(cols, vals, hp,
                                                      COL_CHUNK),
         "library_ms": lambda: torch.sparse.mm(csr, hp.view(-1, d)),
     }, reps=5)
-    nbytes, flops, _ = ell_work(cols, vals, n_pad, d)
+    nbytes, flops, _ = ell_work(cols, vals, row_end, n_pad, d)
     b, by = bound_ms(nbytes, flops)
     emit("kernel", name="ell_spmm_chunked",
          shape=[n_parts, n_rows, k, n_pad, d], col_chunk=COL_CHUNK,
@@ -749,12 +987,23 @@ def phase_backward(sp, gen) -> list[dict]:
     return entries
 
 
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--sweep", action="store_true",
+                   help="time every feature stripe of the ELL forward and "
+                        "print ptxas's report of every kernel")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    opts = parse_args(argv)
     device = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if opts.sweep:
+        ptxas_report()
 
     from repro_torch.launch.serve import (build_parser, plan_and_stack,
                                           prepare_gnn)
@@ -766,9 +1015,10 @@ def main() -> None:
            "host_plan_s": time.perf_counter() - t0}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    entries = [phase_ell(sp, gen),
-               phase_gather(int(round(args.hot_frac * task.graph.num_nodes)),
-                            cfg.out_dim, args.max_batch, gen)]
+    phase_ell_ragged(gen)
+    ell_cases = {"serve": ell_pack_cases("serve", sp, gen)}
+    gather = phase_gather(int(round(args.hot_frac * task.graph.num_nodes)),
+                          cfg.out_dim, args.max_batch, gen)
     torch.cuda.empty_cache()
 
     serve_launches = phase_main(args, ctx)
@@ -776,7 +1026,10 @@ def main() -> None:
     train_launches, tctx = phase_train()
     del tctx["runtime"]
     torch.cuda.empty_cache()
-    entries += phase_backward(tctx["sp"], gen)
+    ell_cases["train"] = ell_pack_cases("train", tctx["sp"], gen)
+    if opts.sweep:
+        sweep_ell({"serve": sp, "train": tctx["sp"]}, gen)
+    entries = [ell_entry(ell_cases), gather] + phase_backward(tctx["sp"], gen)
     # launches: the serving path's plus the training path's
     by_path = {"serve": serve_launches, "train": train_launches}
     for e in entries:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.staleness import StalenessController
+from ..kernels.ops import ell_row_end
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, accuracy, cross_entropy_loss,
                           init_gnn)
@@ -173,20 +174,23 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cpu"):
             return EdgeListAdj(lv["src"], lv["dst"], lv["w"], ni, ni + nh)
     elif backend == "ell":
         leaves = {"cols": put(sp.ell.cols, torch.int32),
-                  "vals": put(sp.ell.vals, torch.float32)}
+                  "vals": put(sp.ell.vals, torch.float32),
+                  "row_end": put(ell_row_end(sp.ell.vals), torch.int32)}
 
         def build(lv):
-            return EllAdj(lv["cols"], lv["vals"], ni + nh)
+            return EllAdj(lv["cols"], lv["vals"], ni + nh, lv["row_end"])
     else:  # hybrid
         leaves = {"cols": put(sp.ell.cols, torch.int32),
                   "vals": put(sp.ell.vals, torch.float32),
+                  "row_end": put(ell_row_end(sp.ell.vals), torch.int32),
                   "tail_src": put(sp.ell.tail_src, torch.int64),
                   "tail_dst": put(sp.ell.tail_dst, torch.int64),
                   "tail_w": put(sp.ell.tail_w, torch.float32)}
 
         def build(lv):
             return HybridAdj(lv["cols"], lv["vals"], lv["tail_src"],
-                             lv["tail_dst"], lv["tail_w"], ni + nh)
+                             lv["tail_dst"], lv["tail_w"], ni + nh,
+                             lv["row_end"])
     return leaves, build
 
 

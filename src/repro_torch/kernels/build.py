@@ -6,8 +6,9 @@ use into its own shared library for ``sm_90a`` (Hopper):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  :func:`build`
+The library name carries a hash of the source, the headers of ``csrc/``
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  :func:`build`
 starts one ``nvcc`` per missing source, all at once, and waits for them;
 a failed compile raises with ``nvcc``'s stderr.  Nothing here runs at
 import time: the CPU tests import every module on a machine without
@@ -31,7 +32,7 @@ SOURCES = ("ell_spmm", "ell_spmm_bwd", "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.PyDLL] = {}
 
 
 def _nvcc() -> str:
@@ -48,8 +49,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -81,11 +83,15 @@ def build(names=SOURCES) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+
+    Loaded as a ``PyDLL``: its entry points only enqueue a launch, so a
+    call keeps the interpreter lock rather than paying to release and take
+    it back (the row gather is called per served micro-batch)."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.PyDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib

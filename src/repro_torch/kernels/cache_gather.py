@@ -16,8 +16,10 @@ from . import build
 
 __all__ = ["gather_rows"]
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
+# (src, idx, out, n_out, n_src, row_bytes, device, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+_ELEM_BYTES = (2, 4, 8)
 
 _FN = None
 
@@ -33,11 +35,20 @@ def _entry():
     return _FN
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[i] = src[idx[i]]`` on the card, bit-exact, for ``src``
-    ``[n_src, d]`` of 2-, 4- or 8-byte elements (f32, bf16, ...) and
-    ``idx`` int32 ``[n_out]``.  An empty ``idx`` launches nothing.  Does
-    not synchronise."""
+def _takes(src: torch.Tensor, idx: torch.Tensor) -> bool:
+    """Whether the kernel takes ``src`` and ``idx``, in one expression."""
+    # idx is on src's CUDA device when their device indices match (a CPU
+    # tensor's is -1)
+    return (src.is_cuda and src.get_device() == idx.get_device()
+            and src.dim() == 2 and idx.dim() == 1
+            and idx.dtype == torch.int32
+            and src.element_size() in _ELEM_BYTES and src.is_contiguous()
+            and idx.is_contiguous())
+
+
+def _refuse(src: torch.Tensor, idx: torch.Tensor) -> None:
+    """Raise the error that says why the kernel does not take ``src`` and
+    ``idx``."""
     for name, t in (("src", src), ("idx", idx)):
         if t.device.type != "cuda":
             raise ValueError(f"gather_rows kernel: {name} is on {t.device}, "
@@ -51,18 +62,32 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError(f"gather_rows kernel: idx must be 1-D int32, got "
                         f"{idx.dtype} of shape {tuple(idx.shape)}")
-    if src.dim() != 2 or src.element_size() not in (2, 4, 8):
-        raise TypeError(f"gather_rows kernel: src must be 2-D with 2-, 4- "
-                        f"or 8-byte elements, got {src.dtype} of shape "
-                        f"{tuple(src.shape)}")
-    n_src, d = src.shape
+    raise TypeError(f"gather_rows kernel: src must be 2-D with 2-, 4- or "
+                    f"8-byte elements, got {src.dtype} of shape "
+                    f"{tuple(src.shape)}")
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i] = src[idx[i]]`` on the card, bit-exact, for ``src``
+    ``[n_src, d]`` of 2-, 4- or 8-byte elements (f32, bf16, ...) and
+    ``idx`` int32 ``[n_out]``; an index outside ``[0, n_src)`` gives a row
+    of zero bits.  An empty ``idx`` launches nothing.  Launches on the
+    current stream of ``src``'s device; does not synchronise.
+
+    The serving engine calls it once per micro-batch for a few rows, so the
+    host path is what a call costs: one combined test of the operands (the
+    itemised checks run only to word the error), the output's allocation
+    and one ctypes call with the raw stream."""
+    if not _takes(src, idx):
+        _refuse(src, idx)
     n_out = idx.shape[0]
-    out = torch.empty((n_out, d), dtype=src.dtype, device=src.device)
-    if out.numel():
-        with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream(src.device).cuda_stream
-            err = _entry()(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                           n_out, n_src, d, src.element_size(), stream)
+    n_src, d = src.shape
+    out = src.new_empty((n_out, d))
+    if n_out and d:
+        dev = src.get_device()
+        err = _entry()(src.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out,
+                       n_src, d * src.element_size(), dev,
+                       torch._C._cuda_getCurrentRawStream(dev))
         gather_rows.launches += 1
         if err:
             raise RuntimeError(f"gather_rows kernel launch failed with CUDA "

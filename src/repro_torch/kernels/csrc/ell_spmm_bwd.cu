@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -159,39 +161,46 @@ ell_spmm_dvals_kernel(const int32_t* __restrict__ cols,
 // cols int32 and vals f32 [n_parts, n_rows, k_slots]; g f32
 // [n_parts, n_rows, d]; dh f32 [n_parts, n_cols, d], zeroed by the caller;
 // all contiguous, with the per-partition strides given in elements.
-// Returns cudaGetLastError() after the launch.
+// Launches on `device` and `stream`; returns cudaGetLastError() after the
+// launch.
 extern "C" int ell_spmm_dh_f32(const void* cols, const void* vals,
                                const void* g, void* dh, int n_parts,
                                int n_rows, int k_slots, int n_cols, int d,
                                long long slot_stride, long long g_stride,
-                               long long dh_stride, void* stream) {
+                               long long dh_stride, int device, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 128) {
-    launch_dh<4>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
-                 slot_stride, g_stride, dh_stride, s);
-  } else if (d <= 256) {
-    launch_dh<8>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
-                 slot_stride, g_stride, dh_stride, s);
-  } else {
-    launch_dh<16>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
-                  slot_stride, g_stride, dh_stride, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    if (d <= 128) {
+      launch_dh<4>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
+                   slot_stride, g_stride, dh_stride, s);
+    } else if (d <= 256) {
+      launch_dh<8>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
+                   slot_stride, g_stride, dh_stride, s);
+    } else {
+      launch_dh<16>(cols, vals, g, dh, n_parts, n_rows, k_slots, n_cols, d,
+                    slot_stride, g_stride, dh_stride, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // cols int32 [n_parts, n_rows, k_slots]; g f32 [n_parts, n_rows, d]; h f32
 // [n_parts, n_cols, d]; dvals f32 [n_parts, n_rows, k_slots]; all
-// contiguous.  Returns cudaGetLastError() after the launch.
+// contiguous.  Launches on `device` and `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int ell_spmm_dvals_f32(const void* cols, const void* g,
                                   const void* h, void* dvals, int n_parts,
                                   int n_rows, int k_slots, int n_cols, int d,
                                   long long slot_stride, long long g_stride,
-                                  long long h_stride, void* stream) {
-  const dim3 grid((n_rows + kWarps - 1) / kWarps, 1, n_parts);
-  ell_spmm_dvals_kernel<<<grid, kWarps * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float*>(g),
-      static_cast<const float*>(h), static_cast<float*>(dvals), n_rows,
-      k_slots, n_cols, d, slot_stride, g_stride, h_stride);
-  return static_cast<int>(cudaGetLastError());
+                                  long long h_stride, int device,
+                                  void* stream) {
+  return on_device(device, [&] {
+    const dim3 grid((n_rows + kWarps - 1) / kWarps, 1, n_parts);
+    ell_spmm_dvals_kernel<<<grid, kWarps * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(cols), static_cast<const float*>(g),
+        static_cast<const float*>(h), static_cast<float*>(dvals), n_rows,
+        k_slots, n_cols, d, slot_stride, g_stride, h_stride);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

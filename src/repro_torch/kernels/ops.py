@@ -19,8 +19,8 @@ from . import cache_gather as _gather
 from . import ell_spmm as _ell
 from . import ref as _ref
 
-__all__ = ["ell_pack", "ell_pack_hybrid", "coo_spmm", "ell_spmm",
-           "hybrid_spmm", "gather_rows"]
+__all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "coo_spmm",
+           "ell_spmm", "hybrid_spmm", "gather_rows"]
 
 
 def ell_pack(src: np.ndarray, dst: np.ndarray, w: np.ndarray, n_rows: int,
@@ -71,6 +71,15 @@ def ell_pack_hybrid(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
             dst_s[~keep].astype(np.int32), w_s[~keep].astype(np.float32))
 
 
+def ell_row_end(vals: np.ndarray) -> np.ndarray:
+    """One past each ELL row's last live slot (``vals != 0``), 0 for a row
+    without one: int32 ``vals.shape[:-1]``.  The forward kernel reads no
+    slot past it; any pack, whatever the order of its slots."""
+    live = np.asarray(vals) != 0
+    last = live.shape[-1] - np.argmax(live[..., ::-1], axis=-1)
+    return np.where(live.any(-1), last, 0).astype(np.int32)
+
+
 def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
              h: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Edge-list aggregation ``out[..., dst[e], :] += w[e] * h[..., src[e], :]``
@@ -95,7 +104,8 @@ def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 
 
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
-             col_chunk: int | None = None) -> torch.Tensor:
+             col_chunk: int | None = None,
+             row_end: torch.Tensor | None = None) -> torch.Tensor:
     """Blocked-ELL SpMM ``[..., n_rows, d]``, differentiable in ``vals`` and
     ``h`` (:class:`~.ell_spmm.EllSpmmFn`): the CUDA kernels for CUDA
     tensors, the plain versions for CPU tensors.
@@ -103,7 +113,10 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     ``col_chunk`` walks the h rows in chunks of that many rows (the TPU
     kernel's column-chunked variant; the same product).  As in the JAX
     package, a chunk of at least ``n_cols`` rows is the unchunked kernel,
-    and a smaller one must divide ``n_cols``.
+    and a smaller one must divide ``n_cols``.  ``row_end``
+    (:func:`ell_row_end` of ``vals``, on ``h``'s device) spares the kernel
+    the slots past each row's last live one; it is for constant ``vals``
+    and raises ``ValueError`` when ``vals`` needs a gradient.
     """
     if col_chunk is not None:
         n_cols = h.shape[-2]
@@ -114,15 +127,16 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
         elif n_cols % col_chunk:
             raise ValueError(f"n_cols={n_cols} is not a multiple of "
                              f"col_chunk={col_chunk}; pad the h rows")
-    return _ell.EllSpmmFn.apply(cols, vals, h, col_chunk)
+    return _ell.EllSpmmFn.apply(cols, vals, h, col_chunk, row_end)
 
 
 def hybrid_spmm(cols: torch.Tensor, vals: torch.Tensor,
                 tail_src: torch.Tensor, tail_dst: torch.Tensor,
-                tail_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+                tail_w: torch.Tensor, h: torch.Tensor,
+                row_end: torch.Tensor | None = None) -> torch.Tensor:
     """ELL SpMM over the regular part plus the COO tail's ``index_add_``
     (tail padding carries ``tail_dst == n_rows``)."""
-    out = ell_spmm(cols, vals, h)
+    out = ell_spmm(cols, vals, h, row_end=row_end)
     if tail_src.shape[-1]:
         out = out + coo_spmm(tail_src, tail_dst, tail_w, h, cols.shape[-2])
     return out

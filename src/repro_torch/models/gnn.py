@@ -73,6 +73,7 @@ class EllAdj(Adjacency):
     cols: torch.Tensor     # [(P,) n_rows, max_deg] int32 local col ids
     vals: torch.Tensor     # [(P,) n_rows, max_deg] weights (0 at padding)
     n_cols_: int
+    row_end: torch.Tensor | None = None   # [(P,) n_rows] ops.ell_row_end
 
     @property
     def n_rows(self):
@@ -83,7 +84,7 @@ class EllAdj(Adjacency):
         return self.n_cols_
 
     def spmm(self, h):
-        return ops.ell_spmm(self.cols, self.vals, h)
+        return ops.ell_spmm(self.cols, self.vals, h, row_end=self.row_end)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +98,7 @@ class HybridAdj(Adjacency):
     tail_dst: torch.Tensor  # [(P,) mt] inner row ids (n_rows = padding)
     tail_w: torch.Tensor    # [(P,) mt] weights (0 at padding)
     n_cols_: int
+    row_end: torch.Tensor | None = None   # [(P,) n_rows] ops.ell_row_end
 
     @property
     def n_rows(self):
@@ -108,7 +110,8 @@ class HybridAdj(Adjacency):
 
     def spmm(self, h):
         return ops.hybrid_spmm(self.cols, self.vals, self.tail_src,
-                               self.tail_dst, self.tail_w, h)
+                               self.tail_dst, self.tail_w, h,
+                               row_end=self.row_end)
 
 
 # ---------------------------------------------------------------------------

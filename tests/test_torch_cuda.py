@@ -9,7 +9,9 @@ ELL SpMM, its chunked variant and its two backward kernels agree with
 the plain versions within atol 1e-4 / rtol 1e-5 (f32 sums in another
 order; the ``d_h`` kernel's atomics in an order that changes from run to
 run); bf16 ELL SpMM within one bf16 rounding of the output (rtol/atol
-1e-2); the row gather is bit-exact.
+1e-2); the row gather is bit-exact.  The ELL forward is held at every
+vector width (16-, 8-, 4- and 2-byte loads), every stripe it is built
+for, with and without ``row_end``, and on ragged packs.
 """
 import numpy as np
 import pytest
@@ -37,6 +39,88 @@ def _ell(seed, p, n, k, nc, d, pad=0.9):
     vals[rng.random((p, n, k)) < pad] = 0.0
     h = rng.normal(size=(p, nc, d)).astype(np.float32)
     return [torch.from_numpy(a) for a in (cols, vals, h)]
+
+
+def _row_end(vals):
+    return torch.from_numpy(ops.ell_row_end(vals.cpu().numpy())).to(
+        vals.device)
+
+
+def _ell_tol(dtype):
+    return ELL_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 7, 128, 130, 256, 499, 500, 700])
+def test_ell_spmm_every_width(card, d, dtype):
+    """16-byte loads (f32 at d % 4 == 0, bf16 at d % 8 == 0), 8-byte
+    (bf16 at d = 500, f32 at d = 130), 4- and 2-byte scalar edges (d = 7,
+    499), one stripe or several (d = 700), with and without row_end."""
+    cols, vals, h = (t.to(card) for t in _ell(d, 2, 77, 40, 150, d))
+    h = h.to(dtype)
+    want = ref.ell_spmm_ref(cols, vals, h)
+    for row_end in (None, _row_end(vals)):
+        got = ell_spmm.ell_spmm(cols, vals, h, row_end)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (2, 77, d)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_ell_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_spmm_ragged_packs(card, dtype):
+    """Row counts that fill no block of 4 rows, a block with no live slot,
+    a live slot after 37 padding slots of its row, and columns outside
+    [0, n_cols), which contribute nothing."""
+    rng = np.random.default_rng(3)
+    for n in (1, 3, 5, 13):
+        cols, vals, h = (t.to(card) for t in _ell(n, 2, n, 50, 60, 256))
+        h = h.to(dtype)
+        torch.testing.assert_close(
+            ell_spmm.ell_spmm(cols, vals, h, _row_end(vals)).float(),
+            ref.ell_spmm_ref(cols, vals, h).float(), **_ell_tol(dtype))
+    n, k, nc, d = 16, 70, 40, 500
+    cols = torch.from_numpy(rng.integers(0, nc, (1, n, k)).astype(np.int32))
+    vals = torch.zeros((1, n, k))
+    vals[0, 8:, :3] = 1.5          # rows 0-7: two blocks with no live slot
+    vals[0, 9, 37] = -2.0          # a live slot after padding in its row
+    vals[0, 10, 69] = 0.5          # the last slot of a row
+    bad = vals.clone()
+    bad[0, 11, 5], cols[0, 11, 5] = 3.0, -1        # out of range below
+    bad[0, 12, 6], cols[0, 12, 6] = 3.0, nc + 7    # and above
+    h = torch.from_numpy(rng.normal(size=(1, nc, d)).astype(np.float32))
+    want = ref.ell_spmm_ref(cols.clamp(0, nc - 1), vals, h.to(dtype))
+    cols, bad, h = cols.to(card), bad.to(card), h.to(card, dtype)
+    for row_end in (None, _row_end(bad)):
+        got = ell_spmm.ell_spmm(cols, bad, h, row_end)
+        torch.cuda.synchronize()
+        assert not got[0, :8].any()
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   **_ell_tol(dtype))
+
+
+@pytest.mark.parametrize("stripe", [16, 32, 64, 128])
+def test_ell_spmm_every_launch_config(card, stripe, monkeypatch):
+    """Every stripe the kernel is built for, at the widest vector a width
+    allows, in f32 and bf16 (the stripes that ``chip_smoke.py --sweep``
+    times), through the wrapper with ``STRIPE_BYTES`` set to that stripe;
+    a row too narrow for it takes the stripe ``ell_launch_config`` caps it
+    at."""
+    cols, vals, h = (t.to(card) for t in _ell(stripe, 2, 90, 60, 200, 500))
+    row_end = _row_end(vals)
+    for dtype, d in ((torch.float32, 500), (torch.bfloat16, 500),
+                     (torch.float32, 130), (torch.bfloat16, 256)):
+        x = h[..., :d].contiguous().to(dtype)
+        vec = ell_spmm.ell_launch_config(d, x.element_size(), 0)[0]
+        monkeypatch.setattr(ell_spmm, "STRIPE_BYTES",
+                            stripe * vec * x.element_size())
+        _, used = ell_spmm.ell_launch_config(d, x.element_size(), 0)
+        assert used == stripe or stripe // 2 >= d // vec
+        got = ell_spmm.ell_spmm(cols, vals, x, row_end)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(),
+                                   ref.ell_spmm_ref(cols, vals, x).float(),
+                                   **_ell_tol(dtype))
 
 
 @pytest.mark.parametrize("p,n,k,nc,d", [
@@ -80,6 +164,9 @@ def test_chunked_kernel_matches_unchunked(card, p, n, k, nc, d, chunk):
     torch.testing.assert_close(got, ops.ell_spmm(cols, vals, h), **ELL_TOL)
     torch.testing.assert_close(
         got, ref.ell_spmm_chunked_ref(cols, vals, h, chunk), **ELL_TOL)
+    torch.testing.assert_close(
+        ops.ell_spmm(cols, vals, h, col_chunk=chunk, row_end=_row_end(vals)),
+        got, **ELL_TOL)
     with pytest.raises(ValueError, match="multiple of col_chunk"):
         ops.ell_spmm(cols, vals, h, col_chunk=nc - 1)
 
@@ -161,6 +248,26 @@ def test_gather_rows_kernel_bitexact(card, dtype, n_src, n_out, d):
     assert torch.equal(got.view(word), want.view(word))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 500])
+def test_gather_rows_unaligned_and_out_of_range(card, dtype, d):
+    """A src whose base address is one element past an allocation (4- or
+    2-byte words), and indices outside [0, n_src): rows of zero bits."""
+    n_src = 97
+    buf = torch.randn(n_src * d + 1, generator=torch.Generator(device=card)
+                      .manual_seed(d), device=card).to(dtype)
+    src = buf[1:].view(n_src, d)
+    assert src.data_ptr() % 16
+    idx = torch.tensor([5, -1, 96, 0, n_src, 40, -7, n_src + 3, 5],
+                       dtype=torch.int32, device=card)
+    got = ops.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    want = src[idx.long().clamp(0, n_src - 1)].clone()
+    want[(idx < 0) | (idx >= n_src)] = 0
+    word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(word), want.view(word))
+
+
 def test_gather_rows_empty_index_launches_nothing(card):
     src = torch.randn((10, 7), device=card)
     before = cache_gather.gather_rows.launches
@@ -181,6 +288,14 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="1-D int32"):
         cache_gather.gather_rows(h[0], torch.zeros(2, dtype=torch.int64,
                                                    device=card))
+    with pytest.raises(TypeError, match="row_end must be int32"):
+        ell_spmm.ell_spmm(cols, vals, h, torch.zeros((1, 8), device=card))
+    with pytest.raises(ValueError, match="row_end"):   # vals are trained
+        ops.ell_spmm(cols, vals.clone().requires_grad_(True), h,
+                     row_end=_row_end(vals))
+    with pytest.raises(ValueError, match="contiguous"):
+        cache_gather.gather_rows(h[0].t(), torch.zeros(2, dtype=torch.int32,
+                                                       device=card))
 
 
 def test_serve_slice_on_card_matches_cpu(card):

@@ -17,8 +17,9 @@ from repro.kernels.ell_spmm import ell_spmm_pallas
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
-# tests/test_kernels.py's SHAPES (n_rows, max_deg, n_cols, d), plus two
-# ragged shapes that are no multiple of the Pallas blocks
+# tests/test_kernels.py's SHAPES (n_rows, max_deg, n_cols, d), plus ragged
+# shapes that are no multiple of the Pallas blocks, among them the widths
+# at which the CUDA kernel takes scalar (d = 499) and 8-byte (d = 130) loads
 SHAPES = [
     (128, 4, 256, 128),
     (256, 9, 300, 128),
@@ -26,6 +27,8 @@ SHAPES = [
     (128, 1, 64, 128),
     (70, 5, 90, 48),
     (33, 37, 50, 7),
+    (100, 6, 120, 499),
+    (64, 9, 80, 130),
 ]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
