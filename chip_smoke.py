@@ -24,30 +24,35 @@ raises, and the script exits non-zero:
 4. ``main_path`` - the serving slice through ``repro_torch.launch.serve``
    on ``cuda``: GCN 500 -> 256 -> 256 -> 7 over Flickr at scale 1.0 in 4
    METIS partitions with the hybrid backend, then a 2048-query zipf stream.
-   The launch counters are zeroed just before and read just after; the
-   precompute's tables are held against the same pass on the CPU (plain
-   versions, same parameters).
+   The launch counters are zeroed just before and read just after (one ELL
+   forward and one CSR tail launch per layer, no pack built in a
+   wrapper); the precompute's tables are held against the same pass on
+   the CPU (plain versions, same parameters).
 5. ``train`` - the training slice through ``repro_torch.launch.train``'s
    own entry on ``cuda``: the same GCN over Flickr at scale 1.0, 4 METIS
    partitions weighted by the x4 device group, RAPA, JACA, hybrid backend,
    8 epochs of Adam (refresh, 3 cached, pipelined, 3 cached).  Counters
-   zeroed just before and read just after: 3 ELL-forward launches per step
-   and per evaluation, 2 ``d_h`` launches per step, no ``d_vals``.  Losses
-   finite and falling; byte counts equal to the exchange plan's; one
-   refresh step's loss and gradients equal to the CPU's at full scale; an
-   8-step SGD run equal to the CPU's at scale 0.1.
-6. ``kernel`` lines - the ELL forward at d = 500 and 256, the ``d_h`` and
-   ``d_vals`` backward kernels and the column-chunked forward against their
-   plain versions at the training slice's shapes (its hybrid pack), timed
-   as in phase 3.
+   zeroed just before and read just after: 3 ELL-forward and 3 CSR-tail
+   launches per step and per evaluation, 2 CSR ``d_h`` launches per step,
+   no ``d_vals``, no pack built in a wrapper.  Losses finite and falling;
+   byte counts equal to the exchange plan's; one refresh step's loss and
+   gradients equal to the CPU's at full scale; an 8-step SGD run equal to
+   the CPU's at scale 0.1.
+6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
+   as ``d_h`` over the training slice's transposed pack (twice, bit for
+   bit) and as the hybrid tail's forward on both slices' tails, ``d_vals``
+   and the column-chunked forward against their plain versions, timed as
+   in phase 3 beside the routes they replaced (the tail's ``coo_spmm``
+   forward and its autograd backward).
 7. ``kernels`` - every ported kernel with its launches on the main paths,
    its largest error against the plain version and its times.
 
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
 (and the chosen one without ``row_end``) checked against the plain version
-and timed in turns on both slices' packs, and ``ptxas`` lines: each
-kernel's registers, shared memory and spills as ``nvcc -Xptxas -v``
-reports them, with the occupancy they allow.
+and timed in turns on both slices' packs; the CSR kernel's long-row
+threshold ``L`` (64 to 1,024) on the ``d_h`` pack and both tails; and
+``ptxas`` lines: each kernel's registers, shared memory and spills as
+``nvcc -Xptxas -v`` reports them, with the occupancy they allow.
 
 The last line is ``{"ok": true, "device": {...}}``.  TF32 is off for every
 f32 product here, as in the port's entry points.
@@ -100,9 +105,9 @@ F32_FLOP_PER_S = 67e12
 
 ELL_ATOL, ELL_RTOL = 1e-4, 1e-5   # f32 sums in another order than the plain loop
 BF16_TOL = 1e-2                   # one bf16 rounding of the output
+CSR_TOL_OF_MAX = 1e-5             # of the largest magnitude, f32 (csr_tol)
 LOGITS_ATOL = 1e-4                # card pass vs CPU pass of the whole slice
-# training, card vs CPU (same parameters): f32 sums in other orders, the
-# d_h kernel's atomics in an order that changes from run to run
+# training, card vs CPU (same parameters): f32 sums in other orders
 LOSS_ATOL = 1e-5                  # one refresh step at full scale
 # of each gradient's largest magnitude: a ReLU whose input lies within
 # rounding of 0 on one device and not the other passes or drops one
@@ -112,10 +117,14 @@ TRAJ_ATOL = 1e-5                  # 8 SGD steps at scale 0.1
 
 ELL_SOURCE = "src/repro_torch/kernels/csrc/ell_spmm.cu"
 BWD_SOURCE = "src/repro_torch/kernels/csrc/ell_spmm_bwd.cu"
+CSR_SOURCE = "src/repro_torch/kernels/csrc/csr_spmm.cu"
 GATHER_SOURCE = "src/repro_torch/kernels/csrc/gather_rows.cu"
 ELL_REPLACES = "src/repro/kernels/ell_spmm.py:116"
 CHUNK_REPLACES = "src/repro/kernels/ell_spmm.py:154"
 BWD_REPLACES = "src/repro/kernels/ell_spmm.py:80"   # _spmm_vjp.bwd (jnp)
+# hybrid_spmm's segment-sum tail (jnp, no pallas_call): TPU kernel #1's
+# second phase
+TAIL_REPLACES = "src/repro/kernels/ops.py:73"
 GATHER_REPLACES = "src/repro/kernels/cache_gather.py:38"
 
 
@@ -243,6 +252,15 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
+def csr_tol(want: torch.Tensor) -> dict:
+    """The CSR kernel's tolerance: f32 within 1e-5 of the largest magnitude
+    (rows of up to 8,865 entries summed in another order than the plain
+    version's), bf16 within the ELL forward's bf16 tolerance."""
+    if want.dtype == torch.float32:
+        return {"atol": CSR_TOL_OF_MAX * float(want.abs().max()), "rtol": 0.0}
+    return {"atol": BF16_TOL, "rtol": BF16_TOL}
+
+
 def ell_tol(dtype) -> dict:
     return ({"atol": BF16_TOL, "rtol": BF16_TOL} if dtype == torch.bfloat16
             else {})
@@ -348,21 +366,24 @@ def ell_pack_cases(pack: str, sp, gen) -> dict:
 
 # ELL forward launches on the main paths, by pack and width: one precompute
 # pass (layer 0 at d = 500, layers 1-2 at 256) and the 8-epoch training run
-# with its closing evaluation (9 passes of the same three layers)
+# with its closing evaluation (9 passes of the same three layers); the
+# hybrid tail's CSR launches follow the same mix
 ELL_LAUNCH_MIX = {("serve", "f32_500"): 1, ("serve", "f32_256"): 2,
                   ("train", "f32_500"): 9, ("train", "f32_256"): 18}
 
 
-def ell_entry(cases: dict) -> dict:
-    """The ELL forward's kernels-line entry: ``ms``, ``plain_ms``,
-    ``bound_ms`` and ``library_ms`` over one serving precompute pass (as in
-    earlier runs), the training pack's per-launch numbers, and every time
-    weighted by the main paths' launches."""
+def weighted_entry(name: str, source: str, replaces: str,
+                   cases: dict) -> dict:
+    """A kernels-line entry for a kernel timed per pack and width (the ELL
+    forward, the hybrid tail): ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` over one serving precompute pass, the per-launch
+    numbers of both packs, and every time weighted by the main paths'
+    launches."""
     serve = cases["serve"]
 
     def total(key, mix):
         """Sum of launches x time; None where a time is (no library call)."""
-        times = [case[key] for case, _ in mix]
+        times = [case.get(key) for case, _ in mix]
         if None in times:
             return None
         return sum(t * c for t, (_, c) in zip(times, mix))
@@ -370,10 +391,10 @@ def ell_entry(cases: dict) -> dict:
     path_mix = [(cases[p][w], c) for (p, w), c in ELL_LAUNCH_MIX.items()]
     serve_mix = [(cases[p][w], c) for (p, w), c in ELL_LAUNCH_MIX.items()
                  if p == "serve"]
-    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err", "library")
-    return {"name": "ell_spmm", "route": "cuda", "source": ELL_SOURCE,
-            "replaces": ELL_REPLACES,
+    keys = ("kernel_ms", "plain_ms", "library_ms", "old_route_ms",
+            "bound_ms", "bound_by", "max_abs_err", "library")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
             "max_abs_err": max(c["max_abs_err"] for p in cases.values()
                                for c in p.values()),
             "ms": total("kernel_ms", serve_mix),
@@ -387,7 +408,8 @@ def ell_entry(cases: dict) -> dict:
                                for w, c in pc.items()}
                            for p, pc in cases.items()},
             "main_paths_ms": {k: total(k, path_mix) for k in
-                              ("kernel_ms", "library_ms", "bound_ms")},
+                              ("kernel_ms", "library_ms", "old_route_ms",
+                               "bound_ms")},
             "main_paths_mix": {f"{p}/{w}": c
                                for (p, w), c in ELL_LAUNCH_MIX.items()}}
 
@@ -572,7 +594,8 @@ def sweep_ell(packs: dict, gen) -> None:
 def ptxas_report() -> None:
     """Each kernel's registers, shared memory and spills as ``nvcc -Xptxas
     -v`` reports them, and the occupancy its registers allow (4-warp
-    blocks for the ELL forward, 8 for the others)."""
+    blocks for the ELL forward and the CSR long rows' sums, 8 for the
+    others)."""
     from repro_torch.kernels import build
     nvcc = build._nvcc()
     cuda_filt = Path(nvcc).with_name("cu++filt")
@@ -597,7 +620,8 @@ def ptxas_report() -> None:
                 fn = subprocess.run([demangle, fn], capture_output=True,
                                     text=True).stdout.strip() or fn
             regs = int(regs)
-            warps = 4 if name == "ell_spmm" else 8
+            warps = (4 if name == "ell_spmm" or "long_rows" in fn
+                     else 8)
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(32, 65536 // (per_warp * warps))
             emit("ptxas", source=f"csrc/{name}.cu", kernel=fn,
@@ -623,17 +647,23 @@ def hot_batches(engine, args) -> int:
 
 
 def phase_main(args, ctx) -> dict:
-    from repro_torch.kernels import cache_gather as kgather, ell_spmm as kell
+    from repro_torch.kernels import cache_gather as kgather
+    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
     from repro_torch.launch.serve import serve_gnn
     from repro_torch.serve import precompute_embeddings
 
-    kell.ell_spmm.launches = 0
-    kgather.gather_rows.launches = 0
+    counters = {"ell_spmm": kell.ell_spmm,
+                "csr_spmm_tail": kcsr.csr_spmm_accumulate,
+                "csr_spmm_dh": kcsr.csr_spmm,
+                "gather_rows": kgather.gather_rows}
+    for fn in counters.values():
+        fn.launches = 0
+    ops.pack_for_call.builds = 0
     t0 = time.perf_counter()
     report, engine = serve_gnn(args)
     wall_s = time.perf_counter() - t0
-    launches = {"ell_spmm": kell.ell_spmm.launches,
-                "gather_rows": kgather.gather_rows.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["packs_built_for_a_call"] = ops.pack_for_call.builds
 
     cfg, store = engine.cfg, engine.store
     task, ps, xplan, sp = ctx["task"], ctx["ps"], ctx["xplan"], ctx["sp"]
@@ -647,10 +677,12 @@ def phase_main(args, ctx) -> dict:
             raise AssertionError(f"table {i} has non-finite values")
     if report["queries"] != args.queries:
         raise AssertionError(f"served {report['queries']} of {args.queries}")
-    if launches["ell_spmm"] < cfg.num_layers:
-        raise AssertionError(f"ell_spmm launched {launches['ell_spmm']} "
-                             f"times on the main path, want >= "
-                             f"{cfg.num_layers} (one per layer)")
+    # one precompute pass: per layer one ELL forward and one CSR launch over
+    # the COO tail; no backward, and every pack built in make_adj_builder
+    want = {"ell_spmm": cfg.num_layers, "csr_spmm_tail": cfg.num_layers,
+            "csr_spmm_dh": 0, "packs_built_for_a_call": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"serving launches {launches}, want {want}")
     n_hot_batches = hot_batches(engine, args)
     if n_hot_batches == 0 or launches["gather_rows"] < n_hot_batches:
         raise AssertionError(f"gather_rows launched "
@@ -742,7 +774,7 @@ def phase_train() -> tuple[dict, dict]:
     launches on it and its context (stacked layout, plan, runtime)."""
     from repro_torch.core import StalenessController
     from repro_torch.dist import make_sim_runtime, train_capgnn
-    from repro_torch.kernels import ell_spmm as kell
+    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
     from repro_torch.launch.train import build_parser, prepare_train, train_gnn
     from repro_torch.models.gnn import init_gnn
     from repro_torch.optim import adam, sgd
@@ -750,23 +782,29 @@ def phase_train() -> tuple[dict, dict]:
     args = build_parser().parse_args(TRAIN_ARGV)
     counters = {"ell_spmm": kell.ell_spmm,
                 "ell_spmm_chunked": kell.ell_spmm_chunked,
-                "ell_spmm_dh": kell.ell_spmm_dh,
+                "csr_spmm_tail": kcsr.csr_spmm_accumulate,
+                "csr_spmm_dh": kcsr.csr_spmm,
                 "ell_spmm_dvals": kell.ell_spmm_dvals}
     for fn in counters.values():
         fn.launches = 0
+    ops.pack_for_call.builds = 0
     t0 = time.perf_counter()
     out, ctx = train_gnn(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["packs_built_for_a_call"] = ops.pack_for_call.builds
 
     rep, cfg, spec, xplan = ctx["report"], ctx["cfg"], ctx["spec"], ctx["xplan"]
     epochs, layers = args.epochs, cfg.num_layers
-    # each step and the closing evaluation run every layer's forward once;
-    # the backward needs d_h from layer 1 on (layer 0's input is constant)
-    # and d_vals never (the ELL values are constants of the graph)
+    # each step and the closing evaluation run every layer's forward (ELL,
+    # then the tail) once; the backward needs d_h from layer 1 on (layer
+    # 0's input is constant) and d_vals never (the ELL values are constants
+    # of the graph); every pack comes from make_adj_builder
     want = {"ell_spmm": layers * (epochs + 1), "ell_spmm_chunked": 0,
-            "ell_spmm_dh": (layers - 1) * epochs, "ell_spmm_dvals": 0}
+            "csr_spmm_tail": layers * (epochs + 1),
+            "csr_spmm_dh": (layers - 1) * epochs, "ell_spmm_dvals": 0,
+            "packs_built_for_a_call": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
     losses = rep.losses
@@ -856,25 +894,258 @@ def phase_train() -> tuple[dict, dict]:
 # phase 6: the backward kernels and the chunked forward, training shapes
 # ---------------------------------------------------------------------------
 
-def ell_csr_t(cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
-    """The transpose of :func:`ell_csr`'s matrix, ``[P * n_cols,
-    P * n_rows]`` as CSR, for the library yardstick of ``d_h = A^T g``."""
-    n_parts, n_rows, _ = cols.shape
-    live = vals != 0
-    offs = torch.arange(n_parts, device=cols.device)[:, None, None]
-    col = (cols.long() + offs * n_cols)[live]
-    row = (torch.arange(n_rows, device=cols.device)[None, :, None]
-           + offs * n_rows).expand_as(cols)[live]
-    coo = torch.sparse_coo_tensor(torch.stack([col, row]), vals[live],
-                                  size=(n_parts * n_cols, n_parts * n_rows),
-                                  check_invariants=True)
-    return coo.coalesce().to_sparse_csr()
+def pack_csr(pack):
+    """A :class:`~repro_torch.kernels.csr_spmm.CsrPack` as a torch CSR
+    tensor, for the library yardstick ``torch.sparse.mm``."""
+    return torch.sparse_csr_tensor(pack.rowptr.long(), pack.col.long(),
+                                   pack.w, size=(pack.n_rows, pack.n_cols),
+                                   check_invariants=True)
+
+
+def slice_packs(sp, long_row=None) -> dict:
+    """The CSR packs of one slice's stacked layout on the card, as
+    ``make_adj_builder`` builds them: the transposed pack of the whole
+    hybrid adjacency (``dh``), of the ELL slots alone (``dh_ell``, the
+    ``ell`` backend's) and the tail's (``tail``)."""
+    from repro_torch.kernels import ops
+    kw = {} if long_row is None else {"long_row": long_row}
+    ell, dev = sp.ell, torch.device("cuda")
+    n_cols = sp.n_inner_max + sp.n_halo_max
+    tail = (ell.tail_src, ell.tail_dst, ell.tail_w)
+    return {"dh": ops.transpose_csr(ell.cols, ell.vals, n_cols, *tail,
+                                    device=dev, **kw),
+            "dh_ell": ops.transpose_csr(ell.cols, ell.vals, n_cols,
+                                        device=dev, **kw),
+            "tail": ops.tail_csr(*tail, sp.n_inner_max, n_cols, device=dev,
+                                 **kw)}
+
+
+def max_row(pack) -> int:
+    """The most entries in one row of a CSR pack."""
+    return int((pack.rowptr[1:] - pack.rowptr[:-1]).max())
+
+
+def csr_bytes(pack, d: int, elem: int, accumulate: bool) -> float:
+    """Bytes the CSR product needs on these inputs: each entry's col and w
+    once, the row pointers (write mode: every row), each x row an entry
+    names once, and each listed out row written once (read once more when
+    accumulating)."""
+    x_rows = torch.unique(pack.col).numel()
+    out_rows = (pack.n_rows if pack.every_row else
+                pack.short_rows.numel() + pack.long_rows.numel())
+    rowptr = (pack.n_rows + 1) * 4 if not accumulate else 0
+    return float(pack.nnz * 8 + rowptr + x_rows * d * elem
+                 + out_rows * d * elem * (2 if accumulate else 1))
+
+
+def phase_dh(packs, sp, gen) -> dict:
+    """``d_h = A^T g`` through the CSR kernel over the training slice's
+    transposed pack at d = 256 (layers 1 and 2 of a step): against the
+    plain version, twice bit for bit, timed beside ``torch.sparse.mm`` of
+    the same ``A^T``, the route the tail took before (the autograd backward
+    of ``coo_spmm``), the ELL-only pack (the ``ell`` backend's) and the
+    bound; returns the kernels-line entry."""
+    from repro_torch.kernels import csr_spmm as kcsr, ops, ref
+    dev = torch.device("cuda")
+    pack, pack_ell = packs["dh"], packs["dh_ell"]
+    ell = sp.ell
+    n_parts, n_rows, _ = ell.cols.shape
+    n_cols = sp.n_inner_max + sp.n_halo_max
+    d = 256
+    g = torch.randn((n_parts * n_rows, d), generator=gen, device=dev)
+    got = kcsr.csr_spmm(pack, g)
+    again = kcsr.csr_spmm(pack, g)
+    want = ref.csr_spmm_ref(pack, g)
+    err = check_close("csr_spmm_dh", got, want, **csr_tol(want))
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("csr_spmm_dh: two launches differ in their bits")
+    want = ref.csr_spmm_ref(pack_ell, g)
+    err_ell = check_close("csr_spmm_dh (ELL slots)",
+                          kcsr.csr_spmm(pack_ell, g), want, **csr_tol(want))
+    del want
+    csr_t = pack_csr(pack)
+    lib_diff = float((torch.sparse.mm(csr_t, g) - got).abs().max())
+    del got, again
+    # the route the tail's d_h took before: the autograd backward of
+    # coo_spmm's gather and index_add_ (the ELL slots' share went to the
+    # deleted atomic kernel)
+    ts, td, tw = (torch.as_tensor(a, device=dev) for a in
+                  (ell.tail_src, ell.tail_dst, ell.tail_w))
+    x = torch.randn((n_parts, n_cols, d), generator=gen, device=dev,
+                    requires_grad=True)
+    tail_out = ops.coo_spmm(ts.long(), td.long(), tw, x, n_rows)
+    g3 = g.view(n_parts, n_rows, d)
+    t = time_calls({
+        "kernel_ms": lambda: kcsr.csr_spmm(pack, g),
+        "plain_ms": lambda: ref.csr_spmm_ref(pack, g),
+        "library_ms": lambda: torch.sparse.mm(csr_t, g),
+        "old_route_ms": lambda: torch.autograd.grad(tail_out, x, g3,
+                                                    retain_graph=True),
+        "ell_only_ms": lambda: kcsr.csr_spmm(pack_ell, g),
+    }, reps=5)
+    del tail_out, x, csr_t
+    nbytes = csr_bytes(pack, d, 4, accumulate=False)
+    b, by = bound_ms(nbytes, 2.0 * pack.nnz * d)
+    # the deleted atomic kernel's work (ELL slots only) counted over the
+    # live slots: their cols and vals, g and d_h once
+    live = int((torch.as_tensor(ell.vals) != 0).sum())
+    b_ell, _ = bound_ms(live * 8 + g.numel() * 4 + n_parts * n_cols * d * 4,
+                        2.0 * live * d)
+    rec = dict(shape=[pack.n_rows, pack.n_cols, d], nnz=pack.nnz,
+               ell_nnz=pack_ell.nnz, max_row=max_row(pack),
+               long_rows=pack.long_rows.numel(),
+               segments=pack.seg.shape[0], long_row=pack.long_row,
+               max_abs_err=err, ell_only_max_abs_err=err_ell,
+               bit_reproducible=True, library_max_abs_diff=lib_diff,
+               bound_ms=b, bound_by=by, bytes=nbytes,
+               ell_slots_bound_ms=b_ell, **t)
+    emit("kernel", name="csr_spmm_dh", **rec)
+    return {"name": "csr_spmm_dh", "route": "cuda", "source": CSR_SOURCE,
+            "replaces": BWD_REPLACES, "max_abs_err": err,
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": b, "bound_by": by, "library_ms": t["library_ms"],
+            "old_route_ms": t["old_route_ms"], "ell_only_ms": t["ell_only_ms"],
+            "ell_slots_bound_ms": b_ell,
+            "timed_over": f"one launch at d={d} over the training slice's "
+                          "transposed hybrid pack (layers 1 and 2 of a step "
+                          "launch it once each)"}
+
+
+def tail_case(pack_name: str, tail, sp, d: int, dtype, gen) -> dict:
+    """The hybrid tail's forward on one slice's tail at one width: the CSR
+    kernel adding into an output (the ELL kernel's, as on the main path)
+    against its plain version, timed beside ``torch.sparse.mm`` of the
+    tail added to it, the route it replaced (``coo_spmm`` added to it) and
+    the bound."""
+    from repro_torch.kernels import csr_spmm as kcsr, ops, ref
+    dev = torch.device("cuda")
+    ell = sp.ell
+    n_parts, n_rows, _ = ell.cols.shape
+    n_cols = sp.n_inner_max + sp.n_halo_max
+    h = torch.randn((n_parts, n_cols, d), generator=gen,
+                    device=dev).to(dtype)
+    out0 = torch.randn((n_parts * n_rows, d), generator=gen,
+                       device=dev).to(dtype)
+    hf = h.view(-1, d)
+    want = ref.csr_spmm_ref(tail, hf, out0)
+    err = check_close(f"csr_spmm_tail ({dtype})",
+                      kcsr.csr_spmm_accumulate(tail, hf, out0.clone()),
+                      want, **csr_tol(want))
+    ts, td, tw = (torch.as_tensor(a, device=dev) for a in
+                  (ell.tail_src, ell.tail_dst, ell.tail_w))
+    out = out0.clone()
+    fns = {"kernel_ms": lambda: kcsr.csr_spmm_accumulate(tail, hf, out),
+           "plain_ms": lambda: ref.csr_spmm_ref(tail, hf, out0),
+           "old_route_ms": lambda: out0 + ops.coo_spmm(
+               ts.long(), td.long(), tw, h, n_rows).reshape(-1, d)}
+    extra = {}
+    csr = pack_csr(tail)
+    if dtype != torch.float32:
+        csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                      csr.values().to(dtype), size=csr.shape)
+    try:
+        lib = out0 + torch.sparse.mm(csr, hf)
+    except RuntimeError as exc:    # the library may not take bf16 CSR
+        extra["library"] = f"none: {str(exc).splitlines()[0]}"
+    else:
+        extra["library_max_abs_diff"] = float(
+            (lib.float() - want.float()).abs().max())
+        fns["library_ms"] = lambda: out0 + torch.sparse.mm(csr, hf)
+        del lib
+    t = time_calls(fns, reps=5)
+    t.setdefault("library_ms", None)
+    nbytes = csr_bytes(tail, d, h.element_size(), accumulate=True)
+    b, by = bound_ms(nbytes, 2.0 * tail.nnz * d)
+    rec = dict(pack=pack_name, dtype=str(dtype).replace("torch.", ""),
+               shape=[tail.n_rows, tail.n_cols, d], nnz=tail.nnz,
+               tail_rows=tail.short_rows.numel() + tail.long_rows.numel(),
+               max_row=max_row(tail), long_rows=tail.long_rows.numel(),
+               long_row=tail.long_row,
+               max_abs_err=err, bound_ms=b, bound_by=by, bytes=nbytes,
+               **t, **extra)
+    emit("kernel", name="csr_spmm_tail", **rec)
+    return rec
+
+
+def tail_cases(pack_name: str, tail, sp, gen) -> dict:
+    """:func:`tail_case` at the slices' widths: f32 at d = 500 and 256,
+    bf16 at d = 500, keyed as :func:`ell_pack_cases`."""
+    out = {}
+    for dtype, d in ((torch.float32, 500), (torch.float32, 256),
+                     (torch.bfloat16, 500)):
+        key = f"{'f32' if dtype == torch.float32 else 'bf16'}_{d}"
+        out[key] = tail_case(pack_name, tail, sp, d, dtype, gen)
+        torch.cuda.empty_cache()
+    return out
+
+
+SWEEP_LONG_ROWS = (64, 128, 256, 512, 1024)
+
+
+def sweep_csr(slices: dict, gen) -> None:
+    """The CSR kernel's long-row threshold ``L``: for each, the packs
+    rebuilt, ``d_h`` on the training pack at d = 256 and the tail at the
+    main paths' widths on both slices checked against the plain version and
+    timed in turns; one ``sweep`` line per case and one with the total
+    weighted by the main paths' launches."""
+    from repro_torch.kernels import csr_spmm as kcsr, ops, ref
+    dev = torch.device("cuda")
+    xs = {}
+    for name, sp in slices.items():
+        n_parts, n_rows, _ = sp.ell.cols.shape
+        n_cols = sp.n_inner_max + sp.n_halo_max
+        for d in (500, 256):
+            xs[name, d] = (torch.randn((n_parts * n_cols, d), generator=gen,
+                                       device=dev),
+                           torch.zeros((n_parts * n_rows, d), device=dev))
+    g = torch.randn((xs["train", 256][1].shape[0], 256), generator=gen,
+                    device=dev)
+    fns, rows, errs = {}, {}, {}
+    for L in SWEEP_LONG_ROWS:
+        for name, sp in slices.items():
+            packs = slice_packs(sp, L)
+            for d in (500, 256):
+                tail, (h, out) = packs["tail"], xs[name, d]
+                key = f"{L}/{name}_tail_{d}"
+                want = ref.csr_spmm_ref(tail, h, out)
+                errs[key] = check_close(
+                    f"csr_spmm tail L={L}",
+                    kcsr.csr_spmm_accumulate(tail, h, out.clone()), want,
+                    **csr_tol(want))
+                fns[key] = (lambda t=tail, h=h, o=out:
+                            kcsr.csr_spmm_accumulate(t, h, o))
+                rows[key] = (tail.long_rows.numel(), tail.seg.shape[0])
+            if name == "train":
+                dh = packs["dh"]
+                key = f"{L}/train_dh_256"
+                want = ref.csr_spmm_ref(dh, g)
+                errs[key] = check_close(f"csr_spmm d_h L={L}",
+                                        kcsr.csr_spmm(dh, g), want,
+                                        **csr_tol(want))
+                fns[key] = lambda p=dh: kcsr.csr_spmm(p, g)
+                rows[key] = (dh.long_rows.numel(), dh.seg.shape[0])
+    t = time_calls(fns, reps=5)
+    mix = {"serve_tail_500": 1, "serve_tail_256": 2, "train_tail_500": 9,
+           "train_tail_256": 18, "train_dh_256": 16}
+    for L in SWEEP_LONG_ROWS:
+        for case in mix:
+            key = f"{L}/{case}"
+            emit("sweep", name="csr_spmm", long_row=L, case=case, ms=t[key],
+                 max_abs_err=errs[key], long_rows=rows[key][0],
+                 segments=rows[key][1])
+        emit("sweep", name="csr_spmm", long_row=L,
+             main_paths_weighted_ms=sum(c * t[f"{L}/{k}"]
+                                        for k, c in mix.items()),
+             chosen=L == ops.LONG_ROW)
+    del fns, xs
+    torch.cuda.empty_cache()
 
 
 def phase_backward(sp, gen) -> list[dict]:
-    """d_h, d_vals and the chunked forward at the training slice's shapes
-    (its hybrid pack, d = 256, random g and h); returns their kernels-line
-    entries.  (The unchunked forward on this pack: :func:`ell_pack_cases`.)"""
+    """d_vals and the chunked forward at the training slice's shapes (its
+    hybrid pack, d = 256, random g and h); returns their kernels-line
+    entries.  (The unchunked forward on this pack: :func:`ell_pack_cases`;
+    ``d_h``: :func:`phase_dh`.)"""
     from repro_torch.kernels import ell_spmm as kell, ref
     dev = torch.device("cuda")
     cols = torch.as_tensor(sp.ell.cols, device=dev)
@@ -883,63 +1154,52 @@ def phase_backward(sp, gen) -> list[dict]:
     n_cols = sp.n_inner_max + sp.n_halo_max
     d = 256
     live = vals != 0
-    nnz = int(live.sum())
     g = torch.randn((n_parts, n_rows, d), generator=gen, device=dev)
     h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev)
     entries = []
 
-    # d_h = A^T g: the step's backward through layers 1 and 2
-    err = check_close("ell_spmm_dh", kell.ell_spmm_dh(cols, vals, g, n_cols),
-                      ref.ell_spmm_bwd_ref(cols, vals, None, g, n_cols,
-                                           need_vals=False)[1])
-    csr_t = ell_csr_t(cols, vals, n_cols)
-    lib = torch.sparse.mm(csr_t, g.view(-1, d)).view(n_parts, n_cols, d)
-    lib_err = float((lib - kell.ell_spmm_dh(cols, vals, g, n_cols))
-                    .abs().max())
-    del lib
-    t = time_calls({
-        "kernel_ms": lambda: kell.ell_spmm_dh(cols, vals, g, n_cols),
-        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, None, g, n_cols,
-                                                 need_vals=False),
-        "library_ms": lambda: torch.sparse.mm(csr_t, g.view(-1, d)),
-    }, reps=5)
-    nbytes = cols.numel() * 8 + g.numel() * 4 + n_parts * n_cols * d * 4
-    b, by = bound_ms(nbytes, 2.0 * nnz * d)
-    emit("kernel", name="ell_spmm_dh", shape=[n_parts, n_rows, k, n_cols, d],
-         nnz=nnz, max_abs_err=err, library_max_abs_diff=lib_err,
-         bound_ms=b, bound_by=by, bytes=nbytes, **t)
-    entries.append({"name": "ell_spmm_dh", "route": "cuda",
-                    "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-                    "max_abs_err": err, "ms": t["kernel_ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
-                    "library_ms": t["library_ms"],
-                    "timed_over": f"one launch at d={d} (layers 1 and 2 of "
-                                  "a step launch it once each)"})
-    del csr_t
-
     # d_vals: every slot's <g[i], h[cols[i, k]]>, padding slots included
-    err = check_close("ell_spmm_dvals", kell.ell_spmm_dvals(cols, g, h),
+    got = kell.ell_spmm_dvals(cols, g, h)
+    err = check_close("ell_spmm_dvals", got,
                       ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
                                            need_h=False)[0])
-    t = time_calls({
-        "kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
-        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
-                                                 need_h=False),
-    }, reps=5)
+    fns = {"kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
+           "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
+                                                    need_h=False)}
+    # the library yardstick: torch.sparse.sampled_addmm at the live slots'
+    # CSR pattern (it leaves out the padding slots the einsum covers)
+    extra = {}
+    pattern = ell_csr(cols, vals, n_cols)
+    g2, h_t = g.view(-1, d), h.view(-1, d).t()
+    try:
+        lib = torch.sparse.sampled_addmm(pattern, g2, h_t, beta=0.0)
+    except RuntimeError as exc:
+        extra["library"] = f"none: {str(exc).splitlines()[0]}"
+    else:
+        extra["library_max_abs_diff"] = float(
+            (lib.values() - got[live]).abs().max())
+        fns["library_ms"] = lambda: torch.sparse.sampled_addmm(
+            pattern, g2, h_t, beta=0.0)
+        del lib
+    t = time_calls(fns, reps=5)
+    t.setdefault("library_ms", None)
     rows = referenced_rows(cols, torch.ones_like(live), n_cols)
     nbytes = cols.numel() * 4 + g.numel() * 4 + rows * d * 4 + cols.numel() * 4
     b, by = bound_ms(nbytes, 2.0 * cols.numel() * d)
     emit("kernel", name="ell_spmm_dvals",
          shape=[n_parts, n_rows, k, n_cols, d], max_abs_err=err, bound_ms=b,
-         bound_by=by, bytes=nbytes, **t)
+         bound_by=by, bytes=nbytes, **t, **extra)
     entries.append({"name": "ell_spmm_dvals", "route": "cuda",
                     "source": BWD_SOURCE, "replaces": BWD_REPLACES,
                     "max_abs_err": err, "ms": t["kernel_ms"],
                     "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
-                    "library_ms": None,
+                    "library_ms": t["library_ms"],
+                    "library_covers": "the live slots only "
+                                      "(torch.sparse.sampled_addmm)",
                     "timed_over": f"one launch at d={d}, every slot (on no "
                                   "path of the slice: the ELL values are "
                                   "constants)"})
+    del pattern, got
 
     # the column-chunked forward, h rows padded to a multiple of COL_CHUNK;
     # timed with the pack's row_end, as the unchunked kernel beside it
@@ -991,6 +1251,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sweep", action="store_true",
                    help="time every feature stripe of the ELL forward and "
+                        "every long-row threshold of the CSR kernel, and "
                         "print ptxas's report of every kernel")
     return p.parse_args(argv)
 
@@ -1027,9 +1288,20 @@ def main(argv=None) -> None:
     del tctx["runtime"]
     torch.cuda.empty_cache()
     ell_cases["train"] = ell_pack_cases("train", tctx["sp"], gen)
+    slices = {"serve": sp, "train": tctx["sp"]}
+    packs = {name: slice_packs(s) for name, s in slices.items()}
+    tails = {name: tail_cases(name, packs[name]["tail"], s, gen)
+             for name, s in slices.items()}
+    dh = phase_dh(packs["train"], tctx["sp"], gen)
+    del packs
+    torch.cuda.empty_cache()
     if opts.sweep:
-        sweep_ell({"serve": sp, "train": tctx["sp"]}, gen)
-    entries = [ell_entry(ell_cases), gather] + phase_backward(tctx["sp"], gen)
+        sweep_ell(slices, gen)
+        sweep_csr(slices, gen)
+    entries = [weighted_entry("ell_spmm", ELL_SOURCE, ELL_REPLACES,
+                              ell_cases), gather, dh,
+               weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,
+                              tails)] + phase_backward(tctx["sp"], gen)
     # launches: the serving path's plus the training path's
     by_path = {"serve": serve_launches, "train": train_launches}
     for e in entries:

@@ -6,8 +6,9 @@ inter-worker exchange is gather/scatter index arithmetic over the stacked
 inner matrix, compiled by :func:`repro_torch.dist.exchange.build_exchange_plan`.
 The JAX package's ``vmap`` over partitions is the explicit batch: one
 aggregation call per layer covers all P partitions (with ``ell`` or
-``hybrid`` on the card, one ELL-SpMM kernel launch forward and, from
-layer 1 on, one ``d_h`` kernel launch backward).
+``hybrid`` on the card, one ELL-SpMM kernel launch forward, for
+``hybrid`` one CSR kernel launch over the COO tail, and, from layer 1
+on, one CSR kernel launch backward for ``d_h``).
 
 Three step flavours (paper §4.2/§4.3), the same numerics as the reference:
 
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core.staleness import StalenessController
-from ..kernels.ops import ell_row_end
+from ..kernels.ops import ell_row_end, tail_csr, transpose_csr
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, accuracy, cross_entropy_loss,
                           init_gnn)
@@ -149,12 +150,17 @@ def check_backend(sp: StackedParts, backend: str) -> None:
             f"stack_partitions(ps, task, backend={backend!r})")
 
 
-def make_adj_builder(sp: StackedParts, backend: str, device="cpu"):
+def make_adj_builder(sp: StackedParts, backend: str, device="cpu",
+                     grad: bool = True):
     """Return ``(leaves, build)``: ``leaves`` is a dict of the stacked
-    ``[P, ...]`` aggregation tensors on ``device``, and ``build(leaves)``
-    the :class:`~repro_torch.models.gnn.Adjacency` over all P partitions
-    at once.
+    ``[P, ...]`` aggregation tensors on ``device`` (and, for ``ell`` and
+    ``hybrid``, the CSR packs the kernels walk), and ``build(leaves)`` the
+    :class:`~repro_torch.models.gnn.Adjacency` over all P partitions at
+    once.
 
+    The packs are built here once, never per step: ``row_end``, the
+    hybrid tail's CSR (``tail_pack``) and, when ``grad`` asks for the
+    backward, the transposed CSR of the whole adjacency (``dh_pack``).
     Every backend aggregates over the identical edge set (the packs are
     built from the same remapped edge lists at stack time), so the backend
     changes the kernel only, not the logits.
@@ -172,25 +178,31 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cpu"):
 
         def build(lv):
             return EdgeListAdj(lv["src"], lv["dst"], lv["w"], ni, ni + nh)
-    elif backend == "ell":
-        leaves = {"cols": put(sp.ell.cols, torch.int32),
-                  "vals": put(sp.ell.vals, torch.float32),
-                  "row_end": put(ell_row_end(sp.ell.vals), torch.int32)}
+        return leaves, build
 
+    ell = sp.ell
+    leaves = {"cols": put(ell.cols, torch.int32),
+              "vals": put(ell.vals, torch.float32),
+              "row_end": put(ell_row_end(ell.vals), torch.int32)}
+    tail = ((ell.tail_src, ell.tail_dst, ell.tail_w) if backend == "hybrid"
+            else ())
+    leaves["dh_pack"] = (transpose_csr(ell.cols, ell.vals, ni + nh, *tail,
+                                       device=device) if grad else None)
+    if backend == "ell":
         def build(lv):
-            return EllAdj(lv["cols"], lv["vals"], ni + nh, lv["row_end"])
-    else:  # hybrid
-        leaves = {"cols": put(sp.ell.cols, torch.int32),
-                  "vals": put(sp.ell.vals, torch.float32),
-                  "row_end": put(ell_row_end(sp.ell.vals), torch.int32),
-                  "tail_src": put(sp.ell.tail_src, torch.int64),
-                  "tail_dst": put(sp.ell.tail_dst, torch.int64),
-                  "tail_w": put(sp.ell.tail_w, torch.float32)}
+            return EllAdj(lv["cols"], lv["vals"], ni + nh, lv["row_end"],
+                          lv["dh_pack"])
+        return leaves, build
 
-        def build(lv):
-            return HybridAdj(lv["cols"], lv["vals"], lv["tail_src"],
-                             lv["tail_dst"], lv["tail_w"], ni + nh,
-                             lv["row_end"])
+    leaves.update(tail_src=put(ell.tail_src, torch.int64),
+                  tail_dst=put(ell.tail_dst, torch.int64),
+                  tail_w=put(ell.tail_w, torch.float32),
+                  tail_pack=tail_csr(*tail, ni, ni + nh, device=device))
+
+    def build(lv):
+        return HybridAdj(lv["cols"], lv["vals"], lv["tail_src"],
+                         lv["tail_dst"], lv["tail_w"], ni + nh,
+                         lv["row_end"], lv["tail_pack"], lv["dh_pack"])
     return leaves, build
 
 

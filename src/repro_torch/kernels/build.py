@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ell_spmm", "ell_spmm_bwd", "gather_rows")
+SOURCES = ("ell_spmm", "ell_spmm_bwd", "csr_spmm", "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,5 @@
 """Blocked-ELL SpMM on the card: the wrappers of ``csrc/ell_spmm.cu`` and
-``csrc/ell_spmm_bwd.cu``, and the autograd Function over them.
+``csrc/ell_spmm_bwd.cu``.
 
 - :func:`ell_spmm` — the forward kernel, f32 or bf16 ``h`` (f32 sums,
   output in ``h``'s type); it replaces the JAX package's Pallas TPU kernel
@@ -7,19 +7,18 @@
 - :func:`ell_spmm_chunked` — the same product walked in ``col_chunk``-row
   chunks of ``h``, replacing that kernel's ``chunk_kernel`` (the same
   CUDA kernel with chunks);
-- :func:`ell_spmm_dh` and :func:`ell_spmm_dvals` — the backward kernels,
-  replacing the custom VJP's ``_spmm_vjp.bwd`` (a jnp scatter and einsum
-  in the JAX package);
-- :class:`EllSpmmFn` — the differentiable product: the kernels for CUDA
-  tensors, the plain versions of :mod:`.ref` for CPU tensors;
+- :func:`ell_spmm_dvals` — the values' cotangent of the custom VJP's
+  ``_spmm_vjp.bwd`` (a jnp einsum in the JAX package).  Its ``d_h = A^T g``
+  is the CSR kernel over the transposed pack (:mod:`.csr_spmm`);
 - :func:`ell_launch_config` — the forward kernel's vector width and
-  stripe for a row width, chosen on the host.
+  stripe for a row width, chosen on the host (the CSR kernel takes the
+  same).
 
-The forward takes an optional ``row_end`` ``[P, n_rows]`` int32, one past
-each row's last live slot (:func:`~.ops.ell_row_end` of the constant
-pack): the kernel reads no slot past it.  Without it every slot is read.
-The bound holds only while ``vals`` stays as it was: :class:`EllSpmmFn`
-refuses ``row_end`` when ``vals`` needs a gradient.
+The differentiable products over these kernels are the autograd Functions
+of :mod:`.ops`.  The forward takes an optional ``row_end`` ``[P, n_rows]``
+int32, one past each row's last live slot (:func:`~.ops.ell_row_end` of
+the constant pack): the kernel reads no slot past it.  Without it every
+slot is read.
 
 The sources say what bounds each kernel on the H100 and what the design
 does about it.  Each wrapper checks its operands, launches on the current
@@ -33,14 +32,13 @@ import ctypes
 import torch
 
 from . import build
-from . import ref as _ref
 
-__all__ = ["ell_spmm", "ell_spmm_chunked", "ell_spmm_dh", "ell_spmm_dvals",
-           "EllSpmmFn", "ell_launch_config"]
+__all__ = ["ell_spmm", "ell_spmm_chunked", "ell_spmm_dvals",
+           "ell_launch_config"]
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# backward: (cols, vals|g, in, out, n_parts, n_rows, k, n_cols, d,
-#            strides x3, device, stream)
+# d_vals: (cols, g, h, d_vals, n_parts, n_rows, k, n_cols, d, strides x3,
+#         device, stream)
 _ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_I64] * 3 + [_INT, _PTR]
 # forward: (cols, vals, row_end, h, out, n_parts, n_rows, k, n_cols, d,
 #           col_chunk, strides x3, vec, stripe_vectors, device, stream)
@@ -190,7 +188,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,
     launch).  ``h`` is f32 or bf16; sums are f32 and the output has
     ``h``'s type.  Padding slots carry ``vals == 0``; ``row_end`` (see the
     module) bounds the slots read.  Not differentiable (see
-    :class:`EllSpmmFn`)."""
+    :class:`~.ops.EllSpmmFn`)."""
     out, launched = _forward(cols, vals, h, None, row_end)
     ell_spmm.launches += int(launched)
     return out
@@ -210,32 +208,6 @@ def ell_spmm_chunked(cols: torch.Tensor, vals: torch.Tensor,
     out, launched = _forward(cols, vals, h, col_chunk, row_end)
     ell_spmm_chunked.launches += int(launched)
     return out
-
-
-def ell_spmm_dh(cols: torch.Tensor, vals: torch.Tensor, g: torch.Tensor,
-                n_cols: int) -> torch.Tensor:
-    """``d_h = A^T g``: ``d_h[..., c, :] = sum vals[..., i, k] * g[..., i, :]``
-    over the slots with ``cols[..., i, k] == c``, f32, ``[..., n_cols, d]``.
-    Atomic sums: the result is not bit-reproducible run to run."""
-    batched = g.dim() == 3
-    if not batched:
-        cols, vals, g = _stacked(cols, vals, g)
-    _check("ell_spmm_dh", {"cols": cols, "vals": vals, "g": g}, g.device)
-    _check_pack("ell_spmm_dh", cols, vals, g, "g", dense_rows_match=True)
-    if g.dtype != torch.float32:
-        raise TypeError(f"ell_spmm_dh kernel: g must be float32, "
-                        f"got {g.dtype}")
-    n_parts, n_rows, k = cols.shape
-    d = g.shape[2]
-    dh = torch.zeros((n_parts, n_cols, d), dtype=torch.float32,
-                     device=g.device)
-    if n_rows * k and d and n_cols:
-        fn = _entry("ell_spmm_bwd", "ell_spmm_dh_f32", _ARGTYPES)
-        _launch(fn, g.get_device(), cols.data_ptr(), vals.data_ptr(),
-                g.data_ptr(), dh.data_ptr(), n_parts, n_rows, k, n_cols, d,
-                n_rows * k, n_rows * d, n_cols * d)
-        ell_spmm_dh.launches += 1
-    return dh if batched else dh[0]
 
 
 def ell_spmm_dvals(cols: torch.Tensor, g: torch.Tensor,
@@ -267,60 +239,6 @@ def ell_spmm_dvals(cols: torch.Tensor, g: torch.Tensor,
     return dvals if batched else dvals[0]
 
 
-for _fn in (ell_spmm, ell_spmm_chunked, ell_spmm_dh, ell_spmm_dvals):
+for _fn in (ell_spmm, ell_spmm_chunked, ell_spmm_dvals):
     _fn.launches = 0
 
-
-class EllSpmmFn(torch.autograd.Function):
-    """Differentiable blocked-ELL SpMM, ``EllSpmmFn.apply(cols, vals, h,
-    col_chunk, row_end)``, for 2-D operands or a ``[P, ...]`` stack.
-
-    Dispatch goes by the device of ``h``: the CUDA kernels for CUDA
-    tensors, the plain versions of :mod:`.ref` for CPU tensors.  The
-    backward mirrors the JAX package's ``_spmm_vjp.bwd``: ``d_h = A^T g``
-    and ``d_vals[i, k] = <g[i], h[cols[i, k]]>``, each computed only when
-    ``ctx.needs_input_grad`` asks for it, cast to the input's dtype; the
-    ``cols`` cotangent is ``None``.  ``row_end`` only bounds the slots the
-    forward kernel reads; the plain versions need no bound.  It is computed
-    once from constant ``vals``, so it is refused (``ValueError``, on both
-    devices) when ``vals`` needs a gradient: a trained padding slot past it
-    would be skipped on the card and counted on the CPU.
-    """
-
-    @staticmethod
-    def forward(ctx, cols, vals, h, col_chunk=None, row_end=None):
-        if row_end is not None and ctx.needs_input_grad[1]:
-            raise ValueError("ell_spmm: row_end bounds the slots of constant "
-                             "vals; pass no row_end when vals needs a "
-                             "gradient")
-        # h is needed only for d_vals: a training step whose vals are
-        # constants keeps no layer input alive for the backward
-        ctx.save_for_backward(cols, vals,
-                              h if ctx.needs_input_grad[1] else None)
-        ctx.h_meta = (h.shape[-2], h.dtype)
-        if h.device.type == "cpu":
-            if col_chunk is None:
-                return _ref.ell_spmm_ref(cols, vals, h)
-            return _ref.ell_spmm_chunked_ref(cols, vals, h, col_chunk)
-        if col_chunk is None:
-            return ell_spmm(cols, vals, h, row_end)
-        return ell_spmm_chunked(cols, vals, h, col_chunk, row_end)
-
-    @staticmethod
-    def backward(ctx, g):
-        cols, vals, h = ctx.saved_tensors
-        n_cols, h_dtype = ctx.h_meta
-        need_vals, need_h = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
-        g32 = g.float().contiguous()
-        if g.device.type == "cpu":
-            d_vals, d_h = _ref.ell_spmm_bwd_ref(cols, vals, h, g32, n_cols,
-                                                need_vals, need_h)
-        else:
-            d_vals = (ell_spmm_dvals(cols, g32, h.float().contiguous())
-                      if need_vals else None)
-            d_h = (ell_spmm_dh(cols, vals, g32, n_cols) if need_h else None)
-        if d_vals is not None:
-            d_vals = d_vals.to(vals.dtype)
-        if d_h is not None:
-            d_h = d_h.to(h_dtype)
-        return None, d_vals, d_h, None, None

@@ -9,7 +9,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
-           "gather_rows_ref"]
+           "csr_spmm_ref", "gather_rows_ref"]
+
+_CSR_CHUNK = 1 << 16   # entries per index_add_ in csr_spmm_ref
 
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -101,6 +103,29 @@ def ell_spmm_bwd_ref(cols: torch.Tensor, vals: torch.Tensor,
         d_h = flat.view(n_parts, n_cols, d)
         d_h = d_h if batched else d_h[0]
     return d_vals, d_h
+
+
+def csr_spmm_ref(pack, x: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """``A x`` for a :class:`~.csr_spmm.CsrPack` ``A`` and ``x``
+    ``[pack.n_cols, d]``, or ``out + A x`` when ``out`` is given (a new
+    tensor), with f32 sums and one rounding to ``x``'s dtype: what the
+    kernel's write and accumulate modes compute.  ``index_add_`` over
+    chunks of entries, so ``[nnz, d]`` is never built whole (1.3 GB on the
+    serving slice's tail at d = 500)."""
+    rows = torch.repeat_interleave(
+        torch.arange(pack.n_rows, device=x.device),
+        (pack.rowptr[1:] - pack.rowptr[:-1]).long())
+    col = pack.col.long()
+    x32 = x.float()
+    acc = torch.zeros((pack.n_rows, x.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for lo in range(0, pack.nnz, _CSR_CHUNK):
+        hi = lo + _CSR_CHUNK
+        acc.index_add_(0, rows[lo:hi], pack.w[lo:hi, None] * x32[col[lo:hi]])
+    if out is not None:
+        acc = out.float() + acc
+    return acc.to(x.dtype)
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

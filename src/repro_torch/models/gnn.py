@@ -69,11 +69,12 @@ class EdgeListAdj(Adjacency):
 @dataclasses.dataclass(frozen=True)
 class EllAdj(Adjacency):
     """Blocked-ELL adjacency backed by the ELL-SpMM kernel (differentiable:
-    its backward is the ``d_h`` kernel on the card)."""
+    its ``d_h`` is the CSR kernel over ``dh_pack`` on the card)."""
     cols: torch.Tensor     # [(P,) n_rows, max_deg] int32 local col ids
     vals: torch.Tensor     # [(P,) n_rows, max_deg] weights (0 at padding)
     n_cols_: int
     row_end: torch.Tensor | None = None   # [(P,) n_rows] ops.ell_row_end
+    dh_pack: ops.CsrPack | None = None    # ops.transpose_csr
 
     @property
     def n_rows(self):
@@ -84,14 +85,17 @@ class EllAdj(Adjacency):
         return self.n_cols_
 
     def spmm(self, h):
-        return ops.ell_spmm(self.cols, self.vals, h, row_end=self.row_end)
+        return ops.ell_spmm(self.cols, self.vals, h, row_end=self.row_end,
+                            dh_pack=self.dh_pack)
 
 
 @dataclasses.dataclass(frozen=True)
 class HybridAdj(Adjacency):
     """Hybrid blocked-ELL + COO-tail adjacency: the ELL-SpMM kernel over
-    the regular part, ``index_add_`` over the overflow tail.  Padded tail
-    entries carry ``tail_dst == n_rows``."""
+    the regular part, the CSR kernel over the overflow tail (``tail_pack``)
+    added into it, and one CSR kernel over the transposed whole
+    (``dh_pack``) for ``d_h``.  Padded tail entries carry
+    ``tail_dst == n_rows``."""
     cols: torch.Tensor      # [(P,) n_rows, max_deg] int32 local col ids
     vals: torch.Tensor      # [(P,) n_rows, max_deg] weights (0 at padding)
     tail_src: torch.Tensor  # [(P,) mt] local col ids
@@ -99,6 +103,8 @@ class HybridAdj(Adjacency):
     tail_w: torch.Tensor    # [(P,) mt] weights (0 at padding)
     n_cols_: int
     row_end: torch.Tensor | None = None   # [(P,) n_rows] ops.ell_row_end
+    tail_pack: ops.CsrPack | None = None  # ops.tail_csr
+    dh_pack: ops.CsrPack | None = None    # ops.transpose_csr with the tail
 
     @property
     def n_rows(self):
@@ -111,7 +117,9 @@ class HybridAdj(Adjacency):
     def spmm(self, h):
         return ops.hybrid_spmm(self.cols, self.vals, self.tail_src,
                                self.tail_dst, self.tail_w, h,
-                               row_end=self.row_end)
+                               row_end=self.row_end,
+                               tail_pack=self.tail_pack,
+                               dh_pack=self.dh_pack)
 
 
 # ---------------------------------------------------------------------------

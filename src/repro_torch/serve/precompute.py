@@ -13,7 +13,8 @@ raw input features, layers ``1..L-1`` = post-activation hidden states) and
 
 The pass runs eagerly over the explicit ``[P, ...]`` batch: one
 aggregation call per layer covers all P partitions (with ``ell`` or
-``hybrid`` on the card, one ELL-SpMM kernel launch).  Saving and loading a
+``hybrid`` on the card, one ELL-SpMM kernel launch, and for ``hybrid``
+one CSR kernel launch over the COO tail).  Saving and loading a
 store come with the checkpoint slice.
 """
 from __future__ import annotations
@@ -73,7 +74,7 @@ def precompute_embeddings(cfg: GNNConfig, ps: PartitionSet, sp: StackedParts,
     layers = cfg.num_layers
     feats = torch.as_tensor(sp.feats, device=device)
     halo_feats = torch.as_tensor(sp.halo_feats, device=device)
-    adj_leaves, build_adj = make_adj_builder(sp, backend, device)
+    adj_leaves, build_adj = make_adj_builder(sp, backend, device, grad=False)
     adj = build_adj(adj_leaves)
     un_d = _tier_dict(xplan.uncached, device)
     loc_d = _tier_dict(xplan.local, device)

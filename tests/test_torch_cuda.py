@@ -5,19 +5,23 @@ NVIDIA GPU with ``nvcc`` and skip without one.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-ELL SpMM, its chunked variant and its two backward kernels agree with
-the plain versions within atol 1e-4 / rtol 1e-5 (f32 sums in another
-order; the ``d_h`` kernel's atomics in an order that changes from run to
-run); bf16 ELL SpMM within one bf16 rounding of the output (rtol/atol
-1e-2); the row gather is bit-exact.  The ELL forward is held at every
-vector width (16-, 8-, 4- and 2-byte loads), every stripe it is built
-for, with and without ``row_end``, and on ragged packs.
+ELL SpMM, its chunked variant, its ``d_vals`` kernel and the CSR kernel
+(``d_h`` and the hybrid tail) agree with the plain versions within atol
+1e-4 / rtol 1e-5 (f32 sums in another order, fixed from run to run: two
+``d_h`` launches give the same bits); bf16 within one bf16 rounding of
+the output (rtol/atol 1e-2); the row gather is bit-exact.  The ELL
+forward is held at every vector width (16-, 8-, 4- and 2-byte loads),
+every stripe it is built for, with and without ``row_end``, and on ragged
+packs; the CSR kernel on short rows only, long rows only and both, in
+both modes, f32 and bf16, at unaligned base addresses.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cache_gather, ell_spmm, ops, ref
+import dataclasses
+
+from repro_torch.kernels import cache_gather, csr_spmm, ell_spmm, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +52,14 @@ def _row_end(vals):
 
 def _ell_tol(dtype):
     return ELL_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+
+
+def _csr_tol(want):
+    """f32: within 1e-5 of the largest magnitude (rows of up to 3,000
+    entries summed in another order); bf16: one bf16 rounding."""
+    if want.dtype == torch.float32:
+        return dict(rtol=0.0, atol=1e-5 * float(want.abs().max()))
+    return dict(rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -178,18 +190,20 @@ def test_backward_kernels_match_plain(card, p, n, k, nc, d):
     cols, vals, h = (t.to(card) for t in _ell(p * n + d + 1, p, n, k, nc, d))
     g = torch.randn((p, n, d), generator=torch.Generator(device=card)
                     .manual_seed(d), device=card)
-    b_dh, b_dv = ell_spmm.ell_spmm_dh.launches, ell_spmm.ell_spmm_dvals.launches
-    dh = ell_spmm.ell_spmm_dh(cols, vals, g, nc)
+    b_dh, b_dv = csr_spmm.csr_spmm.launches, ell_spmm.ell_spmm_dvals.launches
+    pack = ops.transpose_csr(cols, vals, nc, long_row=16, device=card)
+    dh = csr_spmm.csr_spmm(pack, g.view(-1, d)).view(p, nc, d)
     dv = ell_spmm.ell_spmm_dvals(cols, g, h)
     want_dv, want_dh = ref.ell_spmm_bwd_ref(cols, vals, h, g, nc)
     torch.cuda.synchronize()
-    assert ell_spmm.ell_spmm_dh.launches == b_dh + 1
+    assert csr_spmm.csr_spmm.launches == b_dh + 1
     assert ell_spmm.ell_spmm_dvals.launches == b_dv + 1
     torch.testing.assert_close(dh, want_dh, **ELL_TOL)
     torch.testing.assert_close(dv, want_dv, **ELL_TOL)
     # one partition, unstacked 2-D operands
-    torch.testing.assert_close(ell_spmm.ell_spmm_dh(cols[0], vals[0], g[0], nc),
-                               want_dh[0], **ELL_TOL)
+    pack0 = ops.transpose_csr(cols[0], vals[0], nc, device=card)
+    torch.testing.assert_close(csr_spmm.csr_spmm(pack0, g[0]), want_dh[0],
+                               **ELL_TOL)
     torch.testing.assert_close(ell_spmm.ell_spmm_dvals(cols[0], g[0], h[0]),
                                want_dv[0], **ELL_TOL)
 
@@ -225,9 +239,130 @@ def test_hybrid_spmm_on_card_matches_cpu(card):
     ts = torch.from_numpy(rng.integers(0, 80, (2, 50)))
     td = torch.from_numpy(rng.integers(0, 61, (2, 50)))   # 60 = padding
     tw = torch.from_numpy(rng.normal(size=(2, 50)).astype(np.float32))
-    want = ops.hybrid_spmm(cols, vals, ts, td, tw, h)
-    got = ops.hybrid_spmm(*(t.to(card) for t in (cols, vals, ts, td, tw, h)))
-    torch.testing.assert_close(got.cpu(), want, **ELL_TOL)
+    g = torch.from_numpy(rng.normal(size=(2, 60, 24)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", card):
+        x = h.to(dev).detach().requires_grad_(True)
+        out = ops.hybrid_spmm(*(t.to(dev) for t in (cols, vals, ts, td, tw)),
+                              x)
+        out.backward(g.to(dev))
+        res[str(dev)] = (out.detach().cpu(), x.grad.cpu())
+    for got, want in zip(res[str(card)], res["cpu"]):
+        torch.testing.assert_close(got, want, **ELL_TOL)
+
+
+def _csr_case(classes, every_row, seed=0):
+    """A CSR pack whose listed rows are all short, all long, or both (the
+    threshold is 8 entries), with one row of 3,000 entries among the long
+    ones; empty rows too."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = 70, 500
+    if classes == "short":
+        lens = rng.integers(0, 9, n_rows)
+    elif classes == "long":
+        lens = rng.integers(9, 60, n_rows)
+        lens[5] = 3000
+        lens[7] = 0 if not every_row else lens[7]
+    else:
+        lens = rng.integers(0, 40, n_rows)
+        lens[5] = 3000
+    rows = np.repeat(np.arange(n_rows), lens)
+    cols = rng.integers(0, n_cols, rows.size)
+    return ops.csr_pack(rows, cols, rng.normal(size=rows.size), n_rows,
+                        n_cols, every_row=every_row, long_row=8)
+
+
+def _offset(t, card, offset):
+    """``t`` on the card at a base address ``offset`` elements into its
+    allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=card)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("classes", ["short", "long", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 256, 500])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_csr_spmm_matches_plain(card, classes, dtype, d, accumulate):
+    """Both modes at every row class, vector width and feature stripe
+    count, aligned and one element past the base address."""
+    pack = _csr_case(classes, every_row=not accumulate, seed=d).to(card)
+    assert (pack.long_rows.numel() > 0) == (classes != "short")
+    assert (pack.short_rows.numel() > 0) == (classes != "long")
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(pack.n_cols, d)).astype(
+        np.float32)).to(card, dtype)
+    out0 = torch.from_numpy(rng.normal(size=(pack.n_rows, d)).astype(
+        np.float32)).to(card, dtype)
+    for offset in (0, 1):
+        xo = _offset(x, card, offset)
+        if accumulate:
+            want = ref.csr_spmm_ref(pack, x, out0)
+            before = csr_spmm.csr_spmm_accumulate.launches
+            got = csr_spmm.csr_spmm_accumulate(pack, xo,
+                                               _offset(out0, card, offset))
+            assert csr_spmm.csr_spmm_accumulate.launches == before + 1
+        else:
+            want = ref.csr_spmm_ref(pack, x)
+            before = csr_spmm.csr_spmm.launches
+            got = csr_spmm.csr_spmm(pack, xo)
+            assert csr_spmm.csr_spmm.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (pack.n_rows, d)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_csr_tol(want))
+
+
+def test_dh_is_bit_reproducible(card):
+    """Two backward passes of the hybrid product over its transposed pack
+    give the same bits (no atomics), and agree with the CPU's."""
+    cols, vals, h = _ell(9, 2, 300, 40, 500, 256, pad=0.5)
+    rng = np.random.default_rng(9)
+    ts = torch.from_numpy(rng.integers(0, 500, (2, 4000)))
+    td = torch.from_numpy(np.minimum(rng.zipf(1.3, (2, 4000)) - 1, 300))
+    tw = torch.from_numpy(rng.normal(size=(2, 4000)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 300, 256)).astype(np.float32))
+    dh_pack = ops.transpose_csr(cols, vals, 500, ts, td, tw, long_row=16,
+                                device=card)
+    tail_pack = ops.tail_csr(ts, td, tw, 300, 500, device=card)
+    assert dh_pack.long_rows.numel() and tail_pack.long_rows.numel()
+    grads = []
+    for _ in range(2):
+        x = h.to(card).requires_grad_(True)
+        ops.hybrid_spmm(*(t.to(card) for t in (cols, vals, ts, td, tw)), x,
+                        tail_pack=tail_pack, dh_pack=dh_pack).backward(
+                            g.to(card))
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0].view(torch.int32), grads[1].view(torch.int32))
+    x = h.clone().requires_grad_(True)
+    ops.hybrid_spmm(cols, vals, ts, td, tw, x).backward(g)
+    torch.testing.assert_close(grads[0].cpu(), x.grad,
+                               **_csr_tol(x.grad))
+
+
+def test_csr_wrappers_refuse_what_they_do_not_take(card):
+    pack = _csr_case("mixed", every_row=True).to(card)
+    x = torch.zeros((pack.n_cols, 8), device=card)
+    out = torch.zeros((pack.n_rows, 8), device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        csr_spmm.csr_spmm(pack, x.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        csr_spmm.csr_spmm_accumulate(pack, x, out.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="int32"):
+        csr_spmm.csr_spmm(dataclasses.replace(pack, col=pack.col.long()), x)
+    with pytest.raises(ValueError, match="int32"):
+        csr_spmm.csr_spmm(dataclasses.replace(pack, n_cols=2 ** 31), x)
+    with pytest.raises(ValueError, match=r"x \["):
+        csr_spmm.csr_spmm(pack, x[:-1])
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        csr_spmm.csr_spmm(pack, x.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        csr_spmm.csr_spmm_accumulate(pack, x, out.t().contiguous().t())
+    with pytest.raises(ValueError, match="every row"):
+        csr_spmm.csr_spmm(_csr_case("mixed", every_row=False).to(card), x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -301,13 +436,22 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(card):
 def test_serve_slice_on_card_matches_cpu(card):
     """The serving slice at a small size: the card's precompute tables
     equal the CPU's (same parameters) within 1e-5, and the served stream's
-    counts are equal."""
+    counts are equal; the precompute launches the ELL and tail kernels
+    once per layer and builds no pack."""
     from repro_torch.launch.serve import build_parser, serve_gnn
 
     argv = ["gnn", "--scale", "0.02", "--feat-dim", "32", "--hidden", "32",
             "--backend", "hybrid", "--queries", "300", "--qps", "2000"]
+    counters = (ell_spmm.ell_spmm, csr_spmm.csr_spmm_accumulate,
+                csr_spmm.csr_spmm)
+    counts = [fn.launches for fn in counters]
+    builds = ops.pack_for_call.builds
     rep_gpu, eng_gpu = serve_gnn(build_parser().parse_args(
         argv + ["--device", "cuda"]))
+    torch.cuda.synchronize()
+    # one precompute pass: per layer one ELL and one tail launch, no d_h
+    assert [fn.launches - c for fn, c in zip(counters, counts)] == [3, 3, 0]
+    assert ops.pack_for_call.builds == builds
     rep_cpu, eng_cpu = serve_gnn(build_parser().parse_args(
         argv + ["--device", "cpu"]))
     for got, want in zip(eng_gpu.store.tables, eng_cpu.store.tables):
@@ -320,8 +464,9 @@ def test_serve_slice_on_card_matches_cpu(card):
 def test_train_slice_on_card_matches_cpu(card):
     """The training slice at a small size with ``sgd``: the card's 8-epoch
     losses equal the CPU's (same parameters, plain versions) within 1e-5,
-    the counts exactly; each step launches the ELL forward 3 times, the
-    ``d_h`` kernel twice (layers 1 and 2) and ``d_vals`` never."""
+    the counts exactly; each step launches the ELL forward 3 times, the CSR
+    kernel over the tail 3 times and over the transposed pack (``d_h``)
+    twice (layers 1 and 2), ``d_vals`` never, and builds no pack."""
     from repro_torch.core import StalenessController
     from repro_torch.dist import make_sim_runtime, train_capgnn
     from repro_torch.launch.train import build_parser, prepare_train
@@ -336,16 +481,17 @@ def test_train_slice_on_card_matches_cpu(card):
     for dev in ("cpu", "cuda"):
         rt = make_sim_runtime(cfg, ctx["sp"], xplan, sgd(0.5), spec=spec,
                               device=dev)
-        counts = (ell_spmm.ell_spmm.launches, ell_spmm.ell_spmm_dh.launches,
-                  ell_spmm.ell_spmm_dvals.launches)
+        counters = (ell_spmm.ell_spmm, csr_spmm.csr_spmm,
+                    csr_spmm.csr_spmm_accumulate, ell_spmm.ell_spmm_dvals)
+        counts = [fn.launches for fn in counters]
+        builds = ops.pack_for_call.builds
         _, reps[dev] = train_capgnn(
             cfg, rt, xplan, args.parts, sgd(0.5), epochs=8,
             controller=StalenessController(refresh_every=4), spec=spec)
         torch.cuda.synchronize()
-        got = (ell_spmm.ell_spmm.launches - counts[0],
-               ell_spmm.ell_spmm_dh.launches - counts[1],
-               ell_spmm.ell_spmm_dvals.launches - counts[2])
-        assert got == ((0, 0, 0) if dev == "cpu" else (24, 16, 0)), dev
+        got = tuple(fn.launches - c for fn, c in zip(counters, counts))
+        assert got == ((0,) * 4 if dev == "cpu" else (24, 16, 24, 0)), dev
+        assert ops.pack_for_call.builds == builds
     np.testing.assert_allclose(reps["cuda"].losses, reps["cpu"].losses,
                                rtol=0, atol=1e-5)
     for k in ("comm_bytes", "comm_bytes_vanilla", "refresh_steps",

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cache_gather, ell_spmm, ops
+from repro_torch.kernels import cache_gather, csr_spmm, ell_spmm, ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.launch import train as ttrain
 from repro_torch.models.gnn import GNNConfig, init_gnn
@@ -76,8 +76,8 @@ def test_forbidden_pattern_catches_imports():
 
 def test_cpu_tensors_take_plain_path_and_launch_nothing():
     counters = (ell_spmm.ell_spmm, ell_spmm.ell_spmm_chunked,
-                ell_spmm.ell_spmm_dh, ell_spmm.ell_spmm_dvals,
-                cache_gather.gather_rows)
+                csr_spmm.csr_spmm, csr_spmm.csr_spmm_accumulate,
+                ell_spmm.ell_spmm_dvals, cache_gather.gather_rows)
     for fn in counters:
         fn.launches = 0
     rng = np.random.default_rng(0)
@@ -93,6 +93,9 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
     v = vals.clone().requires_grad_(True)
     ops.ell_spmm(cols, v, x, col_chunk=10).sum().backward()
     assert x.grad.shape == h.shape and v.grad.shape == vals.shape
+    x.grad = None
+    ops.hybrid_spmm(cols, vals, *tail, x).sum().backward()
+    assert x.grad.shape == h.shape
     assert [fn.launches for fn in counters] == [0] * len(counters)
 
 
@@ -107,11 +110,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cache_gather.gather_rows(h[0], torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         ell_spmm.ell_spmm_chunked(cols, vals, h, 3)
+    pack = ops.transpose_csr(cols, vals, 6)
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        ell_spmm.ell_spmm_dh(cols, vals, torch.zeros((1, 4, 3)), 6)
+        csr_spmm.csr_spmm(pack, torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        csr_spmm.csr_spmm_accumulate(pack, torch.zeros((4, 3)),
+                                     torch.zeros((6, 3)))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         ell_spmm.ell_spmm_dvals(cols, torch.zeros((1, 4, 3)), h)
     assert ell_spmm.ell_spmm.launches == 0
+    assert csr_spmm.csr_spmm.launches == 0
     assert cache_gather.gather_rows.launches == 0
 
 
