@@ -34,23 +34,34 @@ raises, and the script exits non-zero:
    8 epochs of Adam (refresh, 3 cached, pipelined, 3 cached).  Counters
    zeroed just before and read just after: 3 ELL-forward and 3 CSR-tail
    launches per step and per evaluation, 2 CSR ``d_h`` launches per step,
-   no ``d_vals``, no pack built in a wrapper.  Losses finite and falling;
-   byte counts equal to the exchange plan's; one refresh step's loss and
-   gradients equal to the CPU's at full scale; an 8-step SGD run equal to
-   the CPU's at scale 0.1.
+   no ``d_vals``, the row gather's forward and its CSR backward at the
+   counts each step kind gives them, worked out from the exchange plan
+   (one forward per non-empty tier pull and exchanged layer, one backward
+   per differentiated one: 6 and 2 in this cell), no pack built in a
+   wrapper.  Losses finite and falling; byte counts equal to the
+   exchange plan's; one refresh step's loss and gradients equal to the
+   CPU's at full scale (through the gather's backward); an 8-step SGD run
+   equal to the CPU's at scale 0.1; each step kind timed again in steady
+   state.
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
-   bit) and as the hybrid tail's forward on both slices' tails, ``d_vals``
-   and the column-chunked forward against their plain versions, timed as
-   in phase 3 beside the routes they replaced (the tail's ``coo_spmm``
-   forward and its autograd backward).
+   bit) and as the hybrid tail's forward on both slices' tails, the row
+   gather over the training slice's local-tier map (forward bit for bit,
+   backward twice bit for bit), ``d_vals`` (twice, bit for bit) and the
+   column-chunked forward against their plain versions, timed as in
+   phase 3 beside the routes they replaced (the tail's ``coo_spmm``
+   forward and its autograd backward; the tier pulls' indexing backward
+   and an ``index_select`` route), and a tier pull, forward and backward,
+   as one composed gather and as two stages.
 7. ``kernels`` - every ported kernel with its launches on the main paths,
    its largest error against the plain version and its times.
 
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
 (and the chosen one without ``row_end``) checked against the plain version
 and timed in turns on both slices' packs; the CSR kernel's long-row
-threshold ``L`` (64 to 1,024) on the ``d_h`` pack and both tails; and
+threshold ``L`` (64 to 1,024) on the ``d_h`` pack and both tails; every
+stripe and lanes-per-slot of the ``d_vals`` kernel on the training pack;
+and
 ``ptxas`` lines: each kernel's registers, shared memory and spills as
 ``nvcc -Xptxas -v`` reports them, with the occupancy they allow.
 
@@ -126,6 +137,9 @@ BWD_REPLACES = "src/repro/kernels/ell_spmm.py:80"   # _spmm_vjp.bwd (jnp)
 # second phase
 TAIL_REPLACES = "src/repro/kernels/ops.py:73"
 GATHER_REPLACES = "src/repro/kernels/cache_gather.py:38"
+# the gather's VJP: XLA's transpose of the jnp.take route of pack_rows (the
+# Pallas route has none: jax.grad does not linearise through it)
+GATHER_BWD_REPLACES = "src/repro/kernels/ops.py:128"
 
 
 def emit(phase: str, **fields) -> None:
@@ -417,8 +431,7 @@ def weighted_entry(name: str, source: str, replaces: str,
 def check_gather(src, idx) -> float:
     from repro_torch.kernels import cache_gather as kgather, ref
     got = kgather.gather_rows(src, idx)
-    want = ref.gather_rows_ref(src, idx.clamp(0, src.shape[0] - 1))
-    want[(idx < 0) | (idx >= src.shape[0])] = 0
+    want = ref.gather_rows_ref(src, idx)     # zero rows out of range
     torch.cuda.synchronize()
     word = torch.int16 if src.element_size() == 2 else torch.int32
     if got.shape != want.shape or got.dtype != src.dtype \
@@ -474,6 +487,11 @@ def gather_host_pieces(src, idx) -> dict:
     args = (src.data_ptr(), idx.data_ptr(), out.data_ptr(), n_out,
             src.shape[0], d * src.element_size(), di, stream)
     pieces = {
+        # the test ops.gather_rows makes before the raw call, whether
+        # autograd records (False here, as under the engine's
+        # inference_mode: src needs no gradient)
+        "autograd_check": lambda: src.requires_grad
+        and torch.is_grad_enabled(),
         "check": lambda: kgather._takes(src, idx),
         "new_empty": lambda: src.new_empty((n_out, d)),
         "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(di),
@@ -488,8 +506,9 @@ def phase_gather(n_hot: int, out_dim: int, max_batch: int, gen) -> dict:
     """Row gather bit-exact at d in {7, 500}, f32 and bf16, at aligned and
     unaligned base addresses, with indices out of range, an empty index;
     timed at the slice's hot tier ``[n_hot, out_dim]`` f32 with one full
-    micro-batch of hits."""
-    from repro_torch.kernels import cache_gather as kgather, ref
+    micro-batch of hits (the wrapper, and the engine's ``ops.gather_rows``
+    under ``inference_mode``, host microseconds a call)."""
+    from repro_torch.kernels import cache_gather as kgather, ops, ref
     dev = torch.device("cuda")
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -524,6 +543,10 @@ def phase_gather(n_hot: int, out_dim: int, max_batch: int, gen) -> dict:
              "library": lambda: src.index_select(0, idx)}
     t = time_calls({f"{k}_ms": f for k, f in calls.items()}, reps=200)
     hosts = {f"{k}_host_us": host_us(f) for k, f in calls.items()}
+    # the engine's call: ops.gather_rows under inference_mode, with the
+    # test that keeps autograd out of it
+    with torch.inference_mode():
+        hosts["ops_host_us"] = host_us(lambda: ops.gather_rows(src, idx))
     devices = {f"{k}_device_us": device_us(f) for k, f in calls.items()}
     pieces = gather_host_pieces(src, idx)
     nbytes = idx.numel() * 4 + 2 * max_batch * out_dim * 4
@@ -537,7 +560,13 @@ def phase_gather(n_hot: int, out_dim: int, max_batch: int, gen) -> dict:
             "library_ms": t["library_ms"],
             "bound_ms": b, "bound_by": by, **hosts, **devices,
             "timed_over": f"one micro-batch: {max_batch} rows of "
-                          f"[{n_hot}, {out_dim}] f32"}
+                          f"[{n_hot}, {out_dim}] f32 (the engine's call); "
+                          "per_launch.train: the training slice's "
+                          "local-tier pull",
+            "per_launch": {"serve": {
+                "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                "library_ms": t["library_ms"], "bound_ms": b,
+                "bound_by": by, "shape": [n_hot, out_dim, max_batch]}}}
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +620,55 @@ def sweep_ell(packs: dict, gen) -> None:
             torch.cuda.empty_cache()
 
 
+SWEEP_DVALS_LANES = (8, 16, 32)
+
+
+def sweep_dvals(sp, gen) -> None:
+    """Every feature stripe and lanes-per-slot of the ``d_vals`` kernel on
+    the training slice's pack at d = 256 (``DVALS_STRIPE_BYTES`` and
+    ``DVALS_LANES`` set to it for the call), each checked against the plain
+    version, timed in turns."""
+    from repro_torch.kernels import ell_spmm as kell, ref
+    dev = torch.device("cuda")
+    cols = torch.as_tensor(sp.ell.cols, device=dev)
+    vals = torch.as_tensor(sp.ell.vals, device=dev)
+    n_parts, n_rows, _ = cols.shape
+    n_cols, d = sp.n_inner_max + sp.n_halo_max, 256
+    g = torch.randn((n_parts, n_rows, d), generator=gen, device=dev)
+    h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev)
+    want = ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols, need_h=False)[0]
+    chosen = (kell.DVALS_STRIPE_BYTES, kell.DVALS_LANES)
+
+    def with_config(stripe_bytes, lanes):
+        kell.DVALS_STRIPE_BYTES, kell.DVALS_LANES = stripe_bytes, lanes
+        try:
+            return kell.ell_spmm_dvals(cols, g, h)
+        finally:
+            kell.DVALS_STRIPE_BYTES, kell.DVALS_LANES = chosen
+
+    fns, errs, used = {}, {}, {}
+    for sb in SWEEP_STRIPE_BYTES:
+        for lanes in SWEEP_DVALS_LANES:
+            kell.DVALS_STRIPE_BYTES, kell.DVALS_LANES = sb, lanes
+            config = kell.dvals_launch_config(d, 0)
+            kell.DVALS_STRIPE_BYTES, kell.DVALS_LANES = chosen
+            if config in used.values():
+                continue
+            key = f"stripe{sb}B_lanes{lanes}"
+            used[key] = config
+            fns[key] = lambda sb=sb, lanes=lanes: with_config(sb, lanes)
+            errs[key] = check_close(f"ell_spmm_dvals {key}", fns[key](), want)
+    t = time_calls(fns, reps=5)
+    for key, (vec, stripe, lanes) in used.items():
+        emit("sweep", name="ell_spmm_dvals", config=key, vec=vec,
+             stripe_bytes=stripe * vec * 4, lanes_per_slot=lanes,
+             stripes=-(-d // (stripe * vec)), ms=t[key],
+             max_abs_err=errs[key],
+             chosen=(key == f"stripe{chosen[0]}B_lanes{chosen[1]}"))
+    del g, h, want
+    torch.cuda.empty_cache()
+
+
 def ptxas_report() -> None:
     """Each kernel's registers, shared memory and spills as ``nvcc -Xptxas
     -v`` reports them, and the occupancy its registers allow (4-warp
@@ -620,7 +698,8 @@ def ptxas_report() -> None:
                 fn = subprocess.run([demangle, fn], capture_output=True,
                                     text=True).stdout.strip() or fn
             regs = int(regs)
-            warps = (4 if name == "ell_spmm" or "long_rows" in fn
+            warps = (4 if name in ("ell_spmm", "ell_spmm_bwd")
+                     and "sum_stripes" not in fn or "long_rows" in fn
                      else 8)
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(32, 65536 // (per_warp * warps))
@@ -769,11 +848,60 @@ def grads_err(got, want) -> list[dict]:
     return out
 
 
+def gather_launches(xplan, n_exchanged: int) -> dict:
+    """The row gather's launches a step of each kind (and an evaluation)
+    gives, worked out from the exchange plan's arrays (not from the
+    runtime's maps): per exchanged layer, one forward for each tier pull
+    with a non-empty index (the uncached and local tiers, the global
+    buffer's fill and its reads; one gather each on an f32 halo), and one
+    CSR backward for each of those the step differentiates.  A refresh
+    step differentiates every pull; a cached step the uncached tier (the
+    local and global tiers are constant caches); a pipelined step the
+    uncached tier too, its fresh local and global rows pulled outside
+    autograd; an evaluation none."""
+    size = {k: int(np.asarray(a).size > 0) for k, a in (
+        ("un", xplan.uncached.recv_src_part),
+        ("loc", xplan.local.recv_src_part), ("fill", xplan.glob.src_part),
+        ("read", xplan.glob.read_buf_idx))}
+    every = sum(size.values())
+    fwd = {"refresh": every, "cached": size["un"] + size["read"],
+           "pipelined": every, "evaluation": every}
+    bwd = {"refresh": every, "cached": size["un"], "pipelined": size["un"],
+           "evaluation": 0}
+    return {k: {"gather_rows": n_exchanged * fwd[k],
+                "gather_rows_bwd": n_exchanged * bwd[k]} for k in fwd}
+
+
+# The training cell's plan puts every halo row in the local tier (the
+# uncached and global tiers are empty): one local-tier pull per exchanged
+# layer (1 and 2) in the refresh step, the pipelined step and the closing
+# evaluation, and a backward for each of the refresh step's two
+TRAIN_GATHERS = {"gather_rows": 6, "gather_rows_bwd": 2}
+
+
+def steady_step_ms(rt, params, opt_state, steps: int = 3) -> dict:
+    """Median host ms of ``steps`` steps of each kind from the trained
+    state, each fenced by reading its loss (the run's own step 0 is a
+    refresh step that also builds the kernels)."""
+    out = {}
+    for kind in ("refresh", "cached", "pipelined"):
+        step, times = getattr(rt, f"step_{kind}"), []
+        state = (params, opt_state, rt.caches0)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            *state, m = step(*state)
+            float(m["loss"])
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[kind] = statistics.median(times)
+    return out
+
+
 def phase_train() -> tuple[dict, dict]:
     """The training slice through launch.train's entry; returns the kernel
     launches on it and its context (stacked layout, plan, runtime)."""
     from repro_torch.core import StalenessController
     from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.kernels import cache_gather as kgather
     from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
     from repro_torch.launch.train import build_parser, prepare_train, train_gnn
     from repro_torch.models.gnn import init_gnn
@@ -784,7 +912,9 @@ def phase_train() -> tuple[dict, dict]:
                 "ell_spmm_chunked": kell.ell_spmm_chunked,
                 "csr_spmm_tail": kcsr.csr_spmm_accumulate,
                 "csr_spmm_dh": kcsr.csr_spmm,
-                "ell_spmm_dvals": kell.ell_spmm_dvals}
+                "ell_spmm_dvals": kell.ell_spmm_dvals,
+                "gather_rows": kgather.gather_rows,
+                "gather_rows_bwd": kgather.gather_rows_bwd}
     for fn in counters.values():
         fn.launches = 0
     ops.pack_for_call.builds = 0
@@ -796,38 +926,58 @@ def phase_train() -> tuple[dict, dict]:
     launches["packs_built_for_a_call"] = ops.pack_for_call.builds
 
     rep, cfg, spec, xplan = ctx["report"], ctx["cfg"], ctx["spec"], ctx["xplan"]
+    rt = ctx["runtime"]
     epochs, layers = args.epochs, cfg.num_layers
+    kinds = rep.step_kinds
+    if kinds != ["refresh", "cached", "cached", "cached", "pipelined",
+                 "cached", "cached", "cached"]:
+        raise AssertionError(f"step kinds {kinds}")
     # each step and the closing evaluation run every layer's forward (ELL,
     # then the tail) once; the backward needs d_h from layer 1 on (layer
     # 0's input is constant) and d_vals never (the ELL values are constants
-    # of the graph); every pack comes from make_adj_builder
+    # of the graph); the tier pulls of layers 1 on gather as each step kind
+    # gives (gather_launches); every pack comes from make_adj_builder or,
+    # for the gathers, exchange_arrays
+    per_kind = gather_launches(xplan, layers - 1)
     want = {"ell_spmm": layers * (epochs + 1), "ell_spmm_chunked": 0,
             "csr_spmm_tail": layers * (epochs + 1),
             "csr_spmm_dh": (layers - 1) * epochs, "ell_spmm_dvals": 0,
+            **{k: sum(per_kind[kind][k] for kind in kinds + ["evaluation"])
+               for k in ("gather_rows", "gather_rows_bwd")},
             "packs_built_for_a_call": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
+    if {k: want[k] for k in TRAIN_GATHERS} != TRAIN_GATHERS:
+        raise AssertionError(f"the plan gives the gathers {want}, the cell "
+                             f"states {TRAIN_GATHERS}: tier rows "
+                             f"{xplan.uncached.n_rows} uncached, "
+                             f"{xplan.local.n_rows} local, "
+                             f"{xplan.glob.n_unique} global")
     losses = rep.losses
     if len(losses) != epochs or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    kinds = rep.step_kinds
-    if kinds != ["refresh", "cached", "cached", "cached", "pipelined",
-                 "cached", "cached", "cached"]:
-        raise AssertionError(f"step kinds {kinds}")
     comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
     if (rep.comm_bytes, rep.comm_bytes_vanilla) != (comm, vanilla):
         raise AssertionError(f"bytes {rep.comm_bytes}/{rep.comm_bytes_vanilla}"
                              f", the plan gives {comm}/{vanilla}")
 
-    # one refresh step's loss and gradients, card vs CPU, same parameters
-    rt = ctx["runtime"]
+    steady_ms = steady_step_ms(rt, ctx["params"], rep.final_opt_state)
+
+    # one refresh step's loss and gradients, card vs CPU, same parameters;
+    # on the card its tier pulls' gradients go through the gather backward
     params0 = init_gnn(cfg, torch.Generator().manual_seed(args.seed),
                        rt.device)
     cpu_rt = make_sim_runtime(cfg, ctx["sp"], xplan, adam(args.lr),
                               spec=spec, device="cpu")
+    bwd0 = kgather.gather_rows_bwd.launches
     loss_g, grads_g = rt.loss_and_grads(params0, rt.caches0)
+    refresh_bwd = kgather.gather_rows_bwd.launches - bwd0
+    if refresh_bwd != per_kind["refresh"]["gather_rows_bwd"]:
+        raise AssertionError(f"the refresh check launched the gather "
+                             f"backward {refresh_bwd} times, want "
+                             f"{per_kind['refresh']['gather_rows_bwd']}")
     t0 = time.perf_counter()
     loss_c, grads_c = cpu_rt.loss_and_grads(
         [{k: v.cpu() for k, v in p.items()} for p in params0],
@@ -880,6 +1030,7 @@ def phase_train() -> tuple[dict, dict]:
          wall_time_s=rep.wall_time_s,
          wall_time_per_epoch_s=rep.wall_time_s / (epochs - 1),
          step_ms=[1e3 * t for t in rep.step_s], median_step_ms=step_ms,
+         steady_step_ms=steady_ms, gather_launches_per_kind=per_kind,
          host_plan_s=ctx["host_plan_s"], launch_wall_s=wall_s,
          launches=launches, refresh_loss_card=float(loss_g),
          refresh_loss_cpu=float(loss_c), refresh_loss_err=loss_err,
@@ -1009,6 +1160,152 @@ def phase_dh(packs, sp, gen) -> dict:
             "timed_over": f"one launch at d={d} over the training slice's "
                           "transposed hybrid pack (layers 1 and 2 of a step "
                           "launch it once each)"}
+
+
+def phase_gather_bwd(xplan, sp, gen) -> tuple[dict, dict]:
+    """The row gather at the training slice's local-tier map (its refresh
+    step's pull of layers 1 and 2) at d = 256.
+
+    Forward: the gather kernel bit for bit against its plain version,
+    timed beside it and ``index_select`` (the -1 ids zeroed by a
+    ``torch.where``).  Backward: the CSR kernel over the transposed index
+    map against its plain version, twice bit for bit, and against the
+    autograd of the old two-stage pull; timed beside that pull's indexing
+    backward, the backward of an ``index_select`` route over the flattened
+    h (an ``index_add_``) and one ``index_add`` call (the library).  The
+    pull, forward and backward, as one composed gather and as the two
+    stages (owners' pack, then the consumers' addressing) on an f32 wire.
+    Returns the backward's kernels-line entry and the forward's numbers at
+    this shape."""
+    from repro_torch.dist.capgnn_sim import _rows, exchange_arrays
+    from repro_torch.kernels import cache_gather as kgather, ref
+    dev = torch.device("cuda")
+    n_parts, ni, d = sp.num_parts, sp.n_inner_max, 256
+    maps = exchange_arrays(xplan, ni, dev)["loc"]["pull"]
+    staged = exchange_arrays(xplan, ni, dev,
+                             halo_dtype=torch.float32)["loc"]["pull"]
+    gm = maps["pull"]
+    idx, pack = gm["idx"], gm["pack"]
+    n_out = idx.numel()
+    flat_idx = idx.view(-1)
+    ok = flat_idx >= 0
+    n_ok = int(ok.sum())
+
+    # forward: bit for bit against the plain version
+    h = torch.randn((n_parts, ni, d), generator=gen, device=dev,
+                    requires_grad=True)
+    hf = h.detach().view(-1, d)
+    fwd = kgather.gather_rows(hf, flat_idx)
+    fwd_want = ref.gather_rows_ref(hf, flat_idx)
+    torch.cuda.synchronize()
+    if not torch.equal(fwd.view(torch.int32), fwd_want.view(torch.int32)):
+        raise AssertionError("gather_rows is not bit-exact at the training "
+                             f"slice's local-tier map [{hf.shape[0]}, {d}]"
+                             f" x {n_out}")
+    fwd_err = float((fwd - fwd_want).abs().max())
+    safe_idx = flat_idx.clamp(min=0)
+    lib_fwd = torch.where(ok[:, None], hf.index_select(0, safe_idx), 0.0)
+    if not torch.equal(lib_fwd, fwd):
+        raise AssertionError("index_select differs from the gather")
+    del fwd, fwd_want, lib_fwd
+
+    # backward
+    g = torch.randn((n_out, d), generator=gen, device=dev)
+    got = kgather.gather_rows_bwd(pack, g)
+    again = kgather.gather_rows_bwd(pack, g)
+    want = ref.csr_spmm_ref(pack, g)
+    err = check_close("gather_rows_bwd", got, want, **csr_tol(want))
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("gather_rows_bwd: two launches differ in their "
+                             "bits")
+    # the old route: the owners' pack h[p, send_row], then the consumers'
+    # addressing payload[src_part, src_slot], invalid rows zeroed
+    tier = xplan.local
+    send_row, part, slot = (torch.as_tensor(np.asarray(a, np.int64),
+                                            device=dev)
+                            for a in (tier.send_row, tier.recv_src_part,
+                                      tier.recv_src_slot))
+    valid = torch.as_tensor(np.asarray(tier.recv_valid), device=dev)
+    pidx = torch.arange(n_parts, device=dev)[:, None]
+    old_rows = torch.where(valid[..., None], h[pidx, send_row][part, slot],
+                           0.0)
+    g3 = g.view(old_rows.shape)
+    old_err = check_close("gather_rows_bwd (the old pull's autograd)",
+                          got.view(h.shape),
+                          torch.autograd.grad(old_rows, h, g3,
+                                              retain_graph=True)[0],
+                          **csr_tol(want))
+    h_flat = h.view(-1, d)
+    is_rows = torch.where(ok[:, None], h_flat.index_select(0, safe_idx), 0.0)
+    idx_ok, g_ok = flat_idx[ok].long(), g[ok]
+    zeros = torch.zeros((n_parts * ni, d), device=dev)
+    lib_diff = float((torch.index_add(zeros, 0, idx_ok, g_ok) - got)
+                     .abs().max())
+
+    # the pull as the sim runs it, forward and backward: one composed
+    # gather, or the two stages (an f32 wire: no cast, the same rows)
+    def pull(m, wire):
+        rows = _rows(m, h, wire)
+        return rows, torch.autograd.grad(rows, h, g3)[0]
+    rows_c, grad_c = pull(maps, None)
+    rows_s, grad_s = pull(staged, torch.float32)
+    if not torch.equal(rows_c.view(torch.int32), rows_s.view(torch.int32)):
+        raise AssertionError("the composed and two-stage pulls differ")
+    staged_err = check_close("the two-stage pull's gradient", grad_s, grad_c,
+                             **csr_tol(grad_c))
+    del rows_c, grad_c, rows_s, grad_s
+
+    t = time_calls({
+        "kernel_ms": lambda: kgather.gather_rows_bwd(pack, g),
+        "plain_ms": lambda: ref.csr_spmm_ref(pack, g),
+        "library_ms": lambda: torch.index_add(zeros, 0, idx_ok, g_ok),
+        "old_route_ms": lambda: torch.autograd.grad(old_rows, h, g3,
+                                                    retain_graph=True),
+        "index_select_route_ms": lambda: torch.autograd.grad(
+            is_rows, h_flat, g, retain_graph=True),
+        "forward_ms": lambda: kgather.gather_rows(hf, flat_idx),
+        "forward_plain_ms": lambda: ref.gather_rows_ref(hf, flat_idx),
+        "forward_library_ms": lambda: torch.where(
+            ok[:, None], hf.index_select(0, safe_idx), 0.0),
+        "pull_composed_ms": lambda: pull(maps, None),
+        "pull_two_stage_ms": lambda: pull(staged, torch.float32),
+    }, reps=5)
+    del old_rows, is_rows, h, got, again, want
+    nbytes = csr_bytes(pack, d, 4, accumulate=False)
+    b, by = bound_ms(nbytes, pack.nnz * d)
+    # each valid id's row read once, every output row written once, the ids
+    fwd_bytes = n_ok * d * 4 + n_out * d * 4 + n_out * 4
+    fb, fby = bound_ms(fwd_bytes, 0.0)
+    forward = {"ms": t["forward_ms"], "plain_ms": t["forward_plain_ms"],
+               "library_ms": t["forward_library_ms"], "bound_ms": fb,
+               "bound_by": fby, "bytes": fwd_bytes, "max_abs_err": fwd_err,
+               "bit_exact": True, "library": "index_select + where",
+               "shape": [hf.shape[0], d, n_out], "valid_ids": n_ok}
+    rec = dict(shape=[pack.n_rows, pack.n_cols, d], nnz=pack.nnz,
+               max_row=max_row(pack), long_rows=pack.long_rows.numel(),
+               max_abs_err=err, old_route_max_abs_err=old_err,
+               two_stage_max_abs_err=staged_err,
+               bit_reproducible=True, library_max_abs_diff=lib_diff,
+               bound_ms=b, bound_by=by, bytes=nbytes,
+               forward_bound_ms=fb, forward_max_abs_err=fwd_err,
+               forward_bit_exact=True, **t)
+    emit("kernel", name="gather_rows_bwd", **rec)
+    entry = {"name": "gather_rows_bwd", "route": "cuda",
+             "source": CSR_SOURCE, "replaces": GATHER_BWD_REPLACES,
+             "max_abs_err": err, "ms": t["kernel_ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+             "library_ms": t["library_ms"],
+             "old_route_ms": t["old_route_ms"],
+             "index_select_route_ms": t["index_select_route_ms"],
+             "pull_composed_ms": t["pull_composed_ms"],
+             "pull_two_stage_ms": t["pull_two_stage_ms"],
+             "timed_over": f"one launch at d={d} over the training slice's "
+                           f"local-tier map ({pack.nnz} rows of {n_out} "
+                           f"into [{pack.n_rows}, {d}]; a refresh step "
+                           "launches it once per layer 1 and 2); library: "
+                           "one torch.index_add over the valid rows; "
+                           "pull_*: a tier pull's forward and backward"}
+    return entry, forward
 
 
 def tail_case(pack_name: str, tail, sp, d: int, dtype, gen) -> dict:
@@ -1158,11 +1455,24 @@ def phase_backward(sp, gen) -> list[dict]:
     h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev)
     entries = []
 
-    # d_vals: every slot's <g[i], h[cols[i, k]]>, padding slots included
+    # d_vals: every slot's <g[i], h[cols[i, k]]>, padding slots included;
+    # every column-0 slot of a row holds the same bits
     got = kell.ell_spmm_dvals(cols, g, h)
+    again = kell.ell_spmm_dvals(cols, g, h)
     err = check_close("ell_spmm_dvals", got,
                       ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
                                            need_h=False)[0])
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("ell_spmm_dvals: two launches differ in their "
+                             "bits")
+    zero_col = cols == 0
+    has = zero_col.any(-1)
+    hi = torch.where(zero_col, got, -torch.inf).amax(-1)
+    lo = torch.where(zero_col, got, torch.inf).amin(-1)
+    if not torch.equal(hi[has], lo[has]):
+        raise AssertionError("ell_spmm_dvals: the column-0 slots of a row "
+                             "differ")
+    del again
     fns = {"kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
            "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, vals, h, g, n_cols,
                                                     need_h=False)}
@@ -1186,9 +1496,14 @@ def phase_backward(sp, gen) -> list[dict]:
     rows = referenced_rows(cols, torch.ones_like(live), n_cols)
     nbytes = cols.numel() * 4 + g.numel() * 4 + rows * d * 4 + cols.numel() * 4
     b, by = bound_ms(nbytes, 2.0 * cols.numel() * d)
+    vec, stripe, lanes = kell.dvals_launch_config(d, g.data_ptr()
+                                                  | h.data_ptr())
     emit("kernel", name="ell_spmm_dvals",
-         shape=[n_parts, n_rows, k, n_cols, d], max_abs_err=err, bound_ms=b,
-         bound_by=by, bytes=nbytes, **t, **extra)
+         shape=[n_parts, n_rows, k, n_cols, d], live_slots=int(live.sum()),
+         column0_slots=int(zero_col.sum()), max_abs_err=err,
+         bit_reproducible=True, vec=vec, stripe_bytes=stripe * vec * 4,
+         lanes_per_slot=lanes, bound_ms=b, bound_by=by, bytes=nbytes, **t,
+         **extra)
     entries.append({"name": "ell_spmm_dvals", "route": "cuda",
                     "source": BWD_SOURCE, "replaces": BWD_REPLACES,
                     "max_abs_err": err, "ms": t["kernel_ms"],
@@ -1196,9 +1511,9 @@ def phase_backward(sp, gen) -> list[dict]:
                     "library_ms": t["library_ms"],
                     "library_covers": "the live slots only "
                                       "(torch.sparse.sampled_addmm)",
-                    "timed_over": f"one launch at d={d}, every slot (on no "
-                                  "path of the slice: the ELL values are "
-                                  "constants)"})
+                    "timed_over": f"one launch at d={d}, every slot of "
+                                  "the training pack (on no path of the "
+                                  "slice: the ELL values are constants)"})
     del pattern, got
 
     # the column-chunked forward, h rows padded to a multiple of COL_CHUNK;
@@ -1295,11 +1610,15 @@ def main(argv=None) -> None:
     dh = phase_dh(packs["train"], tctx["sp"], gen)
     del packs
     torch.cuda.empty_cache()
+    gather_bwd, gather["per_launch"]["train"] = phase_gather_bwd(
+        tctx["xplan"], tctx["sp"], gen)
+    torch.cuda.empty_cache()
     if opts.sweep:
         sweep_ell(slices, gen)
         sweep_csr(slices, gen)
+        sweep_dvals(tctx["sp"], gen)
     entries = [weighted_entry("ell_spmm", ELL_SOURCE, ELL_REPLACES,
-                              ell_cases), gather, dh,
+                              ell_cases), gather, gather_bwd, dh,
                weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,
                               tails)] + phase_backward(tctx["sp"], gen)
     # launches: the serving path's plus the training path's

@@ -10,6 +10,17 @@ aggregation call per layer covers all P partitions (with ``ell`` or
 ``hybrid`` one CSR kernel launch over the COO tail, and, from layer 1
 on, one CSR kernel launch backward for ``d_h``).
 
+From layer 1 on, each non-empty tier pull (the uncached and local tiers,
+the global buffer's fill and its reads) is one row gather
+(``ops.pack_rows``) over maps built once per plan
+(:func:`exchange_arrays`): on the card one gather-kernel launch forward
+and, where the pull is differentiated, one CSR kernel launch backward
+over the transposed index map.  The owner's send pack and the consumer's
+addressing are composed into one gather over the flattened inner matrix
+(the rows bit for bit those of the JAX package's two-stage pull); on a
+bf16 wire (``halo_dtype``) the two stages stay apart, so a payload row's
+gradient rounds to bf16 as the reference's does.
+
 Three step flavours (paper §4.2/§4.3), the same numerics as the reference:
 
 - ``step_refresh``   — all three tiers pulled fresh (inside the autograd
@@ -41,7 +52,8 @@ import numpy as np
 import torch
 
 from ..core.staleness import StalenessController
-from ..kernels.ops import ell_row_end, tail_csr, transpose_csr
+from ..kernels.ops import (ell_row_end, gather_pack, pack_rows, tail_csr,
+                           transpose_csr)
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, accuracy, cross_entropy_loss,
                           init_gnn)
@@ -65,48 +77,105 @@ def _mask(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, bool), device=device)
 
 
-def _tier_dict(t: ExchangeTier, device="cpu") -> dict:
-    return {
-        "send_row": _idx(t.send_row, device),
-        "recv_src_part": _idx(t.recv_src_part, device),
-        "recv_src_slot": _idx(t.recv_src_slot, device),
-        "recv_halo_pos": _idx(t.recv_halo_pos, device),
-        "recv_valid": _mask(t.recv_valid, device),
-    }
+def _gather_map(idx: np.ndarray, valid: np.ndarray, n_src: int, device,
+                grad: bool) -> dict:
+    """One gather of the exchange: the ids (int32, -1 where ``valid`` is
+    false, which reads a zero row) and, when ``grad`` asks for the
+    backward, their transposed index map (:func:`~repro_torch.kernels.ops.
+    gather_pack`, invalid ids left out)."""
+    ids = np.where(valid, idx, -1).astype(np.int32)
+    return {"idx": torch.as_tensor(ids, device=device),
+            "pack": gather_pack(ids, n_src, device=device) if grad else None}
 
 
-def _glob_dict(g: GlobalTier, device="cpu") -> dict:
-    return {
-        "send_row": _idx(g.send_row, device),
-        "src_part": _idx(g.src_part, device),
-        "src_slot": _idx(g.src_slot, device),
-        "read_pos": _idx(g.read_pos, device),
-        "read_buf_idx": _idx(g.read_buf_idx, device),
-        "read_valid": _mask(g.read_valid, device),
-        "buf_valid": _mask(g.buf_valid, device),
-    }
+def _pull_maps(send_row: np.ndarray, send_valid: np.ndarray,
+               part: np.ndarray, slot: np.ndarray, valid: np.ndarray,
+               n_inner: int, device, grad: bool, halo_dtype) -> dict:
+    """The gathers of one pull: the owners' send pack ``send_row [P, S]``
+    addressed by the consumers' ``(part, slot)``; ``"wire"`` records the
+    payload dtype they were built for (``halo_dtype``).
+
+    With no ``halo_dtype``, one gather from the flattened inner matrix
+    ``[P * n_inner, d]`` (``"pull"``): the owner's row composed with the
+    address, ``part * n_inner + send_row[part, slot]``.  With a halo dtype
+    on the wire the two stages stay apart, as in the JAX package: the
+    pack (``"send"``, ``[P * S]`` ids) and the addressing of the cast
+    payload (``"addr"``, ``part * S + slot``), so a payload row addressed
+    by several consumers sums their gradients in the wire dtype."""
+    send_row = np.asarray(send_row, np.int64)
+    part, slot = np.asarray(part, np.int64), np.asarray(slot, np.int64)
+    n_parts, n_send = send_row.shape
+    if halo_dtype is None:
+        return {"wire": None,
+                "pull": _gather_map(part * n_inner + send_row[part, slot],
+                                    valid, n_parts * n_inner, device, grad)}
+    owner = np.arange(n_parts)[:, None] * n_inner + send_row
+    return {"wire": halo_dtype,
+            "send": _gather_map(owner, send_valid, n_parts * n_inner,
+                                device, grad),
+            "addr": _gather_map(part * n_send + slot, valid,
+                                n_parts * n_send, device, grad)}
 
 
-def _pack(send_row: torch.Tensor, h: torch.Tensor, halo_dtype):
-    """Owners' send buffers ``[P, S, d]`` from the stacked inner matrix,
-    cast to the wire dtype when one is given."""
-    pidx = torch.arange(h.shape[0], device=h.device)[:, None]
-    payload = h[pidx, send_row]
-    return payload if halo_dtype is None else payload.to(halo_dtype)
+def _tier_dict(t: ExchangeTier, n_inner: int, device="cpu",
+               grad: bool = True, halo_dtype=None) -> dict:
+    """A tier's pull (:func:`_pull_maps`) and its scatter positions."""
+    return {"pull": _pull_maps(t.send_row, t.send_valid, t.recv_src_part,
+                               t.recv_src_slot, t.recv_valid, n_inner,
+                               device, grad, halo_dtype),
+            "recv_halo_pos": _idx(t.recv_halo_pos, device),
+            "recv_valid": _mask(t.recv_valid, device)}
+
+
+def _glob_dict(g: GlobalTier, n_inner: int, device="cpu",
+               grad: bool = True, halo_dtype=None) -> dict:
+    """The global tier: the buffer's fill (:func:`_pull_maps`;
+    capacity-padding slots read zero rows) and each worker's reads as one
+    gather from the buffer (invalid reads too)."""
+    return {"fill": _pull_maps(g.send_row, g.send_valid, g.src_part,
+                               g.src_slot, g.buf_valid, n_inner, device,
+                               grad, halo_dtype),
+            "read": _gather_map(np.asarray(g.read_buf_idx),
+                                np.asarray(g.read_valid), g.buf_size,
+                                device, grad),
+            "read_pos": _idx(g.read_pos, device),
+            "read_valid": _mask(g.read_valid, device)}
+
+
+def _gather(gm: dict, src: torch.Tensor) -> torch.Tensor:
+    """``src[gm["idx"]]`` through :func:`~repro_torch.kernels.ops.pack_rows`:
+    the gather kernel forward and, where autograd records, the CSR kernel
+    over ``gm["pack"]`` backward."""
+    return pack_rows(src, gm["idx"], gm["pack"])
+
+
+def _rows(maps: dict, h: torch.Tensor, halo_dtype) -> torch.Tensor:
+    """The rows a pull delivers from ``h [P, NI, d]``, in ``h.dtype``:
+    one composed gather (maps built with no wire dtype), or the two
+    stages with the payload cast to ``halo_dtype`` between them.  Raises
+    ``ValueError`` when ``halo_dtype`` is not the dtype the maps were
+    built for."""
+    if halo_dtype != maps["wire"]:
+        raise ValueError(f"a pull with halo dtype {halo_dtype} over maps "
+                         f"built for {maps['wire']}; build them with "
+                         "exchange_arrays(..., halo_dtype=...)")
+    flat = h.reshape(-1, h.shape[-1])
+    if halo_dtype is None:
+        return _gather(maps["pull"], flat)
+    payload = _gather(maps["send"], flat).reshape(-1, flat.shape[1])
+    return _gather(maps["addr"], payload.to(halo_dtype)).to(h.dtype)
 
 
 def _pull(td: dict, h: torch.Tensor, halo_dtype=None) -> torch.Tensor:
     """Gather one tier's rows from the stacked inner matrix ``h [P,NI,d]``.
 
     Owners pack their send buffers, consumers address the payload by
-    (src_part, src_slot).  Invalid (padding) rows are zeroed.
-    ``halo_dtype`` casts the packed payload before "transport" and
-    dequantises the addressed rows back to ``h.dtype``.  Returns
-    ``[P, R, d]``.
+    (src_part, src_slot), through the gathers of :func:`_pull_maps`;
+    invalid (padding) rows read zero rows.  ``halo_dtype`` casts the
+    packed payload before "transport" and dequantises the addressed rows
+    back to ``h.dtype``.  Returns ``[P, R, d]``.
     """
-    payload = _pack(td["send_row"], h, halo_dtype)
-    rows = payload[td["recv_src_part"], td["recv_src_slot"]].to(h.dtype)
-    return torch.where(td["recv_valid"][..., None], rows, 0.0)
+    return _rows(td["pull"], h, halo_dtype)
 
 
 def _scatter(halo: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
@@ -124,16 +193,14 @@ def _scatter(halo: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
 
 def _build_global(gd: dict, h: torch.Tensor, halo_dtype=None) -> torch.Tensor:
     """Fill the deduplicated global buffer ``[G, d]`` from owners' rows
-    (dequantised to ``h.dtype``; capacity-padding slots zeroed)."""
-    payload = _pack(gd["send_row"], h, halo_dtype)
-    rows = payload[gd["src_part"], gd["src_slot"]].to(h.dtype)
-    return torch.where(gd["buf_valid"][:, None], rows, 0.0)
+    (dequantised to ``h.dtype``; capacity-padding slots zero)."""
+    return _rows(gd["fill"], h, halo_dtype)
 
 
 def _read_global(gd: dict, buf: torch.Tensor,
                  halo: torch.Tensor) -> torch.Tensor:
     """Serve each worker's global-tier halo positions from the buffer."""
-    rows = buf[gd["read_buf_idx"]]                               # [P, RG, d]
+    rows = _gather(gd["read"], buf)                              # [P, RG, d]
     return _scatter(halo, gd["read_pos"], rows, gd["read_valid"])
 
 
@@ -206,11 +273,19 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cpu",
     return leaves, build
 
 
-def exchange_arrays(xplan: ExchangePlan, device="cpu") -> dict:
-    """One plan's tier index tensors and valid masks on ``device``."""
-    return {"un": _tier_dict(xplan.uncached, device),
-            "loc": _tier_dict(xplan.local, device),
-            "gl": _glob_dict(xplan.glob, device)}
+def exchange_arrays(xplan: ExchangePlan, n_inner: int, device="cpu",
+                    grad: bool = True, halo_dtype=None) -> dict:
+    """One plan's tier maps on ``device``, built once per plan: each
+    tier's gathers (:func:`_pull_maps`, for the payload dtype
+    ``halo_dtype``, None for none) over the flattened inner matrix
+    (``n_inner`` rows per partition) with, when ``grad`` asks for the
+    backward, their transposed index maps; scatter positions and valid
+    masks."""
+    return {"un": _tier_dict(xplan.uncached, n_inner, device, grad,
+                             halo_dtype),
+            "loc": _tier_dict(xplan.local, n_inner, device, grad,
+                              halo_dtype),
+            "gl": _glob_dict(xplan.glob, n_inner, device, grad, halo_dtype)}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -277,7 +352,7 @@ class SimRuntime:
         the old tiering, so the next step must be a refresh (or have been
         emitted by :meth:`step_transition`)."""
         self.xplan = xplan
-        self._state["xarr"] = exchange_arrays(xplan, self.device)
+        self._state["xarr"] = self._state["maps"](xplan)
 
     def step_transition(self, params, opt_state, caches,
                         new_xplan: ExchangePlan):
@@ -285,7 +360,7 @@ class SimRuntime:
         (and its uncached exchange) while pulling the **new** plan's tier
         rows; the emitted caches are laid out for ``new_xplan``, which
         becomes the installed plan."""
-        xe = exchange_arrays(new_xplan, self.device)
+        xe = self._state["maps"](new_xplan)
         out = self._state["step"](True, True, params, opt_state, caches,
                                   self._state["xarr"], xe)
         self._state["xarr"] = xe
@@ -415,7 +490,10 @@ def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
         return new_params, new_state, out_caches, metrics
 
     caches0 = init_caches(cfg, xplan, p, device=device)
-    state = {"xarr": exchange_arrays(xplan, device), "step": step}
+
+    def maps(xp):
+        return exchange_arrays(xp, ni, device, halo_dtype=hdt)
+    state = {"xarr": maps(xplan), "maps": maps, "step": step}
 
     def wrap(use_stale, emit_fresh):
         def stepper(params, opt_state, caches):

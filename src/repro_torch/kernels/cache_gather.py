@@ -1,10 +1,19 @@
-"""Row gather on the card: the wrapper of ``csrc/gather_rows.cu``.
+"""Row gather on the card: the wrapper of ``csrc/gather_rows.cu``, and
+its backward.
 
-The kernel replaces the JAX package's Pallas TPU kernel
-``gather_rows_pallas`` (``src/repro/kernels/cache_gather.py``); its source
-says what bounds it on the H100 and what the design does about that.  The
-CPU path and the dispatch by device live in :mod:`.ops`, the plain version
-in :mod:`.ref`.
+- :func:`gather_rows` — the forward kernel; it replaces the JAX package's
+  Pallas TPU kernel ``gather_rows_pallas``
+  (``src/repro/kernels/cache_gather.py``), and its source says what bounds
+  it on the H100 and what the design does about that;
+- :func:`gather_rows_bwd` — ``d_src = M g`` for the transposed index map
+  ``M`` (:func:`~.ops.gather_pack`): ``csrc/csr_spmm.cu`` in write mode, a
+  row sent to k consumers summing their k rows in a fixed order, with no
+  atomics and no zero fill.  The JAX package leaves this VJP to XLA (the
+  transpose of ``jnp.take``, a scatter-add).
+
+The differentiable gather (:class:`~.ops.GatherRowsFn`), the CPU path and
+the dispatch by device live in :mod:`.ops`, the plain versions in
+:mod:`.ref`.
 """
 from __future__ import annotations
 
@@ -13,8 +22,9 @@ import ctypes
 import torch
 
 from . import build
+from .csr_spmm import CsrPack, write_mode
 
-__all__ = ["gather_rows"]
+__all__ = ["gather_rows", "gather_rows_bwd"]
 
 # (src, idx, out, n_out, n_src, row_bytes, device, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
@@ -96,3 +106,17 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+
+
+def gather_rows_bwd(pack: CsrPack, g: torch.Tensor) -> torch.Tensor:
+    """``d_src [pack.n_rows, d]`` of ``out = src[idx]`` for the output's
+    cotangent ``g [n_out, d]`` (f32, or bf16 with f32 sums), over ``pack``
+    = :func:`~.ops.gather_pack` of ``idx``: row ``r`` is the sum of the
+    ``g`` rows whose id is ``r``, in the order of their positions, and 0
+    for a row no id names.  Two launches give the same bits."""
+    d_src, launched = write_mode("gather_rows_bwd", pack, g.contiguous())
+    gather_rows_bwd.launches += int(launched)
+    return d_src
+
+
+gather_rows_bwd.launches = 0

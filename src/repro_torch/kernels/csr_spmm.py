@@ -6,7 +6,8 @@
   once on the host;
 - :func:`csr_spmm` — ``A x`` into a new tensor (write mode; the row list
   must hold every row): ``d_h = A^T g``, the backward of the ELL and hybrid
-  products over their transposed pack;
+  products over their transposed pack (the row gather's backward is the
+  same mode, counted apart: :func:`~.cache_gather.gather_rows_bwd`);
 - :func:`csr_spmm_accumulate` — ``out += A x`` in place over the listed
   rows (accumulate mode): the hybrid product's tail forward, after the ELL
   kernel.
@@ -116,17 +117,26 @@ def _run(kernel: str, pack: CsrPack, x: torch.Tensor, out: torch.Tensor,
     return True
 
 
+def write_mode(kernel: str, pack: CsrPack,
+               x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """``(A x, launched)``: write mode under the name ``kernel``, for the
+    wrappers that count their own launches (:func:`csr_spmm` here, the
+    row gather's backward in :mod:`.cache_gather`)."""
+    if not pack.every_row:
+        raise ValueError(f"{kernel} kernel: write mode needs a pack whose "
+                         "row list holds every row (every_row=True)")
+    out = torch.empty((pack.n_rows, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    return out, _run(kernel, pack, x, out, False)
+
+
 def csr_spmm(pack: CsrPack, x: torch.Tensor) -> torch.Tensor:
     """``A x``, ``[pack.n_rows, d]`` in ``x``'s type (f32 sums), for ``x``
     ``[pack.n_cols, d]``.  The pack's row list must hold every row: each
     row of the result is written once, so it needs no zero fill, and the
     same inputs give the same bits."""
-    if not pack.every_row:
-        raise ValueError("csr_spmm kernel: write mode needs a pack whose row "
-                         "list holds every row (every_row=True)")
-    out = torch.empty((pack.n_rows, x.shape[-1]), dtype=x.dtype,
-                      device=x.device)
-    csr_spmm.launches += int(_run("csr_spmm", pack, x, out, False))
+    out, launched = write_mode("csr_spmm", pack, x)
+    csr_spmm.launches += int(launched)
     return out
 
 

@@ -12,7 +12,7 @@
   is the CSR kernel over the transposed pack (:mod:`.csr_spmm`);
 - :func:`ell_launch_config` — the forward kernel's vector width and
   stripe for a row width, chosen on the host (the CSR kernel takes the
-  same).
+  same); :func:`dvals_launch_config` the ``d_vals`` kernel's.
 
 The differentiable products over these kernels are the autograd Functions
 of :mod:`.ops`.  The forward takes an optional ``row_end`` ``[P, n_rows]``
@@ -37,9 +37,9 @@ __all__ = ["ell_spmm", "ell_spmm_chunked", "ell_spmm_dvals",
            "ell_launch_config"]
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# d_vals: (cols, g, h, d_vals, n_parts, n_rows, k, n_cols, d, strides x3,
-#         device, stream)
-_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_I64] * 3 + [_INT, _PTR]
+# d_vals: (cols, g, h, d_vals, partial, n_parts, n_rows, k, n_cols, d,
+#          strides x3, vec, stripe_vectors, lanes_per_slot, device, stream)
+_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_I64] * 3 + [_INT] * 4 + [_PTR]
 # forward: (cols, vals, row_end, h, out, n_parts, n_rows, k, n_cols, d,
 #           col_chunk, strides x3, vec, stripe_vectors, device, stream)
 _FWD_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_I64] * 3 + [_INT] * 3 + [_PTR]
@@ -51,6 +51,15 @@ _FLOAT_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # row, 35 MB of h per stripe on the serving pack).
 STRIPE_BYTES = 512
 STRIPE_VECTORS = (16, 32, 64, 128)   # the widths csrc/ell_spmm.cu builds
+# The d_vals kernel's feature stripe and lanes per slot (csrc/ell_spmm_bwd.cu
+# builds the same stripe widths, each with 8, 16 or 32 lanes a slot and at
+# most 8 vectors a lane): the fastest of 8 configurations on the H100 at
+# the training pack, d = 256 (PERF.md: chip_smoke.py --sweep).  A whole f32
+# row of d = 256 is one stripe, so g[i] stays in registers (8 floats a
+# lane) and no partial sums are written; a warp a slot keeps registers at
+# 40, 48 warps an SM.
+DVALS_STRIPE_BYTES = 1024
+DVALS_LANES = 32
 
 _FNS: dict = {}
 
@@ -76,17 +85,19 @@ def _launch(fn, device: int, *args) -> None:
                            f"error {err}")
 
 
-def ell_launch_config(d: int, elem_bytes: int,
-                      addr_bits: int) -> tuple[int, int]:
+def ell_launch_config(d: int, elem_bytes: int, addr_bits: int,
+                      stripe_bytes: int | None = None) -> tuple[int, int]:
     """``(vec, stripe_vectors)`` of the forward kernel for h rows of
     ``d`` elements of ``elem_bytes`` bytes.
 
     ``vec`` elements make the widest load (16, 8, 4 or 2 bytes, at least
     one element) that divides the row's bytes and ``addr_bits``, the OR of
     the h and out base addresses.  A warp's stripe is ``stripe_vectors``
-    such loads wide: :data:`STRIPE_BYTES`, within the widths the kernel is
-    built for, and no wider than the row needs.
+    such loads wide: ``stripe_bytes`` (default :data:`STRIPE_BYTES`),
+    within the widths the kernel is built for, and no wider than the row
+    needs.
     """
+    stripe_bytes = STRIPE_BYTES if stripe_bytes is None else stripe_bytes
     vec_bytes = 16
     while vec_bytes > elem_bytes and (d * elem_bytes % vec_bytes
                                       or addr_bits % vec_bytes):
@@ -94,10 +105,22 @@ def ell_launch_config(d: int, elem_bytes: int,
     n_vec = d * elem_bytes // vec_bytes
     stripe = STRIPE_VECTORS[0]
     for width in STRIPE_VECTORS[1:]:
-        if width * vec_bytes > STRIPE_BYTES or stripe >= n_vec:
+        if width * vec_bytes > stripe_bytes or stripe >= n_vec:
             break
         stripe = width
     return vec_bytes // elem_bytes, stripe
+
+
+def dvals_launch_config(d: int, addr_bits: int) -> tuple[int, int, int]:
+    """``(vec, stripe_vectors, lanes_per_slot)`` of the ``d_vals`` kernel
+    for f32 rows of ``d``: the vector and stripe as
+    :func:`ell_launch_config` picks them at :data:`DVALS_STRIPE_BYTES`
+    (``addr_bits`` the OR of the g and h base addresses), and
+    :data:`DVALS_LANES` lanes a slot, kept between a lane's 1 and 8
+    vectors of the stripe."""
+    vec, stripe = ell_launch_config(d, 4, addr_bits, DVALS_STRIPE_BYTES)
+    lanes = min(max(DVALS_LANES, stripe // 8), stripe)
+    return vec, stripe, lanes
 
 
 def _check(kernel: str, named: dict, dev: torch.device) -> None:
@@ -214,7 +237,8 @@ def ell_spmm_dvals(cols: torch.Tensor, g: torch.Tensor,
                    h: torch.Tensor) -> torch.Tensor:
     """``d_vals[..., i, k] = <g[..., i, :], h[..., cols[..., i, k], :]>`` for
     every slot (padding slots included, as the reference's einsum), f32,
-    ``[..., n_rows, K]``."""
+    ``[..., n_rows, K]``; 0 at a slot whose column lies outside ``[0,
+    n_cols)``.  Every slot of column 0 holds the same bits."""
     batched = g.dim() == 3
     if not batched:
         cols, g, h = _stacked(cols, g, h)
@@ -228,13 +252,22 @@ def ell_spmm_dvals(cols: torch.Tensor, g: torch.Tensor,
                         f"{tuple(g.shape)} and {h.dtype} {tuple(h.shape)}")
     n_parts, n_rows, k = cols.shape
     n_cols, d = h.shape[1], h.shape[2]
-    dvals = torch.empty((n_parts, n_rows, k), dtype=torch.float32,
-                        device=g.device)
-    if dvals.numel():
+    if not d:
+        dvals = torch.zeros((n_parts, n_rows, k), device=g.device)
+    else:
+        dvals = torch.empty((n_parts, n_rows, k), device=g.device)
+    if dvals.numel() and d:
+        vec, stripe, lanes = dvals_launch_config(
+            d, g.data_ptr() | h.data_ptr())
+        n_stripes = -(-d // (stripe * vec))
+        partial = (torch.empty((n_stripes,) + tuple(dvals.shape),
+                               device=g.device) if n_stripes > 1 else None)
         fn = _entry("ell_spmm_bwd", "ell_spmm_dvals_f32", _ARGTYPES)
         _launch(fn, g.get_device(), cols.data_ptr(), g.data_ptr(),
-                h.data_ptr(), dvals.data_ptr(), n_parts, n_rows, k, n_cols,
-                d, n_rows * k, n_rows * d, n_cols * d)
+                h.data_ptr(), dvals.data_ptr(),
+                None if partial is None else partial.data_ptr(), n_parts,
+                n_rows, k, n_cols, d, n_rows * k, n_rows * d, n_cols * d,
+                vec, stripe, lanes)
         ell_spmm_dvals.launches += 1
     return dvals if batched else dvals[0]
 

@@ -18,21 +18,36 @@ Both packs are built once where the stacked layout goes to the device
 them built for its call (:func:`pack_for_call`).  The ``edges`` backend's
 :func:`coo_spmm` stays plain torch, as the JAX package's ``segment_sum``
 backend.
+
+The row gather (:func:`gather_rows`, and :func:`pack_rows` over any index
+shape) is differentiable in ``src`` through :class:`GatherRowsFn` whenever
+autograd records: its backward is the CSR kernel in write mode over the
+transposed index map (:func:`gather_pack`), so no path meets PyTorch's
+sort-based indexing backward.  Outside autograd it is the raw kernel call.
+
+Out-of-range ids have one contract on both devices: an id outside
+``[0, n)`` reads a zero row, in the gather and in the ELL slots (their
+columns), as the CUDA kernels do and as :mod:`.ref` does with
+``torch.where``; a CSR pack refuses such entries (:func:`csr_pack`), and
+:func:`gather_pack` leaves them out.  The JAX package's ``jnp.take``
+wraps a negative id and gives a row of NaN past the end; no pack built by
+either package carries such an id.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import cache_gather as _gather
+from . import cache_gather as _gather_mod
 from . import ell_spmm as _ell
 from . import ref as _ref
 from .csr_spmm import ID_LIMIT, CsrPack, csr_spmm, csr_spmm_accumulate
 
 __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
            "csr_pack", "transpose_csr", "tail_csr", "pack_for_call",
-           "coo_spmm", "EllSpmmFn", "HybridSpmmFn", "ell_spmm",
-           "hybrid_spmm", "gather_rows"]
+           "gather_pack", "coo_spmm", "EllSpmmFn", "HybridSpmmFn",
+           "GatherRowsFn", "ell_spmm", "hybrid_spmm", "gather_rows",
+           "pack_rows"]
 
 # A CSR row with more entries than this is long: the kernel cuts it into
 # segments of at most this many entries, one block each (PERF.md: the
@@ -200,11 +215,26 @@ def tail_csr(tail_src, tail_dst, tail_w, n_rows: int, n_cols: int,
                     long_row=long_row, device=device)
 
 
+def gather_pack(idx, n_src: int, long_row: int = LONG_ROW,
+                device="cpu") -> CsrPack:
+    """The transposed index map of ``out = src[idx]`` (``idx`` flattened,
+    ``n_out`` ids) as a CSR ``[n_src, n_out]``: entry ``(idx[i], i, 1)`` for
+    every id in ``[0, n_src)``, every row listed.  :func:`~.csr_spmm.
+    csr_spmm` of it and the output's cotangent is ``d_src``; ids outside
+    ``[0, n_src)`` drop out (they read zero rows)."""
+    idx = _np(idx).astype(np.int64).ravel()
+    valid = (idx >= 0) & (idx < n_src)
+    return csr_pack(idx[valid], np.flatnonzero(valid),
+                    np.ones(int(valid.sum()), np.float32), n_src, idx.size,
+                    every_row=True, long_row=long_row, device=device)
+
+
 def pack_for_call(build, *args, **kwargs) -> CsrPack:
     """``build(*args, **kwargs)``: a pack made on the host for one call
     whose caller passed none, counted in ``pack_for_call.builds``.  No main
     path takes this route (``chip_smoke.py`` holds the count at 0 there):
-    their packs are built once, in ``make_adj_builder``."""
+    their packs are built once, in ``make_adj_builder`` and, for the tier
+    pulls' gathers, ``exchange_arrays``."""
     pack_for_call.builds += 1
     return build(*args, **kwargs)
 
@@ -445,9 +475,77 @@ def hybrid_spmm(cols: torch.Tensor, vals: torch.Tensor,
                               row_end, tail_pack, dh_pack)
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather ``src[idx]``: the CUDA kernel for CUDA tensors (with an
-    int32 index), the plain version for CPU tensors."""
+def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if src.device.type == "cpu":
         return _ref.gather_rows_ref(src, idx)
-    return _gather.gather_rows(src, idx.to(torch.int32))
+    return _gather_mod.gather_rows(src, idx.to(torch.int32))
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """Differentiable row gather, ``GatherRowsFn.apply(src, idx, pack)``:
+    ``out[i] = src[idx[i]]`` (a zero row for an id outside ``[0, n_src)``)
+    for ``src [n_src, d]`` and a 1-D ``idx``.
+
+    Forward: the gather kernel on the card, :func:`~.ref.gather_rows_ref`
+    on the CPU.  Backward: ``d_src = M g`` over ``pack`` = :func:`gather_pack`
+    of ``idx`` (built for the call through :func:`pack_for_call` when
+    none is given): the CSR kernel in write mode on the card
+    (:func:`~.cache_gather.gather_rows_bwd`), :func:`~.ref.csr_spmm_ref`
+    over the same pack on the CPU.  A row sent to k consumers sums their k
+    rows in a fixed order, with no atomics.  Raises ``ValueError`` when a
+    given ``pack`` is not ``[n_src, idx.numel()]``."""
+
+    @staticmethod
+    def forward(ctx, src, idx, pack=None):
+        if pack is not None and (pack.n_rows, pack.n_cols) != \
+                (src.shape[0], idx.numel()):
+            raise ValueError(
+                f"gather pack [{pack.n_rows}, {pack.n_cols}] does not fit "
+                f"src of {src.shape[0]} rows and {idx.numel()} ids")
+        ctx.pack = pack
+        ctx.src_meta = (src.shape[0], src.dtype)
+        ctx.save_for_backward(idx if pack is None else None)
+        return _gather(src, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n_src, dtype = ctx.src_meta
+        pack = ctx.pack
+        if pack is None:
+            pack = pack_for_call(gather_pack, idx, n_src, device=g.device)
+        if g.device.type == "cpu":
+            d_src = _ref.csr_spmm_ref(pack, g)
+        else:
+            d_src = _gather_mod.gather_rows_bwd(pack, g)
+        return d_src.to(dtype), None, None
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                pack: CsrPack | None = None) -> torch.Tensor:
+    """Row gather ``src[idx]`` (``src [n_src, d]``, ``idx`` 1-D; a zero row
+    for an id outside ``[0, n_src)``): the CUDA kernel for CUDA tensors
+    (with an int32 index), the plain version for CPU tensors.
+
+    While autograd records (``src.requires_grad`` with grad mode on) it is
+    :class:`GatherRowsFn`, whose backward walks ``pack`` (:func:`gather_pack`
+    of ``idx``, built for the call when not given); otherwise, as under the
+    serving engine's ``inference_mode``, the raw call, which pays nothing
+    for autograd.  An empty ``idx`` is the raw call too: its gradient is
+    zero, and a backward would only write zeros over ``d_src``."""
+    if src.requires_grad and torch.is_grad_enabled() and idx.numel():
+        return GatherRowsFn.apply(src, idx, pack)
+    if src.device.type == "cpu":
+        return _ref.gather_rows_ref(src, idx)
+    return _gather_mod.gather_rows(src, idx.to(torch.int32))
+
+
+def pack_rows(src: torch.Tensor, idx: torch.Tensor,
+              pack: CsrPack | None = None) -> torch.Tensor:
+    """:func:`gather_rows` over an index of any shape, ``[*idx.shape, d]``:
+    the JAX package's ``pack_rows`` (the p2p per-peer send pack ``[P, B]``
+    -> ``[P, B, d]``).  ``pack`` is :func:`gather_pack` of the flattened
+    index.  The JAX package's ``use_pallas`` has no counterpart: the
+    dispatch goes by device."""
+    out = gather_rows(src, idx.reshape(-1), pack)
+    return out.reshape(*idx.shape, src.shape[-1])

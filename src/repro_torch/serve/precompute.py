@@ -24,9 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..dist.capgnn_sim import (_build_global, _glob_dict, _pull,
-                               _read_global, _scatter, _tier_dict,
-                               make_adj_builder)
+from ..dist.capgnn_sim import (_build_global, _pull, _read_global,
+                               _scatter, exchange_arrays, make_adj_builder)
 from ..dist.exchange import ExchangePlan, StackedParts
 from ..graph.partition import PartitionSet
 from ..models.gnn import GNNConfig, _layer_apply
@@ -76,9 +75,8 @@ def precompute_embeddings(cfg: GNNConfig, ps: PartitionSet, sp: StackedParts,
     halo_feats = torch.as_tensor(sp.halo_feats, device=device)
     adj_leaves, build_adj = make_adj_builder(sp, backend, device, grad=False)
     adj = build_adj(adj_leaves)
-    un_d = _tier_dict(xplan.uncached, device)
-    loc_d = _tier_dict(xplan.local, device)
-    glob_d = _glob_dict(xplan.glob, device)
+    xa = exchange_arrays(xplan, sp.n_inner_max, device, grad=False)
+    un_d, loc_d, glob_d = xa["un"], xa["loc"], xa["gl"]
 
     h = feats
     outs = [h]

@@ -13,7 +13,13 @@ the output (rtol/atol 1e-2); the row gather is bit-exact.  The ELL
 forward is held at every vector width (16-, 8-, 4- and 2-byte loads),
 every stripe it is built for, with and without ``row_end``, and on ragged
 packs; the CSR kernel on short rows only, long rows only and both, in
-both modes, f32 and bf16, at unaligned base addresses.
+both modes, f32 and bf16, at unaligned base addresses; the ``d_vals``
+kernel at ragged shapes, every stripe and lanes-per-slot, with live
+column-0 slots (one value per row, the same bits at each) and two
+launches bit-equal.  The row gather's backward (the CSR kernel over the
+transposed index map) is bit-reproducible and within the CSR tolerance of
+the CPU's; one refresh step of the training slice per backend (``hybrid``,
+``ell``, ``edges``) matches the CPU within the train slice's tolerances.
 """
 import numpy as np
 import pytest
@@ -497,3 +503,165 @@ def test_train_slice_on_card_matches_cpu(card):
     for k in ("comm_bytes", "comm_bytes_vanilla", "refresh_steps",
               "cached_steps", "step_kinds"):
         assert getattr(reps["cuda"], k) == getattr(reps["cpu"], k), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 256, 500])
+def test_gather_backward_on_card_matches_cpu(card, dtype, d):
+    """The row gather's backward (the CSR kernel over the transposed index
+    map): a ``grad_fn`` on the card, two launches equal bit for bit, and
+    the CPU's gradient (the plain version over the same pack) within the
+    CSR tolerance; ids repeated up to 300 times (long rows of the map) and
+    out of range; the forward bit-exact."""
+    rng = np.random.default_rng(d)
+    n_src = 400
+    idx = rng.integers(-3, n_src + 3, 2000).astype(np.int32)
+    idx[:300] = 17                       # one row sent to 300 consumers
+    src = torch.from_numpy(rng.normal(size=(n_src, d)).astype(
+        np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(idx.size, d)).astype(
+        np.float32)).to(dtype)
+    pack = ops.gather_pack(idx, n_src, device=card)
+    assert pack.long_rows.numel() > 0
+    grads = []
+    for _ in range(2):
+        x = src.to(card).requires_grad_(True)
+        before = (cache_gather.gather_rows.launches,
+                  cache_gather.gather_rows_bwd.launches)
+        out = ops.gather_rows(x, torch.from_numpy(idx).to(card), pack)
+        assert isinstance(out.grad_fn, ops.GatherRowsFn._backward_cls)
+        out.backward(g.to(card))
+        torch.cuda.synchronize()
+        assert (cache_gather.gather_rows.launches,
+                cache_gather.gather_rows_bwd.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        grads.append(x.grad)
+    word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(grads[0].view(word), grads[1].view(word))
+    x = src.clone().requires_grad_(True)
+    cpu_out = ops.gather_rows(x, torch.from_numpy(idx), pack.to("cpu"))
+    cpu_out.backward(g)
+    assert torch.equal(out.detach().cpu().view(word), cpu_out.detach()
+                       .view(word))
+    torch.testing.assert_close(grads[0].float().cpu(), x.grad.float(),
+                               **_csr_tol(x.grad))
+
+
+def test_gather_rows_keeps_the_graph_on_card(card):
+    """``ops.gather_rows`` on a ``src`` that requires a gradient has a
+    ``grad_fn`` on the card (a pack built for the call, counted), and under
+    ``inference_mode`` is the raw kernel call."""
+    src = torch.randn((50, 8), device=card, requires_grad=True)
+    idx = torch.tensor([3, 3, 49, 0], dtype=torch.int32, device=card)
+    builds = ops.pack_for_call.builds
+    out = ops.gather_rows(src, idx)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert ops.pack_for_call.builds == builds + 1
+    want = torch.zeros((50, 8))
+    want[3], want[49], want[0] = 2.0, 1.0, 1.0
+    torch.testing.assert_close(src.grad.cpu(), want, rtol=0, atol=0)
+    with torch.inference_mode():
+        assert ops.gather_rows(src, idx).grad_fn is None
+
+
+@pytest.mark.parametrize("d", [7, 130, 256, 499, 500, 700, 1100])
+def test_dvals_kernel_ragged_and_column0(card, d):
+    """``d_vals`` at ragged shapes, one stripe or several (d = 1100 at the
+    chosen stripe: partial rows summed by the second kernel), every vector
+    width, with live slots of column 0 among the padding and columns out
+    of range (0); the column-0 slots of a row hold the same bits, and two
+    launches give the same bits."""
+    p, n, k, nc = 2, 45, 37, 90
+    cols, vals, h = _ell(d + 3, p, n, k, nc, d, pad=0.6)
+    cols[vals == 0] = 0                  # padding names column 0
+    cols[0, 3, 5], vals[0, 3, 5] = 0, 1.5      # live slots of column 0
+    cols[1, 44, 36], vals[1, 44, 36] = 0, -2.0
+    cols[1, 7, 2], cols[0, 9, 9] = -1, nc + 2  # out of range
+    g = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(p, n, d)).astype(np.float32))
+    cols, vals, h, g = (t.to(card) for t in (cols, vals, h, g))
+    before = ell_spmm.ell_spmm_dvals.launches
+    got = ell_spmm.ell_spmm_dvals(cols, g, h)
+    again = ell_spmm.ell_spmm_dvals(cols, g, h)
+    torch.cuda.synchronize()
+    assert ell_spmm.ell_spmm_dvals.launches == before + 2
+    want = ref.ell_spmm_bwd_ref(cols, vals, h, g, nc, need_h=False)[0]
+    torch.testing.assert_close(got, want, **ELL_TOL)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert got[1, 7, 2] == 0 and got[0, 9, 9] == 0
+    zero = cols == 0
+    for i in range(p):
+        for r in range(n):
+            v = got[i, r][zero[i, r]]
+            assert torch.equal(v, v[:1].expand_as(v)), (i, r)
+
+
+@pytest.mark.parametrize("stripe_bytes", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_dvals_every_launch_config(card, stripe_bytes, lanes, monkeypatch):
+    """Every stripe and lanes-per-slot the ``d_vals`` kernel is built for
+    (the configurations ``chip_smoke.py --sweep`` times), f32 at d = 256,
+    500 and 130, against the plain version."""
+    monkeypatch.setattr(ell_spmm, "DVALS_STRIPE_BYTES", stripe_bytes)
+    monkeypatch.setattr(ell_spmm, "DVALS_LANES", lanes)
+    for d in (256, 500, 130):
+        cols, vals, h = (t.to(card) for t in _ell(d, 2, 70, 40, 150, d))
+        g = torch.randn((2, 70, d), device=card)
+        got = ell_spmm.ell_spmm_dvals(cols, g, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, ref.ell_spmm_bwd_ref(cols, vals, h, g, 150,
+                                      need_h=False)[0], **ELL_TOL)
+
+
+@pytest.mark.parametrize("backend", ["hybrid", "ell", "edges"])
+def test_refresh_step_on_card_matches_cpu(card, backend):
+    """One refresh step of the training slice at a small size, for each
+    backend: the card's loss within 1e-5 of the CPU's and each gradient
+    within 2e-3 of its largest magnitude (``chip_smoke.py``'s train
+    tolerances), the tier pulls' gradients through the gather backward
+    (once per differentiated non-empty pull and exchanged layer), and no
+    pack built for a call."""
+    from repro_torch.dist import make_sim_runtime
+    from repro_torch.launch.train import build_parser, prepare_train
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.optim import adam
+
+    args = build_parser().parse_args(
+        ["gnn", "--scale", "0.02", "--feat-dim", "32", "--hidden", "32",
+         "--backend", backend, "--epochs", "1"])
+    ctx = prepare_train(args)
+    cfg, spec, xplan = ctx["cfg"], ctx["spec"], ctx["xplan"]
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    for dev in ("cpu", card):
+        rt = make_sim_runtime(cfg, ctx["sp"], xplan, adam(0.01), spec=spec,
+                              device=dev)
+        builds = ops.pack_for_call.builds
+        bwd = cache_gather.gather_rows_bwd.launches
+        loss, grads = rt.loss_and_grads(
+            [{k: v.to(dev) for k, v in p.items()} for p in params],
+            rt.caches0)
+        if dev == card:
+            torch.cuda.synchronize()
+            # on an f32 halo, one gather per tier pull with a non-empty
+            # index, read from the plan: the uncached and local tiers, the
+            # global buffer's fill and its reads
+            pulls = (xplan.uncached.recv_src_part, xplan.local.recv_src_part,
+                     xplan.glob.src_part, xplan.glob.read_buf_idx)
+            want = (cfg.num_layers - 1) * sum(int(np.asarray(a).size > 0)
+                                              for a in pulls)
+            assert want > 0
+            assert cache_gather.gather_rows_bwd.launches - bwd == want
+        assert ops.pack_for_call.builds == builds
+        res[str(dev)] = (float(loss), [{k: v.cpu() for k, v in g.items()}
+                                       for g in grads])
+    (lc, gc), (lg, gg) = res["cpu"], res[str(card)]
+    assert abs(lg - lc) <= 1e-5
+    for a, b in zip(gg, gc):
+        for k in b:
+            rel = float((a[k] - b[k]).abs().max()) / (
+                float(b[k].abs().max()) + 1e-12)
+            assert rel <= 2e-3, (k, rel)
