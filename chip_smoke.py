@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sweep]
+    python3 chip_smoke.py [--sweep | --spmd-nccl]
 
 Phases, each printing one JSON line (``{"phase": ...}``); a phase that fails
 raises, and the script exits non-zero:
@@ -43,6 +43,32 @@ raises, and the script exits non-zero:
    CPU's at full scale (through the gather's backward); an 8-step SGD run
    equal to the CPU's at scale 0.1; each step kind timed again in steady
    state.
+   ``train_edges`` - the same flags with ``--backend edges`` (the CLI's
+   default), on the same host plan: the same checks, no ELL, tail or
+   ``d_h`` launch, the gathers 6 / 2.  ``coo_spmm`` - its aggregation at
+   that edge list, d = 256: the ``index_select`` route's forward (bit-equal
+   to the old two-index route's) and backward beside the old route's
+   (``old_route_ms``) and ``torch.sparse.mm``.
+   ``train_ell`` - ``--backend ell`` at scale 0.3 (the pure ELL pack's
+   shape and bytes printed: 0.73 GB there, ~7 GB at scale 1.0), its
+   refresh step held against the CPU at scale 0.1.
+   ``spmd`` - the SPMD runtime (``repro_torch.dist.capgnn_spmd``) at the
+   training slice's flags, 4 ranks sharing the card over gloo (the wire
+   staged through pinned host buffers: ``"wire": "gloo-host"``, a measure
+   of correctness and compute, not of NVLink), once per transport: the
+   refresh step's loss and gradients against the card's single-process
+   runtime on the same parameters, every step's counted rows and bytes
+   equal to the plan's, the launches summed over the ranks, the step and
+   host-staging ms per kind.  ``spmd_tiers`` - the SPMD runtime on a
+   small graph whose forced-capacity plans fill every tier, 4 ranks over
+   gloo on the card, under both transports and a bf16 ``p2p`` wire:
+   refresh, cached, pipelined and cached steps, a transition to a second
+   ranking, a cached step on it, ``set_plan`` back and a refresh, each
+   step's loss, parameters and caches against the card's single-process
+   runtime and its counted rows against the plans'.  ``spmd_nccl`` and
+   ``spmd_tiers_nccl`` - the same two over NCCL, one card per rank,
+   where 4 cards are visible; otherwise their lines say ``"ran": false``
+   and the card count.
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -53,8 +79,10 @@ raises, and the script exits non-zero:
    forward and its autograd backward; the tier pulls' indexing backward
    and an ``index_select`` route), and a tier pull, forward and backward,
    as one composed gather and as two stages.
-7. ``kernels`` - every ported kernel with its launches on the main paths,
-   its largest error against the plain version and its times.
+7. ``kernels`` - every ported kernel with its launches on each path
+   (``launches_by_path``: serve, train, train_edges, train_ell, and the
+   SPMD runs summed over ranks), its largest error against the plain
+   version and its times.
 
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
 (and the chosen one without ``row_end``) checked against the plain version
@@ -107,6 +135,12 @@ TRAIN_ARGV = [
     "--refresh-every", "4", "--epochs", "8", "--lr", "0.01", "--seed", "0",
 ]
 TRAIN_SGD_SCALE = "0.1"   # the card-vs-CPU trajectory check
+# the pure-ELL cell: at scale 1.0 the largest in-degree (8,886) makes the
+# pack [4, 24.5k, 8.9k], ~7 GB, and its plain version's CPU reference out
+# of reach; at 0.3 the pack is [4, 7335, 3089], 0.73 GB (its refresh step
+# is held against the CPU at TRAIN_SGD_SCALE)
+TRAIN_ELL_SCALE = "0.3"
+SPMD_RANKS = 4
 COL_CHUNK = 8192          # 8 MB of h rows at d = 256: an L2 tile
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth and
@@ -896,58 +930,164 @@ def steady_step_ms(rt, params, opt_state, steps: int = 3) -> dict:
     return out
 
 
-def phase_train() -> tuple[dict, dict]:
-    """The training slice through launch.train's entry; returns the kernel
-    launches on it and its context (stacked layout, plan, runtime)."""
-    from repro_torch.core import StalenessController
-    from repro_torch.dist import make_sim_runtime, train_capgnn
+def train_counters() -> dict:
     from repro_torch.kernels import cache_gather as kgather
-    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
-    from repro_torch.launch.train import build_parser, prepare_train, train_gnn
-    from repro_torch.models.gnn import init_gnn
-    from repro_torch.optim import adam, sgd
+    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell
+    return {"ell_spmm": kell.ell_spmm,
+            "ell_spmm_chunked": kell.ell_spmm_chunked,
+            "csr_spmm_tail": kcsr.csr_spmm_accumulate,
+            "csr_spmm_dh": kcsr.csr_spmm,
+            "ell_spmm_dvals": kell.ell_spmm_dvals,
+            "gather_rows": kgather.gather_rows,
+            "gather_rows_bwd": kgather.gather_rows_bwd}
 
-    args = build_parser().parse_args(TRAIN_ARGV)
-    counters = {"ell_spmm": kell.ell_spmm,
-                "ell_spmm_chunked": kell.ell_spmm_chunked,
-                "csr_spmm_tail": kcsr.csr_spmm_accumulate,
-                "csr_spmm_dh": kcsr.csr_spmm,
-                "ell_spmm_dvals": kell.ell_spmm_dvals,
-                "gather_rows": kgather.gather_rows,
-                "gather_rows_bwd": kgather.gather_rows_bwd}
-    for fn in counters.values():
+
+def zero_counts() -> None:
+    from repro_torch.kernels import ops
+    for fn in train_counters().values():
         fn.launches = 0
     ops.pack_for_call.builds = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import ops
+    out = {k: fn.launches for k, fn in train_counters().items()}
+    out["packs_built_for_a_call"] = ops.pack_for_call.builds
+    return out
+
+
+def train_launches(backend: str, layers: int, kinds: list[str],
+                   gathers: dict) -> dict:
+    """The launches a training run gives: each step and the closing
+    evaluation run every layer's forward once (the ELL kernel under
+    ``ell`` and ``hybrid``, the tail's CSR kernel under ``hybrid``); the
+    backward needs ``d_h`` from layer 1 on (layer 0's input is constant)
+    under ``ell`` and ``hybrid``, and ``d_vals`` never (the ELL values are
+    constants of the graph); ``edges`` is plain torch; the gathers as
+    each step kind gives them (``gathers``, per kind); every pack comes
+    from ``make_adj_builder`` or the exchange maps."""
+    passes = len(kinds) + 1
+    ell = backend != "edges"
+    return {"ell_spmm": layers * passes if ell else 0,
+            "ell_spmm_chunked": 0,
+            "csr_spmm_tail": layers * passes if backend == "hybrid" else 0,
+            "csr_spmm_dh": (layers - 1) * len(kinds) if ell else 0,
+            "ell_spmm_dvals": 0,
+            **{k: sum(gathers[kind][k] for kind in kinds + ["evaluation"])
+               for k in ("gather_rows", "gather_rows_bwd")},
+            "packs_built_for_a_call": 0}
+
+
+def refresh_grads(cfg, spec, sp, xplan, params0, lr: float, device,
+                  rt=None) -> tuple[float, list, float]:
+    """One refresh step's loss and gradients (on the CPU) and its seconds,
+    on ``device`` from ``params0`` (on ``rt``, or a runtime built
+    here)."""
+    from repro_torch.dist import make_sim_runtime
+    from repro_torch.optim import adam
+    if rt is None:
+        rt = make_sim_runtime(cfg, sp, xplan, adam(lr), spec=spec,
+                              device=device)
     t0 = time.perf_counter()
-    out, ctx = train_gnn(args)
+    loss, grads = rt.loss_and_grads(
+        [{k: v.to(device) for k, v in p.items()} for p in params0],
+        rt.caches0)
+    return (float(loss), [{k: v.cpu() for k, v in g.items()} for g in grads],
+            time.perf_counter() - t0)
+
+
+def card_vs_cpu(cfg, spec, sp, xplan, seed: int, lr: float, card: str,
+                card_rt=None) -> dict:
+    """One refresh step's loss and gradients on the card (``card_rt``, or
+    a runtime built here on ``card``) and on the CPU from the same
+    parameters (``init_gnn`` of ``seed``); raises past ``LOSS_ATOL`` /
+    ``GRAD_RTOL``.  The card's loss and gradients are returned too, the
+    reference of the SPMD phases."""
+    from repro_torch.models.gnn import init_gnn
+    params0 = init_gnn(cfg, torch.Generator().manual_seed(seed), "cpu")
+    res = {dev: refresh_grads(cfg, spec, sp, xplan, params0, lr, dev,
+                              card_rt if dev == card else None)
+           for dev in (card, "cpu")}
+    loss_err = abs(res[card][0] - res["cpu"][0])
+    if loss_err > LOSS_ATOL:
+        raise AssertionError(f"refresh-step loss differs from the CPU's by "
+                             f"{loss_err}")
+    return {"params0": params0, "loss": res[card][0],
+            "grads": res[card][1],
+            "fields": {"refresh_loss_card": res[card][0],
+                       "refresh_loss_cpu": res["cpu"][0],
+                       "refresh_loss_err": loss_err,
+                       "refresh_grad_err": grads_err(res[card][1],
+                                                     res["cpu"][1]),
+                       "cpu_refresh_step_s": res["cpu"][2]}}
+
+
+def sgd_trajectories(args) -> dict:
+    """An 8-step SGD run of ``args``' flags at ``TRAIN_SGD_SCALE`` on the
+    card and on the CPU; raises past ``TRAJ_ATOL``."""
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.launch.train import prepare_train
+    from repro_torch.optim import sgd
+    args01 = argparse.Namespace(**{**vars(args), "scale":
+                                   float(TRAIN_SGD_SCALE)})
+    ctx01 = prepare_train(args01)
+    trajs = {}
+    for dev in (args.device, "cpu"):
+        rt01 = make_sim_runtime(ctx01["cfg"], ctx01["sp"], ctx01["xplan"],
+                                sgd(args.lr), spec=ctx01["spec"], device=dev)
+        _, r01 = train_capgnn(
+            ctx01["cfg"], rt01, ctx01["xplan"], args.parts, sgd(args.lr),
+            epochs=args.epochs,
+            controller=StalenessController(refresh_every=args.refresh_every),
+            spec=ctx01["spec"])
+        trajs[dev] = r01.losses
+    traj_err = float(np.abs(np.subtract(trajs[args.device],
+                                        trajs["cpu"])).max())
+    if traj_err > TRAJ_ATOL:
+        raise AssertionError(f"SGD trajectory differs from the CPU's by "
+                             f"{traj_err}: {trajs}")
+    return {"sgd_scale": float(TRAIN_SGD_SCALE), "sgd_losses": trajs,
+            "sgd_traj_err": traj_err}
+
+
+def phase_train(name: str, argv: list[str], ctx: dict | None = None,
+                check_scale: str | None = None,
+                sgd_check: bool = False) -> tuple[dict, dict, dict]:
+    """One training cell through launch.train's entry (``ctx``: the host
+    plan of the same flags but the stacking, reused; built when None).
+
+    Checks: the step kinds, the launches of the backend (the counters
+    zeroed just before the run and read just after; the gathers worked
+    out from the plan's arrays), finite falling losses, the bytes equal
+    to the plan's; one refresh step's loss and gradients on the card
+    against the CPU (at ``check_scale`` when given: the same flags at
+    that scale), and with ``sgd_check`` an 8-step SGD trajectory at
+    ``TRAIN_SGD_SCALE``.  Returns the launches, the run's context and the
+    card's refresh step (parameters, loss, gradients)."""
+    from repro_torch.launch.train import build_parser, prepare_train, train_gnn
+
+    args = build_parser().parse_args(argv)
+    zero_counts()
+    t0 = time.perf_counter()
+    out, ctx = train_gnn(args, ctx)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["packs_built_for_a_call"] = ops.pack_for_call.builds
+    launches = read_counts()
 
     rep, cfg, spec, xplan = ctx["report"], ctx["cfg"], ctx["spec"], ctx["xplan"]
-    rt = ctx["runtime"]
+    rt, sp = ctx["runtime"], ctx["sp"]
     epochs, layers = args.epochs, cfg.num_layers
     kinds = rep.step_kinds
     if kinds != ["refresh", "cached", "cached", "cached", "pipelined",
                  "cached", "cached", "cached"]:
-        raise AssertionError(f"step kinds {kinds}")
-    # each step and the closing evaluation run every layer's forward (ELL,
-    # then the tail) once; the backward needs d_h from layer 1 on (layer
-    # 0's input is constant) and d_vals never (the ELL values are constants
-    # of the graph); the tier pulls of layers 1 on gather as each step kind
-    # gives (gather_launches); every pack comes from make_adj_builder or,
-    # for the gathers, exchange_arrays
+        raise AssertionError(f"{name}: step kinds {kinds}")
     per_kind = gather_launches(xplan, layers - 1)
-    want = {"ell_spmm": layers * (epochs + 1), "ell_spmm_chunked": 0,
-            "csr_spmm_tail": layers * (epochs + 1),
-            "csr_spmm_dh": (layers - 1) * epochs, "ell_spmm_dvals": 0,
-            **{k: sum(per_kind[kind][k] for kind in kinds + ["evaluation"])
-               for k in ("gather_rows", "gather_rows_bwd")},
-            "packs_built_for_a_call": 0}
+    want = train_launches(args.backend, layers, kinds, per_kind)
     if launches != want:
-        raise AssertionError(f"training launches {launches}, want {want}")
-    if {k: want[k] for k in TRAIN_GATHERS} != TRAIN_GATHERS:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if args.scale == 1.0 and {k: want[k] for k in TRAIN_GATHERS} != \
+            TRAIN_GATHERS:
         raise AssertionError(f"the plan gives the gathers {want}, the cell "
                              f"states {TRAIN_GATHERS}: tier rows "
                              f"{xplan.uncached.n_rows} uncached, "
@@ -955,69 +1095,53 @@ def phase_train() -> tuple[dict, dict]:
                              f"{xplan.glob.n_unique} global")
     losses = rep.losses
     if len(losses) != epochs or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"losses {losses}")
+        raise AssertionError(f"{name}: losses {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
     comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
     if (rep.comm_bytes, rep.comm_bytes_vanilla) != (comm, vanilla):
-        raise AssertionError(f"bytes {rep.comm_bytes}/{rep.comm_bytes_vanilla}"
-                             f", the plan gives {comm}/{vanilla}")
-
+        raise AssertionError(f"{name}: bytes {rep.comm_bytes}/"
+                             f"{rep.comm_bytes_vanilla}, the plan gives "
+                             f"{comm}/{vanilla}")
     steady_ms = steady_step_ms(rt, ctx["params"], rep.final_opt_state)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # one refresh step's loss and gradients, card vs CPU, same parameters;
-    # on the card its tier pulls' gradients go through the gather backward
-    params0 = init_gnn(cfg, torch.Generator().manual_seed(args.seed),
-                       rt.device)
-    cpu_rt = make_sim_runtime(cfg, ctx["sp"], xplan, adam(args.lr),
-                              spec=spec, device="cpu")
-    bwd0 = kgather.gather_rows_bwd.launches
-    loss_g, grads_g = rt.loss_and_grads(params0, rt.caches0)
-    refresh_bwd = kgather.gather_rows_bwd.launches - bwd0
-    if refresh_bwd != per_kind["refresh"]["gather_rows_bwd"]:
-        raise AssertionError(f"the refresh check launched the gather "
-                             f"backward {refresh_bwd} times, want "
-                             f"{per_kind['refresh']['gather_rows_bwd']}")
-    t0 = time.perf_counter()
-    loss_c, grads_c = cpu_rt.loss_and_grads(
-        [{k: v.cpu() for k, v in p.items()} for p in params0],
-        cpu_rt.caches0)
-    cpu_step_s = time.perf_counter() - t0
-    loss_err = abs(float(loss_g) - float(loss_c))
-    if loss_err > LOSS_ATOL:
-        raise AssertionError(f"refresh-step loss differs from the CPU's by "
-                             f"{loss_err}")
-    grad_err = grads_err(grads_g, grads_c)
-    del cpu_rt, grads_c
-
-    # an 8-step SGD trajectory at scale 0.1, card vs CPU
-    argv01 = list(TRAIN_ARGV)
-    argv01[argv01.index("--scale") + 1] = TRAIN_SGD_SCALE
-    args01 = build_parser().parse_args(argv01)
-    ctx01 = prepare_train(args01)
-    trajs = {}
-    for dev in (rt.device.type, "cpu"):
-        rt01 = make_sim_runtime(ctx01["cfg"], ctx01["sp"], ctx01["xplan"],
-                                sgd(args.lr), spec=ctx01["spec"], device=dev)
-        _, r01 = train_capgnn(
-            ctx01["cfg"], rt01, ctx01["xplan"], args.parts, sgd(args.lr),
-            epochs=epochs,
-            controller=StalenessController(refresh_every=args.refresh_every),
-            spec=ctx01["spec"])
-        trajs[dev] = r01.losses
-    traj_err = float(np.abs(np.subtract(trajs[rt.device.type],
-                                        trajs["cpu"])).max())
-    if traj_err > TRAJ_ATOL:
-        raise AssertionError(f"SGD trajectory differs from the CPU's by "
-                             f"{traj_err}: {trajs}")
+    # one refresh step, card vs CPU, same parameters; on the card its tier
+    # pulls' gradients go through the gather backward
+    if check_scale is None:
+        check_cfg, check_sp, check_x, check_spec = cfg, sp, xplan, spec
+    else:
+        cargs = argparse.Namespace(**{**vars(args), "scale":
+                                      float(check_scale)})
+        cctx = prepare_train(cargs)
+        check_cfg, check_sp, check_x, check_spec = (
+            cctx["cfg"], cctx["sp"], cctx["xplan"], cctx["spec"])
+        rt = None
+    bwd0 = read_counts()["gather_rows_bwd"]
+    ref = card_vs_cpu(check_cfg, check_spec, check_sp, check_x, args.seed,
+                      args.lr, args.device, rt)
+    del ctx["runtime"], rt
+    torch.cuda.empty_cache()
+    refresh_bwd = read_counts()["gather_rows_bwd"] - bwd0
+    want_bwd = gather_launches(check_x, layers - 1)["refresh"][
+        "gather_rows_bwd"]
+    if refresh_bwd != want_bwd:
+        raise AssertionError(f"{name}: the refresh check launched the "
+                             f"gather backward {refresh_bwd} times, want "
+                             f"{want_bwd}")
+    extra = sgd_trajectories(args) if sgd_check else {}
 
     step_ms = {k: statistics.median(1e3 * t for t, kk in
                                     zip(rep.step_s, kinds) if kk == k)
                for k in sorted(set(kinds))}
-    emit("train", argv=TRAIN_ARGV, nodes=ctx["task"].graph.num_nodes,
-         hybrid_pack=list(ctx["sp"].ell.cols.shape),
-         tail_width=ctx["sp"].ell.tail_width,
-         n_inner_max=ctx["sp"].n_inner_max, n_halo_max=ctx["sp"].n_halo_max,
+    pack = {}
+    if sp.ell is not None:
+        pack = {"ell_pack": list(sp.ell.cols.shape),
+                "ell_pack_bytes": int(sp.ell.cols.nbytes + sp.ell.vals.nbytes),
+                "tail_width": sp.ell.tail_width}
+    emit(name, argv=argv, nodes=ctx["task"].graph.num_nodes, **pack,
+         n_edges_stacked=list(sp.e_src.shape),
+         n_inner_max=sp.n_inner_max, n_halo_max=sp.n_halo_max,
          total_halo=xplan.total_halo,
          tier_rows={"uncached": xplan.uncached.n_rows,
                     "local": xplan.local.n_rows,
@@ -1032,13 +1156,490 @@ def phase_train() -> tuple[dict, dict]:
          step_ms=[1e3 * t for t in rep.step_s], median_step_ms=step_ms,
          steady_step_ms=steady_ms, gather_launches_per_kind=per_kind,
          host_plan_s=ctx["host_plan_s"], launch_wall_s=wall_s,
-         launches=launches, refresh_loss_card=float(loss_g),
-         refresh_loss_cpu=float(loss_c), refresh_loss_err=loss_err,
-         refresh_grad_err=grad_err, cpu_refresh_step_s=cpu_step_s,
-         sgd_scale=float(TRAIN_SGD_SCALE), sgd_losses=trajs,
-         sgd_traj_err=traj_err,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches, ctx
+         launches=launches, checked_at_scale=float(check_scale or args.scale),
+         **ref["fields"], **extra, peak_mem_gb=peak_gb)
+    return launches, ctx, ref
+
+
+def with_backend(argv: list[str], backend: str,
+                 scale: str | None = None) -> list[str]:
+    out = list(argv)
+    out[out.index("--backend") + 1] = backend
+    if scale is not None:
+        out[out.index("--scale") + 1] = scale
+    return out
+
+
+def edges_context(ctx: dict, argv: list[str]) -> dict:
+    """The hybrid cell's host plan with the ``edges`` stacking: the flags
+    differ in the backend only, so the partition, RAPA, JACA and the
+    exchange plan are the same."""
+    from repro_torch.dist import TrainSpec, stack_partitions
+    from repro_torch.launch.train import build_parser
+    t0 = time.perf_counter()
+    sp = stack_partitions(ctx["ps"], ctx["task"], backend="edges")
+    spec = TrainSpec.from_cli_args(build_parser().parse_args(argv))
+    keep = ("task", "ps", "profiles", "group", "cfg", "xplan")
+    return {**{k: ctx[k] for k in keep}, "sp": sp, "spec": spec,
+            "host_plan_s": time.perf_counter() - t0}
+
+
+def coo_old_route(src, dst, w, h, n_rows):
+    """``ops.coo_spmm`` as it was before this slice: the messages by
+    two-index advanced indexing ``h[pidx, src]``, whose backward is
+    PyTorch's sort-based indexing backward.  Kept here only to time it
+    beside the ``index_select`` route."""
+    n_parts, d = h.shape[0], h.shape[-1]
+    pidx = torch.arange(n_parts, device=h.device)[:, None]
+    msgs = h[pidx, src.long()] * w[..., None].to(h.dtype)
+    flat = (pidx * (n_rows + 1) + dst.long()).reshape(-1)
+    out = torch.zeros((n_parts * (n_rows + 1), d), dtype=h.dtype,
+                      device=h.device)
+    out.index_add_(0, flat, msgs.reshape(-1, d))
+    return out.view(n_parts, n_rows + 1, d)[:, :n_rows]
+
+
+def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
+    """The ``edges`` backend's aggregation at the train cell's stacked edge
+    list, d = 256 (layers 1 and 2 differentiate it): forward and backward
+    by the ``index_select`` route of ``ops.coo_spmm`` beside the old
+    two-index route, and ``torch.sparse.mm`` of the same matrix (the
+    library call).  The two routes' messages are bit-equal; their sums
+    (``index_add_``, atomics on the card) and gradients agree within the
+    CSR tolerance.  Plain torch on both routes: the JAX package's
+    ``segment_sum`` has no ``pallas_call``."""
+    from repro_torch.kernels import ops
+    src, dst, w = (torch.as_tensor(a, device=dev)
+                   for a in (sp.e_src, sp.e_dst, sp.e_w))
+    n_parts, ni = sp.num_parts, sp.n_inner_max
+    n_cols, d = ni + sp.n_halo_max, 256
+    h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev,
+                    requires_grad=True)
+    g = torch.randn((n_parts, ni, d), generator=gen, device=dev)
+    offs = torch.arange(n_parts, device=dev)[:, None]
+    with torch.no_grad():
+        msgs = h.reshape(-1, d).index_select(0, (offs * n_cols
+                                                 + src).reshape(-1))
+        if not torch.equal(msgs, h[offs, src].reshape(-1, d)):
+            raise AssertionError("coo_spmm: the index_select route's "
+                                 "messages differ from the two-index "
+                                 "route's")
+    del msgs
+    new = ops.coo_spmm(src, dst, w, h, ni)
+    old = coo_old_route(src, dst, w, h, ni)
+    fwd_err = check_close("coo_spmm forward (the two-index route)", new,
+                          old, **csr_tol(old))
+    d_new = torch.autograd.grad(new, h, g, retain_graph=True)[0]
+    d_old = torch.autograd.grad(old, h, g, retain_graph=True)[0]
+    err = check_close("coo_spmm backward (the two-index route)", d_new,
+                      d_old, **csr_tol(d_old))
+    live = dst < ni
+    rows, cols = (dst + offs * ni)[live], (src + offs * n_cols)[live]
+    mat = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[live],
+                                  (n_parts * ni, n_parts * n_cols)
+                                  ).coalesce().to_sparse_csr()
+    hf = h.detach().view(-1, d)
+    t = time_calls({
+        "backward_ms": lambda: torch.autograd.grad(new, h, g,
+                                                   retain_graph=True),
+        "old_route_ms": lambda: torch.autograd.grad(old, h, g,
+                                                    retain_graph=True),
+        "forward_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(), ni),
+        "old_forward_ms": lambda: coo_old_route(src, dst, w, h.detach(), ni),
+        "library_forward_ms": lambda: torch.sparse.mm(mat, hf),
+    }, reps=3, rounds=2)
+    nnz = int(live.sum())
+    # backward: each live message's gradient row read once (from g), d_h
+    # written once; the forward reads each named h row once instead
+    nbytes = nnz * 4 * 2 + g.numel() * 4 + h.numel() * 4
+    b, by = bound_ms(nbytes, 2.0 * nnz * d)
+    rec = dict(shape=[n_parts, ni, n_cols, d], edges=list(src.shape),
+               live_edges=nnz, max_abs_err=err, forward_max_abs_err=fwd_err,
+               messages_bit_equal=True, bound_ms=b, bound_by=by, **t)
+    emit("coo_spmm", **rec)
+    del new, old, d_new, d_old, h, mat
+    return rec
+
+
+def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
+              epochs, lr, steady):
+    """One rank of the SPMD phases: the refresh step's loss and gradients
+    from ``params_np``; an ``epochs``-step ``train_capgnn`` with Adam and
+    the test evaluation, its launches counted from zero; ``steady`` steps
+    of each kind from the trained state, each timed and its host staging
+    seconds kept apart."""
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_spmd_runtime, train_capgnn
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    opt = adam(lr)
+    rt = make_spmd_runtime(cfg, sp, xplan, opt, spec=spec, device=device)
+    build_s = time.perf_counter() - t0
+    params = [{k: torch.as_tensor(v, device=device) for k, v in p.items()}
+              for p in params_np]
+    loss, grads = rt.loss_and_grads(params, rt.caches0)
+    zero_counts()
+    p8, rep = train_capgnn(
+        cfg, rt, xplan, world_size, opt, epochs=epochs,
+        controller=StalenessController(refresh_every=spec.refresh_every),
+        params0=params, spec=spec)
+    test = rt.evaluate(p8, "test")
+    torch.cuda.synchronize(device)
+    launches = read_counts()
+    wire = rt.wire_log[:epochs]
+    steady_ms, stage_ms = {}, {}
+    for kind in ("refresh", "cached", "pipelined"):
+        step, state = getattr(rt, f"step_{kind}"), (p8, rep.final_opt_state,
+                                                     rt.caches0)
+        times, stages = [], []
+        for _ in range(steady):
+            t0 = time.perf_counter()
+            *state, m = step(*state)
+            float(m["loss"])
+            times.append(1e3 * (time.perf_counter() - t0))
+            stages.append(1e3 * rt.wire_log[-1]["host_stage_s"])
+        steady_ms[kind] = statistics.median(times)
+        stage_ms[kind] = statistics.median(stages)
+    return {"loss": float(loss),
+            "grads": [{k: v.cpu() for k, v in g.items()} for g in grads],
+            "losses": rep.losses, "step_kinds": rep.step_kinds,
+            "step_ms": [1e3 * s for s in rep.step_s],
+            "host_stage_ms": [1e3 * w["host_stage_s"] for w in wire],
+            "comm_bytes": rep.comm_bytes, "refresh_steps": rep.refresh_steps,
+            "cached_steps": rep.cached_steps, "test": test,
+            "wire": [w["counts"] for w in wire], "launches": launches,
+            "steady_step_ms": steady_ms, "steady_host_stage_ms": stage_ms,
+            "build_s": build_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def spmd_gather_launches(xplan, transport: str, bf16: bool,
+                         n_exchanged: int) -> dict:
+    """The row gather's launches on one rank of the SPMD runtime, per step
+    kind, from the plan's widths: per exchanged layer, a tier pull with a
+    non-empty payload gathers the owner's pack (and, on a bf16 ``p2p``
+    wire, its per-peer blocks) and, with rows to receive, the consumer's
+    addressing; the global buffer's fill gathers the send pack and the
+    buffer; its read gathers once where there are reads.  A refresh step
+    differentiates every one; a cached or pipelined step the uncached
+    tier's; an evaluation none."""
+    p = xplan.num_parts
+
+    def tier(t):
+        width = p * t.peer_block if transport == "p2p" else \
+            t.send_row.shape[1]
+        if not width:
+            return 0
+        return 1 + int(bf16 and transport == "p2p") + \
+            int(t.recv_valid.shape[1] > 0)
+    g = xplan.glob
+    fill = (1 + int(g.buf_size > 0)) if g.send_row.shape[1] else 0
+    read = int(g.read_buf_idx.shape[1] > 0)
+    un, loc = tier(xplan.uncached), tier(xplan.local)
+    every = un + loc + fill + read
+    fwd = {"refresh": every, "cached": un + read, "pipelined": every,
+           "evaluation": every}
+    bwd = {"refresh": every, "cached": un, "pipelined": un, "evaluation": 0}
+    return {k: {"gather_rows": n_exchanged * fwd[k],
+                "gather_rows_bwd": n_exchanged * bwd[k]} for k in fwd}
+
+
+def phase_spmd(name: str, ctx: dict, ref: dict, transport: str,
+               backend: str, devices, epochs: int, lr: float) -> dict:
+    """The SPMD runtime of the train cell's flags on ``P`` ranks over
+    ``backend`` (``devices``: one per rank), under ``transport``.
+
+    Checks, over the ranks: one refresh step's loss within ``LOSS_ATOL``
+    and its gradients within ``GRAD_RTOL`` of the card's single-process
+    runtime on the same parameters (``ref``); every step's counted valid
+    and padded rows and bytes equal to the plan's (``transport_rows``;
+    under ``p2p`` ``bytes_per_step``); the report's bytes and step counts
+    equal to the plan's; finite falling losses; every rank's losses the
+    same; the launches, summed over ranks, those the backend gives."""
+    import dataclasses as dc
+    from repro_torch.launch.mesh import spawn
+    cfg, sp, xplan = ctx["cfg"], ctx["sp"], ctx["xplan"]
+    spec = dc.replace(ctx["spec"], transport=transport)
+    p, layers = sp.num_parts, cfg.num_layers
+    params_np = [{k: v.numpy() for k, v in q.items()} for q in ref["params0"]]
+    t0 = time.perf_counter()
+    ranks = spawn(spmd_rank, p, backend=backend, devices=devices,
+                  args=(cfg, sp, xplan, spec, params_np, epochs, lr, 3))
+    spawn_wall_s = time.perf_counter() - t0
+    grad_err = []
+    for r in ranks:
+        loss_err = abs(r["loss"] - ref["loss"])
+        if loss_err > LOSS_ATOL:
+            raise AssertionError(f"{name}: refresh loss differs from the "
+                                 f"card's sim runtime by {loss_err}")
+        grad_err.append(grads_err(r["grads"], ref["grads"]))
+        if r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"{name}: ranks disagree on the losses")
+    kinds = ranks[0]["step_kinds"]
+    losses = ranks[0]["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses {losses}")
+    comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
+    if ranks[0]["comm_bytes"] != comm:
+        raise AssertionError(f"{name}: comm_bytes {ranks[0]['comm_bytes']}, "
+                             f"the plan gives {comm}")
+    width = 2 if spec.halo_dtype == "bf16" else 4
+    counted = []
+    for s, kind in enumerate(kinds):
+        refresh = kind != "cached"
+        valid = xplan.transport_rows(transport, refresh)
+        padded = xplan.transport_rows(transport, refresh, padded=True)
+        for li in range(1, layers):
+            d = cfg.feat_dims[li]
+            got = {t: {f: sum(r["wire"][s].get((li, t), {}).get(f, 0)
+                              for r in ranks)
+                       for f in ("valid_rows", "padded_rows", "bytes",
+                                 "wire_bytes")}
+                   for t in ("uncached", "local", "global")}
+            for t, c in got.items():
+                if (c["valid_rows"], c["padded_rows"], c["bytes"]) != \
+                        (valid[t], padded[t], valid[t] * d * width):
+                    raise AssertionError(f"{name}: step {s} ({kind}) layer "
+                                         f"{li} {t}: counted {c}, the plan "
+                                         f"gives {valid[t]} / {padded[t]}")
+            step_bytes = sum(c["bytes"] for c in got.values())
+            if transport == "p2p" and step_bytes != xplan.bytes_per_step(
+                    d, refresh, dtype_bytes=width):
+                raise AssertionError(f"{name}: step {s} layer {li}: "
+                                     f"{step_bytes} bytes counted")
+            counted.append({"step": s, "kind": kind, "layer": li, **got})
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    per_kind = spmd_gather_launches(xplan, transport,
+                                    spec.halo_dtype == "bf16", layers - 1)
+    want = {k: p * v for k, v in train_launches(
+        spec.backend, layers, kinds, per_kind).items()}
+    want["packs_built_for_a_call"] = 0
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+
+    def by_kind(key):
+        return {k: statistics.median(t for t, kk in
+                                     zip(ranks[0][key], kinds) if kk == k)
+                for k in sorted(set(kinds))}
+    emit(name, transport=transport, backend=backend, ranks=p,
+         devices=list(devices) if not isinstance(devices, str) else devices,
+         wire="gloo-host" if backend == "gloo" else "nccl",
+         argv=TRAIN_ARGV, losses=losses, step_kinds=kinds,
+         median_step_ms=by_kind("step_ms"),
+         median_host_stage_ms=by_kind("host_stage_ms"),
+         steady_step_ms=ranks[0]["steady_step_ms"],
+         steady_host_stage_ms=ranks[0]["steady_host_stage_ms"],
+         steady_step_ms_max_rank={k: max(r["steady_step_ms"][k]
+                                         for r in ranks)
+                                  for k in ranks[0]["steady_step_ms"]},
+         comm_bytes=comm, comm_bytes_vanilla=vanilla,
+         refresh_steps=ranks[0]["refresh_steps"],
+         cached_steps=ranks[0]["cached_steps"],
+         counted_equal_plan=True, counted=counted[:2 * (layers - 1)],
+         launches=launches, gather_launches_per_kind_per_rank=per_kind,
+         refresh_loss_err=max(abs(r["loss"] - ref["loss"]) for r in ranks),
+         refresh_grad_err_max_rel=max(e["max_rel"] for g in grad_err
+                                      for e in g),
+         test=ranks[0]["test"],
+         traj_vs_sim_max_abs=(float(np.abs(np.subtract(
+             losses, ref["run_losses"])).max()) if "run_losses" in ref
+             else None),
+         build_s=[r["build_s"] for r in ranks], spawn_wall_s=spawn_wall_s,
+         peak_mem_gb=[r["peak_mem_gb"] for r in ranks])
+    return launches
+
+
+# the tier schedule of the spmd_tiers phase: (step, plan index).  The
+# pipelined step's refresh rings run beside the uncached tier's rotations;
+# the transition reads plan 0 and pulls plan 1; set_plan(0) before the
+# last refresh.
+TIER_SCHEDULE = (("refresh", None), ("cached", None), ("pipelined", None),
+                 ("cached", None), ("transition", 1), ("cached", None),
+                 ("refresh", 0))
+TIER_CASES = (("p2p", "f32"), ("allgather", "f32"), ("p2p", "bf16"))
+TIER_LR = 0.5
+# SPMD rank vs the card's single-process runtime over the tier schedule:
+# f32 sums over ranks in another order; a bf16 wire can land one payload
+# entry a bf16 ulp (2^-8 of it) apart where its f32 value sits on a
+# rounding boundary, and the logits that read it move with it
+TIER_TOL = {"f32": 1e-5, "bf16": 5e-5}
+
+
+def tiers_context() -> dict:
+    """The graph of ``tests/spmd_parity_script.py`` (rmat 360 / 2,200, GCN
+    12 -> 16 -> 16 -> 5, 4 METIS parts) with the hybrid pack, and two
+    rankings of one forced capacity (``c_gpu`` 10 rows a worker, ``c_cpu``
+    25) padded to its widths: every tier carries rows under both, and a
+    switch between them changes the rows, not the shapes."""
+    from repro_torch.core import CacheCapacity, build_cache_plan
+    from repro_torch.data.gnn_data import FullBatchTask, split_masks
+    from repro_torch.dist import (build_exchange_plan, exchange_capacity,
+                                  stack_partitions)
+    from repro_torch.graph import (build_partition, metis_partition, rmat,
+                                   symmetric_normalize, synth_features)
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    g = rmat(360, 2200, seed=3)
+    feats, labels = synth_features(g, 12, 5, seed=3)
+    gn = symmetric_normalize(g)
+    tr, va, te = split_masks(g.num_nodes, seed=3)
+    task = FullBatchTask(graph=gn, features=feats, labels=labels,
+                         train_mask=tr, val_mask=va, test_mask=te,
+                         num_classes=5)
+    ps = build_partition(gn, metis_partition(gn, SPMD_RANKS, seed=3), hops=1)
+    cap = CacheCapacity(c_gpu=[10] * SPMD_RANKS, c_cpu=25)
+    plans = [build_exchange_plan(ps, build_cache_plan(
+        ps, cap, refresh_every=2, policy=pol, seed=1),
+        pad_to=exchange_capacity(ps, cap))
+        for pol in ("overlap_high", "random")]
+    for x in plans:
+        if not (x.uncached.n_rows and x.local.n_rows and x.glob.n_unique):
+            raise AssertionError("spmd_tiers: a plan with an empty tier")
+    cfg = GNNConfig(model="gcn", in_dim=12, hidden_dim=16, out_dim=5,
+                    num_layers=3)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
+    return {"cfg": cfg, "sp": stack_partitions(ps, task, backend="hybrid"),
+            "plans": plans,
+            "params_np": [{k: v.numpy() for k, v in q.items()}
+                          for q in params]}
+
+
+def tier_schedule(rt, params, opt, plans) -> list[dict]:
+    """:data:`TIER_SCHEDULE` on a runtime installed on ``plans[0]``: each
+    step's loss, parameters and caches, on the host."""
+    state, out = (params, opt.init(params), rt.caches0), []
+    for kind, plan in TIER_SCHEDULE:
+        if kind == "transition":
+            *state, m = rt.step_transition(*state, plans[plan])
+        else:
+            if plan is not None:
+                rt.set_plan(plans[plan])
+            *state, m = getattr(rt, f"step_{kind}")(*state)
+        out.append({"kind": kind, "loss": float(m["loss"]),
+                    "params": [{k: v.cpu() for k, v in q.items()}
+                               for q in state[0]],
+                    "caches": {k: [c.cpu() for c in v]
+                               for k, v in state[2].items()}})
+    return out
+
+
+def spmd_tiers_rank(rank, world_size, device, cfg, sp, plans, specs,
+                    params_np):
+    """One rank of the ``spmd_tiers`` phase, one process group for every
+    spec of ``specs``: :func:`tier_schedule` with ``sgd(TIER_LR)`` and
+    every step's wire counts."""
+    from repro_torch.dist import make_spmd_runtime
+    from repro_torch.optim import sgd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for spec in specs:
+        opt = sgd(TIER_LR)
+        rt = make_spmd_runtime(cfg, sp, plans[0], opt, spec=spec,
+                               device=device)
+        params = [{k: torch.as_tensor(v, device=device)
+                   for k, v in q.items()} for q in params_np]
+        steps = tier_schedule(rt, params, opt, plans)
+        torch.cuda.synchronize(device)
+        for st, w in zip(steps, rt.wire_log):
+            st["wire"] = w["counts"]
+        out.append(steps)
+    return out
+
+
+def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
+    """The SPMD runtime on :func:`tiers_context`'s graph, 4 ranks over
+    ``backend``, under each of :data:`TIER_CASES` (both transports, and a
+    bf16 ``p2p`` wire): :data:`TIER_SCHEDULE`, whose refresh steps
+    differentiate every collective (the rotations, the ring broadcast and
+    the all-gather, each through its transpose) and whose pipelined and
+    transition steps run the deferred rings beside the uncached tier's
+    synchronous exchange.  Every step's loss, parameters and emitted
+    caches against the card's single-process runtime doing the same steps
+    (:data:`TIER_TOL`), and its counted rows against the plans'."""
+    from repro_torch.dist import TrainSpec, make_sim_runtime
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import sgd
+    cfg, sp, plans = tctx["cfg"], tctx["sp"], tctx["plans"]
+    # each step's (read, emit) plan: a transition exchanges the uncached
+    # tier on the installed plan and pulls the cached tiers of the next
+    plan_of, installed = [], 0
+    for kind, plan in TIER_SCHEDULE:
+        if kind == "transition":
+            plan_of.append((installed, plan))
+        elif plan is not None:
+            plan_of.append((plan, plan))
+        else:
+            plan_of.append((installed, installed))
+        installed = plan if plan is not None else installed
+    specs = [TrainSpec(backend="hybrid", transport=transport,
+                       halo_dtype=halo, refresh_every=2, pipeline=True)
+             for transport, halo in TIER_CASES]
+    t0 = time.perf_counter()
+    by_rank = spawn(spmd_tiers_rank, SPMD_RANKS, backend=backend,
+                    devices=devices,
+                    args=(cfg, sp, plans, specs, tctx["params_np"]))
+    wall_s = time.perf_counter() - t0
+    cases = []
+    for c, ((transport, halo), spec) in enumerate(zip(TIER_CASES, specs)):
+        ranks = [r[c] for r in by_rank]
+        opt = sgd(TIER_LR)
+        sim = make_sim_runtime(cfg, sp, plans[0], opt, spec=spec,
+                               device="cuda")
+        ref = tier_schedule(sim, [{k: torch.as_tensor(v, device="cuda")
+                                   for k, v in q.items()}
+                                  for q in tctx["params_np"]], opt, plans)
+        err = {"loss": 0.0, "params": 0.0, "local": 0.0, "global": 0.0}
+        for i, want in enumerate(ref):
+            for r in ranks:
+                got = r[i]
+                err["loss"] = max(err["loss"], abs(got["loss"] - want["loss"]))
+                err["params"] = max(err["params"], max(
+                    float((a[k] - b[k]).abs().max())
+                    for a, b in zip(got["params"], want["params"])
+                    for k in b))
+                for a, b in zip(got["caches"]["global"],
+                                ranks[0][i]["caches"]["global"]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name}: step {i}: the global "
+                                             "buffer differs between ranks")
+            for li, w in enumerate(want["caches"]["local"]):
+                got = torch.cat([r[i]["caches"]["local"][li] for r in ranks])
+                err["local"] = max(err["local"],
+                                   float((got - w).abs().max()))
+            for a, b in zip(ranks[0][i]["caches"]["global"],
+                            want["caches"]["global"]):
+                err["global"] = max(err["global"], float((a - b).abs().max()))
+            read_i, emit_i = plan_of[i]
+            refresh = want["kind"] != "cached"
+            rows = {"uncached": plans[read_i].transport_rows(
+                transport, refresh)["uncached"]}
+            rows.update({t: plans[emit_i].transport_rows(
+                transport, refresh)[t] for t in ("local", "global")})
+            for li in range(1, cfg.num_layers):
+                for t, n in rows.items():
+                    c = sum(r[i]["wire"].get((li, t), {}).get("valid_rows", 0)
+                            for r in ranks)
+                    if c != n:
+                        raise AssertionError(
+                            f"{name}: {transport}-{halo} step {i} "
+                            f"({want['kind']}) layer {li} {t}: counted {c} "
+                            f"rows, the plan gives {n}")
+        worst = max(err.values())
+        if not worst <= TIER_TOL[halo]:
+            raise AssertionError(f"{name}: {transport}-{halo} against the "
+                                 f"card's sim runtime: {err}")
+        cases.append({"transport": transport, "halo_dtype": halo,
+                      "max_abs_err": err, "tol": TIER_TOL[halo],
+                      "counted_equal_plan": True})
+    emit(name, ranks=SPMD_RANKS, backend=backend, spawn_wall_s=wall_s,
+         devices=list(devices) if not isinstance(devices, str) else devices,
+         wire="gloo-host" if backend == "gloo" else "nccl",
+         steps=[k for k, _ in TIER_SCHEDULE],
+         tier_rows=[{t: getattr(x, t).n_rows for t in ("uncached", "local")}
+                    | {"global": x.glob.n_unique} for x in plans],
+         cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1568,7 +2169,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="time every feature stripe of the ELL forward and "
                         "every long-row threshold of the CSR kernel, and "
                         "print ptxas's report of every kernel")
+    p.add_argument("--spmd-nccl", action="store_true",
+                   help="run only the SPMD runtime over NCCL (one card per "
+                        "rank: needs 4 cards), every tier non-empty and at "
+                        "the training cell's flags, against the card's "
+                        "single-process runtime")
     return p.parse_args(argv)
+
+
+def main_spmd_nccl(device: dict) -> None:
+    """``--spmd-nccl``: the ``spmd_tiers_nccl`` phase; then the training
+    cell's host plan, the card's single-process refresh step from
+    ``init_gnn`` of its seed, and the ``spmd_nccl`` phase under both
+    transports."""
+    from repro_torch.launch.train import build_parser, prepare_train
+    from repro_torch.models.gnn import init_gnn
+    phase_spmd_tiers("spmd_tiers_nccl", tiers_context(), "nccl", "cuda")
+    args = build_parser().parse_args(TRAIN_ARGV)
+    ctx = prepare_train(args)
+    params0 = init_gnn(ctx["cfg"], torch.Generator().manual_seed(args.seed),
+                       "cpu")
+    loss, grads, _ = refresh_grads(ctx["cfg"], ctx["spec"], ctx["sp"],
+                                   ctx["xplan"], params0, args.lr, "cuda")
+    ref = {"params0": params0, "loss": loss, "grads": grads}
+    for transport in ("p2p", "allgather"):
+        phase_spmd("spmd_nccl", ctx, ref, transport, "nccl", "cuda",
+                   args.epochs, args.lr)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
 def main(argv=None) -> None:
@@ -1578,6 +2205,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if opts.spmd_nccl:
+        return main_spmd_nccl(device)
     if opts.sweep:
         ptxas_report()
 
@@ -1599,8 +2228,40 @@ def main(argv=None) -> None:
 
     serve_launches = phase_main(args, ctx)
     torch.cuda.empty_cache()
-    train_launches, tctx = phase_train()
-    del tctx["runtime"]
+    train_launches, tctx, tref = phase_train("train", TRAIN_ARGV,
+                                             sgd_check=True)
+    tref["run_losses"] = tctx["report"].losses
+    by_path = {"serve": serve_launches, "train": train_launches}
+    # the default flags (--backend edges) on the same host plan
+    edges_argv = with_backend(TRAIN_ARGV, "edges")
+    by_path["train_edges"], ectx, _ = phase_train(
+        "train_edges", edges_argv, edges_context(tctx, edges_argv))
+    phase_coo_spmm(ectx["sp"], gen)
+    del ectx
+    torch.cuda.empty_cache()
+    by_path["train_ell"], _, _ = phase_train(
+        "train_ell", with_backend(TRAIN_ARGV, "ell", TRAIN_ELL_SCALE),
+        check_scale=TRAIN_SGD_SCALE)
+    torch.cuda.empty_cache()
+    epochs = len(tctx["report"].losses)
+    lr = float(TRAIN_ARGV[TRAIN_ARGV.index("--lr") + 1])
+    for transport in ("p2p", "allgather"):
+        by_path[f"spmd_{transport}"] = phase_spmd(
+            "spmd", tctx, tref, transport, "gloo", ["cuda:0"] * SPMD_RANKS,
+            epochs, lr)
+    tiers = tiers_context()
+    phase_spmd_tiers("spmd_tiers", tiers, "gloo", ["cuda:0"] * SPMD_RANKS)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= SPMD_RANKS:
+        for transport in ("p2p", "allgather"):
+            by_path[f"spmd_nccl_{transport}"] = phase_spmd(
+                "spmd_nccl", tctx, tref, transport, "nccl", "cuda", epochs,
+                lr)
+        phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
+    else:
+        for name in ("spmd_nccl", "spmd_tiers_nccl"):
+            emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
+                 why="NCCL needs one card per rank")
     torch.cuda.empty_cache()
     ell_cases["train"] = ell_pack_cases("train", tctx["sp"], gen)
     slices = {"serve": sp, "train": tctx["sp"]}
@@ -1621,8 +2282,7 @@ def main(argv=None) -> None:
                               ell_cases), gather, gather_bwd, dh,
                weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,
                               tails)] + phase_backward(tctx["sp"], gen)
-    # launches: the serving path's plus the training path's
-    by_path = {"serve": serve_launches, "train": train_launches}
+    # launches: every path's, each counted from zero over its own run
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()
                                  if e["name"] in v}

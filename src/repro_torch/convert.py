@@ -15,15 +15,17 @@ import torch
 __all__ = ["params_from_reference", "opt_state_from_reference"]
 
 
-def params_from_reference(params, device="cpu") -> list[dict[str, torch.Tensor]]:
+def params_from_reference(params, device="cuda"
+                          ) -> list[dict[str, torch.Tensor]]:
     """``[{"w": [din, dout], "b": [dout], ...}, ...]`` of numpy (or any
     array exposing ``__array__``) -> the same list of dicts of tensors on
-    ``device``, dtypes and values unchanged."""
+    ``device`` (the card unless the caller asks for the CPU), dtypes and
+    values unchanged."""
     return [{k: torch.from_numpy(np.array(v, copy=True)).to(device)
              for k, v in layer.items()} for layer in params]
 
 
-def opt_state_from_reference(state, device="cpu"):
+def opt_state_from_reference(state, device="cuda"):
     """An optimizer state of the JAX package -> the port's: Adam's
     ``_AdamState(mu, nu, count)`` (``count`` an int32 scalar), SGD's
     momentum tree, or the empty ``()`` of plain SGD."""

@@ -1,5 +1,5 @@
 """CaPGNN core planning: device profiles, JACA cache capacity/plans, RAPA
-partitioning and the staleness schedule (numpy)."""
+partitioning, the staleness schedule and the halo analytics (numpy)."""
 from .device_profile import (DeviceProfile, PROFILES, PAPER_GROUPS,
                              make_group, capability_weights,
                              detect_host_mem_gib)
@@ -9,6 +9,7 @@ from .rapa import (RapaConfig, RapaResult, comm_cost, comp_cost,
                    influence_scores, adjust_subgraph, do_partition,
                    memory_bytes, partition_lambdas)
 from .staleness import StalenessController, theorem1_bound
+from .halo import HaloStats, halo_stats, overlap_histogram, duplicate_count
 
 __all__ = [
     "DeviceProfile", "PROFILES", "PAPER_GROUPS", "make_group",
@@ -18,4 +19,5 @@ __all__ = [
     "RapaConfig", "RapaResult", "comm_cost", "comp_cost", "influence_scores",
     "adjust_subgraph", "do_partition", "memory_bytes", "partition_lambdas",
     "StalenessController", "theorem1_bound",
+    "HaloStats", "halo_stats", "overlap_histogram", "duplicate_count",
 ]

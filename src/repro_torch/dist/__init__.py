@@ -4,6 +4,10 @@
   index sets; stack partitions into the padded ``[P, ...]`` layout (numpy).
 - :mod:`.capgnn_sim` — the single-process stacked training runtime
   (tier primitives, aggregation backends, steps, ``train_capgnn``);
+- :mod:`.capgnn_spmd` — the same steps with one process per partition
+  over a ``torch.distributed`` group, both halo transports;
+- :mod:`.collectives` — the exchange's collectives as autograd Functions
+  and the counting :class:`~.collectives.Wire`;
 - :mod:`.spec`, :mod:`.strategy` — ``TrainSpec`` and the ``halo_1d``
   strategy front door.
 - :mod:`.host_store` — the host-resident store behind the serve engine's
@@ -17,6 +21,9 @@ from .host_store import HostFeatureStore, StagedFetch, halo_dtype_info
 from .capgnn_sim import (RUNTIME_BACKENDS, check_backend, make_adj_builder,
                          exchange_arrays, init_caches, SimRuntime,
                          make_sim_runtime, TrainReport, train_capgnn)
+from .capgnn_spmd import (TRANSPORTS, SpmdRuntime, make_spmd_runtime,
+                          spmd_exchange_arrays)
+from .collectives import Wire
 from .spec import TrainSpec
 from .strategy import Halo1DStrategy, get_strategy
 
@@ -27,6 +34,7 @@ __all__ = [
     "HostFeatureStore", "StagedFetch", "halo_dtype_info",
     "RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
     "exchange_arrays", "init_caches", "SimRuntime", "make_sim_runtime",
-    "TrainReport", "train_capgnn", "TrainSpec", "Halo1DStrategy",
-    "get_strategy",
+    "TrainReport", "train_capgnn", "TRANSPORTS", "SpmdRuntime",
+    "make_spmd_runtime", "spmd_exchange_arrays", "Wire", "TrainSpec",
+    "Halo1DStrategy", "get_strategy",
 ]

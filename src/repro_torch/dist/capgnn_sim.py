@@ -55,8 +55,7 @@ from ..core.staleness import StalenessController
 from ..kernels.ops import (ell_row_end, gather_pack, pack_rows, tail_csr,
                            transpose_csr)
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
-                          _layer_apply, accuracy, cross_entropy_loss,
-                          init_gnn)
+                          _layer_apply, init_gnn)
 from ..optim import Optimizer, tree_leaves, tree_map
 from .exchange import ExchangePlan, ExchangeTier, GlobalTier, StackedParts
 from .host_store import halo_dtype_info
@@ -368,6 +367,234 @@ class SimRuntime:
         return out
 
 
+class _Ready:
+    """An emitted pull that is complete when it is issued."""
+
+    def __init__(self, rows: torch.Tensor):
+        self.rows = rows
+
+    def advance(self) -> None:
+        pass
+
+    def finish(self) -> torch.Tensor:
+        return self.rows
+
+
+class _StackedExchange:
+    """How the single-process runtime moves tier rows: gathers over the
+    stacked inner matrix (:func:`_pull`, :func:`_build_global`).  Every
+    partition is in one tensor, so a sum or a max over workers is the
+    identity.  The SPMD runtime puts the same hooks on a process group
+    (:class:`repro_torch.dist.capgnn_spmd.WireExchange`).  ``key``, the
+    ``(layer, tier)`` a wire counts a pull under, is unused here."""
+
+    def __init__(self, halo_dtype):
+        self.halo_dtype = halo_dtype
+
+    def pull(self, td: dict, h: torch.Tensor, key) -> torch.Tensor:
+        return _pull(td, h, self.halo_dtype)
+
+    def build_global(self, gd: dict, h: torch.Tensor, key) -> torch.Tensor:
+        return _build_global(gd, h, self.halo_dtype)
+
+    def emit(self, xe: dict, h: torch.Tensor, li: int) -> tuple:
+        """Layer ``li``'s refresh pulls on the emit maps ``xe``, outside
+        autograd: the local tier's and the global buffer's, each with
+        ``advance()`` (called after every later layer) and ``finish()``
+        (after the last, giving the rows)."""
+        return (_Ready(self.pull(xe["loc"], h, (li, "local"))),
+                _Ready(self.build_global(xe["gl"], h, (li, "global"))))
+
+    def sum_ranks(self, tensors: list) -> list:
+        return tensors
+
+    def max_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def end_step(self, logged: bool) -> None:
+        """Called once a step (``logged``), a fresh forward or a
+        ``loss_and_grads`` has run."""
+
+
+def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
+                   view: StackedParts, xplan: ExchangePlan, opt: Optimizer,
+                   spec: TrainSpec, device, ex: _StackedExchange,
+                   maps: Callable, **fields):
+    """The runtime ``cls`` over the partitions of ``view`` (all of ``sp``
+    in one process; one of them on an SPMD rank), which ``ex`` exchanges
+    halo rows between.  ``maps(xplan)`` builds a plan's exchange maps.
+
+    The loss is differentiated as this process's share ``sum(nll * mask)
+    / total_train``; ``ex.sum_ranks`` then sums the loss, the correct
+    count and the gradients over processes outside autograd (a sum inside
+    the differentiated function would inflate the gradients P-fold, as
+    the JAX package's ``_device_loss`` records)."""
+    ni, nh, n_parts = sp.n_inner_max, sp.n_halo_max, view.num_parts
+    layers = cfg.num_layers
+    total_train = float(max(float(np.asarray(sp.train_mask).sum()), 1.0))
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    feats, halo_feats = put(view.feats), put(view.halo_feats)
+    labels = put(view.labels).reshape(-1).long()
+    masks = {k: put(m).reshape(-1)
+             for k, m in (("train", view.train_mask),
+                          ("val", view.val_mask), ("test", view.test_mask))}
+    adj_leaves, build_adj = make_adj_builder(view, spec.backend, device)
+    adj = build_adj(adj_leaves)
+
+    def forward(params, caches, xr, xe, use_stale: bool, emit_fresh: bool):
+        """``xr`` is the installed (read) plan: stale caches are scattered
+        at its positions and its uncached tier is exchanged.  ``xe`` is
+        the emit plan whose tier rows are pulled fresh (``xr`` except on a
+        plan-transition step).  Returns the logits and the fresh tier rows
+        (empty lists unless ``emit_fresh``)."""
+        h = feats
+        fresh = {"local": [], "global": []}
+        emitted = []       # per layer: the (local, global) pulls in flight
+        for li, lp in enumerate(params):
+            if li == 0:
+                halo = halo_feats
+            else:
+                halo = h.new_zeros((n_parts, nh, h.shape[-1]))
+                halo = _scatter(halo, xr["un"]["recv_halo_pos"],
+                                ex.pull(xr["un"], h, (li, "uncached")),
+                                xr["un"]["recv_valid"])
+                if use_stale:
+                    if emit_fresh:
+                        # emitted only: pulled outside the autograd graph
+                        with torch.no_grad():
+                            emitted.append(ex.emit(xe, h, li))
+                    loc_use, loc_t = caches["local"][li - 1], xr["loc"]
+                    buf_use, gl_t = caches["global"][li - 1], xr["gl"]
+                else:
+                    # fresh tiers feed the loss: gradients reach the owners
+                    loc_use, loc_t = ex.pull(xe["loc"], h, (li, "local")), \
+                        xe["loc"]
+                    buf_use, gl_t = ex.build_global(xe["gl"], h,
+                                                    (li, "global")), xe["gl"]
+                    fresh["local"].append(loc_use.detach())
+                    fresh["global"].append(buf_use.detach())
+                halo = _scatter(halo, loc_t["recv_halo_pos"], loc_use,
+                                loc_t["recv_valid"])
+                halo = _read_global(gl_t, buf_use, halo)
+            h_local = torch.cat([h, halo], dim=1)
+            h = _layer_apply(cfg, lp, adj, h_local, ni,
+                             is_last=(li == layers - 1))
+            for pulls in emitted:
+                for pend in pulls:
+                    pend.advance()
+        with torch.no_grad():
+            for loc, glob in emitted:
+                fresh["local"].append(loc.finish())
+                fresh["global"].append(glob.finish())
+        return h, fresh
+
+    def share_and_correct(logits: torch.Tensor, mask: torch.Tensor):
+        """``sum(nll * mask)`` and ``sum(correct * mask)`` over ``view``."""
+        flat = logits.reshape(-1, logits.shape[-1])
+        logp = torch.log_softmax(flat, -1)
+        nll = -torch.gather(logp, -1, labels[:, None])[:, 0]
+        correct = (torch.argmax(flat, -1) == labels).float()
+        return torch.sum(nll * mask), torch.sum(correct * mask)
+
+    def value_and_grad(params, caches, xr, xe, use_stale, emit_fresh):
+        """The loss, accuracy and gradients summed over processes, and the
+        fresh rows."""
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        logits, fresh = forward(live, caches, xr, xe, use_stale, emit_fresh)
+        nll_sum, correct = share_and_correct(logits, masks["train"])
+        share = nll_sum / total_train
+        grads = torch.autograd.grad(share, leaves)
+        loss, correct, *grads = ex.sum_ranks(
+            [share.detach(), correct] + list(grads))
+        gl = iter(grads)
+        return (loss, correct / total_train, fresh,
+                tree_map(lambda _: next(gl), params))
+
+    @torch.no_grad()
+    def drift_metrics(fresh, caches) -> dict:
+        """The fresh rows against this step's stale source: ``drift`` and
+        ``drift_global_rows`` (max over layers and features) reduced with
+        MAX over processes; ``drift_local_rows`` ``[n_parts, Rloc]``."""
+        pairs = list(zip(fresh["local"] + fresh["global"],
+                         caches["local"] + caches["global"]))
+        drifts = [torch.max(torch.abs(a - b)) for a, b in pairs if a.numel()]
+        local_max = (torch.max(torch.stack(drifts)) if drifts
+                     else torch.zeros((), device=device))
+        out = {}
+        n_ex = len(fresh["local"])
+        if n_ex:
+            rows = [torch.amax(torch.abs(a - b), dim=-1) for a, b in pairs]
+            out["drift_local_rows"] = torch.stack(rows[:n_ex]).amax(0)
+            glob = torch.stack(rows[n_ex:]).amax(0)              # [G]
+            red = ex.max_ranks(torch.cat([local_max.reshape(1), glob]))
+            out["drift"], out["drift_global_rows"] = red[0], red[1:]
+        else:
+            out["drift"] = ex.max_ranks(local_max.reshape(1))[0]
+        return out
+
+    def step(use_stale, emit_fresh, params, opt_state, caches, xr, xe):
+        loss, acc, fresh, grads = value_and_grad(params, caches, xr, xe,
+                                                 use_stale, emit_fresh)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        metrics = {"loss": loss, "acc": acc}
+        if emit_fresh:
+            metrics.update(drift_metrics(fresh, caches))
+        ex.end_step(True)
+        return new_params, new_state, (fresh if emit_fresh else caches), \
+            metrics
+
+    caches0 = init_caches(cfg, xplan, n_parts, device=device)
+    state = {"xarr": maps(xplan), "maps": maps, "step": step}
+
+    def wrap(use_stale, emit_fresh):
+        def stepper(params, opt_state, caches):
+            xa = state["xarr"]
+            return step(use_stale, emit_fresh, params, opt_state, caches,
+                        xa, xa)
+        return stepper
+
+    @torch.no_grad()
+    def forward_fresh(params):
+        """The logits ``[n_parts, NI, out]`` with every tier fresh."""
+        xa = state["xarr"]
+        logits = forward(params, caches0, xa, xa, False, False)[0]
+        ex.end_step(False)
+        return logits
+
+    def evaluate(params, split: str = "val"):
+        """Loss and accuracy on ``split`` over every partition."""
+        m = masks[split]
+        nll_sum, correct = share_and_correct(forward_fresh(params), m)
+        sums = ex.sum_ranks([torch.stack([nll_sum, correct, m.sum()])])[0]
+        n = torch.clamp(sums[2], min=1.0)
+        return float(sums[0] / n), float(sums[1] / n)
+
+    def loss_and_grads(params, caches, use_stale: bool = False):
+        xa = state["xarr"]
+        loss, _, _, grads = value_and_grad(params, caches, xa, xa,
+                                           use_stale, False)
+        ex.end_step(False)
+        return loss, grads
+
+    comm_dims = list(cfg.feat_dims[:layers])
+    if not spec.exchange_layer0:
+        comm_dims = comm_dims[1:]
+
+    return cls(cfg=cfg, xplan=xplan, comm_dims=comm_dims,
+               forward_fresh=forward_fresh, step_refresh=wrap(False, True),
+               step_cached=wrap(True, False), step_pipelined=wrap(True, True),
+               evaluate=evaluate, loss_and_grads=loss_and_grads,
+               caches0=caches0, backend=spec.backend,
+               halo_dtype_bytes=halo_dtype_info(spec.halo_dtype)[1],
+               features=spec.features, device=device, _state=state,
+               stacked=sp, spec=spec, **fields)
+
+
 def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
                      opt: Optimizer, *, spec: TrainSpec,
                      device="cuda") -> SimRuntime:
@@ -386,152 +613,12 @@ def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
     if spec.features != "device":
         raise _not_ported(f"features={spec.features!r}")
     device = torch.device(device)
-    p, ni, nh = sp.num_parts, sp.n_inner_max, sp.n_halo_max
-    hdt, hd_bytes = halo_dtype_info(spec.halo_dtype)
-    layers = cfg.num_layers
-
-    def put(a):
-        return torch.as_tensor(np.asarray(a), device=device)
-
-    feats, halo_feats = put(sp.feats), put(sp.halo_feats)
-    labels = put(sp.labels).reshape(-1)
-    masks = {k: put(m).reshape(-1)
-             for k, m in (("train", sp.train_mask), ("val", sp.val_mask),
-                          ("test", sp.test_mask))}
-    adj_leaves, build_adj = make_adj_builder(sp, spec.backend, device)
-    adj = build_adj(adj_leaves)
-
-    def forward(params, caches, xr, xe, use_stale: bool, emit_fresh: bool):
-        """``xr`` is the installed (read) plan: stale caches are scattered
-        at its positions and its uncached tier is exchanged.  ``xe`` is
-        the emit plan whose tier rows are pulled fresh (``xr`` except on a
-        plan-transition step).  Returns the logits and the fresh tier rows
-        (empty lists unless ``emit_fresh``)."""
-        h = feats
-        fresh = {"local": [], "global": []}
-        for li, lp in enumerate(params):
-            if li == 0:
-                halo = halo_feats
-            else:
-                halo = h.new_zeros((p, nh, h.shape[-1]))
-                halo = _scatter(halo, xr["un"]["recv_halo_pos"],
-                                _pull(xr["un"], h, hdt),
-                                xr["un"]["recv_valid"])
-                if use_stale:
-                    if emit_fresh:
-                        # emitted only: pulled outside the autograd graph
-                        with torch.no_grad():
-                            fresh["local"].append(_pull(xe["loc"], h, hdt))
-                            fresh["global"].append(
-                                _build_global(xe["gl"], h, hdt))
-                    loc_use, loc_t = caches["local"][li - 1], xr["loc"]
-                    buf_use, gl_t = caches["global"][li - 1], xr["gl"]
-                else:
-                    # fresh tiers feed the loss: gradients reach the owners
-                    loc_use, loc_t = _pull(xe["loc"], h, hdt), xe["loc"]
-                    buf_use, gl_t = _build_global(xe["gl"], h, hdt), xe["gl"]
-                    fresh["local"].append(loc_use.detach())
-                    fresh["global"].append(buf_use.detach())
-                halo = _scatter(halo, loc_t["recv_halo_pos"], loc_use,
-                                loc_t["recv_valid"])
-                halo = _read_global(gl_t, buf_use, halo)
-            h_local = torch.cat([h, halo], dim=1)
-            h = _layer_apply(cfg, lp, adj, h_local, ni,
-                             is_last=(li == layers - 1))
-        return h, fresh
-
-    def loss_fn(params, caches, xr, xe, use_stale, emit_fresh):
-        logits, fresh = forward(params, caches, xr, xe, use_stale,
-                                emit_fresh)
-        flat = logits.reshape(-1, logits.shape[-1])
-        loss = cross_entropy_loss(flat, labels, masks["train"])
-        return loss, flat, fresh
-
-    def value_and_grad(params, caches, xr, xe, use_stale, emit_fresh):
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        it = iter(leaves)
-        live = tree_map(lambda _: next(it), params)
-        loss, flat, fresh = loss_fn(live, caches, xr, xe, use_stale,
-                                    emit_fresh)
-        gl = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(gl), params)
-        return loss.detach(), flat.detach(), fresh, grads
-
-    @torch.no_grad()
-    def _metrics_and_caches(loss, flat, fresh, caches, use_stale: bool,
-                            emit_fresh: bool):
-        metrics = {"loss": loss,
-                   "acc": accuracy(flat, labels, masks["train"])}
-        # drift compares the fresh rows against this step's stale source
-        if emit_fresh:
-            pairs = list(zip(fresh["local"] + fresh["global"],
-                             caches["local"] + caches["global"]))
-            drifts = [torch.max(torch.abs(a - b)) for a, b in pairs
-                      if a.numel()]
-            metrics["drift"] = (torch.max(torch.stack(drifts)) if drifts
-                                else loss.new_zeros(()))
-            # per-row drift stats (max over layers and feature dim)
-            n_ex = len(fresh["local"])
-            if n_ex:
-                rows = [torch.amax(torch.abs(a - b), dim=-1)
-                        for a, b in pairs]
-                metrics["drift_local_rows"] = torch.stack(
-                    rows[:n_ex]).amax(0)                      # [P, Rloc]
-                metrics["drift_global_rows"] = torch.stack(
-                    rows[n_ex:]).amax(0)                      # [G]
-        return metrics, (fresh if emit_fresh else caches)
-
-    def step(use_stale, emit_fresh, params, opt_state, caches, xr, xe):
-        loss, flat, fresh, grads = value_and_grad(params, caches, xr, xe,
-                                                  use_stale, emit_fresh)
-        new_params, new_state = opt.update(grads, opt_state, params)
-        metrics, out_caches = _metrics_and_caches(loss, flat, fresh, caches,
-                                                  use_stale, emit_fresh)
-        return new_params, new_state, out_caches, metrics
-
-    caches0 = init_caches(cfg, xplan, p, device=device)
+    hdt = halo_dtype_info(spec.halo_dtype)[0]
 
     def maps(xp):
-        return exchange_arrays(xp, ni, device, halo_dtype=hdt)
-    state = {"xarr": maps(xplan), "maps": maps, "step": step}
-
-    def wrap(use_stale, emit_fresh):
-        def stepper(params, opt_state, caches):
-            xa = state["xarr"]
-            return step(use_stale, emit_fresh, params, opt_state, caches,
-                        xa, xa)
-        return stepper
-
-    @torch.no_grad()
-    def forward_fresh(params):
-        xa = state["xarr"]
-        return forward(params, caches0, xa, xa, False, False)[0]
-
-    def evaluate(params, split: str = "val"):
-        flat = forward_fresh(params).reshape(-1, cfg.out_dim)
-        m = masks[split]
-        return (float(cross_entropy_loss(flat, labels, m)),
-                float(accuracy(flat, labels, m)))
-
-    def loss_and_grads(params, caches, use_stale: bool = False):
-        xa = state["xarr"]
-        loss, _, _, grads = value_and_grad(params, caches, xa, xa,
-                                           use_stale, False)
-        return loss, grads
-
-    comm_dims = list(cfg.feat_dims[:layers])
-    if not spec.exchange_layer0:
-        comm_dims = comm_dims[1:]
-
-    return SimRuntime(cfg=cfg, xplan=xplan, comm_dims=comm_dims,
-                      forward_fresh=forward_fresh,
-                      step_refresh=wrap(False, True),
-                      step_cached=wrap(True, False),
-                      step_pipelined=wrap(True, True),
-                      evaluate=evaluate, loss_and_grads=loss_and_grads,
-                      caches0=caches0, backend=spec.backend,
-                      halo_dtype_bytes=hd_bytes, features=spec.features,
-                      device=device, _state=state, stacked=sp, spec=spec)
+        return exchange_arrays(xp, sp.n_inner_max, device, halo_dtype=hdt)
+    return _build_runtime(SimRuntime, cfg, sp, sp, xplan, opt, spec, device,
+                          _StackedExchange(hdt), maps)
 
 
 # ---------------------------------------------------------------------------
@@ -578,14 +665,17 @@ def _step_rows(x_read: ExchangePlan, x_emit: ExchangePlan,
     return n
 
 
-def train_capgnn(cfg: GNNConfig, runtime: SimRuntime, xplan: ExchangePlan,
+def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
                  num_parts: int, opt: Optimizer, epochs: int = 100,
                  eval_every: int = 0,
                  controller: StalenessController | None = None,
                  params0=None, opt_state0=None, planner=None, tracer=None,
                  faults=None, guard=None,
                  spec: TrainSpec | None = None) -> tuple[list, TrainReport]:
-    """Full-batch CaPGNN training under the staleness schedule.
+    """Full-batch CaPGNN training under the staleness schedule, on a
+    :class:`SimRuntime` or, on each rank of its group, a
+    :class:`~repro_torch.dist.capgnn_spmd.SpmdRuntime` (every rank's
+    report is the same).
 
     ``spec`` (default: the runtime's) supplies ``pipeline`` and ``seed``
     and is recorded into ``report.spec``.  One step per epoch (full
@@ -617,7 +707,9 @@ def train_capgnn(cfg: GNNConfig, runtime: SimRuntime, xplan: ExchangePlan,
     params = params0 if params0 is not None else init_gnn(
         cfg, torch.Generator().manual_seed(spec.seed), runtime.device)
     opt_state = opt_state0 if opt_state0 is not None else opt.init(params)
-    caches = init_caches(cfg, xplan, num_parts, device=runtime.device)
+    # the runtime's own starting caches: [P, ...] in one process, the
+    # rank's [1, ...] local tier under the SPMD runtime (never written to)
+    caches = runtime.caches0
     dims = runtime.comm_dims
     # actual wire width of one halo payload entry (2 under bf16); the
     # vanilla baseline ships the same payload dtype

@@ -11,7 +11,8 @@ Three fields select nothing in the port and are kept for the dict's sake:
 ``interpret`` (a kernel runs by its tensors' device: the plain version on
 the CPU, the CUDA kernel on the card), ``donate`` (PyTorch runs eagerly;
 the steps return new state and the caller drops the old) and
-``pallas_pack`` (the SPMD runtime's packed gather is not ported yet).
+``pallas_pack`` (the SPMD runtime's per-peer pack is always the row
+gather, ``ops.pack_rows``, dispatched by device).
 """
 from __future__ import annotations
 

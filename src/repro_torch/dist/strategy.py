@@ -2,8 +2,9 @@
 
 The JAX package's ``dist/strategy.py`` registry with its ``halo_1d``
 front door (:class:`Halo1DStrategy`): layout construction
-(``stack_partitions`` + ``build_exchange_plan``), the single-process
-runtime and training loop, and the modeled byte count of a refresh step.
+(``stack_partitions`` + ``build_exchange_plan``), the single-process and
+the SPMD runtimes, the training loop, and the modeled byte count of a
+refresh step.
 The 1.5D replicated-row strategy ``spmm_15d`` is not ported yet:
 :func:`get_strategy` raises for it, naming the strategy.
 """
@@ -37,7 +38,8 @@ class HaloLayout:
 class Halo1DStrategy:
     """The paper's model: 1D vertex partitioning + per-layer halo exchange
     with the JACA cache tiers, bounded staleness and pipelined refresh,
-    in one process over the stacked ``[P, ...]`` layout."""
+    in one process over the stacked ``[P, ...]`` layout or in one process
+    per partition."""
     name = "halo_1d"
 
     def validate_spec(self, spec) -> None:
@@ -58,6 +60,13 @@ class Halo1DStrategy:
         from .capgnn_sim import make_sim_runtime
         return make_sim_runtime(cfg, layout.sp, layout.xplan, opt,
                                 spec=spec, **kw)
+
+    def make_spmd_runtime(self, cfg, layout, opt, spec, group=None, **kw):
+        """This rank's :class:`~repro_torch.dist.capgnn_spmd.SpmdRuntime`
+        over ``group`` (one process per partition)."""
+        from .capgnn_spmd import make_spmd_runtime
+        return make_spmd_runtime(cfg, layout.sp, layout.xplan, opt, group,
+                                 spec=spec, **kw)
 
     def train(self, cfg, runtime, layout, opt, spec, epochs, **kw):
         from .capgnn_sim import train_capgnn

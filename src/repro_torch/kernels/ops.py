@@ -247,20 +247,25 @@ def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     """Edge-list aggregation ``out[..., dst[e], :] += w[e] * h[..., src[e], :]``
     with ``index_add_``, for 2-D operands or a ``[P, ...]`` stack.
 
-    Edges with ``dst == n_rows`` are padding: they land in one spare row
-    that is sliced off (the reference's segment sum drops them; torch
-    would raise on an out-of-range index instead).
+    The messages are one ``index_select`` over the flattened ``h`` at ids
+    ``p * n_cols + src``, so their backward is an ``index_add_`` into the
+    gradient of ``h`` (not the sort-based backward of two-index advanced
+    indexing).  Edges with ``dst == n_rows`` are padding: they land in one
+    spare row that is sliced off (the reference's segment sum drops them;
+    torch would raise on an out-of-range index instead).
     """
     batched = h.dim() == 3
     if not batched:
         src, dst, w, h = src[None], dst[None], w[None], h[None]
-    n_parts, d = h.shape[0], h.shape[-1]
+    n_parts, n_cols, d = h.shape
     pidx = torch.arange(n_parts, device=h.device)[:, None]
-    msgs = h[pidx, src.long()] * w[..., None].to(h.dtype)       # [P, M, d]
+    ids = (pidx * n_cols + src.long()).reshape(-1)
+    msgs = h.reshape(-1, d).index_select(0, ids) * \
+        w.reshape(-1, 1).to(h.dtype)                                # [P*M, d]
     flat = (pidx * (n_rows + 1) + dst.long()).reshape(-1)
     out = torch.zeros((n_parts * (n_rows + 1), d), dtype=h.dtype,
                       device=h.device)
-    out.index_add_(0, flat, msgs.reshape(-1, d))
+    out.index_add_(0, flat, msgs)
     out = out.view(n_parts, n_rows + 1, d)[:, :n_rows]
     return out if batched else out[0]
 

@@ -1,0 +1,108 @@
+"""Groups of worker processes: the port's counterpart of the JAX package's
+``launch/mesh.py``.
+
+Where the JAX package builds a device mesh for one controller, the port
+starts one process per worker: :func:`spawn` runs ``fn`` on ``world_size``
+ranks under ``torch.multiprocessing.spawn`` (the ``spawn`` start method,
+never ``fork``: the parent may hold a CUDA context), each in a
+``torch.distributed`` group set up from a store file in a temporary
+directory (no TCP port, so concurrent groups on one host never collide),
+and returns each rank's result to the parent.
+
+Backends, chosen by the caller:
+
+- ``"nccl"``: one card per rank.  NCCL refuses two ranks on one GPU, so
+  with fewer visible cards than ranks :func:`spawn` raises before any
+  process starts.
+- ``"gloo"``: ranks on the CPU, or several ranks sharing cards (the SPMD
+  runtime then stages its CUDA tensors through the host,
+  :class:`repro_torch.dist.collectives.Wire`).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import tempfile
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+__all__ = ["BACKENDS", "rank_devices", "spawn"]
+
+BACKENDS = ("gloo", "nccl")
+# how long a collective waits for its peers before the group fails
+_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def rank_devices(world_size: int, backend: str,
+                 devices: str | Sequence[str]) -> list[str]:
+    """Each rank's device.  ``devices`` is ``"cpu"``, ``"cuda"`` (rank
+    ``i`` on card ``i`` modulo the visible cards) or one device per rank.
+    Raises ``ValueError`` for what the backend cannot run: an unknown
+    backend, NCCL on a CPU rank, or NCCL with two ranks on one card or
+    fewer visible cards than ranks."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    n_cards = torch.cuda.device_count()
+    if backend == "nccl" and n_cards < world_size:
+        raise ValueError(f"nccl needs one card per rank: {world_size} ranks, "
+                         f"{n_cards} visible cards; run gloo to share cards")
+    if isinstance(devices, str):
+        kind = torch.device(devices).type
+        if kind == "cuda" and n_cards < 1:
+            raise RuntimeError("CUDA is not available; pass devices='cpu' to "
+                               "run the ranks on the CPU")
+        devs = ([f"cuda:{i % n_cards}" for i in range(world_size)]
+                if kind == "cuda" else ["cpu"] * world_size)
+    else:
+        devs = [str(torch.device(d)) for d in devices]
+        if len(devs) != world_size:
+            raise ValueError(f"{len(devs)} devices for {world_size} ranks")
+    if backend == "nccl":
+        if any(not d.startswith("cuda") for d in devs):
+            raise ValueError(f"nccl runs on CUDA devices only: {devs}")
+        if len(set(devs)) != len(devs):
+            raise ValueError(f"nccl needs one card per rank: {devs}")
+    return devs
+
+
+def _worker(rank: int, fn: Callable, world_size: int, backend: str,
+            devices: list[str], store: str, args: tuple) -> None:
+    device = torch.device(devices[rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        # P ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world_size,
+                            timeout=_TIMEOUT)
+    try:
+        result = fn(rank, world_size, device, *args)
+        torch.save(result, os.path.join(os.path.dirname(store),
+                                        f"result{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, *, backend: str,
+          devices: str | Sequence[str], args: tuple = ()) -> list:
+    """Run ``fn(rank, world_size, device, *args)`` on ``world_size`` ranks
+    of one process group; returns the ranks' results in rank order.
+
+    ``fn`` must be importable by name (a module-level function) and its
+    arguments and result picklable: they cross process boundaries.  A
+    rank that raises ends the group, and the error is raised here."""
+    devs = rank_devices(world_size, backend, devices)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_group_") as tmp:
+        store = os.path.join(tmp, "store")
+        mp.spawn(_worker, args=(fn, world_size, backend, devs, store, args),
+                 nprocs=world_size, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"result{r}.pt"),
+                           weights_only=False)
+                for r in range(world_size)]

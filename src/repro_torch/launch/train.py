@@ -113,10 +113,12 @@ def prepare_train(args) -> dict:
             "host_plan_s": time.perf_counter() - t0}
 
 
-def train_gnn(args):
+def train_gnn(args, ctx: dict | None = None):
     """Run the ``gnn`` training slice: ``(out, ctx)`` with ``out`` the
     JSON report and ``ctx`` :func:`prepare_train`'s dict plus the runtime,
-    the final parameters and the :class:`TrainReport`."""
+    the final parameters and the :class:`TrainReport`.  A ``ctx`` given
+    is :func:`prepare_train`'s dict for these ``args`` (a caller that
+    already ran the host pipeline); it is built when None."""
     from ..core import StalenessController
     from ..dist.capgnn_sim import make_sim_runtime, train_capgnn
     from ..optim import adam
@@ -124,7 +126,7 @@ def train_gnn(args):
     check_ported(args)
     device = resolve_device(args.device)
     set_fp32_numerics()
-    ctx = prepare_train(args)
+    ctx = prepare_train(args) if ctx is None else dict(ctx)
     cfg, spec, xplan, ps = ctx["cfg"], ctx["spec"], ctx["xplan"], ctx["ps"]
     opt = adam(args.lr)
     runtime = make_sim_runtime(cfg, ctx["sp"], xplan, opt, spec=spec,

@@ -157,9 +157,10 @@ def _check_model(model: str) -> None:
 
 
 def init_gnn(cfg: GNNConfig, generator: torch.Generator,
-             device="cpu") -> list[dict[str, torch.Tensor]]:
+             device="cuda") -> list[dict[str, torch.Tensor]]:
     """``[{"w": [din, dout], "b": [dout]}, ...]`` per layer (the JAX
-    package's layout), Glorot weights and zero biases."""
+    package's layout), Glorot weights and zero biases, on ``device`` (the
+    card unless the caller asks for the CPU)."""
     _check_model(cfg.model)
     return [{"w": glorot((din, dout), generator, device),
              "b": zeros_init((dout,), device)}

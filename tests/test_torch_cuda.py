@@ -665,3 +665,79 @@ def test_refresh_step_on_card_matches_cpu(card, backend):
             rel = float((a[k] - b[k]).abs().max()) / (
                 float(b[k].abs().max()) + 1e-12)
             assert rel <= 2e-3, (k, rel)
+
+
+def _spmd_refresh_on_card(card, backend, devices):
+    """One refresh step of the SPMD runtime on the card over ``backend``
+    (2 ranks, the graph of ``tests/spmd_parity_script.py`` in 2 METIS
+    parts under a forced-capacity plan, every tier non-empty), against the
+    card's single-process runtime on the same parameters: the loss within
+    1e-5 and each gradient within 1e-5 of its largest magnitude, and the
+    counted rows equal to the plan's."""
+    from repro_torch.core import CacheCapacity, build_cache_plan
+    from repro_torch.data.gnn_data import FullBatchTask, split_masks
+    from repro_torch.dist import (TrainSpec, build_exchange_plan,
+                                  make_sim_runtime, stack_partitions)
+    from repro_torch.graph import (build_partition, metis_partition, rmat,
+                                   symmetric_normalize, synth_features)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.optim import sgd
+    import torch_spmd_ranks
+
+    g = rmat(360, 2200, seed=3)
+    feats, labels = synth_features(g, 12, 5, seed=3)
+    gn = symmetric_normalize(g)
+    tr, va, te = split_masks(g.num_nodes, seed=3)
+    task = FullBatchTask(graph=gn, features=feats, labels=labels,
+                         train_mask=tr, val_mask=va, test_mask=te,
+                         num_classes=5)
+    ps = build_partition(gn, metis_partition(gn, 2, seed=3), hops=1)
+    xplan = build_exchange_plan(ps, build_cache_plan(
+        ps, CacheCapacity(c_gpu=[10] * 2, c_cpu=25), refresh_every=2))
+    assert xplan.uncached.n_rows and xplan.local.n_rows \
+        and xplan.glob.n_unique
+    cfg = GNNConfig(model="gcn", in_dim=12, hidden_dim=16, out_dim=5,
+                    num_layers=3)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_np = [{k: v.numpy() for k, v in p.items()} for p in params]
+    for transport in ("p2p", "allgather"):
+        kw = dict(backend="hybrid", transport=transport)
+        sp = stack_partitions(ps, task, backend="hybrid")
+        ranks = spawn(torch_spmd_ranks.run_refresh, 2, backend=backend,
+                      devices=devices,
+                      args=(cfg, sp, xplan, kw, params_np))
+        sim = make_sim_runtime(cfg, sp, xplan, sgd(1.0),
+                               spec=TrainSpec(**kw), device=card)
+        loss, grads = sim.loss_and_grads(
+            [{k: v.to(card) for k, v in p.items()} for p in params],
+            sim.caches0)
+        for r in ranks:
+            assert abs(r["loss"] - float(loss)) <= 1e-5
+            for a, b in zip(r["grads"], grads):
+                for k in b:
+                    want = b[k].cpu().numpy()
+                    err = np.abs(a[k] - want).max() / (np.abs(want).max()
+                                                       + 1e-12)
+                    assert err <= 1e-5, (transport, k, err)
+        rows = xplan.transport_rows(transport, True)
+        for li in (1, 2):
+            for t in ("uncached", "local", "global"):
+                got = sum(r["wire"]["counts"][(li, t)]["valid_rows"]
+                          for r in ranks)
+                assert got == rows[t], (transport, li, t)
+        staged = sum(r["wire"]["host_stage_s"] for r in ranks)
+        assert (staged > 0) == (backend == "gloo")
+
+
+def test_spmd_refresh_step_on_one_card_over_gloo(card):
+    """Two ranks share the card over gloo: the wire stages through the
+    host (``host_stage_s`` > 0)."""
+    _spmd_refresh_on_card(card, "gloo", ["cuda:0", "cuda:0"])
+
+
+def test_spmd_refresh_step_over_nccl(card):
+    """Two ranks on two cards over NCCL (no host staging)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs one card per rank: fewer than 2 visible")
+    _spmd_refresh_on_card(card, "nccl", "cuda")

@@ -1,12 +1,14 @@
 """Guards of the port's boundaries, on the CPU.
 
-- ``repro_torch`` (every module) and ``chip_smoke.py`` import neither
-  ``jax`` nor anything of ``repro``, at import time or in their sources;
+- ``repro_torch`` (every module), ``chip_smoke.py`` and
+  ``examples/quickstart_torch.py`` import neither ``jax`` nor anything of
+  ``repro``, at import time or in their sources;
 - the kernel dispatch goes by tensor device: CPU tensors take the plain
   versions and launch nothing, the kernel wrappers refuse CPU tensors;
 - a CUDA request on a machine without CUDA raises instead of falling back
-  to the CPU (``launch.serve`` and ``launch.train``), and so does
-  ``chip_smoke.py``;
+  to the CPU (``launch.serve``, ``launch.train``, ``launch.mesh``), and so
+  does ``chip_smoke.py``; ``launch.mesh.spawn`` refuses NCCL, before any
+  process starts, with fewer cards than ranks;
 - the parts of the JAX package that are not ported yet fail loudly.
 """
 import os
@@ -57,11 +59,61 @@ def test_import_pulls_in_neither_jax_nor_repro():
 
 
 def test_sources_import_neither_jax_nor_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "examples" /
+                                          "quickstart_torch.py"]
     assert len(files) > 30
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert offenders == []
+
+
+def test_spmd_slice_modules_import_neither_jax_nor_repro():
+    res = _run(
+        "import importlib.util, sys\n"
+        "import repro_torch.dist.capgnn_spmd, repro_torch.dist.collectives\n"
+        "import repro_torch.launch.mesh, repro_torch.core.halo\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'quickstart_torch', 'examples/quickstart_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
+        "      n.startswith('jax.') or n == 'repro' or\n"
+        "      n.startswith('repro.')))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("cards,ranks", [(0, 2), (1, 2), (3, 4)])
+def test_nccl_spawn_refuses_fewer_cards_than_ranks(monkeypatch, cards,
+                                                   ranks):
+    """NCCL needs one card per rank: with fewer, ``spawn`` raises before
+    any process starts or any group is initialised."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    started = []
+    monkeypatch.setattr(mesh.mp, "spawn", lambda *a, **k: started.append(a))
+    with pytest.raises(ValueError, match="one card per rank"):
+        mesh.spawn(print, ranks, backend="nccl", devices="cuda")
+    assert started == [] and not dist.is_initialized()
+
+
+def test_rank_devices_refuse_what_a_backend_cannot_run(monkeypatch):
+    from repro_torch.launch.mesh import rank_devices
+    assert rank_devices(3, "gloo", "cpu") == ["cpu"] * 3
+    with pytest.raises(ValueError, match="unknown backend"):
+        rank_devices(2, "mpi", "cpu")
+    with pytest.raises(ValueError, match="2 devices for 3 ranks"):
+        rank_devices(3, "gloo", ["cpu", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rank_devices(2, "gloo", "cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert rank_devices(4, "nccl", "cuda") == [f"cuda:{i}" for i in range(4)]
+    assert rank_devices(4, "gloo", ["cuda:0"] * 4) == ["cuda:0"] * 4
+    with pytest.raises(ValueError, match="one card per rank"):
+        rank_devices(2, "nccl", ["cuda:1", "cuda:1"])
+    with pytest.raises(ValueError, match="CUDA devices only"):
+        rank_devices(2, "nccl", ["cpu", "cuda:0"])
 
 
 def test_forbidden_pattern_catches_imports():
@@ -190,7 +242,7 @@ def test_unported_runtime_options_raise():
 def test_unported_models_raise(model):
     cfg = GNNConfig(model=model, in_dim=8, hidden_dim=8, out_dim=3)
     with pytest.raises(NotImplementedError, match=model):
-        init_gnn(cfg, torch.Generator().manual_seed(0))
+        init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -1,0 +1,442 @@
+"""The port's SPMD runtime (``repro_torch.dist.capgnn_spmd``) on 4 gloo
+ranks on the CPU, against the port's single-process runtime and the JAX
+package's ``capgnn_sim`` (the oracle the JAX package's own SPMD parity
+tests compare to; those tests do not run against the installed JAX).
+
+The graph of ``tests/spmd_parity_script.py``: rmat 360 / 2,200, GCN 12 ->
+16 -> 16 -> 5, 4 METIS parts, ``refresh_every=2``, under a forced-capacity
+plan (``c_gpu`` 10 rows a worker, ``c_cpu`` 25) so that the uncached,
+local and global tiers all carry rows.  Parameters come from the JAX
+package's ``init_gnn`` and are carried across as numpy.  One spawn of 4
+ranks per configuration runs every check of it
+(``torch_spmd_ranks.run_spmd``).  Held, per configuration:
+
+- ``forward_fresh``: logits within 1e-5 of both references (bf16: see
+  below);
+- one ``sgd(1.0)`` refresh step: loss and every parameter delta within
+  1e-5 of JAX ``capgnn_sim`` (the P-fold gradient inflation pin), and of
+  the port's;
+- a refresh step's loss and gradients within 1e-5 of the port's;
+- refresh, cached, pipelined and cached ``adam`` steps: loss, parameters,
+  emitted caches and drift metrics within 1e-5 of the port's, step for
+  step;
+- the wire counts of every step and exchanged layer, summed over ranks:
+  valid and padded rows equal to ``transport_rows``, bytes to the valid
+  rows' bytes and, under ``p2p``, to ``bytes_per_step``, exactly;
+- an 8-step ``train_capgnn`` with ``adam``: losses and parameters within
+  1e-5 of the port's, ``comm_bytes``, ``refresh_steps`` and
+  ``cached_steps`` equal, the same test loss and accuracy;
+- a plan switch (``step_transition`` and ``set_plan``) between two
+  rankings padded to one capacity's widths: every step within 1e-5 of the
+  port's runtime making the same switch.
+
+The bf16 wire runs the same casts in all three runtimes.  Against the
+port's runtime it stays at 1e-5.  Against JAX ``capgnn_sim`` the logits
+are held at :data:`BF16_JAX_TOL` (measured: 1.6e-5; the loss and the
+``sgd(1.0)`` deltas stay within 1e-5, measured 3.6e-7 and 7.5e-6): a
+hidden value that XLA and torch sum in another order lands one f32 ulp
+apart, on either side of a bf16 rounding boundary, so one payload entry
+differs by a bf16 ulp (2^-8 of it) and moves the logits that read it.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import repro.core as jcore
+import repro.dist as jdist
+from repro.data.gnn_data import FullBatchTask as JTask, split_masks as jsplit
+from repro.dist.spec import TrainSpec as JSpec
+from repro.graph import (build_partition as jbuild, metis_partition as jmetis,
+                         rmat as jrmat, symmetric_normalize as jnorm,
+                         synth_features as jfeats)
+from repro.models.gnn import GNNConfig as JConfig, init_gnn as jinit
+from repro.optim import sgd as jsgd
+import repro_torch.core as tcore
+from repro_torch.data.gnn_data import FullBatchTask, split_masks
+from repro_torch.dist import (TrainSpec, build_exchange_plan,
+                              exchange_capacity, make_sim_runtime,
+                              stack_partitions, train_capgnn)
+from repro_torch.dist.collectives import BACKWARD
+from repro_torch.graph import (build_partition, metis_partition, rmat,
+                               symmetric_normalize, synth_features)
+from repro_torch.launch.mesh import spawn
+from repro_torch.models.gnn import GNNConfig
+from repro_torch.optim import adam, sgd
+
+import torch_spmd_ranks
+
+P = 4
+EPOCHS = 8
+TOL = 1e-5
+BF16_JAX_TOL = 5e-5
+CASES = {   # id: (transport, backend, halo dtype)
+    "allgather-edges": ("allgather", "edges", "f32"),
+    "p2p-edges": ("p2p", "edges", "f32"),
+    "p2p-hybrid": ("p2p", "hybrid", "f32"),
+    "p2p-ell": ("p2p", "ell", "f32"),
+    "p2p-bf16": ("p2p", "hybrid", "bf16"),
+}
+_CACHE: dict = {}
+
+
+def _graph(mods):
+    """The parity script's task and partition in one package's modules."""
+    rmat_, feats_, norm_, task_, split_, metis_, build_ = mods
+    g = rmat_(360, 2200, seed=3)
+    feats, labels = feats_(g, 12, 5, seed=3)
+    gn = norm_(g)
+    tr, va, te = split_(g.num_nodes, seed=3)
+    task = task_(graph=gn, features=feats, labels=labels, train_mask=tr,
+                 val_mask=va, test_mask=te, num_classes=5)
+    return task, build_(gn, metis_(gn, P, seed=3), hops=1)
+
+
+def _base():
+    if "base" not in _CACHE:
+        jtask, jps = _graph((jrmat, jfeats, jnorm, JTask, jsplit, jmetis,
+                             jbuild))
+        ttask, tps = _graph((rmat, synth_features, symmetric_normalize,
+                             FullBatchTask, split_masks, metis_partition,
+                             build_partition))
+        cap = dict(c_gpu=[10] * P, c_cpu=25)
+        jx = jdist.build_exchange_plan(jps, jcore.build_cache_plan(
+            jps, jcore.CacheCapacity(**cap), refresh_every=2))
+        tx = build_exchange_plan(tps, tcore.build_cache_plan(
+            tps, tcore.CacheCapacity(**cap), refresh_every=2))
+        # two rankings padded to one capacity's widths: a plan switch
+        # between them changes every tier's rows, not its shape
+        pad = exchange_capacity(tps, tcore.CacheCapacity(**cap))
+        switch = [build_exchange_plan(tps, tcore.build_cache_plan(
+            tps, tcore.CacheCapacity(**cap), refresh_every=2, policy=pol,
+            seed=1), pad_to=pad) for pol in ("overlap_high", "random")]
+        kw = dict(model="gcn", in_dim=12, hidden_dim=16, out_dim=5,
+                  num_layers=3)
+        jparams = jinit(jax.random.PRNGKey(7), JConfig(**kw))
+        _CACHE["base"] = dict(
+            jtask=jtask, jps=jps, ttask=ttask, tps=tps, jx=jx, tx=tx,
+            jcfg=JConfig(**kw), tcfg=GNNConfig(**kw),
+            switch=switch,
+            params_np=[{k: np.asarray(v) for k, v in layer.items()}
+                       for layer in jparams])
+    return _CACHE["base"]
+
+
+def _tparams(b):
+    return [{k: torch.from_numpy(v.copy()) for k, v in layer.items()}
+            for layer in b["params_np"]]
+
+
+def _np(tree):
+    return torch_spmd_ranks._np(tree)
+
+
+def _case(case_id):
+    """The 4 ranks' results and both references for one configuration."""
+    if case_id in _CACHE:
+        return _CACHE[case_id]
+    b = _base()
+    transport, backend, halo_dtype = CASES[case_id]
+    kw = dict(backend=backend, transport=transport, halo_dtype=halo_dtype,
+              pipeline=True, refresh_every=2)
+    tsp = stack_partitions(b["tps"], b["ttask"], backend=backend)
+    ranks = spawn(torch_spmd_ranks.run_spmd, P, backend="gloo",
+                  devices="cpu",
+                  args=(b["tcfg"], tsp, b["tx"], kw, b["params_np"], EPOCHS,
+                        b["switch"]))
+    spec, cfg = TrainSpec(**kw), b["tcfg"]
+    params = _tparams(b)
+    sim = make_sim_runtime(cfg, tsp, b["tx"], sgd(1.0), spec=spec,
+                           device="cpu")
+    ref = {"logits": sim.forward_fresh(params).numpy()}
+    p1, _, c1, m1 = sim.step_refresh(params, (), sim.caches0)
+    ref["sgd"] = {"loss": float(m1["loss"]), "params": _np(p1),
+                  "caches": _np(c1)}
+    loss, grads = sim.loss_and_grads(params, sim.caches0)
+    ref["grads"] = {"loss": float(loss), "grads": _np(grads)}
+    opt = adam(1e-2)
+    sim = make_sim_runtime(cfg, tsp, b["tx"], opt, spec=spec, device="cpu")
+    state, steps = (params, opt.init(params), sim.caches0), []
+    for kind in torch_spmd_ranks.SCHEDULE:
+        *state, m = getattr(sim, f"step_{kind}")(*state)
+        steps.append({"loss": float(m["loss"]), "acc": float(m["acc"]),
+                      "params": _np(state[0]), "caches": _np(state[2]),
+                      "metrics": _np({k: v for k, v in m.items()
+                                      if k not in ("loss", "acc")})})
+    ref["steps"] = steps
+    sim = make_sim_runtime(cfg, tsp, b["switch"][0], opt, spec=spec,
+                           device="cpu")
+    ref["switch"] = torch_spmd_ranks._switch(sim, params, opt.init(params),
+                                             *b["switch"])
+    sim = make_sim_runtime(cfg, tsp, b["tx"], opt, spec=spec, device="cpu")
+    p8, rep = train_capgnn(cfg, sim, b["tx"], P, opt, epochs=EPOCHS,
+                           params0=params, spec=spec)
+    ref["train"] = {"losses": rep.losses, "comm_bytes": rep.comm_bytes,
+                    "comm_bytes_vanilla": rep.comm_bytes_vanilla,
+                    "refresh_steps": rep.refresh_steps,
+                    "cached_steps": rep.cached_steps,
+                    "step_kinds": rep.step_kinds, "params": _np(p8),
+                    "test": sim.evaluate(p8, "test")}
+
+    jsp = jdist.stack_partitions(b["jps"], b["jtask"], backend=backend)
+    jspec = JSpec(backend=backend, halo_dtype=halo_dtype, donate=False,
+                  refresh_every=2, pipeline=True)
+    jrt = jdist.make_sim_runtime(b["jcfg"], jsp, b["jx"], jsgd(1.0),
+                                 spec=jspec)
+    jparams = jax.tree.map(jax.numpy.asarray, b["params_np"])
+    jl = np.asarray(jrt.forward_fresh(jparams))
+    jp1, _, _, jm1 = jrt.step_refresh(jparams, jsgd(1.0).init(jparams),
+                                      jdist.init_caches(b["jcfg"], b["jx"],
+                                                        P))
+    jax_ref = {"logits": jl, "loss": float(jm1["loss"]),
+               "params": [{k: np.asarray(v) for k, v in layer.items()}
+                          for layer in jp1]}
+    _CACHE[case_id] = (ranks, ref, jax_ref)
+    return _CACHE[case_id]
+
+
+def _close(got, want, tol=TOL, what=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=what)
+
+
+def _close_params(got, want, tol=TOL, what="params"):
+    assert len(got) == len(want)
+    for li, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w)
+        for k in w:
+            _close(g[k], w[k], tol, f"{what} layer {li} {k}")
+
+
+def _stacked_caches(ranks, key):
+    """The ranks' caches as the single-process runtime lays them out:
+    each local tier stacked over ranks, each global buffer (replicated)
+    equal on every rank."""
+    per = [key(r) for r in ranks]
+    for r in per[1:]:
+        for a, b in zip(r["global"], per[0]["global"]):
+            np.testing.assert_array_equal(a, b)
+    return {"local": [np.concatenate([r["local"][li] for r in per])
+                      for li in range(len(per[0]["local"]))],
+            "global": per[0]["global"]}
+
+
+def _logits_tol(case_id):
+    return BF16_JAX_TOL if CASES[case_id][2] == "bf16" else TOL
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_forward_fresh(case_id):
+    ranks, ref, jax_ref = _case(case_id)
+    logits = np.stack([r["logits"] for r in ranks])
+    _close(logits, ref["logits"], what="port sim")
+    _close(logits, jax_ref["logits"], _logits_tol(case_id),
+           "JAX capgnn_sim")
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_sgd_refresh_step(case_id):
+    """One refresh step under ``sgd(1.0)``: the parameter delta is the
+    gradient, so a P-fold inflation of the summed gradients shows."""
+    ranks, ref, jax_ref = _case(case_id)
+    params0 = _base()["params_np"]
+    for r in ranks:
+        assert abs(r["sgd"]["loss"] - jax_ref["loss"]) < TOL
+        assert abs(r["sgd"]["loss"] - ref["sgd"]["loss"]) < TOL
+        _close_params(r["sgd"]["params"], ref["sgd"]["params"],
+                      what="port sim")
+        delta = [{k: layer[k] - p0[k] for k in layer}
+                 for layer, p0 in zip(r["sgd"]["params"], params0)]
+        jdelta = [{k: layer[k] - p0[k] for k in layer}
+                  for layer, p0 in zip(jax_ref["params"], params0)]
+        _close_params(delta, jdelta, what="delta vs JAX")
+    caches = _stacked_caches(ranks, lambda r: r["sgd"]["caches"])
+    for k in ("local", "global"):
+        for got, want in zip(caches[k], ref["sgd"]["caches"][k]):
+            _close(got, want, what=f"emitted {k} cache")
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_loss_and_grads(case_id):
+    ranks, ref, _ = _case(case_id)
+    for r in ranks:
+        assert abs(r["grads"]["loss"] - ref["grads"]["loss"]) < TOL
+        _close_params(r["grads"]["grads"], ref["grads"]["grads"],
+                      what="grads")
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_steps_match_sim(case_id):
+    """Refresh, cached, pipelined, cached: loss, accuracy, parameters and
+    the caches each step emits, step for step."""
+    ranks, ref, _ = _case(case_id)
+    for i, want in enumerate(ref["steps"]):
+        for r in ranks:
+            got = r["steps"][i]
+            assert abs(got["loss"] - want["loss"]) < TOL, (i, got["kind"])
+            assert abs(got["acc"] - want["acc"]) < 1e-6
+            _close_params(got["params"], want["params"],
+                          what=f"step {i} {got['kind']}")
+        caches = _stacked_caches(ranks, lambda r: r["steps"][i]["caches"])
+        for k in ("local", "global"):
+            for got, w in zip(caches[k], want["caches"][k]):
+                _close(got, w, what=f"step {i} {k} cache")
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_drift_metrics(case_id):
+    """The emitting steps' drift: ``drift`` and ``drift_global_rows``
+    reduced with MAX over ranks, ``drift_local_rows`` per rank."""
+    ranks, ref, _ = _case(case_id)
+    for i, want in enumerate(ref["steps"]):
+        wm = want["metrics"]
+        assert set(ranks[0]["steps"][i]["metrics"]) == set(wm)
+        if not wm:
+            continue
+        for r in ranks:
+            gm = r["steps"][i]["metrics"]
+            _close(gm["drift"], wm["drift"], what="drift")
+            _close(gm["drift_global_rows"], wm["drift_global_rows"],
+                   what="drift_global_rows")
+        _close(np.concatenate([r["steps"][i]["metrics"]["drift_local_rows"]
+                               for r in ranks]),
+               wm["drift_local_rows"], what="drift_local_rows")
+
+
+def _check_wire(wire_logs, kinds, transport, halo_dtype):
+    """Every step's counts, summed over ranks, against the plan's."""
+    b = _base()
+    x, cfg = b["tx"], b["tcfg"]
+    width = 2 if halo_dtype == "bf16" else 4
+    for s, kind in enumerate(kinds):
+        refresh = kind != "cached"
+        valid = x.transport_rows(transport, refresh)
+        padded = x.transport_rows(transport, refresh, padded=True)
+        for li in range(1, cfg.num_layers):
+            d = cfg.feat_dims[li]
+            got = {t: {f: sum(logs[s]["counts"].get((li, t), {}).get(f, 0)
+                              for logs in wire_logs)
+                       for f in ("valid_rows", "padded_rows", "bytes")}
+                   for t in ("uncached", "local", "global")}
+            for t, c in got.items():
+                assert c["valid_rows"] == valid[t], (s, kind, li, t, c)
+                assert c["padded_rows"] == padded[t], (s, kind, li, t, c)
+                assert c["bytes"] == valid[t] * d * width, (s, li, t)
+            if transport == "p2p":
+                assert sum(c["bytes"] for c in got.values()) == \
+                    x.bytes_per_step(d, refresh, dtype_bytes=width)
+        # every counted call is a tier's at an exchanged layer, or the
+        # backward's
+        assert all(k == BACKWARD or (k[0] in range(1, cfg.num_layers)
+                                     and k[1] in valid)
+                   for logs in wire_logs for k in logs[s]["counts"])
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_wire_counts_equal_the_plan(case_id):
+    ranks, _, _ = _case(case_id)
+    transport, _, halo_dtype = CASES[case_id]
+    x = _base()["tx"]
+    assert x.uncached.n_rows and x.local.n_rows and x.glob.n_unique, \
+        "the forced plan fills every tier"
+    _check_wire([[r["sgd"]["wire"]] for r in ranks], ["refresh"],
+                transport, halo_dtype)
+    _check_wire([[s["wire"] for s in r["steps"]] for r in ranks],
+                list(torch_spmd_ranks.SCHEDULE), transport, halo_dtype)
+    _check_wire([r["train"]["wire"] for r in ranks],
+                ranks[0]["train"]["step_kinds"], transport, halo_dtype)
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_train_matches_sim(case_id):
+    ranks, ref, _ = _case(case_id)
+    want = ref["train"]
+    assert want["step_kinds"] == ["refresh", "cached"] + \
+        ["pipelined", "cached"] * 3
+    for r in ranks:
+        got = r["train"]
+        _close(got["losses"], want["losses"], what="losses")
+        for f in ("comm_bytes", "comm_bytes_vanilla", "refresh_steps",
+                  "cached_steps", "step_kinds"):
+            assert got[f] == want[f], f
+        _close_params(got["params"], want["params"], what="8 steps")
+        assert abs(got["test"][0] - want["test"][0]) < TOL
+        assert abs(got["test"][1] - want["test"][1]) < 1e-6
+    assert ranks[0]["train"]["losses"][-1] < ranks[0]["train"]["losses"][0]
+
+
+@pytest.mark.parametrize("case_id", ["allgather-edges", "p2p-bf16"])
+def test_spmd_step_transition_to_the_same_plan(case_id):
+    """``step_transition`` to the installed plan gives the pipelined
+    step's loss and caches bit for bit, and installs the plan."""
+    ranks, _, _ = _case(case_id)
+    for r in ranks:
+        (pl, pc), (tl, tc) = (r["transition"]["pipelined"],
+                              r["transition"]["transition"])
+        assert pl == tl and r["transition"]["plan_kept"]
+        for k in ("local", "global"):
+            for a, b in zip(pc[k], tc[k]):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case_id", list(CASES))
+def test_spmd_plan_switch_matches_sim(case_id):
+    """A switch between two plans of one capacity's widths whose tiers
+    hold other rows: a refresh, ``step_transition`` to the second plan, a
+    cached step on it, ``set_plan`` back and a refresh, against the port's
+    runtime doing the same switch.  Loss, parameters and emitted caches
+    within 1e-5, each plan installed in turn, and the transition step's
+    counted rows the read plan's uncached tier and the new plan's cached
+    tiers."""
+    ranks, ref, _ = _case(case_id)
+    b = _base()
+    (x, x2), transport = b["switch"], CASES[case_id][0]
+    assert x2.uncached.n_rows and x2.local.n_rows and x2.glob.n_unique
+    assert not np.array_equal(x.local.recv_halo_pos, x2.local.recv_halo_pos)
+    assert x.glob.n_unique != x2.glob.n_unique
+    for i, want in enumerate(ref["switch"]):
+        assert want["installed"]
+        for r in ranks:
+            got = r["switch"][i]
+            assert got["installed"] and got["kind"] == want["kind"]
+            assert abs(got["loss"] - want["loss"]) < TOL, i
+            _close_params(got["params"], want["params"],
+                          what=f"switch step {i} {got['kind']}")
+        caches = _stacked_caches(ranks, lambda r: r["switch"][i]["caches"])
+        for k in ("local", "global"):
+            for got, w in zip(caches[k], want["caches"][k]):
+                _close(got, w, what=f"switch step {i} {k} cache")
+    rows = {"uncached": x.transport_rows(transport, True)["uncached"],
+            **{t: x2.transport_rows(transport, True)[t]
+               for t in ("local", "global")}}
+    assert ranks[0]["switch"][1]["kind"] == "transition"
+    for li in range(1, b["tcfg"].num_layers):
+        for t, n in rows.items():
+            got = sum(r["switch"][1]["wire"]["counts"][(li, t)]["valid_rows"]
+                      for r in ranks)
+            assert got == n, (li, t, got, n)
+
+
+def test_p2p_matches_allgather():
+    """The two transports give the same logits and gradients (the JAX
+    package's ``test_p2p_matches_allgather``)."""
+    p2p, _, _ = _case("p2p-edges")
+    ag, _, _ = _case("allgather-edges")
+    for a, b in zip(p2p, ag):
+        _close(a["logits"], b["logits"], what="logits")
+        _close_params(a["grads"]["grads"], b["grads"]["grads"],
+                      what="grads")
+        assert abs(a["grads"]["loss"] - b["grads"]["loss"]) < TOL
+
+
+def test_spmd_unported_options_raise():
+    from repro_torch.dist.capgnn_spmd import make_spmd_runtime
+    b = _base()
+    for spec, kw, what in (
+            (TrainSpec(features="host"), {}, "features='host'"),
+            (TrainSpec(), {"axis": ("pod", "data")}, "multi-pod")):
+        with pytest.raises(NotImplementedError, match=what):
+            make_spmd_runtime(b["tcfg"], None, b["tx"], sgd(1.0), spec=spec,
+                              device="cpu", **kw)

@@ -128,20 +128,21 @@ def test_optimizer_steps_match(name):
     jo, to = make_j(), make_t()
     jp = jax.tree.map(jax.numpy.asarray, params)
     js = jo.init(jp)
-    tp = params_from_reference(params)
+    tp = params_from_reference(params, device="cpu")
     ts = to.init(tp)
     for step in range(3):
         jg = jax.tree.map(jax.numpy.asarray, grads)
         jp, js = jo.update(jg, js, jp)
-        tp, ts = to.update(params_from_reference(grads), ts, tp)
+        tp, ts = to.update(params_from_reference(grads, device="cpu"), ts,
+                           tp)
         for a, b in zip(_np_params(jp), tp):
             for k in a:
                 np.testing.assert_allclose(b[k].numpy(), a[k], **OPT_TOL)
         grads = _tree(rng)
     # the reference's state carries across and continues identically
-    ts2 = opt_state_from_reference(js)
-    tp2, _ = to.update(params_from_reference(grads), ts2,
-                       params_from_reference(_np_params(jp)))
+    ts2 = opt_state_from_reference(js, device="cpu")
+    tp2, _ = to.update(params_from_reference(grads, device="cpu"), ts2,
+                       params_from_reference(_np_params(jp), device="cpu"))
     jp2, _ = jo.update(jax.tree.map(jax.numpy.asarray, grads), js, jp)
     for a, b in zip(_np_params(jp2), tp2):
         for k in a:
@@ -153,7 +154,7 @@ def test_clip_by_global_norm_matches():
     from repro_torch.optim import clip_by_global_norm as tclip
     grads = _tree(np.random.default_rng(2))
     jg, jn = jclip(jax.tree.map(jax.numpy.asarray, grads), 1.5)
-    tg, tn = tclip(params_from_reference(grads), 1.5)
+    tg, tn = tclip(params_from_reference(grads, device="cpu"), 1.5)
     np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
     for a, b in zip(_np_params(jg), tg):
         for k in a:
@@ -229,7 +230,7 @@ def test_refresh_every_step_equals_full_graph(pipe):
     spec = TrainSpec(backend="hybrid", refresh_every=1)
     rt = make_sim_runtime(pipe["tcfg"], tsp, tx, adam(1e-2), spec=spec,
                           device="cpu")
-    params = params_from_reference(_np_params(pipe["jparams"]))
+    params = params_from_reference(_np_params(pipe["jparams"]), device="cpu")
     logits_p = rt.forward_fresh(params).numpy()
     adj = make_local_adj(task.graph, task.graph.num_nodes, backend="edges")
     logits_f = np.asarray(jforward(pipe["jcfg"], pipe["jparams"], adj,
@@ -272,7 +273,8 @@ def _train(pipe, run_id):
                            device="cpu")
     tp, trep = train_capgnn(
         pipe["tcfg"], trt, tx, P, topt, epochs=EPOCHS, spec=tspec,
-        params0=params_from_reference(_np_params(pipe["jparams"])))
+        params0=params_from_reference(_np_params(pipe["jparams"]),
+                                      device="cpu"))
     _CACHE[("train", run_id)] = (jp, jrep, jrt, tp, trep, trt)
     return _CACHE[("train", run_id)]
 
@@ -318,7 +320,7 @@ def test_step_transition_and_set_plan(pipe):
     jx1, tx1 = _plans(pipe, refresh_every=1)
     jopt, topt = jsgd(0.5), sgd(0.5)
     jparams = pipe["jparams"]
-    tparams = params_from_reference(_np_params(jparams))
+    tparams = params_from_reference(_np_params(jparams), device="cpu")
     jc = jdist.init_caches(pipe["jcfg"], jx, P)
     tc = trt.caches0
     jparams, js, jc, _ = jrt.step_refresh(jparams, jopt.init(jparams), jc)
@@ -351,7 +353,7 @@ def test_halo_1d_strategy_is_the_runtime(pipe):
     spec = TrainSpec(backend="hybrid", refresh_every=2, pipeline=True)
     strat = get_strategy("halo_1d")
     layout = strat.build_layout(tps, task, spec, plan=plan)
-    params0 = params_from_reference(_np_params(pipe["jparams"]))
+    params0 = params_from_reference(_np_params(pipe["jparams"]), device="cpu")
     rt = strat.make_sim_runtime(pipe["tcfg"], layout, sgd(0.5), spec,
                                 device="cpu")
     _, via = strat.train(pipe["tcfg"], rt, layout, sgd(0.5), spec, epochs=3,
