@@ -69,6 +69,24 @@ raises, and the script exits non-zero:
    ``spmd_tiers_nccl`` - the same two over NCCL, one card per rank,
    where 4 cards are visible; otherwise their lines say ``"ran": false``
    and the card count.
+   JACA's CPU tier and online adaptation, on the train cell's host plan
+   under a forced capacity (``forced_capacity``: half the widest worker's
+   halo rows on the host) that fills every tier: ``train_host`` - a
+   device-features and a host-features runtime, f32 and bf16, 8 steps
+   from the same parameters (f32 bit for bit, bf16 within 5e-3), each
+   host step's counted rows and bytes against the plan's, its host
+   gather ms, the copies' and the compute stream's waits' device ms, its
+   launches; ``train_host_cli`` - ``launch.train`` with ``--features
+   host`` at the default capacity (losses those of the ``train`` run bit
+   for bit; the ``l0loc`` install timed); ``train_adaptive`` -
+   ``--cache-policy lru`` (host features) and ``drift`` with a
+   ``step_transition`` to the re-plan (``replan_ms``, ``hit_rate``; at
+   scale 0.1 the card's ``lru`` re-plans equal the CPU's);
+   ``spmd_host`` - the SPMD runtime, 4 ranks on the card over gloo,
+   ``p2p``, one host store per rank, against the card's host run, the
+   host counts summed over the ranks equal to the plan's
+   (``spmd_host_nccl`` and ``spmd_lru_nccl`` over NCCL on four cards);
+   ``profile`` - ``measure_profile()`` on the card.
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -80,8 +98,10 @@ raises, and the script exits non-zero:
    and an ``index_select`` route), and a tier pull, forward and backward,
    as one composed gather and as two stages.
 7. ``kernels`` - every ported kernel with its launches on each path
-   (``launches_by_path``: serve, train, train_edges, train_ell, and the
-   SPMD runs summed over ranks), its largest error against the plain
+   (``launches_by_path``: serve, train, train_edges, train_ell, the SPMD
+   runs summed over ranks, train_host, train_host_cli,
+   train_adaptive_lru, train_adaptive_drift, spmd_host), its largest
+   error against the plain
    version and its times.
 
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
@@ -1262,9 +1282,10 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
 
 
 def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
-              epochs, lr, steady):
+              epochs, lr, steady, planner=None):
     """One rank of the SPMD phases: the refresh step's loss and gradients
-    from ``params_np``; an ``epochs``-step ``train_capgnn`` with Adam and
+    from ``params_np``; an ``epochs``-step ``train_capgnn`` with Adam
+    (re-planned by ``planner``, this rank's copy, when one is given) and
     the test evaluation, its launches counted from zero; ``steady`` steps
     of each kind from the trained state, each timed and its host staging
     seconds kept apart."""
@@ -1284,13 +1305,13 @@ def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
     p8, rep = train_capgnn(
         cfg, rt, xplan, world_size, opt, epochs=epochs,
         controller=StalenessController(refresh_every=spec.refresh_every),
-        params0=params, spec=spec)
+        params0=params, planner=planner, spec=spec)
     test = rt.evaluate(p8, "test")
     torch.cuda.synchronize(device)
     launches = read_counts()
     wire = rt.wire_log[:epochs]
     steady_ms, stage_ms = {}, {}
-    for kind in ("refresh", "cached", "pipelined"):
+    for kind in ("refresh", "cached", "pipelined") if steady else ():
         step, state = getattr(rt, f"step_{kind}"), (p8, rep.final_opt_state,
                                                      rt.caches0)
         times, stages = [], []
@@ -1311,6 +1332,10 @@ def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
             "cached_steps": rep.cached_steps, "test": test,
             "wire": [w["counts"] for w in wire], "launches": launches,
             "steady_step_ms": steady_ms, "steady_host_stage_ms": stage_ms,
+            "host_fetch_rows": rep.host_fetch_rows,
+            "host_fetch_bytes": rep.host_fetch_bytes,
+            "host_writeback_bytes": rep.host_writeback_bytes,
+            "replan_events": rep.replan_events, "hit_rate": rep.hit_rate,
             "build_s": build_s,
             "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
 
@@ -1640,6 +1665,546 @@ def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
          tier_rows=[{t: getattr(x, t).n_rows for t in ("uncached", "local")}
                     | {"global": x.glob.n_unique} for x in plans],
          cases=cases)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: JACA's CPU tier (host features) and online cache adaptation
+# ---------------------------------------------------------------------------
+
+# the share of the widest worker's halo rows that the forced plan keeps on
+# the host at layer 0 (uncached and global tiers); the CLI's default
+# capacity caches every halo row of the train cell on the device, which
+# leaves the host tier empty
+HOST_FRAC = 0.5
+HOST_BF16_TOL = 5e-3      # host bf16 vs device bf16: one layer-0 bf16 cast
+ADAPTIVE_TOL = 1e-5       # card vs CPU, 8 Adam steps at TRAIN_SGD_SCALE
+TRAIN_KINDS = ["refresh", "cached", "cached", "cached", "pipelined",
+               "cached", "cached", "cached"]
+
+
+def forced_capacity(ps, host_frac: float):
+    """A capacity that fills every tier, with ``host_frac`` of the widest
+    worker's halo rows host-resident at layer 0 (the rule of the JAX
+    package's out-of-core benchmark, ``benchmarks/out_of_core.py``)."""
+    from repro_torch.core import CacheCapacity
+    parts = len(ps.parts)
+    max_halo = max(pt.n_halo for pt in ps.parts)
+    local = max(1, int(round((1.0 - host_frac) * max_halo)))
+    c_cpu = max(1, int(round(0.5 * host_frac * max_halo * parts)))
+    return CacheCapacity(c_gpu=[local] * parts, c_cpu=c_cpu)
+
+
+def forced_context(tctx: dict) -> dict:
+    """The train cell's host plan (partition, RAPA, stacking) under the
+    forced capacity: its exchange plan, unpadded and as the adaptive
+    planner pads it."""
+    from repro_torch.core import build_cache_plan
+    from repro_torch.dist import build_exchange_plan
+    ps = tctx["ps"]
+    cap = forced_capacity(ps, HOST_FRAC)
+    xplan = build_exchange_plan(ps, build_cache_plan(
+        ps, cap, refresh_every=tctx["spec"].refresh_every))
+    if not (xplan.uncached.n_rows and xplan.local.n_rows
+            and xplan.glob.n_unique and xplan.host.n_fetch_rows):
+        raise AssertionError("the forced plan leaves a tier empty")
+    return {**tctx, "cap": cap, "xplan": xplan, "planner": None}
+
+
+def host_plan_fields(cfg, xplan, kind: str, width: int) -> dict:
+    """A host-features step's rows and bytes by the plan: the host tier
+    every step, the global buffers on a stale step, a writeback on an
+    emitting one."""
+    dims = cfg.feat_dims[1:cfg.num_layers]
+    stale = kind != "refresh"
+    return {"fetch_rows": xplan.host_fetch_rows(stale, len(dims))["total"],
+            "fetch_bytes": xplan.host_bytes_per_step(cfg.in_dim, dims, stale,
+                                                     width),
+            "writeback_bytes": (xplan.host_writeback_bytes(dims)
+                                if kind != "cached" else 0)}
+
+
+def step_records(rt, params, opt_state, kinds, xplan) -> tuple:
+    """``kinds`` steps of ``rt`` from ``params``: per step its kind, host
+    ms (fenced by reading the loss), loss and launches and, with host
+    features, the store's counts against the plan's (raises where they
+    differ), the consumed rows' host gather ms, and the device ms of the
+    copies to the card that the step issued (``h2d_rows_ms``: the next
+    step's ring fetch; ``h2d_buf_ms``: its global buffers) and of the
+    compute stream's waits on them (``wait_rows_ms``, ``wait_buf_ms``).
+    Returns the final state and records."""
+    store, cfg = rt.host_store, rt.cfg
+    width = rt.halo_dtype_bytes
+    state, recs, logged = (params, opt_state, rt.caches0), [], []
+    for kind in kinds:
+        c0 = read_counts()
+        s0 = store.snapshot() if store else None
+        n0 = len(store.copy_log) if store else 0
+        t0 = time.perf_counter()
+        *state, m = getattr(rt, f"step_{kind}")(*state)
+        loss = float(m["loss"])
+        rec = {"kind": kind, "ms": 1e3 * (time.perf_counter() - t0),
+               "loss": loss,
+               "launches": {k: v - c0[k] for k, v in read_counts().items()}}
+        if store is not None:
+            d = store.delta(s0)
+            logged.append((rec, n0, len(store.copy_log)))
+            got = {"fetch_rows": d["fetch_rows"],
+                   "fetch_bytes": d["fetch_bytes"],
+                   "writeback_bytes": d["writeback_bytes"]}
+            want = host_plan_fields(cfg, xplan, kind, width)
+            if got != want:
+                raise AssertionError(f"host step {kind}: counted {got}, the "
+                                     f"plan gives {want}")
+            rec.update(got, plan=want, gather_ms=1e3 * d["gather_s"])
+        recs.append(rec)
+    # the device ms of the copies and waits each step issued (its global
+    # buffers' copies, the next step's ring copy; its waits on both)
+    for rec, n0, n1 in logged:
+        rec.update({f"{k}_ms": 1e3 * v
+                    for k, v in store.copy_times(n0, n1).items()})
+    return state, recs
+
+
+def step_launches(backend: str, layers: int, kinds, per_kind: dict) -> dict:
+    """The launches of ``kinds`` steps with no evaluation (see
+    :func:`train_launches`)."""
+    want = train_launches(backend, layers, list(kinds), per_kind)
+    for k in ("ell_spmm", "csr_spmm_tail"):
+        want[k] -= want[k] // (len(kinds) + 1)
+    for k in ("gather_rows", "gather_rows_bwd"):
+        want[k] -= per_kind["evaluation"][k]
+    return want
+
+
+def phase_train_host(fctx: dict, seed: int, lr: float) -> tuple:
+    """The train cell under the forced plan (hybrid, full width,
+    :data:`TRAIN_KINDS` with Adam) on a device-features and a
+    host-features runtime, f32 and bf16, from the same parameters.
+
+    Checks: f32 host losses and parameters equal to device mode's bit for
+    bit; bf16 within ``HOST_BF16_TOL``; every host step's counted rows and
+    bytes equal to the plan's; the f32 host run's launches those the
+    steps give.  Returns the f32 host run's launches and losses."""
+    import dataclasses as dc
+    from repro_torch.dist import make_sim_runtime
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.optim import adam
+    cfg, sp, xplan = fctx["cfg"], fctx["sp"], fctx["xplan"]
+    params0 = init_gnn(cfg, torch.Generator().manual_seed(seed), "cuda")
+    runs, launches = {}, None
+    for halo in ("f32", "bf16"):
+        for features in ("device", "host"):
+            spec = dc.replace(fctx["spec"], halo_dtype=halo,
+                              features=features)
+            opt = adam(lr)
+            t0 = time.perf_counter()
+            rt = make_sim_runtime(cfg, sp, xplan, opt, spec=spec,
+                                  device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if rt.host_store is not None:
+                rt.host_store.timing = True
+            zero_counts()
+            state, recs = step_records(rt, params0, opt.init(params0),
+                                       TRAIN_KINDS, xplan)
+            if (halo, features) == ("f32", "host"):
+                launches = read_counts()
+            steady = steady_step_ms(rt, state[0], state[1])
+            runs[(halo, features)] = {
+                "losses": [r["loss"] for r in recs], "steps": recs,
+                "params": [{k: v.cpu() for k, v in q.items()}
+                           for q in state[0]],
+                "build_s": build_s, "steady_step_ms": steady,
+                "resident_bytes": (rt.host_store.resident_bytes()
+                                   if rt.host_store else None)}
+            del rt, state
+            torch.cuda.empty_cache()
+    dev, host = runs[("f32", "device")], runs[("f32", "host")]
+    if dev["losses"] != host["losses"] or not all(
+            torch.equal(a[k], b[k]) for a, b in zip(dev["params"],
+                                                    host["params"])
+            for k in a):
+        raise AssertionError(f"train_host: f32 host mode differs from "
+                             f"device mode: {host['losses']} vs "
+                             f"{dev['losses']}")
+    # bf16: host mode stages the layer-0 local tier through the bf16 cast
+    # where device mode reads the f32 table.  The losses are held; Adam
+    # normalises each update, so a parameter whose gradient is near 0
+    # moves by up to lr a step either way: its difference is reported
+    b_dev, b_host = runs[("bf16", "device")], runs[("bf16", "host")]
+    bf16_err = max(abs(a - b) for a, b in zip(b_dev["losses"],
+                                              b_host["losses"]))
+    bf16_param_err = max(float((a[k] - b[k]).abs().max())
+                         for a, b in zip(b_dev["params"], b_host["params"])
+                         for k in a)
+    if not bf16_err <= HOST_BF16_TOL:
+        raise AssertionError(f"train_host: bf16 host vs device losses "
+                             f"{bf16_err}")
+    per_kind = gather_launches(xplan, cfg.num_layers - 1)
+    want = step_launches("hybrid", cfg.num_layers, TRAIN_KINDS, per_kind)
+    if launches != want:
+        raise AssertionError(f"train_host: launches {launches}, want {want}")
+    if not (np.all(np.isfinite(host["losses"]))
+            and host["losses"][-1] < host["losses"][0]):
+        raise AssertionError(f"train_host: losses {host['losses']}")
+
+    def by_kind(run, key):
+        return {k: statistics.median(r[key] for r in run["steps"][1:]
+                                     if r["kind"] == k)
+                for k in ("cached", "pipelined")}
+    emit("train_host", host_frac=HOST_FRAC,
+         capacity={"c_gpu": fctx["cap"].c_gpu, "c_cpu": fctx["cap"].c_cpu},
+         tier_rows={"uncached": xplan.uncached.n_rows,
+                    "local": xplan.local.n_rows,
+                    "global": xplan.glob.n_unique,
+                    "host": xplan.host.n_fetch_rows},
+         host_width=xplan.host.width, step_kinds=TRAIN_KINDS,
+         losses=host["losses"], f32_host_equals_device=True,
+         bf16_loss_max_abs_err=bf16_err, bf16_tol=HOST_BF16_TOL,
+         bf16_param_max_abs_err=bf16_param_err,
+         steps={f"{h}_{f}": r["steps"] for (h, f), r in runs.items()},
+         median_step_ms={f"{h}_{f}": by_kind(r, "ms")
+                         for (h, f), r in runs.items()},
+         steady_step_ms={f"{h}_{f}": r["steady_step_ms"]
+                         for (h, f), r in runs.items()},
+         host_median_ms={k: by_kind(host, k)
+                         for k in ("gather_ms", "h2d_rows_ms", "h2d_buf_ms",
+                                   "wait_rows_ms", "wait_buf_ms")},
+         build_s={f"{h}_{f}": r["build_s"] for (h, f), r in runs.items()},
+         host_resident_bytes=host["resident_bytes"], launches=launches,
+         gather_launches_per_kind=per_kind)
+    return launches, host["losses"], params0
+
+
+def phase_train_host_cli(tctx: dict, argv: list[str]) -> dict:
+    """``launch.train``'s entry with ``--features host`` at the CLI's
+    default capacity on the train cell's host plan: every halo row in the
+    local tier, so the host tier is empty and ``l0loc`` (59,213 rows x 500
+    features, 118 MB) is staged once per install.  Checks: the losses
+    those of the device-features ``train`` run bit for bit, the launches
+    its launches, the counted rows the plan's.  Then one reinstall
+    (``set_plan`` of the same plan) is timed: the ``l0loc`` restage."""
+    from repro_torch.dist import TrainSpec
+    from repro_torch.launch.train import build_parser, train_gnn
+    args = build_parser().parse_args(argv)
+    keep = ("task", "ps", "profiles", "group", "cfg", "xplan", "sp")
+    ctx = {**{k: tctx[k] for k in keep}, "planner": None,
+           "spec": TrainSpec.from_cli_args(args), "host_plan_s": 0.0}
+    zero_counts()
+    out, ctx = train_gnn(args, ctx)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rep, rt, xplan = ctx["report"], ctx["runtime"], ctx["xplan"]
+    if rep.losses != tctx["report"].losses:
+        raise AssertionError(f"train_host_cli: losses {rep.losses} differ "
+                             f"from the device run's "
+                             f"{tctx['report'].losses}")
+    width = 2 if args.halo_dtype == "bf16" else 4
+    plan_rows = sum(host_plan_fields(ctx["cfg"], xplan, k, width)[
+        "fetch_rows"] for k in rep.step_kinds)
+    if rep.host_fetch_rows != plan_rows:
+        raise AssertionError(f"train_host_cli: {rep.host_fetch_rows} rows, "
+                             f"the plan gives {plan_rows}")
+    store = rt.host_store
+    store.timing = True
+    before = store.snapshot()
+    t0 = time.perf_counter()
+    rt.set_plan(xplan)
+    torch.cuda.synchronize()
+    install_ms = 1e3 * (time.perf_counter() - t0)
+    d, copies = store.delta(before), store.copy_times()
+    if d["fetch_rows"] != xplan.local.n_rows:
+        raise AssertionError(f"train_host_cli: l0loc restage {d}")
+    emit("train_host_cli", argv=argv, losses=rep.losses,
+         equal_to_device_run=True, step_kinds=rep.step_kinds,
+         step_ms=[1e3 * t for t in rep.step_s],
+         host_fetch_rows=out["host_fetch_rows"],
+         host_fetch_bytes=out["host_fetch_bytes"],
+         host_writeback_bytes=out["host_writeback_bytes"],
+         host_width=xplan.host.width, l0loc_rows=d["fetch_rows"],
+         l0loc_bytes=d["fetch_bytes"], install_ms=install_ms,
+         l0loc_gather_ms=1e3 * d["gather_s"],
+         l0loc_h2d_ms=1e3 * copies["h2d_rows"], launches=launches)
+    del ctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def membership(plan) -> tuple:
+    return (tuple(frozenset(w.local_gids.tolist()) for w in plan.workers),
+            frozenset(plan.global_gids.tolist()))
+
+
+def overlap(a, b) -> float:
+    """Jaccard overlap of two memberships (local tiers and global tier)."""
+    inter = sum(len(x & y) for x, y in zip(a[0], b[0])) + len(a[1] & b[1])
+    union = sum(len(x | y) for x, y in zip(a[0], b[0])) + len(a[1] | b[1])
+    return inter / max(1, union)
+
+
+def adaptive_small(args, policy: str, features: str) -> dict:
+    """The ``policy`` run at ``TRAIN_SGD_SCALE`` under the forced
+    capacity, on the card and on the CPU from the same parameters: each
+    device's losses and final membership."""
+    from repro_torch.core import AdaptivePlanner, StalenessController
+    from repro_torch.dist import TrainSpec, make_sim_runtime, train_capgnn
+    from repro_torch.launch.train import prepare_train
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.optim import adam
+    args01 = argparse.Namespace(**{**vars(args), "scale":
+                                   float(TRAIN_SGD_SCALE)})
+    ctx = prepare_train(args01)
+    cap = forced_capacity(ctx["ps"], HOST_FRAC)
+    spec = TrainSpec.from_cli_args(args01)
+    params0 = init_gnn(ctx["cfg"], torch.Generator().manual_seed(args.seed),
+                       "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        planner = AdaptivePlanner(ctx["ps"], cap,
+                                  refresh_every=args.refresh_every,
+                                  policy=policy, seed=args.seed)
+        x = planner.exchange_plan()
+        rt = make_sim_runtime(ctx["cfg"], ctx["sp"], x, adam(args.lr),
+                              spec=spec, device=dev)
+        _, rep = train_capgnn(
+            ctx["cfg"], rt, x, args.parts, adam(args.lr), epochs=args.epochs,
+            controller=StalenessController(refresh_every=args.refresh_every,
+                                           replan_every=args.replan_every),
+            params0=[{k: v.to(dev) for k, v in q.items()} for q in params0],
+            planner=planner, spec=spec)
+        out[dev] = {"losses": rep.losses, "plan": membership(planner.plan),
+                    "replan_events": rep.replan_events,
+                    "hit_rate": rep.hit_rate}
+    return out
+
+
+def phase_train_adaptive(fctx: dict) -> dict:
+    """``launch.train``'s entry with ``--cache-policy lru`` (host
+    features) and ``drift`` (device features), ``--replan-every 1``, on
+    the forced capacity padded by the planner: 8 steps whose refresh at
+    step 4 is a ``step_transition`` to the planner's re-plan.  Checks: a
+    transition ran; the launches those the steps and the closing
+    evaluation give; at ``TRAIN_SGD_SCALE``, the card's ``lru`` re-plan
+    memberships equal the CPU's and its losses within ``ADAPTIVE_TOL``
+    (``drift`` reads the measured drift, so its membership overlap with
+    the CPU's is reported, not required).  Per policy: ``replan_events``,
+    ``hit_rate``, ``replan_ms`` (the planner's and the exchange maps'
+    host ms) and, apart, the gathers' transposed maps (``gather_pack``)
+    rebuilt at the new plan."""
+    from repro_torch.core import AdaptivePlanner
+    from repro_torch.dist import TrainSpec, exchange_arrays
+    from repro_torch.launch.train import build_parser, train_gnn
+    by_path = {}
+    for policy, features in (("lru", "host"), ("drift", "device")):
+        argv = TRAIN_ARGV + ["--cache-policy", policy, "--replan-every", "1",
+                             "--features", features]
+        args = build_parser().parse_args(argv)
+        planner = AdaptivePlanner(fctx["ps"], fctx["cap"],
+                                  refresh_every=args.refresh_every,
+                                  policy=policy, seed=args.seed)
+        keep = ("task", "ps", "profiles", "group", "cfg", "sp")
+        x0 = planner.exchange_plan()
+        ctx = {**{k: fctx[k] for k in keep}, "planner": planner,
+               "xplan": x0, "spec": TrainSpec.from_cli_args(args),
+               "host_plan_s": 0.0}
+        zero_counts()
+        out, ctx = train_gnn(args, ctx)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        rep, cfg = ctx["report"], ctx["cfg"]
+        if "transition" not in rep.step_kinds or rep.replan_events < 1:
+            raise AssertionError(f"train_adaptive {policy}: no transition: "
+                                 f"{rep.step_kinds}")
+        per_kind = gather_launches(x0, cfg.num_layers - 1)
+        per_kind["transition"] = per_kind["pipelined"]
+        want = train_launches("hybrid", cfg.num_layers, rep.step_kinds,
+                              per_kind)
+        if launches != want:
+            raise AssertionError(f"train_adaptive {policy}: launches "
+                                 f"{launches}, want {want}")
+        # the transposed maps of the installed plan, rebuilt alone
+        x1 = planner.exchange_plan()
+        ni = fctx["sp"].n_inner_max
+        times = {}
+        for grad in (False, True):
+            t0 = time.perf_counter()
+            exchange_arrays(x1, ni, "cuda", grad=grad,
+                            include_host=features == "host")
+            torch.cuda.synchronize()
+            times[grad] = 1e3 * (time.perf_counter() - t0)
+        small = adaptive_small(args, policy, features)
+        card, cpu = small["cuda"], small["cpu"]
+        loss_err = float(np.abs(np.subtract(card["losses"],
+                                            cpu["losses"])).max())
+        same_plan = card["plan"] == cpu["plan"]
+        if policy == "lru" and not (same_plan and loss_err <= ADAPTIVE_TOL):
+            raise AssertionError(f"train_adaptive lru at scale "
+                                 f"{TRAIN_SGD_SCALE}: the card's re-plans "
+                                 f"equal the CPU's: {same_plan}, losses "
+                                 f"{loss_err}")
+        emit("train_adaptive", policy=policy, features=features, argv=argv,
+             capacity={"c_gpu": fctx["cap"].c_gpu, "c_cpu": fctx["cap"].c_cpu},
+             losses=rep.losses, step_kinds=rep.step_kinds,
+             step_ms=[1e3 * t for t in rep.step_s],
+             replan_events=rep.replan_events, hit_rate=rep.hit_rate,
+             replan_ms=rep.replan_ms, maps_ms_without_packs=times[False],
+             maps_ms_with_packs=times[True],
+             gather_pack_ms=times[True] - times[False],
+             comm_bytes=rep.comm_bytes,
+             host_fetch_rows=rep.host_fetch_rows,
+             host_fetch_bytes=rep.host_fetch_bytes,
+             host_writeback_bytes=rep.host_writeback_bytes,
+             tier_rows_after={"uncached": x1.uncached.n_rows,
+                              "local": x1.local.n_rows,
+                              "global": x1.glob.n_unique},
+             launches=launches, small_scale=float(TRAIN_SGD_SCALE),
+             small_card_cpu_loss_err=loss_err,
+             small_same_membership=same_plan,
+             small_membership_overlap=overlap(card["plan"], cpu["plan"]),
+             small_replan_events=card["replan_events"],
+             small_hit_rate={"cuda": card["hit_rate"], "cpu": cpu["hit_rate"]})
+        by_path[f"train_adaptive_{policy}"] = launches
+        del ctx
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def sim_reference(fctx: dict, spec, params0, lr: float, planner=None) -> dict:
+    """The card's single-process run of ``spec`` on the forced plan (or
+    ``planner``'s), 8 Adam steps through ``train_capgnn``."""
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.optim import adam
+    x = fctx["xplan"] if planner is None else planner.exchange_plan()
+    rt = make_sim_runtime(fctx["cfg"], fctx["sp"], x, adam(lr), spec=spec,
+                          device="cuda")
+    _, rep = train_capgnn(
+        fctx["cfg"], rt, x, len(fctx["ps"].parts), adam(lr), epochs=8,
+        controller=StalenessController(refresh_every=spec.refresh_every),
+        params0=params0, planner=planner, spec=spec)
+    out = {"losses": rep.losses, "replan_events": rep.replan_events,
+           "hit_rate": rep.hit_rate, "step_kinds": rep.step_kinds}
+    del rt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spmd_host(name: str, fctx: dict, ref: dict, transport: str,
+                    backend: str, devices, params0, lr: float,
+                    features: str = "host", policy: str = "static") -> dict:
+    """The SPMD runtime on 4 ranks over ``backend`` under ``transport``,
+    the forced plan, ``features`` (each rank staging its own host tier
+    from its own store) and the cache ``policy``: 8 Adam steps against
+    the card's single-process run of the same spec (``ref``), losses
+    within ``TRAJ_ATOL``; every step's counted wire rows those of its
+    read and emit plans; with host features, the counted host rows,
+    bytes and writebacks summed over the ranks equal to the plan's; the
+    launches summed over the ranks those the backend gives."""
+    import dataclasses as dc
+    from repro_torch.core import AdaptivePlanner, StalenessController
+    from repro_torch.launch.mesh import spawn
+    cfg, sp = fctx["cfg"], fctx["sp"]
+    p, layers = sp.num_parts, cfg.num_layers
+    spec = dc.replace(fctx["spec"], transport=transport, features=features,
+                      cache_policy=policy)
+
+    def planner():
+        return (None if policy == "static" else AdaptivePlanner(
+            fctx["ps"], fctx["cap"], refresh_every=spec.refresh_every,
+            policy=policy, seed=spec.seed))
+    pl = planner()
+    x0 = fctx["xplan"] if pl is None else pl.exchange_plan()
+    params_np = [{k: v.cpu().numpy() for k, v in q.items()} for q in params0]
+    t0 = time.perf_counter()
+    ranks = spawn(spmd_rank, p, backend=backend, devices=devices,
+                  args=(cfg, sp, x0, spec, params_np, 8, lr, 0, pl))
+    wall_s = time.perf_counter() - t0
+    kinds, losses = ranks[0]["step_kinds"], ranks[0]["losses"]
+    err = max(abs(a - b) for r in ranks
+              for a, b in zip(r["losses"], ref["losses"]))
+    if not err <= TRAJ_ATOL or kinds != ref["step_kinds"]:
+        raise AssertionError(f"{name}: losses {err} from the card's sim "
+                             f"run; kinds {kinds} / {ref['step_kinds']}")
+    # each step's (read, emit) plan, replaying the loop's re-plans
+    plans, x, rp = [], x0, planner()
+    ctl = StalenessController(refresh_every=spec.refresh_every)
+    for kind in kinds:
+        refresh = ctl.should_refresh()
+        if rp is not None and ctl.should_replan():
+            nxt = rp.exchange_plan(rp.replan())
+            plans.append((x, nxt))
+            x = nxt
+        else:
+            plans.append((x, x))
+        if rp is not None:
+            rp.observe_step(layers=layers - 1)
+        ctl.observe(None, refreshed=refresh)
+    for s, kind in enumerate(kinds):
+        refresh = kind != "cached"
+        xr, xe = plans[s]
+        want = {"uncached": xr.transport_rows(transport, refresh)["uncached"],
+                "local": xe.transport_rows(transport, refresh)["local"],
+                "global": xe.transport_rows(transport, refresh)["global"]}
+        for li in range(1, layers):
+            for t, n in want.items():
+                c = sum(r["wire"][s].get((li, t), {}).get("valid_rows", 0)
+                        for r in ranks)
+                if c != n:
+                    raise AssertionError(f"{name}: step {s} ({kind}) layer "
+                                         f"{li} {t}: counted {c}, the plan "
+                                         f"gives {n}")
+    counts = {}
+    if features == "host":
+        width = 2 if spec.halo_dtype == "bf16" else 4
+        plan = [host_plan_fields(cfg, x0, k, width) for k in kinds]
+        for f in ("fetch_rows", "fetch_bytes", "writeback_bytes"):
+            got = sum(r[f"host_{f}"] for r in ranks)
+            counts[f] = {"ranks": [r[f"host_{f}"] for r in ranks],
+                         "plan": sum(q[f] for q in plan)}
+            if got != counts[f]["plan"]:
+                raise AssertionError(f"{name}: host {f} {counts[f]}")
+    per_kind = spmd_gather_launches(x0, transport, spec.halo_dtype == "bf16",
+                                    layers - 1)
+    per_kind["transition"] = per_kind["pipelined"]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    want = {k: p * v for k, v in train_launches(
+        spec.backend, layers, kinds, per_kind).items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if policy != "static" and not (
+            all(r["replan_events"] == ref["replan_events"] for r in ranks)
+            and all(r["hit_rate"] == ref["hit_rate"] for r in ranks)):
+        raise AssertionError(f"{name}: the ranks' re-plans differ from the "
+                             "card's sim run")
+
+    def by_kind(key):
+        return {k: statistics.median(t for t, kk in
+                                     zip(ranks[0][key], kinds) if kk == k)
+                for k in sorted(set(kinds))}
+    emit(name, transport=transport, backend=backend, ranks=p,
+         features=features, cache_policy=policy,
+         devices=list(devices) if not isinstance(devices, str) else devices,
+         wire="gloo-host" if backend == "gloo" else "nccl",
+         losses=losses, step_kinds=kinds, max_abs_err_vs_sim=err,
+         tol=TRAJ_ATOL, median_step_ms=by_kind("step_ms"),
+         median_host_stage_ms=by_kind("host_stage_ms"),
+         counted_equal_plan=True, host_counts=counts,
+         replan_events=ranks[0]["replan_events"],
+         hit_rate=ranks[0]["hit_rate"], launches=launches,
+         test=ranks[0]["test"], spawn_wall_s=wall_s)
+    return launches
+
+
+def phase_profile() -> None:
+    """``measure_profile()`` on the card: the paper's five
+    microbenchmarks (Table 1 harness, 1024^2 f32) and the memory sizes."""
+    import dataclasses as dc
+    from repro_torch.core import measure_profile
+    t0 = time.perf_counter()
+    prof = measure_profile()
+    emit("profile", **dc.asdict(prof), size=1024, sparsity=0.996, repeats=5,
+         seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -2177,11 +2742,39 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def spmd_host_nccl(tctx: dict, lr: float) -> None:
+    """The ``spmd_host`` run over NCCL, one card per rank (``p2p``, host
+    features, the forced plan), and one ``lru`` re-planned run under
+    ``allgather`` (``spmd_lru_nccl``), each against the card's
+    single-process run of the same spec."""
+    import dataclasses as dc
+    from repro_torch.core import AdaptivePlanner
+    from repro_torch.models.gnn import init_gnn
+    fctx = forced_context(tctx)
+    seed = int(TRAIN_ARGV[TRAIN_ARGV.index("--seed") + 1])
+    params0 = init_gnn(fctx["cfg"], torch.Generator().manual_seed(seed),
+                       "cuda")
+    spec = fctx["spec"]
+    ref = sim_reference(fctx, dc.replace(spec, transport="p2p",
+                                         features="host"), params0, lr)
+    phase_spmd_host("spmd_host_nccl", fctx, ref, "p2p", "nccl", "cuda",
+                    params0, lr)
+    planner = AdaptivePlanner(fctx["ps"], fctx["cap"],
+                              refresh_every=spec.refresh_every, policy="lru",
+                              seed=spec.seed)
+    ref = sim_reference(fctx, dc.replace(spec, transport="allgather",
+                                         cache_policy="lru"), params0, lr,
+                        planner)
+    phase_spmd_host("spmd_lru_nccl", fctx, ref, "allgather", "nccl", "cuda",
+                    params0, lr, features="device", policy="lru")
+
+
 def main_spmd_nccl(device: dict) -> None:
     """``--spmd-nccl``: the ``spmd_tiers_nccl`` phase; then the training
     cell's host plan, the card's single-process refresh step from
-    ``init_gnn`` of its seed, and the ``spmd_nccl`` phase under both
-    transports."""
+    ``init_gnn`` of its seed, the ``spmd_nccl`` phase under both
+    transports, and the host-features and ``lru`` runs over NCCL
+    (:func:`spmd_host_nccl`)."""
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
     phase_spmd_tiers("spmd_tiers_nccl", tiers_context(), "nccl", "cuda")
@@ -2195,6 +2788,7 @@ def main_spmd_nccl(device: dict) -> None:
     for transport in ("p2p", "allgather"):
         phase_spmd("spmd_nccl", ctx, ref, transport, "nccl", "cuda",
                    args.epochs, args.lr)
+    spmd_host_nccl(ctx, args.lr)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
@@ -2251,6 +2845,23 @@ def main(argv=None) -> None:
             epochs, lr)
     tiers = tiers_context()
     phase_spmd_tiers("spmd_tiers", tiers, "gloo", ["cuda:0"] * SPMD_RANKS)
+    torch.cuda.empty_cache()
+    # JACA's CPU tier and online adaptation on the train cell's host plan
+    fctx = forced_context(tctx)
+    seed = int(TRAIN_ARGV[TRAIN_ARGV.index("--seed") + 1])
+    by_path["train_host"], host_losses, params0 = phase_train_host(
+        fctx, seed, lr)
+    by_path["train_host_cli"] = phase_train_host_cli(
+        tctx, TRAIN_ARGV + ["--features", "host"])
+    by_path.update(phase_train_adaptive(fctx))
+    host_ref = {"losses": host_losses, "step_kinds": TRAIN_KINDS,
+                "replan_events": 0, "hit_rate": None}
+    by_path["spmd_host"] = phase_spmd_host(
+        "spmd_host", fctx, host_ref, "p2p", "gloo", ["cuda:0"] * SPMD_RANKS,
+        params0, lr)
+    del fctx
+    torch.cuda.empty_cache()
+    phase_profile()
     n_cards = torch.cuda.device_count()
     if n_cards >= SPMD_RANKS:
         for transport in ("p2p", "allgather"):
@@ -2258,8 +2869,10 @@ def main(argv=None) -> None:
                 "spmd_nccl", tctx, tref, transport, "nccl", "cuda", epochs,
                 lr)
         phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
+        spmd_host_nccl(tctx, lr)
     else:
-        for name in ("spmd_nccl", "spmd_tiers_nccl"):
+        for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_host_nccl",
+                     "spmd_lru_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
                  why="NCCL needs one card per rank")
     torch.cuda.empty_cache()

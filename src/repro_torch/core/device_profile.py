@@ -1,19 +1,25 @@
 """Device capability profiles (paper §3.4 Observation 3, Table 1/3).
 
 The paper measures MM, SpMM, H2D, D2H and IDT per GPU and feeds the
-capability ratios into RAPA (Eq. 13/14).  ``PROFILES`` declares the paper's
-Table 1 numbers (seconds for a 16384^2 fp32 workload), so the cache and
-partition planning is reproducible without that exact hardware.
+capability ratios into RAPA (Eq. 13/14).  Two sources:
+
+- ``measure_profile()`` — the microbenchmarks on a device (the card unless
+  the caller asks for the CPU), the paper's Table 1 harness scaled down;
+- ``PROFILES`` — the paper's Table 1 numbers (seconds for a 16384^2 fp32
+  workload), so the cache and partition planning is reproducible without
+  that exact hardware.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
+import torch
 
 __all__ = ["DeviceProfile", "PROFILES", "PAPER_GROUPS", "make_group",
-           "capability_weights", "detect_host_mem_gib"]
+           "capability_weights", "detect_host_mem_gib", "measure_profile"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,3 +105,66 @@ def detect_host_mem_gib(default: float = 16.0) -> float:
         return psutil.virtual_memory().total / 1024.0 ** 3
     except (ImportError, OSError):
         return default
+
+
+def measure_profile(size: int = 1024, sparsity: float = 0.996,
+                    repeats: int = 5, device="cuda") -> DeviceProfile:
+    """Microbenchmark ``device`` (the paper's Table 1 harness, scaled):
+    seconds per call of a dense ``size``^2 f32 product (``mm``), the same
+    product of a matrix masked to ``1 - sparsity`` density (``spmm``: the
+    JAX package times a dense product of the masked matrix too), a
+    pageable host array to the device (``h2d``), a fresh device buffer to
+    the host each repeat (``d2h``), and a copy on the device (``idt``).
+    CUDA events time the card, ``time.perf_counter`` the CPU.  The
+    device's memory comes from its properties (16 GiB on the CPU, which
+    reports none), the host's from :func:`detect_host_mem_gib`."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "profile the CPU")
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((size, size), generator=gen, device=device)
+    b = torch.randn((size, size), generator=gen, device=device)
+    mask = torch.rand((size, size), generator=gen, device=device) > sparsity
+    sp = torch.where(mask, a, torch.zeros((), device=device))
+
+    def timed(fn, warm: bool = True) -> float:
+        if warm:
+            fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(repeats):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3 / repeats
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        return (time.perf_counter() - t0) / repeats
+
+    mm = timed(lambda: torch.matmul(a, b))
+    spmm = timed(lambda: torch.matmul(sp, b))
+    host = a.cpu().numpy()
+    h2d = timed(lambda: torch.tensor(host, device=device))
+    # D2H reads a fresh device buffer each repeat, as the JAX package's
+    # does (JAX memoises the host copy of a committed array)
+    bufs = iter([a + float(i + 1) for i in range(repeats)])
+    d2h = timed(lambda: next(bufs).to("cpu", copy=True), warm=False)
+    idt = timed(lambda: a + 0.0)
+    mem = _backend_mem_gib(device, default=16.0)
+    return DeviceProfile("measured", mm, spmm, h2d, d2h, idt, mem,
+                         host_mem_gib=detect_host_mem_gib())
+
+
+def _backend_mem_gib(device, default: float) -> float:
+    """Device memory in GiB from the card's properties, ``default`` on the
+    CPU (which reports no device memory)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return default
+    return torch.cuda.get_device_properties(device).total_memory / 1024.0 ** 3

@@ -10,17 +10,20 @@
   and the counting :class:`~.collectives.Wire`;
 - :mod:`.spec`, :mod:`.strategy` — ``TrainSpec`` and the ``halo_1d``
   strategy front door.
-- :mod:`.host_store` — the host-resident store behind the serve engine's
-  host tier.
+- :mod:`.host_store` — the host-resident store (JACA's CPU tier) behind
+  the runtimes' ``features="host"`` mode and the serve engine's host
+  tier: a ring of pinned slots, side-stream copies, host global buffers.
 """
 from .exchange import (ExchangeCapacity, ExchangePlan, ExchangeTier,
                        GlobalTier, HostTier, StackedEllPack, StackedParts,
                        build_exchange_plan, exchange_capacity,
                        stack_partitions)
-from .host_store import HostFeatureStore, StagedFetch, halo_dtype_info
-from .capgnn_sim import (RUNTIME_BACKENDS, check_backend, make_adj_builder,
-                         exchange_arrays, init_caches, SimRuntime,
-                         make_sim_runtime, TrainReport, train_capgnn)
+from .host_store import (HostFeatureStore, StagedFetch, halo_dtype_info,
+                         suggest_prefetch_depth)
+from .capgnn_sim import (RUNTIME_BACKENDS, RUNTIME_FEATURES, check_backend,
+                         make_adj_builder, exchange_arrays, init_caches,
+                         SimRuntime, make_sim_runtime, TrainReport,
+                         train_capgnn)
 from .capgnn_spmd import (TRANSPORTS, SpmdRuntime, make_spmd_runtime,
                           spmd_exchange_arrays)
 from .collectives import Wire
@@ -32,7 +35,8 @@ __all__ = [
     "HostTier", "StackedEllPack", "StackedParts", "build_exchange_plan",
     "exchange_capacity", "stack_partitions",
     "HostFeatureStore", "StagedFetch", "halo_dtype_info",
-    "RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
+    "suggest_prefetch_depth", "RUNTIME_BACKENDS", "RUNTIME_FEATURES",
+    "check_backend", "make_adj_builder",
     "exchange_arrays", "init_caches", "SimRuntime", "make_sim_runtime",
     "TrainReport", "train_capgnn", "TRANSPORTS", "SpmdRuntime",
     "make_spmd_runtime", "spmd_exchange_arrays", "Wire", "TrainSpec",

@@ -35,8 +35,18 @@ step pulls no fresh tier it would discard, and a pipelined step pulls its
 emitted rows outside the autograd graph.  Updates return new tensors: a
 step consumes nothing of its arguments.
 
-Not ported yet: ``features="host"``, the adaptive planner, the tracer and
-the fault guard; asking for one raises.
+``features="host"`` is the out-of-core mode: the halo feature table stays
+in a :class:`~repro_torch.dist.host_store.HostFeatureStore`.  Layer 0's
+local-tier rows are staged once per plan install (``l0loc``, the device
+cached JACA local tier); the host tier's rows (uncached and global
+membership) ride the store's ring, the next step's fetch gathered and its
+copy issued right after this step's work is issued; the per-layer global
+buffers live on the host between steps (written back on emitting steps,
+staged for the stale reads).  ``train_capgnn`` takes an
+:class:`~repro_torch.core.jaca.AdaptivePlanner` and swaps its re-plans in
+at the controller's boundaries (``set_plan`` / ``step_transition``).
+
+Not ported yet: the tracer and the fault guard; asking for one raises.
 
 The reference drops out-of-range scatter indices (``mode="drop"``); torch
 raises on them instead, so :func:`_scatter` writes into one spare row and
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Callable
 
 import numpy as np
@@ -58,14 +69,17 @@ from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, init_gnn)
 from ..optim import Optimizer, tree_leaves, tree_map
 from .exchange import ExchangePlan, ExchangeTier, GlobalTier, StackedParts
-from .host_store import halo_dtype_info
+from .host_store import HostFeatureStore, halo_dtype_info
 from .spec import TrainSpec
 
-__all__ = ["RUNTIME_BACKENDS", "check_backend", "make_adj_builder",
-           "exchange_arrays", "init_caches", "SimRuntime",
-           "make_sim_runtime", "TrainReport", "train_capgnn"]
+__all__ = ["RUNTIME_BACKENDS", "RUNTIME_FEATURES", "check_backend",
+           "make_adj_builder", "exchange_arrays", "init_caches",
+           "SimRuntime", "make_sim_runtime", "TrainReport", "train_capgnn"]
 
 RUNTIME_BACKENDS = ("edges", "ell", "hybrid")
+# where the input features live: stacked on the device, or host-resident
+# with per-step staged fetch of the non-locally-cached halo rows
+RUNTIME_FEATURES = ("device", "host")
 
 
 def _idx(a: np.ndarray, device) -> torch.Tensor:
@@ -216,7 +230,7 @@ def check_backend(sp: StackedParts, backend: str) -> None:
             f"stack_partitions(ps, task, backend={backend!r})")
 
 
-def make_adj_builder(sp: StackedParts, backend: str, device="cpu",
+def make_adj_builder(sp: StackedParts, backend: str, device="cuda",
                      grad: bool = True):
     """Return ``(leaves, build)``: ``leaves`` is a dict of the stacked
     ``[P, ...]`` aggregation tensors on ``device`` (and, for ``ell`` and
@@ -272,19 +286,34 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cpu",
     return leaves, build
 
 
-def exchange_arrays(xplan: ExchangePlan, n_inner: int, device="cpu",
-                    grad: bool = True, halo_dtype=None) -> dict:
+def _host_dict(xplan: ExchangePlan, rows: slice, device) -> dict:
+    """The layer-0 host tier's scatter program on ``device`` (the rows
+    ``rows`` of its ``[P, W]`` arrays)."""
+    if xplan.host is None:
+        raise ValueError("features='host' needs a plan with a host tier "
+                         "(rebuild via build_exchange_plan)")
+    return {"feat_pos": _idx(xplan.host.feat_pos[rows], device),
+            "feat_valid": _mask(xplan.host.feat_valid[rows], device)}
+
+
+def exchange_arrays(xplan: ExchangePlan, n_inner: int, device="cuda",
+                    grad: bool = True, halo_dtype=None,
+                    include_host: bool = False) -> dict:
     """One plan's tier maps on ``device``, built once per plan: each
     tier's gathers (:func:`_pull_maps`, for the payload dtype
     ``halo_dtype``, None for none) over the flattened inner matrix
     (``n_inner`` rows per partition) with, when ``grad`` asks for the
     backward, their transposed index maps; scatter positions and valid
-    masks."""
-    return {"un": _tier_dict(xplan.uncached, n_inner, device, grad,
+    masks.  ``include_host`` adds the layer-0 host tier's scatter program
+    of the ``features="host"`` runtimes."""
+    out = {"un": _tier_dict(xplan.uncached, n_inner, device, grad,
+                            halo_dtype),
+           "loc": _tier_dict(xplan.local, n_inner, device, grad,
                              halo_dtype),
-            "loc": _tier_dict(xplan.local, n_inner, device, grad,
-                              halo_dtype),
-            "gl": _glob_dict(xplan.glob, n_inner, device, grad, halo_dtype)}
+           "gl": _glob_dict(xplan.glob, n_inner, device, grad, halo_dtype)}
+    if include_host:
+        out["host"] = _host_dict(xplan, slice(None), device)
+    return out
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -302,16 +331,22 @@ def init_caches(cfg: GNNConfig, xplan: ExchangePlan, num_parts: int,
 
     Entry ``l-1`` holds the halo inputs of layer ``l`` (layers ``1..L-1``);
     layer 0 consumes the static input features, which never go stale.
+
+    With ``features="host"`` the global tier lives in the runtime's
+    :class:`~repro_torch.dist.host_store.HostFeatureStore` and is staged
+    per step, so the device caches carry only the local tier.
     """
-    if features != "device":
-        raise _not_ported(f"features={features!r}")
+    if features not in RUNTIME_FEATURES:
+        raise ValueError(f"unknown features mode {features!r}; "
+                         f"expected one of {RUNTIME_FEATURES}")
     dims = cfg.feat_dims[1: cfg.num_layers]
     r_local = int(np.asarray(xplan.local.recv_halo_pos).shape[1])
     g = xplan.glob.buf_size
     return {
         "local": [torch.zeros((num_parts, r_local, d), device=device)
                   for d in dims],
-        "global": [torch.zeros((g, d), device=device) for d in dims],
+        "global": ([] if features == "host" else
+                   [torch.zeros((g, d), device=device) for d in dims]),
     }
 
 
@@ -335,8 +370,12 @@ class SimRuntime:
     caches0: dict
     backend: str = "edges"
     halo_dtype_bytes: int = 4   # actual wire width per halo payload entry
+    # feature residency: "device" (stacked on the device) or "host"
+    # (out-of-core: host store + per-step staged fetch)
     features: str = "device"
     device: torch.device = torch.device("cpu")
+    host_store: HostFeatureStore | None = dataclasses.field(default=None,
+                                                            repr=False)
     _state: dict | None = dataclasses.field(default=None, repr=False)
     stacked: StackedParts | None = dataclasses.field(default=None, repr=False)
     spec: TrainSpec | None = dataclasses.field(default=None, repr=False)
@@ -346,23 +385,40 @@ class SimRuntime:
         :meth:`repro_torch.dist.StackedParts.padding_stats`)."""
         return self.stacked.padding_stats() if self.stacked else {}
 
+    def all_parts(self, x: torch.Tensor) -> np.ndarray:
+        """``x``, a per-partition ``[n_parts, ...]`` metric of this
+        process (``drift_local_rows``), over every partition, on the
+        host."""
+        return x.cpu().numpy()
+
+    @property
+    def maps_s(self) -> float:
+        """Host seconds of the last exchange-maps build (a plan install:
+        the index tensors and the gathers' transposed maps)."""
+        return self._state["maps_s"]
+
     def set_plan(self, xplan: ExchangePlan) -> None:
-        """Install a re-ranked plan.  The caches' content still reflects
-        the old tiering, so the next step must be a refresh (or have been
-        emitted by :meth:`step_transition`)."""
+        """Install a re-ranked plan.  Under a capacity-padded
+        (slot-stable) layout every per-step tensor keeps its shape; only
+        the index data changes.  The caches' content still reflects the
+        old tiering, so the next step must be a refresh (or have been
+        emitted by :meth:`step_transition`).  In ``features="host"`` mode
+        this also flushes the staged-fetch ring (unaccounted) and
+        restages the layer-0 local tier for the new plan."""
+        self._state["set_plan"](xplan)
         self.xplan = xplan
-        self._state["xarr"] = self._state["maps"](xplan)
 
     def step_transition(self, params, opt_state, caches,
                         new_xplan: ExchangePlan):
         """Pipelined plan switch: consume the current plan's stale tiers
         (and its uncached exchange) while pulling the **new** plan's tier
         rows; the emitted caches are laid out for ``new_xplan``, which
-        becomes the installed plan."""
-        xe = self._state["maps"](new_xplan)
-        out = self._state["step"](True, True, params, opt_state, caches,
-                                  self._state["xarr"], xe)
-        self._state["xarr"] = xe
+        becomes the installed plan.  In host mode the stale global tier
+        is staged on the old plan's layout, the emitted buffers are
+        written back under the new plan's membership, and the ring is
+        flushed unaccounted (its prefetches carry old-plan rows)."""
+        out = self._state["transition"](params, opt_state, caches,
+                                        new_xplan)
         self.xplan = new_xplan
         return out
 
@@ -419,43 +475,73 @@ class _StackedExchange:
 def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                    view: StackedParts, xplan: ExchangePlan, opt: Optimizer,
                    spec: TrainSpec, device, ex: _StackedExchange,
-                   maps: Callable, **fields):
+                   maps: Callable, rows: slice = slice(None),
+                   account_replicas: bool = True, **fields):
     """The runtime ``cls`` over the partitions of ``view`` (all of ``sp``
     in one process; one of them on an SPMD rank), which ``ex`` exchanges
-    halo rows between.  ``maps(xplan)`` builds a plan's exchange maps.
+    halo rows between.  ``maps(xplan)`` builds a plan's exchange maps;
+    ``rows`` selects ``view``'s rows of a plan's ``[P, ...]`` arrays.
 
     The loss is differentiated as this process's share ``sum(nll * mask)
     / total_train``; ``ex.sum_ranks`` then sums the loss, the correct
     count and the gradients over processes outside autograd (a sum inside
     the differentiated function would inflate the gradients P-fold, as
-    the JAX package's ``_device_loss`` records)."""
+    the JAX package's ``_device_loss`` records).
+
+    With ``spec.features == "host"`` the halo table of ``view`` lives in a
+    :class:`~.host_store.HostFeatureStore` (see the module docstring).
+    ``account_replicas`` False leaves the replicated global buffers'
+    writebacks and stages uncounted (an SPMD rank other than the one that
+    counts them)."""
     ni, nh, n_parts = sp.n_inner_max, sp.n_halo_max, view.num_parts
     layers = cfg.num_layers
     total_train = float(max(float(np.asarray(sp.train_mask).sum()), 1.0))
+    if spec.features not in RUNTIME_FEATURES:
+        raise ValueError(f"unknown features mode {spec.features!r}; "
+                         f"expected one of {RUNTIME_FEATURES}")
+    host_mode = spec.features == "host"
 
     def put(a):
         return torch.as_tensor(np.asarray(a), device=device)
 
-    feats, halo_feats = put(view.feats), put(view.halo_feats)
+    feats = put(view.feats)
+    # in host mode the halo table never touches device memory
+    halo_feats = None if host_mode else put(view.halo_feats)
     labels = put(view.labels).reshape(-1).long()
     masks = {k: put(m).reshape(-1)
              for k, m in (("train", view.train_mask),
                           ("val", view.val_mask), ("test", view.test_mask))}
     adj_leaves, build_adj = make_adj_builder(view, spec.backend, device)
     adj = build_adj(adj_leaves)
+    state: dict = {}
 
-    def forward(params, caches, xr, xe, use_stale: bool, emit_fresh: bool):
+    def layer0_halo(xr, hostd):
+        """Layer 0's halo inputs: the resident table, or in host mode the
+        plan's ``l0loc`` scattered at the local tier's positions and this
+        step's host fetch at the host tier's."""
+        if hostd is None:
+            return halo_feats
+        halo = feats.new_zeros((n_parts, nh, feats.shape[-1]))
+        halo = _scatter(halo, xr["loc"]["recv_halo_pos"],
+                        state["l0loc"].to(feats.dtype), xr["loc"]["recv_valid"])
+        return _scatter(halo, xr["host"]["feat_pos"],
+                        hostd["l0"].to(feats.dtype), xr["host"]["feat_valid"])
+
+    def forward(params, caches, xr, xe, use_stale: bool, emit_fresh: bool,
+                hostd=None):
         """``xr`` is the installed (read) plan: stale caches are scattered
         at its positions and its uncached tier is exchanged.  ``xe`` is
         the emit plan whose tier rows are pulled fresh (``xr`` except on a
-        plan-transition step).  Returns the logits and the fresh tier rows
-        (empty lists unless ``emit_fresh``)."""
+        plan-transition step).  ``hostd`` (host mode) holds this step's
+        staged host fetch (``"l0"``) and, on a stale step, the staged
+        global buffers (``"gl"``).  Returns the logits and the fresh tier
+        rows (empty lists unless ``emit_fresh``)."""
         h = feats
         fresh = {"local": [], "global": []}
         emitted = []       # per layer: the (local, global) pulls in flight
         for li, lp in enumerate(params):
             if li == 0:
-                halo = halo_feats
+                halo = layer0_halo(xr, hostd)
             else:
                 halo = h.new_zeros((n_parts, nh, h.shape[-1]))
                 halo = _scatter(halo, xr["un"]["recv_halo_pos"],
@@ -467,7 +553,9 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                         with torch.no_grad():
                             emitted.append(ex.emit(xe, h, li))
                     loc_use, loc_t = caches["local"][li - 1], xr["loc"]
-                    buf_use, gl_t = caches["global"][li - 1], xr["gl"]
+                    buf_use = (hostd["gl"][li - 1].to(h.dtype) if host_mode
+                               else caches["global"][li - 1])
+                    gl_t = xr["gl"]
                 else:
                     # fresh tiers feed the loss: gradients reach the owners
                     loc_use, loc_t = ex.pull(xe["loc"], h, (li, "local")), \
@@ -499,13 +587,15 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
         correct = (torch.argmax(flat, -1) == labels).float()
         return torch.sum(nll * mask), torch.sum(correct * mask)
 
-    def value_and_grad(params, caches, xr, xe, use_stale, emit_fresh):
+    def value_and_grad(params, caches, xr, xe, use_stale, emit_fresh,
+                       hostd=None):
         """The loss, accuracy and gradients summed over processes, and the
         fresh rows."""
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
-        logits, fresh = forward(live, caches, xr, xe, use_stale, emit_fresh)
+        logits, fresh = forward(live, caches, xr, xe, use_stale, emit_fresh,
+                                hostd)
         nll_sum, correct = share_and_correct(logits, masks["train"])
         share = nll_sum / total_train
         grads = torch.autograd.grad(share, leaves)
@@ -516,12 +606,12 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                 tree_map(lambda _: next(gl), params))
 
     @torch.no_grad()
-    def drift_metrics(fresh, caches) -> dict:
+    def drift_metrics(fresh, stale_local, stale_global) -> dict:
         """The fresh rows against this step's stale source: ``drift`` and
         ``drift_global_rows`` (max over layers and features) reduced with
         MAX over processes; ``drift_local_rows`` ``[n_parts, Rloc]``."""
         pairs = list(zip(fresh["local"] + fresh["global"],
-                         caches["local"] + caches["global"]))
+                         stale_local + stale_global))
         drifts = [torch.max(torch.abs(a - b)) for a, b in pairs if a.numel()]
         local_max = (torch.max(torch.stack(drifts)) if drifts
                      else torch.zeros((), device=device))
@@ -537,32 +627,174 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
             out["drift"] = ex.max_ranks(local_max.reshape(1))[0]
         return out
 
-    def step(use_stale, emit_fresh, params, opt_state, caches, xr, xe):
+    def step(use_stale, emit_fresh, params, opt_state, caches, xr, xe,
+             hostd=None):
+        """One step: the new parameters and optimizer state, the fresh
+        rows (None unless ``emit_fresh``) and the metrics.  Drift compares
+        the fresh rows with this step's stale source; a host-mode refresh
+        has no staged stale global, so it emits none (as the reference)."""
         loss, acc, fresh, grads = value_and_grad(params, caches, xr, xe,
-                                                 use_stale, emit_fresh)
+                                                 use_stale, emit_fresh, hostd)
         new_params, new_state = opt.update(grads, opt_state, params)
         metrics = {"loss": loss, "acc": acc}
-        if emit_fresh:
-            metrics.update(drift_metrics(fresh, caches))
+        if emit_fresh and (use_stale or not host_mode):
+            stale_gl = ([g.float() for g in hostd["gl"]] if host_mode
+                        else caches["global"])
+            metrics.update(drift_metrics(fresh, caches["local"], stale_gl))
         ex.end_step(True)
-        return new_params, new_state, (fresh if emit_fresh else caches), \
+        return new_params, new_state, (fresh if emit_fresh else None), \
             metrics
 
-    caches0 = init_caches(cfg, xplan, n_parts, device=device)
-    state = {"xarr": maps(xplan), "maps": maps, "step": step}
+    def timed_maps(xp):
+        t0 = time.perf_counter()
+        out = maps(xp)
+        state["maps_s"] = time.perf_counter() - t0
+        return out
+
+    caches0 = init_caches(cfg, xplan, n_parts, features=spec.features,
+                          device=device)
+    state["xarr"] = timed_maps(xplan)
+    store = None
+
+    # the feature residency's hooks around a step: ``take(stale)`` the
+    # step's staged host payloads off the ring (None with device
+    # features), ``fetch(stale)`` the same staged apart from the ring (a
+    # fresh forward's), ``install(xp)`` after a plan install,
+    # ``finish(fresh)`` once the step's work is issued, ``out_caches``
+    # the caches a step hands on
+    if not host_mode:
+        def take(use_stale=False):
+            return None
+
+        def install(xp):
+            pass
+
+        def finish(fresh):
+            pass
+
+        def out_caches(caches, fresh):
+            return fresh if fresh is not None else caches
+
+        fetch = take
+    else:
+        store = HostFeatureStore(view.halo_feats, halo_dtype=spec.halo_dtype,
+                                 prefetch_depth=spec.prefetch_depth,
+                                 device=device)
+        n_ex = layers - 1
+        parts_idx = np.arange(n_parts)[:, None]
+
+        def host_np(xp: ExchangePlan) -> dict:
+            """The host-side gather programs of one plan (``view``'s rows;
+            numpy: they index the host table)."""
+            return {"feat_pos": np.asarray(xp.host.feat_pos[rows], np.int64),
+                    "feat_valid": np.asarray(xp.host.feat_valid[rows], bool),
+                    "loc_pos": np.asarray(xp.local.recv_halo_pos[rows],
+                                          np.int64),
+                    "loc_valid": np.asarray(xp.local.recv_valid[rows], bool),
+                    "gl_rows": int(xp.glob.n_unique)}
+
+        def stage_l0():
+            hn = state["hostnp"]
+            return store.stage_rows((parts_idx, hn["feat_pos"]),
+                                    valid=hn["feat_valid"])
+
+        def prefetch_l0():
+            """Refill the ring: keep the next steps' host rows in flight
+            while the current step computes."""
+            ring = state["l0_ring"]
+            while len(ring) < max(1, store.prefetch_depth - 1):
+                ring.append(stage_l0())
+
+        def staged(use_stale, sf):
+            """The payloads of a step: the layer-0 fetch ``sf`` and, on a
+            stale step, the global buffers; accounted here, at
+            consumption, so flushed prefetches never count."""
+            store.account_fetch(sf)
+            hostd = {"l0": store.ready(sf)}
+            if use_stale:
+                hostd["gl"] = []
+                for li in range(n_ex):
+                    sf = store.stage_buf(li)
+                    if account_replicas:
+                        store.account_fetch(sf)
+                    hostd["gl"].append(store.ready(sf))
+            return hostd
+
+        def take(use_stale=False):
+            """The oldest prefetched layer-0 fetch (or one staged cold)."""
+            ring = state["l0_ring"]
+            return staged(use_stale, ring.popleft() if ring else stage_l0())
+
+        def fetch(use_stale=False):
+            return staged(use_stale, stage_l0())
+
+        def install(xp):
+            """A plan install: flush the ring unaccounted (its prefetches
+            carry the old plan's rows), then (re)stage the layer-0
+            local-tier rows, the device-cached slice of the host table (one
+            accounted fetch an install), and refill the ring.  The host
+            global buffers keep their old-tiering content: the next step
+            refreshes them, or is the transition that emits them."""
+            state["hostnp"] = hn = host_np(xp)
+            state["l0_ring"].clear()
+            sf = store.stage_rows((parts_idx, hn["loc_pos"]),
+                                  valid=hn["loc_valid"])
+            store.account_fetch(sf)
+            state["l0loc"] = store.ready(sf)
+            prefetch_l0()
+
+        def finish(fresh):
+            """The next step's host rows, gathered and copied while this
+            step's work runs; then this step's emitted global buffers
+            written back, under the installed plan's membership."""
+            prefetch_l0()
+            if fresh is not None:
+                for li, buf in enumerate(fresh["global"]):
+                    store.write_buf(li, buf, state["hostnp"]["gl_rows"],
+                                    account=account_replicas)
+
+        def out_caches(caches, fresh):
+            return {"local": fresh["local"] if fresh is not None
+                    else caches["local"], "global": []}
+
+        state["l0_ring"] = deque()
+        install(xplan)
+        for li, d in enumerate(cfg.feat_dims[1:layers]):
+            store.init_buf(li, (xplan.glob.buf_size, d), xplan.glob.n_unique)
 
     def wrap(use_stale, emit_fresh):
         def stepper(params, opt_state, caches):
+            hostd = take(use_stale)
             xa = state["xarr"]
-            return step(use_stale, emit_fresh, params, opt_state, caches,
-                        xa, xa)
+            new_p, new_s, fresh, m = step(use_stale, emit_fresh, params,
+                                          opt_state, caches, xa, xa, hostd)
+            finish(fresh)
+            return new_p, new_s, out_caches(caches, fresh), m
         return stepper
+
+    def set_plan(xp):
+        state["xarr"] = timed_maps(xp)
+        install(xp)
+
+    def transition(params, opt_state, caches, new_xp):
+        # the stale tiers are read on the old plan's layout, the fresh
+        # tier rows pulled (and emitted) on the new plan's
+        hostd = take(True)
+        xe = timed_maps(new_xp)
+        new_p, new_s, fresh, m = step(True, True, params, opt_state, caches,
+                                      state["xarr"], xe, hostd)
+        state["xarr"] = xe
+        install(new_xp)
+        finish(fresh)
+        return new_p, new_s, out_caches(caches, fresh), m
+
+    state.update(set_plan=set_plan, transition=transition)
 
     @torch.no_grad()
     def forward_fresh(params):
         """The logits ``[n_parts, NI, out]`` with every tier fresh."""
         xa = state["xarr"]
-        logits = forward(params, caches0, xa, xa, False, False)[0]
+        logits = forward(params, caches0, xa, xa, False, False, fetch())[0]
         ex.end_step(False)
         return logits
 
@@ -577,12 +809,15 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
     def loss_and_grads(params, caches, use_stale: bool = False):
         xa = state["xarr"]
         loss, _, _, grads = value_and_grad(params, caches, xa, xa,
-                                           use_stale, False)
+                                           use_stale, False,
+                                           fetch(use_stale))
         ex.end_step(False)
         return loss, grads
 
     comm_dims = list(cfg.feat_dims[:layers])
-    if not spec.exchange_layer0:
+    if not spec.exchange_layer0 or host_mode:
+        # host mode: layer-0 rows arrive from the host store (accounted
+        # by the store), not over the inter-worker wire
         comm_dims = comm_dims[1:]
 
     return cls(cfg=cfg, xplan=xplan, comm_dims=comm_dims,
@@ -591,8 +826,8 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                evaluate=evaluate, loss_and_grads=loss_and_grads,
                caches0=caches0, backend=spec.backend,
                halo_dtype_bytes=halo_dtype_info(spec.halo_dtype)[1],
-               features=spec.features, device=device, _state=state,
-               stacked=sp, spec=spec, **fields)
+               features=spec.features, device=device, host_store=store,
+               _state=state, stacked=sp, spec=spec, **fields)
 
 
 def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
@@ -607,16 +842,18 @@ def make_sim_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
     ``spec.backend`` picks the aggregation operator (``edges``,
     ``ell`` or ``hybrid``; the latter two need the matching stacked pack).
     ``spec.halo_dtype="bf16"`` casts every tier's payload before the
-    exchange and dequantises on scatter.  ``spec.features="host"`` is not
-    ported yet and raises.
+    exchange and dequantises on scatter; in host mode the same cast
+    compresses the staged payloads.  ``spec.features="host"`` keeps the
+    halo table in a :class:`~.host_store.HostFeatureStore` of
+    ``spec.prefetch_depth`` ring slots (the plan must carry a host tier:
+    ``build_exchange_plan`` always emits one).
     """
-    if spec.features != "device":
-        raise _not_ported(f"features={spec.features!r}")
     device = torch.device(device)
     hdt = halo_dtype_info(spec.halo_dtype)[0]
 
     def maps(xp):
-        return exchange_arrays(xp, sp.n_inner_max, device, halo_dtype=hdt)
+        return exchange_arrays(xp, sp.n_inner_max, device, halo_dtype=hdt,
+                               include_host=spec.features == "host")
     return _build_runtime(SimRuntime, cfg, sp, sp, xplan, opt, spec, device,
                           _StackedExchange(hdt), maps)
 
@@ -638,7 +875,8 @@ class TrainReport:
     replan_events: int = 0
     hit_rate: float | None = None    # planner-observed (adaptive runs only)
     final_opt_state: object = None
-    # out-of-core traffic: zero in device mode (the only mode ported)
+    # out-of-core (features="host") traffic over the training loop, from
+    # the store's consumption-driven counters; zero in device mode
     host_fetch_rows: int = 0
     host_fetch_bytes: int = 0
     host_writeback_bytes: int = 0
@@ -648,10 +886,13 @@ class TrainReport:
     compile_s: float = 0.0
     # the serialised TrainSpec (spec.to_dict()) of the run
     spec: dict | None = None
-    # per step: its kind (refresh / cached / pipelined) and host wall
-    # seconds, each step fenced by reading its loss
+    # per step: its kind (refresh / cached / pipelined / transition) and
+    # host wall seconds, each step fenced by reading its loss
     step_kinds: list = dataclasses.field(default_factory=list)
     step_s: list = dataclasses.field(default_factory=list)
+    # per re-plan event: the step, the planner's host ms (replan and the
+    # exchange plan's compile) and the runtime's exchange-maps build ms
+    replan_ms: list = dataclasses.field(default_factory=list)
 
 
 def _step_rows(x_read: ExchangePlan, x_emit: ExchangePlan,
@@ -675,7 +916,8 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     """Full-batch CaPGNN training under the staleness schedule, on a
     :class:`SimRuntime` or, on each rank of its group, a
     :class:`~repro_torch.dist.capgnn_spmd.SpmdRuntime` (every rank's
-    report is the same).
+    report is the same, except the host counts: each rank's store counts
+    its own fetches).
 
     ``spec`` (default: the runtime's) supplies ``pipeline`` and ``seed``
     and is recorded into ``report.spec``.  One step per epoch (full
@@ -686,17 +928,27 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     scheduled refreshes after warm-up run as ``step_pipelined``; bytes are
     identical.
 
+    ``planner`` (a :class:`repro_torch.core.jaca.AdaptivePlanner`)
+    switches on online cache adaptation: at the controller's re-plan
+    boundaries (refresh steps, thinned by ``controller.replan_every``) the
+    planner's live eviction state is materialised into a new plan and
+    swapped into the runtime — via :meth:`SimRuntime.step_transition`
+    when pipelining, ``set_plan`` and a plain refresh otherwise.  The
+    runtime must have been built on the planner's capacity-padded
+    exchange layout (``planner.exchange_plan()``), so a swap changes index
+    data, not tensor shapes; byte accounting follows the active plan(s)
+    per step and stays exact across re-plan events.
+
     ``params0``/``opt_state0`` start from given state (the parity tests
     pass the JAX package's initial parameters); otherwise the parameters
     are initialised from ``spec.seed`` with a ``torch.Generator``, which
     does not replay the reference's ``jax.random`` draw.
 
     Step 0 is timed separately (``report.compile_s``); ``wall_time_s``
-    covers the remaining steps.  ``planner``, ``tracer``, ``faults`` and
-    ``guard`` are not ported yet and raise when given.
+    covers the remaining steps.  ``tracer``, ``faults`` and ``guard`` are
+    not ported yet and raise when given.
     """
-    for name, obj in (("the adaptive planner", planner),
-                      ("the tracer", tracer), ("fault injection", faults),
+    for name, obj in (("the tracer", tracer), ("fault injection", faults),
                       ("the fault guard", guard)):
         if obj is not None:
             raise _not_ported(name)
@@ -710,6 +962,8 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     # the runtime's own starting caches: [P, ...] in one process, the
     # rank's [1, ...] local tier under the SPMD runtime (never written to)
     caches = runtime.caches0
+    store = runtime.host_store
+    store_snap = store.snapshot() if store is not None else None
     dims = runtime.comm_dims
     # actual wire width of one halo payload entry (2 under bf16); the
     # vanilla baseline ships the same payload dtype
@@ -719,39 +973,84 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     val_acc: list[float] = []
     kinds: list[str] = []
     step_s: list[float] = []
-    comm = vanilla = refresh_steps = 0
+    replan_ms: list[dict] = []
+    comm = vanilla = refresh_steps = replan_events = 0
+    x_active = xplan
     compile_s = 0.0
     t0 = time.perf_counter()
     for e in range(epochs):
         ts = time.perf_counter()
         refresh = controller.should_refresh()
-        if refresh and pipeline and controller.step > 0:
-            kind, step_fn = "pipelined", runtime.step_pipelined
-        elif refresh:
-            kind, step_fn = "refresh", runtime.step_refresh
+        replan = planner is not None and controller.should_replan()
+        if replan:
+            kind = "transition" if pipeline else "refresh"
+            tp = time.perf_counter()
+            x_next = planner.exchange_plan(planner.replan())
+            plan_ms = 1e3 * (time.perf_counter() - tp)
+            if pipeline:
+                # consume and exchange on the old plan, pull the new
+                # plan's tier rows
+                params, opt_state, caches, m = runtime.step_transition(
+                    params, opt_state, caches, x_next)
+                x_read, x_emit = x_active, x_next
+            else:
+                runtime.set_plan(x_next)
+                params, opt_state, caches, m = runtime.step_refresh(
+                    params, opt_state, caches)
+                x_read = x_emit = x_next
+            replan_ms.append({"step": e, "plan_ms": plan_ms,
+                              "maps_ms": 1e3 * runtime.maps_s})
+            refreshed_tiers = True
+            x_active = x_next
+            replan_events += 1
         else:
-            kind, step_fn = "cached", runtime.step_cached
-        params, opt_state, caches, m = step_fn(params, opt_state, caches)
+            if refresh and pipeline and controller.step > 0:
+                kind, step_fn = "pipelined", runtime.step_pipelined
+            elif refresh:
+                kind, step_fn = "refresh", runtime.step_refresh
+            else:
+                kind, step_fn = "cached", runtime.step_cached
+            params, opt_state, caches, m = step_fn(params, opt_state, caches)
+            x_read = x_emit = x_active
+            refreshed_tiers = refresh
         losses.append(float(m["loss"]))      # fences the step
         step_s.append(time.perf_counter() - ts)
         kinds.append(kind)
         if e == 0:
             compile_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-        comm += _step_rows(xplan, xplan, refresh=refresh) * dim_bytes
+        comm += _step_rows(x_read, x_emit, refresh=refreshed_tiers) \
+            * dim_bytes
         vanilla += xplan.total_halo * dim_bytes
         refresh_steps += int(refresh)
-        drift = float(m["drift"]) if "drift" in m else None
+        # a transition's fresh rows follow the NEW plan while the compared
+        # caches hold the OLD plan's rows: its drift compares different
+        # vertices and is skipped
+        drift = float(m["drift"]) if "drift" in m and not replan else None
+        if planner is not None:
+            planner.observe_step(layers=max(1, len(dims)))
+            if "drift_local_rows" in m and not replan:
+                planner.observe_drift(
+                    runtime.all_parts(m["drift_local_rows"]),
+                    m["drift_global_rows"].cpu().numpy())
         controller.observe(drift, refreshed=refresh)
         if eval_every and (e + 1) % eval_every == 0:
             val_acc.append(runtime.evaluate(params, "val")[1])
     wall = time.perf_counter() - t0
 
+    # eval_every runs also consume accounted host fetches
+    hostd = store.delta(store_snap) if store is not None else {}
     report = TrainReport(
         losses=losses, val_acc=val_acc, comm_bytes=comm,
         comm_bytes_vanilla=vanilla,
         comm_reduction=1.0 - comm / max(vanilla, 1),
         refresh_steps=refresh_steps, cached_steps=epochs - refresh_steps,
-        wall_time_s=wall, final_opt_state=opt_state, compile_s=compile_s,
-        spec=spec.to_dict(), step_kinds=kinds, step_s=step_s)
+        wall_time_s=wall, replan_events=replan_events,
+        hit_rate=planner.hit_rate() if planner is not None else None,
+        final_opt_state=opt_state,
+        host_fetch_rows=int(hostd.get("fetch_rows", 0)),
+        host_fetch_bytes=int(hostd.get("fetch_bytes", 0)),
+        host_writeback_bytes=int(hostd.get("writeback_bytes", 0)),
+        compile_s=compile_s, spec=spec.to_dict(), step_kinds=kinds,
+        step_s=step_s, replan_ms=replan_ms)
     return params, report

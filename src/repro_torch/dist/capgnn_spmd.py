@@ -41,9 +41,19 @@ the global loss; the loss and the gradients are then summed over ranks
 outside autograd (the JAX package's ``_device_loss``: a sum inside the
 differentiated function would inflate the gradients P-fold).
 
-Not ported yet, each raising with a message: ``features="host"``, the
-tracer and the fault guard, and the multi-pod axis tuple (nested process
-groups).
+``features="host"``: each rank holds its own
+:class:`~.host_store.HostFeatureStore` of its partition's halo rows and
+stages only its own host tier and ``l0loc``; the replicated global
+buffers are written back and staged on every rank, and counted on rank 0
+only, so the counts summed over ranks equal the plan's
+(``ExchangePlan.host_fetch_rows``, ``host_bytes_per_step``,
+``host_writeback_bytes``) and the JAX package's single store.  Each rank
+runs its own :class:`~repro_torch.core.jaca.AdaptivePlanner` on the same
+observations (``drift_local_rows`` gathered over the ranks), so every
+rank installs the same re-plans.
+
+Not ported yet, each raising with a message: the tracer and the fault
+guard, and the multi-pod axis tuple (nested process groups).
 """
 from __future__ import annotations
 
@@ -56,7 +66,8 @@ import torch
 from ..models.gnn import GNNConfig
 from ..optim import Optimizer
 from .capgnn_sim import (SimRuntime, _build_runtime, _gather, _gather_map,
-                         _idx, _mask, _not_ported, _Ready, _StackedExchange)
+                         _host_dict, _idx, _mask, _not_ported, _Ready,
+                         _StackedExchange)
 from .collectives import AllGatherFn, RingBroadcastFn, RotateFn, Wire
 from .exchange import ExchangePlan, ExchangeTier, StackedParts
 from .host_store import halo_dtype_info
@@ -135,21 +146,22 @@ def _tier_maps(t: ExchangeTier, p2p: bool, rank: int, n_inner: int, device,
 
 def spmd_exchange_arrays(xplan: ExchangePlan, p2p: bool, rank: int,
                          n_inner: int, device="cuda", grad: bool = True,
-                         halo_dtype=None) -> dict:
+                         halo_dtype=None, include_host: bool = False) -> dict:
     """One plan's exchange maps on rank ``rank``, built once per plan for
     the payload dtype ``halo_dtype`` (None for none): the rank's row of
     each sharded leaf (the uncached and local tiers' :func:`_tier_maps`;
     the global tier's send pack and reads) and the replicated global
     addressing (the buffer's fill from the gathered payloads), each a
     gather with, when ``grad`` asks for the backward, its transposed
-    index map."""
+    index map.  ``include_host`` adds the rank's row of the layer-0 host
+    tier's scatter program."""
     g = xplan.glob
     sg = g.send_row.shape[1]
     fill_ids = g.src_part.astype(np.int64) * sg + g.src_slot
 
     def tier(t):
         return _tier_maps(t, p2p, rank, n_inner, device, grad, halo_dtype)
-    return {
+    out = {
         "un": tier(xplan.uncached), "loc": tier(xplan.local),
         "gl": {"send": _gather_map(g.send_row[rank], g.send_valid[rank],
                                    n_inner, device, grad),
@@ -161,6 +173,9 @@ def spmd_exchange_arrays(xplan: ExchangePlan, p2p: bool, rank: int,
                                    device, grad),
                "read_pos": _idx(g.read_pos[rank:rank + 1], device),
                "read_valid": _mask(g.read_valid[rank:rank + 1], device)}}
+    if include_host:
+        out["host"] = _host_dict(xplan, slice(rank, rank + 1), device)
+    return out
 
 
 class _Ring:
@@ -331,6 +346,11 @@ class SpmdRuntime(SimRuntime):
         return self.xplan.transport_rows(self.transport, refresh,
                                          padded=padded)
 
+    def all_parts(self, x: torch.Tensor) -> np.ndarray:
+        """``x``, this rank's ``[1, ...]`` row of a per-partition metric,
+        gathered over the ranks (uncounted), on the host."""
+        return self.wire.all_gather(x.contiguous()).cpu().numpy()
+
     def set_tracer(self, tracer) -> None:
         raise _not_ported("the tracer")
 
@@ -352,12 +372,11 @@ def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
     same kernels as the single-process runtime, on a ``[1, ...]`` stack),
     ``spec.transport`` the halo transport, ``spec.halo_dtype="bf16"`` casts
     every payload before the wire (counted at 2 bytes an entry) and
-    dequantises after.  ``axis`` names the partition axis: a tuple of
-    several (the JAX package's multi-pod mesh) is not ported yet and
-    raises, as ``spec.features="host"`` does.
+    dequantises after.  ``spec.features="host"`` keeps the rank's halo
+    rows in its own host store (see the module docstring).  ``axis``
+    names the partition axis: a tuple of several (the JAX package's
+    multi-pod mesh) is not ported yet and raises.
     """
-    if spec.features != "device":
-        raise _not_ported(f"features={spec.features!r}")
     if not isinstance(axis, str) and len(tuple(axis)) > 1:
         raise _not_ported(f"the multi-pod axis tuple {tuple(axis)} (nested "
                           "process groups)")
@@ -375,8 +394,11 @@ def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
 
     def maps(xp):
         return spmd_exchange_arrays(xp, p2p, wire.rank, sp.n_inner_max,
-                                    device, halo_dtype=hdt)
+                                    device, halo_dtype=hdt,
+                                    include_host=spec.features == "host")
     return _build_runtime(SpmdRuntime, cfg, sp, rank_view(sp, wire.rank),
-                          xplan, opt, spec, device, ex, maps, wire=wire,
+                          xplan, opt, spec, device, ex, maps,
+                          rows=slice(wire.rank, wire.rank + 1),
+                          account_replicas=wire.rank == 0, wire=wire,
                           rank=wire.rank, world_size=wire.size,
                           transport=spec.transport, wire_log=ex.log)

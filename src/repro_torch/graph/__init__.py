@@ -6,6 +6,7 @@ from .generate import (DatasetSpec, PAPER_DATASETS, rmat, sbm, erdos_renyi,
 from .partition import (Partition, PartitionSet, random_partition,
                         fennel_partition, metis_partition, build_partition,
                         edge_cut)
+from .reorder import bfs_order, reorder_partition_arrays
 
 __all__ = [
     "Graph", "csr_from_edges", "symmetric_normalize", "subgraph",
@@ -13,4 +14,5 @@ __all__ = [
     "make_dataset", "synth_features",
     "Partition", "PartitionSet", "random_partition", "fennel_partition",
     "metis_partition", "build_partition", "edge_cut",
+    "bfs_order", "reorder_partition_arrays",
 ]

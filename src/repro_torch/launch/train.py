@@ -3,9 +3,13 @@
 ``python -m repro_torch.launch.train gnn ...`` — CaPGNN full-batch GNN
 training (the paper's workload): partitions, RAPA balance, JACA plan,
 staleness schedule and exact byte accounting, in the single-process
-stacked runtime (:mod:`repro_torch.dist.capgnn_sim`) with the features on
-the device.  It prints one JSON object with the keys of the JAX package's
-``repro.launch.train gnn``.
+stacked runtime (:mod:`repro_torch.dist.capgnn_sim`), with the features on
+the device or, with ``--features host``, in the host store (JACA's CPU
+tier: the host fetch rides a prefetch ring, the global buffers live on
+the host).  ``--cache-policy`` other than ``static`` re-plans the cache
+tiers online (:class:`repro_torch.core.jaca.AdaptivePlanner`).  It prints
+one JSON object with the keys of the JAX package's ``repro.launch.train
+gnn``.
 
 It runs on ``--device cuda`` (the default) or ``--device cpu``.  With
 ``--backend ell`` or ``hybrid`` on the card, every layer's aggregation is
@@ -14,8 +18,7 @@ f32 matrix products run in full f32: TF32 is off.  ``compile_s`` is the
 first step's wall time; on the card it holds the first-use ``nvcc`` builds
 of the kernels and the CUDA context's first work.
 
-Not ported yet, each exiting with a message: ``--features host``,
-``--cache-policy`` other than ``static``, ``--strategy spmm_15d``,
+Not ported yet, each exiting with a message: ``--strategy spmm_15d``,
 ``--trace``, ``--device-trace-dir``, ``--faults``, ``--guard-every``,
 ``--checksums``, ``--fetch-retries``, ``--ckpt-dir``/``--resume``, and the
 ``lm`` subcommand.  ``--model sage|gat|gin`` raises ``NotImplementedError``.
@@ -30,9 +33,6 @@ from .serve import resolve_device, set_fp32_numerics
 
 # (attribute, flag, value that asks for it)
 _NOT_PORTED_FLAGS = (
-    ("features", "--features host", lambda v: v != "device"),
-    ("cache_policy", "--cache-policy other than static",
-     lambda v: v != "static"),
     ("strategy", "--strategy spmm_15d", lambda v: v != "halo_1d"),
     ("trace", "--trace", bool), ("device_trace_dir", "--device-trace-dir", bool),
     ("faults", "--faults", bool), ("guard_every", "--guard-every", bool),
@@ -60,10 +60,13 @@ def prepare_train(args) -> dict:
     """The host pipeline of ``run_gnn``: task, profile-weighted partition,
     RAPA, JACA capacity and cache plan, exchange plan and stacked layout.
     Returns them with their spec and the seconds the pipeline took
-    (``host_plan_s``)."""
+    (``host_plan_s``).  With ``--cache-policy`` other than ``static`` the
+    :class:`~repro_torch.core.jaca.AdaptivePlanner` (``planner``) owns the
+    initial plan and the slot-stable padding, so the runtime's installed
+    plan and the planner's accounting cannot drift apart."""
     from ..core import (PROFILES, PAPER_GROUPS, make_group, cal_capacity,
                         build_cache_plan, do_partition, RapaConfig,
-                        CacheCapacity, capability_weights)
+                        CacheCapacity, capability_weights, AdaptivePlanner)
     from ..data import make_task
     from ..dist import build_exchange_plan, stack_partitions
     from ..dist.spec import TrainSpec
@@ -105,11 +108,18 @@ def prepare_train(args) -> dict:
                            m_cpu_gib=args.cpu_cache_gib)
     else:
         cap = CacheCapacity(c_gpu=[0] * p, c_cpu=0)
-    plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
-    xplan = build_exchange_plan(ps, plan)
+    planner = None
+    if args.cache_policy != "static":
+        planner = AdaptivePlanner(ps, cap, refresh_every=args.refresh_every,
+                                  policy=args.cache_policy, seed=args.seed)
+        xplan = planner.exchange_plan()
+    else:
+        plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
+        xplan = build_exchange_plan(ps, plan)
     sp = stack_partitions(ps, task, backend=args.backend)
     return {"task": task, "ps": ps, "profiles": profiles, "group": group,
-            "cfg": cfg, "spec": spec, "xplan": xplan, "sp": sp,
+            "cfg": cfg, "spec": spec, "planner": planner,
+            "xplan": xplan, "sp": sp,
             "host_plan_s": time.perf_counter() - t0}
 
 
@@ -136,7 +146,7 @@ def train_gnn(args, ctx: dict | None = None):
                               replan_every=args.replan_every)
     params, report = train_capgnn(cfg, runtime, xplan, args.parts, opt,
                                   epochs=args.epochs, controller=ctl,
-                                  spec=spec)
+                                  planner=ctx.get("planner"), spec=spec)
     _, test_acc = runtime.evaluate(params, "test")
     out = {
         "dataset": args.dataset, "model": args.model, "parts": args.parts,
@@ -200,7 +210,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="halo payload dtype on the wire: bf16 halves every "
                         "tier's exchange bytes (dequantised on scatter)")
     g.add_argument("--features", default="device",
-                   choices=["device", "host"], help="host: not ported yet")
+                   choices=["device", "host"],
+                   help="host: the halo feature table and the global "
+                        "cache stay in host memory (JACA's CPU tier)")
     g.add_argument("--prefetch-depth", type=int, default=2)
     g.add_argument("--hidden", type=int, default=256)
     g.add_argument("--layers", type=int, default=3)
@@ -223,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--refresh-every", type=int, default=4)
     g.add_argument("--cache-policy", default="static",
                    choices=["static", "overlap", "lru", "fifo", "drift"],
-                   help="only static is ported")
+                   help="online cache adaptation policy (static: the "
+                        "frozen overlap plan)")
     g.add_argument("--replan-every", type=int, default=1)
     g.add_argument("--adaptive-staleness", action="store_true")
     g.add_argument("--cpu-cache-gib", type=float, default=4.0)

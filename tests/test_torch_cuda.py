@@ -741,3 +741,100 @@ def test_spmd_refresh_step_over_nccl(card):
     if torch.cuda.device_count() < 2:
         pytest.skip("NCCL needs one card per rank: fewer than 2 visible")
     _spmd_refresh_on_card(card, "nccl", "cuda")
+
+
+def test_host_ring_slot_reuse_under_a_slow_consumer(card):
+    """The store's ring of 2 pinned slots under a slow side stream and a
+    slow consumer: a third fetch waits for the first one's copy before it
+    rewrites that slot, so every consumed fetch holds the rows it was
+    staged with, bit for bit; the copy and wait events read back
+    positive device time."""
+    from repro_torch.dist.host_store import HostFeatureStore
+    rng = np.random.default_rng(0)
+    feat = rng.normal(size=(3, 4000, 64)).astype(np.float32)
+    store = HostFeatureStore(feat, prefetch_depth=2, device=card)
+    store.timing = True
+    parts = np.arange(3)[:, None]
+    fetches, want = [], []
+    for i in range(5):
+        pos = rng.integers(0, 4000, (3, 3000))
+        valid = rng.random((3, 3000)) < 0.8
+        fetches.append(store.stage_rows((parts, pos), valid=valid))
+        want.append(np.where(valid[..., None], feat[parts, pos], 0.0))
+        with torch.cuda.stream(store._side):
+            torch.cuda._sleep(50_000_000)       # hold the next copy back
+    torch.cuda._sleep(100_000_000)              # a slow consumer
+    for sf, w in zip(fetches, want):
+        np.testing.assert_array_equal(store.ready(sf).cpu().numpy(), w)
+    times = store.copy_times()
+    assert times["h2d_rows"] > 0.0 and times["wait_rows"] >= 0.0
+    assert len(store.copy_log) == 10        # 5 copies, 5 waits
+    assert len(store._slots[torch.float32]) == 2
+
+
+@pytest.mark.parametrize("halo_dtype", ["f32", "bf16"])
+def test_host_mode_equals_device_mode_on_card(card, halo_dtype):
+    """The parity graph (forced capacity: every tier holds rows), hybrid:
+    the host-features runtime through refresh, cached, pipelined, a
+    transition to a second ranking, ``set_plan`` back and a refresh,
+    against the device-features runtime on the card — bit for bit in f32,
+    within 5e-3 in bf16 — and the store's consumed rows equal the plan's
+    count."""
+    from repro_torch.core import CacheCapacity, build_cache_plan
+    from repro_torch.data.gnn_data import FullBatchTask, split_masks
+    from repro_torch.dist import (TrainSpec, build_exchange_plan,
+                                  exchange_capacity, make_sim_runtime,
+                                  stack_partitions)
+    from repro_torch.graph import (build_partition, metis_partition, rmat,
+                                   symmetric_normalize, synth_features)
+    from repro_torch.models.gnn import GNNConfig, init_gnn
+    from repro_torch.optim import sgd
+    g = rmat(360, 2200, seed=3)
+    feats, labels = synth_features(g, 12, 5, seed=3)
+    gn = symmetric_normalize(g)
+    tr, va, te = split_masks(g.num_nodes, seed=3)
+    task = FullBatchTask(graph=gn, features=feats, labels=labels,
+                         train_mask=tr, val_mask=va, test_mask=te,
+                         num_classes=5)
+    ps = build_partition(gn, metis_partition(gn, 4, seed=3), hops=1)
+    cap = CacheCapacity(c_gpu=[8] * 4, c_cpu=30)
+    plans = [build_exchange_plan(ps, build_cache_plan(
+        ps, cap, refresh_every=3, policy=pol, seed=1),
+        pad_to=exchange_capacity(ps, cap))
+        for pol in ("overlap_high", "random")]
+    cfg = GNNConfig(model="gcn", in_dim=12, hidden_dim=16, out_dim=5,
+                    num_layers=3)
+    sp = stack_partitions(ps, task, backend="hybrid")
+    spec = TrainSpec(backend="hybrid", halo_dtype=halo_dtype)
+    opt = sgd(0.5)
+    dev = make_sim_runtime(cfg, sp, plans[0], opt, spec=spec, device=card)
+    host = make_sim_runtime(cfg, sp, plans[0], opt, device=card,
+                            spec=dataclasses.replace(spec, features="host"))
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), card)
+    sd, sh = (params, (), dev.caches0), (params, (), host.caches0)
+    snap, expected = host.host_store.snapshot(), 0
+    for kind, plan in (("refresh", None), ("cached", None),
+                       ("pipelined", None), ("transition", 1),
+                       ("cached", None), ("refresh", 0)):
+        per = host.xplan.host_fetch_rows(True, 2)
+        if kind == "transition":
+            *sd, md = dev.step_transition(*sd, plans[plan])
+            *sh, mh = host.step_transition(*sh, plans[plan])
+            expected += per["total"] + plans[plan].local.n_rows
+        else:
+            if plan is not None:
+                dev.set_plan(plans[plan])
+                host.set_plan(plans[plan])
+                expected += plans[plan].local.n_rows
+                per = host.xplan.host_fetch_rows(True, 2)
+            *sd, md = getattr(dev, f"step_{kind}")(*sd)
+            *sh, mh = getattr(host, f"step_{kind}")(*sh)
+            expected += per["l0"] if kind == "refresh" else per["total"]
+        for a, b in zip(sd[0], sh[0]):
+            for k in a:
+                if halo_dtype == "f32":
+                    assert torch.equal(a[k], b[k]), (kind, k)
+                else:
+                    assert float((a[k] - b[k]).abs().max()) <= 5e-3, kind
+    torch.cuda.synchronize()
+    assert host.host_store.delta(snap)["fetch_rows"] == expected

@@ -213,7 +213,6 @@ def test_unported_cli_flags_exit(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--features", "host"], ["--cache-policy", "lru"],
     ["--strategy", "spmm_15d"], ["--trace"], ["--device-trace-dir", "dt"],
     ["--faults", "grad_nan@3"], ["--guard-every", "2"], ["--checksums"],
     ["--fetch-retries", "1"], ["--ckpt-dir", "ck"], ["--resume"]])
@@ -232,10 +231,26 @@ def test_unported_runtime_options_raise():
     from repro_torch.dist import get_strategy, init_caches, train_capgnn
     with pytest.raises(NotImplementedError, match="spmm_15d"):
         get_strategy("spmm_15d")
-    with pytest.raises(NotImplementedError, match="features='host'"):
-        init_caches(GNNConfig(), None, 4, features="host")
+    with pytest.raises(ValueError, match="features mode"):
+        init_caches(GNNConfig(), None, 4, features="disk")
     with pytest.raises(NotImplementedError, match="tracer"):
         train_capgnn(GNNConfig(), None, None, 4, None, tracer=object())
+
+
+def test_slice_entry_points_default_to_the_card(monkeypatch):
+    """The host store, ``measure_profile`` and the host-features runtime
+    run on the card unless the caller asks for the CPU: without CUDA they
+    raise instead of falling back."""
+    from repro_torch.core import measure_profile
+    from repro_torch.dist import HostFeatureStore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HostFeatureStore(np.zeros((4, 2), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        measure_profile(size=8, repeats=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.main(["gnn", "--scale", "0.01", "--epochs", "1",
+                     "--features", "host", "--cache-policy", "lru"])
 
 
 @pytest.mark.parametrize("model", ["sage", "gat", "gin"])

@@ -132,7 +132,7 @@ def test_adj_builder_carries_row_end(backend):
         ["gnn", "--device", "cpu", "--scale", "0.01", "--feat-dim", "16",
          "--hidden", "16", "--backend", backend, "--epochs", "1"])
     sp = prepare_train(args)["sp"]
-    leaves, build = make_adj_builder(sp, backend)
+    leaves, build = make_adj_builder(sp, backend, device="cpu")
     adj = build(leaves)
     assert adj.row_end is leaves["row_end"]
     assert adj.row_end.dtype == torch.int32

@@ -30,6 +30,14 @@ ranks per configuration runs every check of it
   rankings padded to one capacity's widths: every step within 1e-5 of the
   port's runtime making the same switch.
 
+Two configurations run the slice's modes: ``p2p-host`` (``features=
+"host"``: each rank stages its own host tier from its own store; the
+counts summed over the ranks equal the single-process store's and the
+plan's) and ``allgather-lru`` (an ``AdaptivePlanner`` on every rank, the
+``train_capgnn`` run re-planned by pipelined transitions: the same
+re-plans, hit rate and losses as the single-process run, each step's
+counted rows those of its read and emit plans).
+
 The bf16 wire runs the same casts in all three runtimes.  Against the
 port's runtime it stays at 1e-5.  Against JAX ``capgnn_sim`` the logits
 are held at :data:`BF16_JAX_TOL` (measured: 1.6e-5; the loss and the
@@ -71,13 +79,16 @@ P = 4
 EPOCHS = 8
 TOL = 1e-5
 BF16_JAX_TOL = 5e-5
-CASES = {   # id: (transport, backend, halo dtype)
-    "allgather-edges": ("allgather", "edges", "f32"),
-    "p2p-edges": ("p2p", "edges", "f32"),
-    "p2p-hybrid": ("p2p", "hybrid", "f32"),
-    "p2p-ell": ("p2p", "ell", "f32"),
-    "p2p-bf16": ("p2p", "hybrid", "bf16"),
+CASES = {   # id: (transport, backend, halo dtype, features, cache policy)
+    "allgather-edges": ("allgather", "edges", "f32", "device", "static"),
+    "p2p-edges": ("p2p", "edges", "f32", "device", "static"),
+    "p2p-hybrid": ("p2p", "hybrid", "f32", "device", "static"),
+    "p2p-ell": ("p2p", "ell", "f32", "device", "static"),
+    "p2p-bf16": ("p2p", "hybrid", "bf16", "device", "static"),
+    "p2p-host": ("p2p", "hybrid", "f32", "host", "static"),
+    "allgather-lru": ("allgather", "edges", "f32", "device", "lru"),
 }
+CAP = dict(c_gpu=[10] * P, c_cpu=25)
 _CACHE: dict = {}
 
 
@@ -100,7 +111,7 @@ def _base():
         ttask, tps = _graph((rmat, synth_features, symmetric_normalize,
                              FullBatchTask, split_masks, metis_partition,
                              build_partition))
-        cap = dict(c_gpu=[10] * P, c_cpu=25)
+        cap = CAP
         jx = jdist.build_exchange_plan(jps, jcore.build_cache_plan(
             jps, jcore.CacheCapacity(**cap), refresh_every=2))
         tx = build_exchange_plan(tps, tcore.build_cache_plan(
@@ -132,22 +143,61 @@ def _np(tree):
     return torch_spmd_ranks._np(tree)
 
 
+def _planner(case_id):
+    """A fresh planner of the configuration (None under ``static``)."""
+    policy = CASES[case_id][4]
+    if policy == "static":
+        return None
+    return tcore.AdaptivePlanner(_base()["tps"], tcore.CacheCapacity(**CAP),
+                                 refresh_every=2, policy=policy)
+
+
+def _plan(case_id):
+    """The configuration's plan: the forced plan, or the planner's padded
+    initial plan."""
+    planner = _planner(case_id)
+    return _base()["tx"] if planner is None else planner.exchange_plan()
+
+
+def _train_plans(case_id, kinds):
+    """Each training step's (read, emit) plan, replaying the training
+    loop's re-plans on a fresh planner (``lru`` reads the access stream
+    only)."""
+    x, planner = _plan(case_id), _planner(case_id)
+    ctl = tcore.StalenessController(refresh_every=2)
+    out = []
+    for kind in kinds:
+        refresh = ctl.should_refresh()
+        if planner is not None and ctl.should_replan():
+            assert kind == "transition"
+            x_next = planner.exchange_plan(planner.replan())
+            out.append((x, x_next))
+            x = x_next
+        else:
+            out.append((x, x))
+        if planner is not None:
+            planner.observe_step(layers=2)
+        ctl.observe(None, refreshed=refresh)
+    return out
+
+
 def _case(case_id):
     """The 4 ranks' results and both references for one configuration."""
     if case_id in _CACHE:
         return _CACHE[case_id]
     b = _base()
-    transport, backend, halo_dtype = CASES[case_id]
+    transport, backend, halo_dtype, features, _ = CASES[case_id]
     kw = dict(backend=backend, transport=transport, halo_dtype=halo_dtype,
-              pipeline=True, refresh_every=2)
+              pipeline=True, refresh_every=2, features=features)
     tsp = stack_partitions(b["tps"], b["ttask"], backend=backend)
+    x = _plan(case_id)
     ranks = spawn(torch_spmd_ranks.run_spmd, P, backend="gloo",
                   devices="cpu",
-                  args=(b["tcfg"], tsp, b["tx"], kw, b["params_np"], EPOCHS,
-                        b["switch"]))
+                  args=(b["tcfg"], tsp, x, kw, b["params_np"], EPOCHS,
+                        b["switch"], _planner(case_id)))
     spec, cfg = TrainSpec(**kw), b["tcfg"]
     params = _tparams(b)
-    sim = make_sim_runtime(cfg, tsp, b["tx"], sgd(1.0), spec=spec,
+    sim = make_sim_runtime(cfg, tsp, x, sgd(1.0), spec=spec,
                            device="cpu")
     ref = {"logits": sim.forward_fresh(params).numpy()}
     p1, _, c1, m1 = sim.step_refresh(params, (), sim.caches0)
@@ -156,7 +206,7 @@ def _case(case_id):
     loss, grads = sim.loss_and_grads(params, sim.caches0)
     ref["grads"] = {"loss": float(loss), "grads": _np(grads)}
     opt = adam(1e-2)
-    sim = make_sim_runtime(cfg, tsp, b["tx"], opt, spec=spec, device="cpu")
+    sim = make_sim_runtime(cfg, tsp, x, opt, spec=spec, device="cpu")
     state, steps = (params, opt.init(params), sim.caches0), []
     for kind in torch_spmd_ranks.SCHEDULE:
         *state, m = getattr(sim, f"step_{kind}")(*state)
@@ -169,16 +219,26 @@ def _case(case_id):
                            device="cpu")
     ref["switch"] = torch_spmd_ranks._switch(sim, params, opt.init(params),
                                              *b["switch"])
-    sim = make_sim_runtime(cfg, tsp, b["tx"], opt, spec=spec, device="cpu")
-    p8, rep = train_capgnn(cfg, sim, b["tx"], P, opt, epochs=EPOCHS,
-                           params0=params, spec=spec)
-    ref["train"] = {"losses": rep.losses, "comm_bytes": rep.comm_bytes,
-                    "comm_bytes_vanilla": rep.comm_bytes_vanilla,
-                    "refresh_steps": rep.refresh_steps,
-                    "cached_steps": rep.cached_steps,
-                    "step_kinds": rep.step_kinds, "params": _np(p8),
+    sim = make_sim_runtime(cfg, tsp, x, opt, spec=spec, device="cpu")
+    p8, rep = train_capgnn(cfg, sim, x, P, opt, epochs=EPOCHS,
+                           params0=params, planner=_planner(case_id),
+                           spec=spec)
+    ref["train"] = {**torch_spmd_ranks.train_fields(rep), "params": _np(p8),
                     "test": sim.evaluate(p8, "test")}
 
+    _CACHE[case_id] = (ranks, ref, _jax_ref(backend, halo_dtype))
+    return _CACHE[case_id]
+
+
+def _jax_ref(backend, halo_dtype):
+    """JAX ``capgnn_sim``'s fresh logits and one ``sgd(1.0)`` refresh step
+    (the transport, the feature residency and the cache policy leave its
+    numerics as they are, so configurations that differ in those only
+    share it)."""
+    key = ("jax", backend, halo_dtype)
+    if key in _CACHE:
+        return _CACHE[key]
+    b = _base()
     jsp = jdist.stack_partitions(b["jps"], b["jtask"], backend=backend)
     jspec = JSpec(backend=backend, halo_dtype=halo_dtype, donate=False,
                   refresh_every=2, pipeline=True)
@@ -189,11 +249,10 @@ def _case(case_id):
     jp1, _, _, jm1 = jrt.step_refresh(jparams, jsgd(1.0).init(jparams),
                                       jdist.init_caches(b["jcfg"], b["jx"],
                                                         P))
-    jax_ref = {"logits": jl, "loss": float(jm1["loss"]),
-               "params": [{k: np.asarray(v) for k, v in layer.items()}
-                          for layer in jp1]}
-    _CACHE[case_id] = (ranks, ref, jax_ref)
-    return _CACHE[case_id]
+    _CACHE[key] = {"logits": jl, "loss": float(jm1["loss"]),
+                   "params": [{k: np.asarray(v) for k, v in layer.items()}
+                              for layer in jp1]}
+    return _CACHE[key]
 
 
 def _close(got, want, tol=TOL, what=""):
@@ -305,15 +364,20 @@ def test_spmd_drift_metrics(case_id):
                wm["drift_local_rows"], what="drift_local_rows")
 
 
-def _check_wire(wire_logs, kinds, transport, halo_dtype):
-    """Every step's counts, summed over ranks, against the plan's."""
-    b = _base()
-    x, cfg = b["tx"], b["tcfg"]
+def _check_wire(wire_logs, kinds, transport, halo_dtype, plans):
+    """Every step's counts, summed over ranks, against the plan's:
+    ``plans[s]`` is step ``s``'s (read, emit) plan; the uncached tier
+    moves on the read plan, a refresh's cached tiers on the emit plan."""
+    cfg = _base()["tcfg"]
     width = 2 if halo_dtype == "bf16" else 4
     for s, kind in enumerate(kinds):
         refresh = kind != "cached"
-        valid = x.transport_rows(transport, refresh)
-        padded = x.transport_rows(transport, refresh, padded=True)
+        x, xe = plans[s]
+        valid = {**xe.transport_rows(transport, refresh),
+                 "uncached": x.transport_rows(transport, refresh)["uncached"]}
+        padded = {**xe.transport_rows(transport, refresh, padded=True),
+                  "uncached": x.transport_rows(transport, refresh,
+                                               padded=True)["uncached"]}
         for li in range(1, cfg.num_layers):
             d = cfg.feat_dims[li]
             got = {t: {f: sum(logs[s]["counts"].get((li, t), {}).get(f, 0)
@@ -324,7 +388,7 @@ def _check_wire(wire_logs, kinds, transport, halo_dtype):
                 assert c["valid_rows"] == valid[t], (s, kind, li, t, c)
                 assert c["padded_rows"] == padded[t], (s, kind, li, t, c)
                 assert c["bytes"] == valid[t] * d * width, (s, li, t)
-            if transport == "p2p":
+            if transport == "p2p" and x is xe:
                 assert sum(c["bytes"] for c in got.values()) == \
                     x.bytes_per_step(d, refresh, dtype_bytes=width)
         # every counted call is a tier's at an exchanged layer, or the
@@ -337,29 +401,33 @@ def _check_wire(wire_logs, kinds, transport, halo_dtype):
 @pytest.mark.parametrize("case_id", list(CASES))
 def test_spmd_wire_counts_equal_the_plan(case_id):
     ranks, _, _ = _case(case_id)
-    transport, _, halo_dtype = CASES[case_id]
-    x = _base()["tx"]
+    transport, _, halo_dtype = CASES[case_id][:3]
+    x = _plan(case_id)
     assert x.uncached.n_rows and x.local.n_rows and x.glob.n_unique, \
         "the forced plan fills every tier"
     _check_wire([[r["sgd"]["wire"]] for r in ranks], ["refresh"],
-                transport, halo_dtype)
+                transport, halo_dtype, [(x, x)])
     _check_wire([[s["wire"] for s in r["steps"]] for r in ranks],
-                list(torch_spmd_ranks.SCHEDULE), transport, halo_dtype)
-    _check_wire([r["train"]["wire"] for r in ranks],
-                ranks[0]["train"]["step_kinds"], transport, halo_dtype)
+                list(torch_spmd_ranks.SCHEDULE), transport, halo_dtype,
+                [(x, x)] * len(torch_spmd_ranks.SCHEDULE))
+    kinds = ranks[0]["train"]["step_kinds"]
+    _check_wire([r["train"]["wire"] for r in ranks], kinds, transport,
+                halo_dtype, _train_plans(case_id, kinds))
 
 
 @pytest.mark.parametrize("case_id", list(CASES))
 def test_spmd_train_matches_sim(case_id):
     ranks, ref, _ = _case(case_id)
     want = ref["train"]
+    refresh = "transition" if CASES[case_id][4] != "static" else "pipelined"
     assert want["step_kinds"] == ["refresh", "cached"] + \
-        ["pipelined", "cached"] * 3
+        [refresh, "cached"] * 3
     for r in ranks:
         got = r["train"]
         _close(got["losses"], want["losses"], what="losses")
         for f in ("comm_bytes", "comm_bytes_vanilla", "refresh_steps",
-                  "cached_steps", "step_kinds"):
+                  "cached_steps", "step_kinds", "replan_events",
+                  "hit_rate"):
             assert got[f] == want[f], f
         _close_params(got["params"], want["params"], what="8 steps")
         assert abs(got["test"][0] - want["test"][0]) < TOL
@@ -431,12 +499,53 @@ def test_p2p_matches_allgather():
         assert abs(a["grads"]["loss"] - b["grads"]["loss"]) < TOL
 
 
+@pytest.mark.parametrize("case_id", [c for c in CASES
+                                     if CASES[c][3] == "host"])
+def test_spmd_host_counts_sum_to_the_plan(case_id):
+    """One store per rank: each counts its own host tier and ``l0loc``,
+    rank 0 the replicated global buffers' stages and writebacks.  Summed
+    over the ranks, the training run's counts equal the single-process
+    store's and the plan's."""
+    ranks, ref, _ = _case(case_id)
+    want, x, cfg = ref["train"], _plan(case_id), _base()["tcfg"]
+    dims = cfg.feat_dims[1:cfg.num_layers]
+    kinds = want["step_kinds"]
+    stale = [k != "refresh" for k in kinds]
+    # the plan: the host tier every step, the buffers on stale steps
+    plan_rows = sum(x.host_fetch_rows(s, len(dims))["total"] for s in stale)
+    plan_bytes = sum(x.host_bytes_per_step(cfg.in_dim, dims, s)
+                     for s in stale)
+    plan_wb = sum(k != "cached" for k in kinds) * x.host_writeback_bytes(dims)
+    for f, plan in (("host_fetch_rows", plan_rows),
+                    ("host_fetch_bytes", plan_bytes),
+                    ("host_writeback_bytes", plan_wb)):
+        got = sum(r["train"][f] for r in ranks)
+        assert got == want[f] == plan, (f, got, want[f], plan)
+    assert ranks[0]["train"]["host_writeback_bytes"] == plan_wb
+    assert all(r["train"]["host_writeback_bytes"] == 0 for r in ranks[1:])
+
+
+@pytest.mark.parametrize("case_id", [c for c in CASES
+                                     if CASES[c][4] != "static"])
+def test_spmd_adaptive_replans_match_sim(case_id):
+    """Every rank's planner makes the single-process run's re-plans: the
+    same events and hit rate, and the last plan's tiers differ from the
+    first's (the swaps were not vacuous)."""
+    ranks, ref, _ = _case(case_id)
+    want = ref["train"]
+    assert want["replan_events"] == 3
+    for r in ranks:
+        assert r["train"]["replan_events"] == want["replan_events"]
+        assert r["train"]["hit_rate"] == want["hit_rate"]
+    plans = _train_plans(case_id, want["step_kinds"])
+    assert not np.array_equal(plans[0][0].local.recv_halo_pos,
+                              plans[-1][1].local.recv_halo_pos)
+
+
 def test_spmd_unported_options_raise():
     from repro_torch.dist.capgnn_spmd import make_spmd_runtime
     b = _base()
-    for spec, kw, what in (
-            (TrainSpec(features="host"), {}, "features='host'"),
-            (TrainSpec(), {"axis": ("pod", "data")}, "multi-pod")):
-        with pytest.raises(NotImplementedError, match=what):
-            make_spmd_runtime(b["tcfg"], None, b["tx"], sgd(1.0), spec=spec,
-                              device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="multi-pod"):
+        make_spmd_runtime(b["tcfg"], None, b["tx"], sgd(1.0),
+                          spec=TrainSpec(), device="cpu",
+                          axis=("pod", "data"))

@@ -321,7 +321,7 @@ def test_adj_builder_carries_packs(backend):
     ell = sp.ell
     tail = (ell.tail_src, ell.tail_dst, ell.tail_w) if backend == "hybrid" \
         else ()
-    leaves, build = make_adj_builder(sp, backend)
+    leaves, build = make_adj_builder(sp, backend, device="cpu")
     adj = build(leaves)
     assert adj.dh_pack is leaves["dh_pack"]
     want = ops.transpose_csr(ell.cols, ell.vals, n_cols, *tail)
@@ -331,5 +331,5 @@ def test_adj_builder_carries_packs(backend):
         np.testing.assert_array_equal(
             _entries(adj.tail_pack),
             _entries(ops.tail_csr(*tail, sp.n_inner_max, n_cols)))
-    leaves, build = make_adj_builder(sp, backend, grad=False)
+    leaves, build = make_adj_builder(sp, backend, device="cpu", grad=False)
     assert build(leaves).dh_pack is None

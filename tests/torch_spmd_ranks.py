@@ -56,12 +56,13 @@ def _switch(rt, params, opt_state, xplan, xplan2):
 
 
 def run_spmd(rank, world_size, device, cfg, sp, xplan, spec_kw, params_np,
-             epochs, switch):
+             epochs, switch, planner=None):
     """One configuration's every check on this rank: ``forward_fresh``;
     one ``sgd(1.0)`` refresh step; the steps of :data:`SCHEDULE` with
     ``adam`` and their wire counts; a switch between the two plans of
-    ``switch`` (:func:`_switch`) with ``adam``; the loss and gradients of a refresh step; an
-    ``epochs``-step ``train_capgnn`` with ``adam``."""
+    ``switch`` (:func:`_switch`) with ``adam``; the loss and gradients of
+    a refresh step; an ``epochs``-step ``train_capgnn`` with ``adam``,
+    re-planned by ``planner`` (this rank's copy) when one is given."""
     spec = TrainSpec(**spec_kw)
     out = {"rank": rank}
     rt = make_spmd_runtime(cfg, sp, xplan, sgd(1.0), spec=spec,
@@ -101,15 +102,19 @@ def run_spmd(rank, world_size, device, cfg, sp, xplan, spec_kw, params_np,
 
     rt = make_spmd_runtime(cfg, sp, xplan, opt, spec=spec, device=device)
     p8, rep = train_capgnn(cfg, rt, xplan, world_size, opt, epochs=epochs,
-                           params0=params, spec=spec)
-    out["train"] = {"losses": rep.losses, "comm_bytes": rep.comm_bytes,
-                    "comm_bytes_vanilla": rep.comm_bytes_vanilla,
-                    "refresh_steps": rep.refresh_steps,
-                    "cached_steps": rep.cached_steps,
-                    "step_kinds": rep.step_kinds, "params": _np(p8),
-                    "test": rt.evaluate(p8, "test"),
-                    "wire": rt.wire_log}
+                           params0=params, planner=planner, spec=spec)
+    out["train"] = {**train_fields(rep), "params": _np(p8),
+                    "test": rt.evaluate(p8, "test"), "wire": rt.wire_log}
     return out
+
+
+def train_fields(rep) -> dict:
+    """The fields of a :class:`~repro_torch.dist.TrainReport` the SPMD
+    tests hold against the single-process runtime's."""
+    return {f: getattr(rep, f) for f in (
+        "losses", "comm_bytes", "comm_bytes_vanilla", "refresh_steps",
+        "cached_steps", "step_kinds", "replan_events", "hit_rate",
+        "host_fetch_rows", "host_fetch_bytes", "host_writeback_bytes")}
 
 
 def run_collectives(rank, world_size, device, xs_np, shift, valid):
