@@ -27,7 +27,9 @@ raises, and the script exits non-zero:
    The launch counters are zeroed just before and read just after (one ELL
    forward and one CSR tail launch per layer, no pack built in a
    wrapper); the precompute's tables are held against the same pass on
-   the CPU (plain versions, same parameters).
+   the CPU (plain versions, same parameters).  ``serve_sage`` - the same
+   with ``--model sage``: SAGE's ``degree()`` adds one ELL forward and
+   one tail launch a layer (recomputed per call, as the reference does).
 5. ``train`` - the training slice through ``repro_torch.launch.train``'s
    own entry on ``cuda``: the same GCN over Flickr at scale 1.0, 4 METIS
    partitions weighted by the x4 device group, RAPA, JACA, hybrid backend,
@@ -42,7 +44,14 @@ raises, and the script exits non-zero:
    exchange plan's; one refresh step's loss and gradients equal to the
    CPU's at full scale (through the gather's backward); an 8-step SGD run
    equal to the CPU's at scale 0.1; each step kind timed again in steady
-   state.
+   state; the phase's peak device memory.
+   ``train_sage`` and ``train_gin`` - the same flags with ``--model sage``
+   / ``gin`` on the same host plan (every model has the same widths):
+   the same checks, SAGE with two ELL forward and tail launches a layer.
+   ``train_gat`` - ``--model gat --backend edges --lr 0.001``
+   (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only; four
+   ``coo_spmm`` heads a layer, plain torch): no ELL, tail or ``d_h``
+   launch, the gathers 6 / 2.
    ``train_edges`` - the same flags with ``--backend edges`` (the CLI's
    default), on the same host plan: the same checks, no ELL, tail or
    ``d_h`` launch, the gathers 6 / 2.  ``coo_spmm`` - its aggregation at
@@ -68,7 +77,12 @@ raises, and the script exits non-zero:
    runtime and its counted rows against the plans'.  ``spmd_nccl`` and
    ``spmd_tiers_nccl`` - the same two over NCCL, one card per rank,
    where 4 cards are visible; otherwise their lines say ``"ran": false``
-   and the card count.
+   and the card count.  ``spmd_models`` (``spmd_models_nccl`` over
+   NCCL) - the SPMD runtime on that graph with SAGE (``hybrid``,
+   ``p2p``), GIN (``ell``, ``allgather``) and GAT (``edges``, ``p2p``):
+   a refresh step's loss and gradients and four steps against the card's
+   single-process runtime, the counted rows against the plan's, the
+   launches summed over ranks.
    JACA's CPU tier and online adaptation, on the train cell's host plan
    under a forced capacity (``forced_capacity``: half the widest worker's
    halo rows on the host) that fills every tier: ``train_host`` - a
@@ -96,11 +110,16 @@ raises, and the script exits non-zero:
    phase 3 beside the routes they replaced (the tail's ``coo_spmm``
    forward and its autograd backward; the tier pulls' indexing backward
    and an ``index_select`` route), and a tier pull, forward and backward,
-   as one composed gather and as two stages.
+   as one composed gather and as two stages.  ``ell_spmm_at`` -
+   ``EllAdj.spmm_at`` (trained ELL values) on the training pack at d = 64:
+   one forward and backward, its ``d_vals`` and ``d_h`` launches counted
+   and held against their plain versions.
 7. ``kernels`` - every ported kernel with its launches on each path
-   (``launches_by_path``: serve, train, train_edges, train_ell, the SPMD
-   runs summed over ranks, train_host, train_host_cli,
-   train_adaptive_lru, train_adaptive_drift, spmd_host), its largest
+   (``launches_by_path``: serve, serve_sage, train, train_sage,
+   train_gin, train_edges, train_gat, train_ell, the SPMD runs summed over
+   ranks (spmd_models_<model> per model), train_host, train_host_cli,
+   train_adaptive_lru, train_adaptive_drift, spmd_host, ell_spmm_at), its
+   largest
    error against the plain
    version and its times.
 
@@ -155,6 +174,10 @@ TRAIN_ARGV = [
     "--refresh-every", "4", "--epochs", "8", "--lr", "0.01", "--seed", "0",
 ]
 TRAIN_SGD_SCALE = "0.1"   # the card-vs-CPU trajectory check
+# GAT's cell runs Adam at 0.001: at the train cell's 0.01 its loss rises
+# over the 8 steps (and so does the JAX package's, on the whole graph
+# with no staleness)
+GAT_LR = "0.001"
 # the pure-ELL cell: at scale 1.0 the largest in-degree (8,886) makes the
 # pack [4, 24.5k, 8.9k], ~7 GB, and its plain version's CPU reference out
 # of reach; at 0.3 the pack is [4, 7335, 3089], 0.73 GB (its refresh step
@@ -779,11 +802,20 @@ def hot_batches(engine, args) -> int:
                for b in batches)
 
 
-def phase_main(args, ctx) -> dict:
+def phase_main(name: str, argv: list[str], ctx) -> dict:
+    """The serving slice of ``argv`` through ``launch.serve``'s own entry
+    (``ctx``: the host plan of its flags, for the CPU pass), its launches
+    counted from zero: per layer one ELL forward and one CSR tail launch
+    (SAGE two of each: its ``degree()``), no backward, no pack built for
+    a call, a gather per micro-batch with hot hits; its tables against
+    the same pass on the CPU, and served answers against the CPU's
+    logits."""
     from repro_torch.kernels import cache_gather as kgather
     from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
-    from repro_torch.launch.serve import serve_gnn
+    from repro_torch.launch.serve import build_parser, serve_gnn
     from repro_torch.serve import precompute_embeddings
+
+    args = build_parser().parse_args(argv)
 
     counters = {"ell_spmm": kell.ell_spmm,
                 "csr_spmm_tail": kcsr.csr_spmm_accumulate,
@@ -811,8 +843,10 @@ def phase_main(args, ctx) -> dict:
     if report["queries"] != args.queries:
         raise AssertionError(f"served {report['queries']} of {args.queries}")
     # one precompute pass: per layer one ELL forward and one CSR launch over
-    # the COO tail; no backward, and every pack built in make_adj_builder
-    want = {"ell_spmm": cfg.num_layers, "csr_spmm_tail": cfg.num_layers,
+    # the COO tail (SAGE: and its degree's); no backward, and every pack
+    # built in make_adj_builder
+    per_pass = cfg.num_layers * (2 if cfg.model == "sage" else 1)
+    want = {"ell_spmm": per_pass, "csr_spmm_tail": per_pass,
             "csr_spmm_dh": 0, "packs_built_for_a_call": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"serving launches {launches}, want {want}")
@@ -853,7 +887,7 @@ def phase_main(args, ctx) -> dict:
     fields = ("precompute_s", "qps", "p50_ms", "p99_ms", "hot_hit_rate",
               "host_hit_rate", "host_fetch_ms", "batches", "mean_batch",
               "busy_s")
-    emit("main_path", argv=SLICE_ARGV, nodes=n, parts=sp.num_parts,
+    emit(name, argv=argv, model=cfg.model, nodes=n, parts=sp.num_parts,
          hybrid_pack=list(sp.ell.cols.shape), tail_width=sp.ell.tail_width,
          launches=launches, hot_batches=n_hot_batches,
          **{k: report[k] for k in fields},
@@ -977,20 +1011,24 @@ def read_counts() -> dict:
 
 
 def train_launches(backend: str, layers: int, kinds: list[str],
-                   gathers: dict) -> dict:
+                   gathers: dict, model: str = "gcn") -> dict:
     """The launches a training run gives: each step and the closing
     evaluation run every layer's forward once (the ELL kernel under
-    ``ell`` and ``hybrid``, the tail's CSR kernel under ``hybrid``); the
-    backward needs ``d_h`` from layer 1 on (layer 0's input is constant)
-    under ``ell`` and ``hybrid``, and ``d_vals`` never (the ELL values are
-    constants of the graph); ``edges`` is plain torch; the gathers as
-    each step kind gives them (``gathers``, per kind); every pack comes
-    from ``make_adj_builder`` or the exchange maps."""
+    ``ell`` and ``hybrid``, the tail's CSR kernel under ``hybrid``; a
+    SAGE layer twice, its ``degree()`` being the same product of a ones
+    column, recomputed per call); the backward needs ``d_h`` from layer 1
+    on (layer 0's input is constant, and the ones column has no
+    gradient) under ``ell`` and ``hybrid``, and ``d_vals`` never (the ELL
+    values are constants of the graph); ``edges`` (GAT's only backend) is
+    plain torch; the gathers as each step kind gives them (``gathers``,
+    per kind); every pack comes from ``make_adj_builder`` or the exchange
+    maps."""
     passes = len(kinds) + 1
     ell = backend != "edges"
-    return {"ell_spmm": layers * passes if ell else 0,
+    fwd = layers * passes * (2 if model == "sage" else 1)
+    return {"ell_spmm": fwd if ell else 0,
             "ell_spmm_chunked": 0,
-            "csr_spmm_tail": layers * passes if backend == "hybrid" else 0,
+            "csr_spmm_tail": fwd if backend == "hybrid" else 0,
             "csr_spmm_dh": (layers - 1) * len(kinds) if ell else 0,
             "ell_spmm_dvals": 0,
             **{k: sum(gathers[kind][k] for kind in kinds + ["evaluation"])
@@ -1088,6 +1126,7 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
     from repro_torch.launch.train import build_parser, prepare_train, train_gnn
 
     args = build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
     out, ctx = train_gnn(args, ctx)
@@ -1103,7 +1142,8 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
                  "cached", "cached", "cached"]:
         raise AssertionError(f"{name}: step kinds {kinds}")
     per_kind = gather_launches(xplan, layers - 1)
-    want = train_launches(args.backend, layers, kinds, per_kind)
+    want = train_launches(args.backend, layers, kinds, per_kind,
+                          args.model)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
     if args.scale == 1.0 and {k: want[k] for k in TRAIN_GATHERS} != \
@@ -1159,7 +1199,8 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
         pack = {"ell_pack": list(sp.ell.cols.shape),
                 "ell_pack_bytes": int(sp.ell.cols.nbytes + sp.ell.vals.nbytes),
                 "tail_width": sp.ell.tail_width}
-    emit(name, argv=argv, nodes=ctx["task"].graph.num_nodes, **pack,
+    emit(name, argv=argv, model=args.model,
+         nodes=ctx["task"].graph.num_nodes, **pack,
          n_edges_stacked=list(sp.e_src.shape),
          n_inner_max=sp.n_inner_max, n_halo_max=sp.n_halo_max,
          total_halo=xplan.total_halo,
@@ -1182,25 +1223,36 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
 
 
 def with_backend(argv: list[str], backend: str,
-                 scale: str | None = None) -> list[str]:
+                 scale: str | None = None, model: str | None = None
+                 ) -> list[str]:
     out = list(argv)
     out[out.index("--backend") + 1] = backend
     if scale is not None:
         out[out.index("--scale") + 1] = scale
+    if model is not None:
+        out[out.index("--model") + 1] = model
     return out
 
 
-def edges_context(ctx: dict, argv: list[str]) -> dict:
-    """The hybrid cell's host plan with the ``edges`` stacking: the flags
-    differ in the backend only, so the partition, RAPA, JACA and the
-    exchange plan are the same."""
+def shared_context(ctx: dict, argv: list[str]) -> dict:
+    """The host plan of ``ctx`` for flags that differ from its own in the
+    backend or the model only: the partition, RAPA, JACA and the exchange
+    plan are the same (every model has the same ``feat_dims``, which is
+    all the plan reads of it); the layout is stacked anew for another
+    backend."""
+    import dataclasses as dc
     from repro_torch.dist import TrainSpec, stack_partitions
     from repro_torch.launch.train import build_parser
     t0 = time.perf_counter()
-    sp = stack_partitions(ctx["ps"], ctx["task"], backend="edges")
-    spec = TrainSpec.from_cli_args(build_parser().parse_args(argv))
-    keep = ("task", "ps", "profiles", "group", "cfg", "xplan")
-    return {**{k: ctx[k] for k in keep}, "sp": sp, "spec": spec,
+    args = build_parser().parse_args(argv)
+    cfg = dc.replace(ctx["cfg"], model=args.model)
+    if cfg.feat_dims != ctx["cfg"].feat_dims:
+        raise AssertionError(f"{args.model}: feat_dims {cfg.feat_dims}")
+    sp = (ctx["sp"] if args.backend == ctx["spec"].backend else
+          stack_partitions(ctx["ps"], ctx["task"], backend=args.backend))
+    keep = ("task", "ps", "profiles", "group", "xplan")
+    return {**{k: ctx[k] for k in keep}, "cfg": cfg, "sp": sp,
+            "spec": TrainSpec.from_cli_args(args),
             "host_plan_s": time.perf_counter() - t0}
 
 
@@ -1526,7 +1578,7 @@ def tiers_context() -> dict:
                     num_layers=3)
     params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
     return {"cfg": cfg, "sp": stack_partitions(ps, task, backend="hybrid"),
-            "plans": plans,
+            "plans": plans, "task": task, "ps": ps,
             "params_np": [{k: v.numpy() for k, v in q.items()}
                           for q in params]}
 
@@ -1665,6 +1717,170 @@ def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
          tier_rows=[{t: getattr(x, t).n_rows for t in ("uncached", "local")}
                     | {"global": x.glob.n_unique} for x in plans],
          cases=cases)
+
+
+# the spmd_models phase: (model, backend, transport) on the parity graph,
+# each through refresh, cached, pipelined and cached steps of sgd(TIER_LR)
+MODEL_CASES = (("sage", "hybrid", "p2p"), ("gin", "ell", "allgather"),
+               ("gat", "edges", "p2p"))
+MODEL_KINDS = ["refresh", "cached", "pipelined", "cached"]
+MODEL_TOL = 1e-5          # SPMD rank vs the card's sim: f32 sums over ranks
+
+
+def models_context(tctx: dict) -> list[dict]:
+    """:func:`tiers_context`'s graph and first plan for each case of
+    :data:`MODEL_CASES`: the model's config (the same widths), the layout
+    stacked for its backend, its spec and parameters (``init_gnn`` of
+    seed 0)."""
+    import dataclasses as dc
+    from repro_torch.dist import TrainSpec, stack_partitions
+    from repro_torch.models.gnn import init_gnn
+    cases = []
+    for model, backend, transport in MODEL_CASES:
+        cfg = dc.replace(tctx["cfg"], model=model)
+        params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
+        cases.append({
+            "model": model, "backend": backend, "transport": transport,
+            "cfg": cfg, "xplan": tctx["plans"][0],
+            "sp": stack_partitions(tctx["ps"], tctx["task"],
+                                   backend=backend),
+            "spec": TrainSpec(backend=backend, transport=transport,
+                              refresh_every=2, pipeline=True),
+            "params_np": [{k: v.numpy() for k, v in q.items()}
+                          for q in params]})
+    return cases
+
+
+def model_run(rt, cfg, xplan, opt, params, epochs: int) -> dict:
+    """One refresh step's loss and gradients from ``params``, then an
+    ``epochs``-step ``train_capgnn`` and the test evaluation, their
+    launches counted from zero; on the host."""
+    from repro_torch.dist import train_capgnn
+    loss, grads = rt.loss_and_grads(params, rt.caches0)
+    zero_counts()
+    p, rep = train_capgnn(cfg, rt, xplan, xplan.num_parts, opt,
+                          epochs=epochs, params0=params, spec=rt.spec)
+    rt.evaluate(p, "test")
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "launches": read_counts(),
+            "grads": [{k: v.cpu() for k, v in g.items()} for g in grads],
+            "losses": rep.losses, "step_kinds": rep.step_kinds,
+            "params": [{k: v.cpu() for k, v in q.items()} for q in p],
+            "comm_bytes": rep.comm_bytes}
+
+
+def spmd_models_rank(rank, world_size, device, cases):
+    """One rank of the ``spmd_models`` phase: :func:`model_run` of each
+    case with ``sgd(TIER_LR)`` on the SPMD runtime, and every step's wire
+    counts."""
+    from repro_torch.dist import make_spmd_runtime
+    from repro_torch.optim import sgd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for c in cases:
+        opt = sgd(TIER_LR)
+        rt = make_spmd_runtime(c["cfg"], c["sp"], c["xplan"], opt,
+                               spec=c["spec"], device=device)
+        params = [{k: torch.as_tensor(v, device=device)
+                   for k, v in q.items()} for q in c["params_np"]]
+        res = model_run(rt, c["cfg"], c["xplan"], opt, params,
+                        len(MODEL_KINDS))
+        res["wire"] = [w["counts"] for w in rt.wire_log]
+        out.append(res)
+    return out
+
+
+def phase_spmd_models(name: str, cases: list[dict], backend: str,
+                      devices) -> dict:
+    """The SPMD runtime with SAGE (``hybrid``, ``p2p``), GIN (``ell``,
+    ``allgather``) and GAT (``edges``, ``p2p``) on the parity graph, 4
+    ranks over ``backend``: each rank's refresh-step loss, gradients (GIN's
+    0-d ``eps`` among them), losses and parameters after
+    :data:`MODEL_KINDS` against the card's single-process runtime from the
+    same parameters (within :data:`MODEL_TOL`; the gradients within
+    ``GRAD_RTOL`` of their largest magnitude, as the ``spmd`` phase holds
+    them); every step's counted rows equal to the plan's; the
+    launches, summed over ranks, those the model and backend give.
+    Returns the launches of each case, by path."""
+    from repro_torch.dist import make_sim_runtime
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import sgd
+    t0 = time.perf_counter()
+    by_rank = spawn(spmd_models_rank, SPMD_RANKS, backend=backend,
+                    devices=devices, args=(cases,))
+    wall_s = time.perf_counter() - t0
+    out, recs = {}, []
+    for i, c in enumerate(cases):
+        ranks = [r[i] for r in by_rank]
+        cfg, x, transport = c["cfg"], c["xplan"], c["transport"]
+        layers = cfg.num_layers
+        opt = sgd(TIER_LR)
+        sim = make_sim_runtime(cfg, c["sp"], x, opt, spec=c["spec"],
+                               device="cuda")
+        ref = model_run(sim, cfg, x, opt,
+                        [{k: torch.as_tensor(v, device="cuda")
+                          for k, v in q.items()} for q in c["params_np"]],
+                        len(MODEL_KINDS))
+        if ref["step_kinds"] != MODEL_KINDS:
+            raise AssertionError(f"{name}: step kinds {ref['step_kinds']}")
+        err = {"loss": 0.0, "grads_of_max": 0.0, "losses": 0.0,
+               "params": 0.0}
+        for r in ranks:
+            err["loss"] = max(err["loss"], abs(r["loss"] - ref["loss"]))
+            err["losses"] = max(err["losses"], float(np.abs(np.subtract(
+                r["losses"], ref["losses"])).max()))
+            for got, want, key in ((r["grads"], ref["grads"],
+                                    "grads_of_max"),
+                                   (r["params"], ref["params"], "params")):
+                for a, b in zip(got, want):
+                    for k in b:
+                        e = float((a[k] - b[k]).abs().max())
+                        if key == "grads_of_max":
+                            e /= float(b[k].abs().max()) + 1e-12
+                        err[key] = max(err[key], e)
+            if r["comm_bytes"] != ref["comm_bytes"]:
+                raise AssertionError(f"{name}: {c['model']}: comm_bytes "
+                                     f"{r['comm_bytes']} != "
+                                     f"{ref['comm_bytes']}")
+        if not (max(err["loss"], err["losses"], err["params"]) <= MODEL_TOL
+                and err["grads_of_max"] <= GRAD_RTOL):
+            raise AssertionError(f"{name}: {c['model']} against the card's "
+                                 f"sim runtime: {err}")
+        for s, kind in enumerate(MODEL_KINDS):
+            rows = x.transport_rows(transport, kind != "cached")
+            for li in range(1, layers):
+                for t in ("uncached", "local", "global"):
+                    n = rows[t]
+                    got = sum(r["wire"][s].get((li, t), {}).get(
+                        "valid_rows", 0) for r in ranks)
+                    if got != n:
+                        raise AssertionError(
+                            f"{name}: {c['model']} step {s} ({kind}) "
+                            f"layer {li} {t}: counted {got} rows, the plan "
+                            f"gives {n}")
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        per_kind = spmd_gather_launches(x, transport, False, layers - 1)
+        want = {k: SPMD_RANKS * v for k, v in train_launches(
+            c["backend"], layers, MODEL_KINDS, per_kind, c["model"]).items()}
+        want["packs_built_for_a_call"] = 0
+        if launches != want:
+            raise AssertionError(f"{name}: {c['model']}: launches "
+                                 f"{launches}, want {want}")
+        out[f"{name}_{c['model']}"] = launches
+        recs.append({"model": c["model"], "backend": c["backend"],
+                     "transport": transport, "max_err": err,
+                     "tol": MODEL_TOL, "grad_rtol": GRAD_RTOL,
+                     "counted_equal_plan": True,
+                     "losses": ranks[0]["losses"],
+                     "eps_grad": (float(ranks[0]["grads"][0]["eps"])
+                                  if c["model"] == "gin" else None),
+                     "launches": launches})
+    emit(name, ranks=SPMD_RANKS, backend=backend, spawn_wall_s=wall_s,
+         devices=list(devices) if not isinstance(devices, str) else devices,
+         wire="gloo-host" if backend == "gloo" else "nccl",
+         steps=MODEL_KINDS, cases=recs)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2604,6 +2820,65 @@ def sweep_csr(slices: dict, gen) -> None:
     torch.cuda.empty_cache()
 
 
+SPMM_AT_D = 64     # a GAT head's width at the paper's hidden 256, 4 heads
+
+
+def phase_spmm_at(sp, gen) -> dict:
+    """``EllAdj.spmm_at``, the first caller whose ELL values carry a
+    gradient, on the training slice's ELL pack (the hybrid pack's regular
+    part) at d = :data:`SPMM_AT_D`: its forward and backward once, the
+    launches counted from zero (the ELL forward, ``d_vals``, and ``d_h``
+    over the transposed pack built for the call: the values are not the
+    constants ``dh_pack`` is built from); the product, ``d_vals`` and
+    ``d_h`` against their plain versions on the same inputs; the
+    ``d_vals`` launch at this width timed beside its plain version.
+    Returns the path's launches."""
+    from repro_torch.kernels import ell_spmm as kell, ref
+    from repro_torch.models.gnn import EllAdj
+    dev = torch.device("cuda")
+    cols = torch.as_tensor(sp.ell.cols, device=dev)
+    vals = torch.as_tensor(sp.ell.vals, device=dev)
+    n_parts, n_rows, k = cols.shape
+    n_cols, d = sp.n_inner_max + sp.n_halo_max, SPMM_AT_D
+    adj = EllAdj(cols, vals, n_cols)
+    e = torch.randn(tuple(vals.shape), generator=gen, device=dev)
+    h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev)
+    g = torch.randn((n_parts, n_rows, d), generator=gen, device=dev)
+    te, th = e.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    zero_counts()
+    out = adj.spmm_at(te, th)
+    d_e, d_h = torch.autograd.grad(out, (te, th), g)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {**{k_: 0 for k_ in launches}, "ell_spmm": 1, "csr_spmm_dh": 1,
+            "ell_spmm_dvals": 1, "packs_built_for_a_call": 1}
+    if launches != want:
+        raise AssertionError(f"ell_spmm_at: launches {launches}, want "
+                             f"{want}")
+    live = vals != 0
+    v = torch.where(live, e, 0.0)
+    want_dv, want_dh = ref.ell_spmm_bwd_ref(cols, v, h, g, n_cols)
+    err = {"forward": check_close("spmm_at forward", out.detach(),
+                                  ref.ell_spmm_ref(cols, v, h)),
+           "d_vals": check_close("spmm_at d_vals", d_e,
+                                 torch.where(live, want_dv, 0.0)),
+           "d_h": check_close("spmm_at d_h", d_h, want_dh,
+                              **csr_tol(want_dh))}
+    del te, th, out, d_e, d_h, want_dv, want_dh
+    t = time_calls({
+        "kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
+        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, v, h, g, n_cols,
+                                                 need_h=False)}, reps=5)
+    rows = referenced_rows(cols, torch.ones_like(live), n_cols)
+    nbytes = cols.numel() * 8 + g.numel() * 4 + rows * d * 4
+    b, by = bound_ms(nbytes, 2.0 * cols.numel() * d)
+    emit("kernel", name="ell_spmm_at", shape=[n_parts, n_rows, k, n_cols, d],
+         live_slots=int(live.sum()), launches=launches, max_abs_err=err,
+         dvals_ms=t["kernel_ms"], dvals_plain_ms=t["plain_ms"],
+         dvals_bound_ms=b, dvals_bound_by=by)
+    return launches
+
+
 def phase_backward(sp, gen) -> list[dict]:
     """d_vals and the chunked forward at the training slice's shapes (its
     hybrid pack, d = 256, random g and h); returns their kernels-line
@@ -2770,14 +3045,18 @@ def spmd_host_nccl(tctx: dict, lr: float) -> None:
 
 
 def main_spmd_nccl(device: dict) -> None:
-    """``--spmd-nccl``: the ``spmd_tiers_nccl`` phase; then the training
+    """``--spmd-nccl``: the ``spmd_tiers_nccl`` and ``spmd_models_nccl``
+    phases; then the training
     cell's host plan, the card's single-process refresh step from
     ``init_gnn`` of its seed, the ``spmd_nccl`` phase under both
     transports, and the host-features and ``lru`` runs over NCCL
     (:func:`spmd_host_nccl`)."""
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
-    phase_spmd_tiers("spmd_tiers_nccl", tiers_context(), "nccl", "cuda")
+    tiers = tiers_context()
+    phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
+    phase_spmd_models("spmd_models_nccl", models_context(tiers), "nccl",
+                      "cuda")
     args = build_parser().parse_args(TRAIN_ARGV)
     ctx = prepare_train(args)
     params0 = init_gnn(ctx["cfg"], torch.Generator().manual_seed(args.seed),
@@ -2820,17 +3099,31 @@ def main(argv=None) -> None:
                           cfg.out_dim, args.max_batch, gen)
     torch.cuda.empty_cache()
 
-    serve_launches = phase_main(args, ctx)
+    serve_launches = phase_main("main_path", SLICE_ARGV, ctx)
     torch.cuda.empty_cache()
-    train_launches, tctx, tref = phase_train("train", TRAIN_ARGV,
-                                             sgd_check=True)
+    by_path = {"serve": serve_launches}
+    by_path["serve_sage"] = phase_main(
+        "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx)
+    torch.cuda.empty_cache()
+    by_path["train"], tctx, tref = phase_train("train", TRAIN_ARGV,
+                                               sgd_check=True)
     tref["run_losses"] = tctx["report"].losses
-    by_path = {"serve": serve_launches, "train": train_launches}
-    # the default flags (--backend edges) on the same host plan
+    # SAGE and GIN on the same host plan (every model has the same widths)
+    for model in ("sage", "gin"):
+        argv = with_backend(TRAIN_ARGV, "hybrid", model=model)
+        by_path[f"train_{model}"], _, _ = phase_train(
+            f"train_{model}", argv, shared_context(tctx, argv))
+        torch.cuda.empty_cache()
+    # the default flags (--backend edges) on the same host plan, and GAT,
+    # which runs on the edge list only
     edges_argv = with_backend(TRAIN_ARGV, "edges")
     by_path["train_edges"], ectx, _ = phase_train(
-        "train_edges", edges_argv, edges_context(tctx, edges_argv))
+        "train_edges", edges_argv, shared_context(tctx, edges_argv))
     phase_coo_spmm(ectx["sp"], gen)
+    gat_argv = with_backend(TRAIN_ARGV, "edges", model="gat")
+    gat_argv[gat_argv.index("--lr") + 1] = GAT_LR
+    by_path["train_gat"], _, _ = phase_train(
+        "train_gat", gat_argv, shared_context(ectx, gat_argv))
     del ectx
     torch.cuda.empty_cache()
     by_path["train_ell"], _, _ = phase_train(
@@ -2845,6 +3138,8 @@ def main(argv=None) -> None:
             epochs, lr)
     tiers = tiers_context()
     phase_spmd_tiers("spmd_tiers", tiers, "gloo", ["cuda:0"] * SPMD_RANKS)
+    by_path.update(phase_spmd_models("spmd_models", models_context(tiers),
+                                     "gloo", ["cuda:0"] * SPMD_RANKS))
     torch.cuda.empty_cache()
     # JACA's CPU tier and online adaptation on the train cell's host plan
     fctx = forced_context(tctx)
@@ -2869,10 +3164,12 @@ def main(argv=None) -> None:
                 "spmd_nccl", tctx, tref, transport, "nccl", "cuda", epochs,
                 lr)
         phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
+        by_path.update(phase_spmd_models(
+            "spmd_models_nccl", models_context(tiers), "nccl", "cuda"))
         spmd_host_nccl(tctx, lr)
     else:
-        for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_host_nccl",
-                     "spmd_lru_nccl"):
+        for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_models_nccl",
+                     "spmd_host_nccl", "spmd_lru_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
                  why="NCCL needs one card per rank")
     torch.cuda.empty_cache()
@@ -2891,6 +3188,8 @@ def main(argv=None) -> None:
         sweep_ell(slices, gen)
         sweep_csr(slices, gen)
         sweep_dvals(tctx["sp"], gen)
+    by_path["ell_spmm_at"] = phase_spmm_at(tctx["sp"], gen)
+    torch.cuda.empty_cache()
     entries = [weighted_entry("ell_spmm", ELL_SOURCE, ELL_REPLACES,
                               ell_cases), gather, gather_bwd, dh,
                weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,

@@ -8,7 +8,9 @@ The JAX package's ``vmap`` over partitions is the explicit batch: one
 aggregation call per layer covers all P partitions (with ``ell`` or
 ``hybrid`` on the card, one ELL-SpMM kernel launch forward, for
 ``hybrid`` one CSR kernel launch over the COO tail, and, from layer 1
-on, one CSR kernel launch backward for ``d_h``).
+on, one CSR kernel launch backward for ``d_h``; a SAGE layer's
+``degree()`` adds one ELL and one tail launch forward).  Every model of
+``models.gnn`` runs here; GAT on ``edges`` only, as the reference.
 
 From layer 1 on, each non-empty tier pull (the uncached and local tiers,
 the global buffer's fill and its reads) is one row gather

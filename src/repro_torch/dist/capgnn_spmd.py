@@ -52,8 +52,15 @@ runs its own :class:`~repro_torch.core.jaca.AdaptivePlanner` on the same
 observations (``drift_local_rows`` gathered over the ranks), so every
 rank installs the same re-plans.
 
+The partition axis may be a tuple of mesh axes (the JAX package's
+multi-pod ``("pod", "data")``): ``group`` is then a
+:class:`~repro_torch.launch.mesh.Mesh` and the runtime runs on the group
+of the named axes, the whole mesh's ranks in row-major order, which is
+the order the reference's collectives index the tuple in; the numerics
+and counts are those of the flat group.
+
 Not ported yet, each raising with a message: the tracer and the fault
-guard, and the multi-pod axis tuple (nested process groups).
+guard.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..launch.mesh import Mesh
 from ..models.gnn import GNNConfig
 from ..optim import Optimizer
 from .capgnn_sim import (SimRuntime, _build_runtime, _gather, _gather_map,
@@ -361,10 +369,12 @@ class SpmdRuntime(SimRuntime):
 def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
                       opt: Optimizer, group=None, axis="data", *,
                       spec: TrainSpec, device="cuda") -> SpmdRuntime:
-    """Build this rank's runtime over ``group`` (the default group when
-    None; its size must be the plan's partition count) on ``device`` (the
-    card unless the caller asks for the CPU), from ``spec`` (a
-    :class:`repro_torch.dist.TrainSpec`).
+    """Build this rank's runtime over ``group`` (a process group, None for
+    the default one, or a :class:`~repro_torch.launch.mesh.Mesh` whose
+    ``axis`` names the partition axes; the group's size must be the
+    plan's partition count) on ``device`` (the card unless the caller
+    asks for the CPU), from ``spec`` (a :class:`repro_torch.dist.
+    TrainSpec`).
 
     ``sp`` and ``xplan`` are the whole layout and plan, as every rank
     builds or receives them; the rank keeps its own row.  ``spec.backend``
@@ -374,12 +384,14 @@ def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
     every payload before the wire (counted at 2 bytes an entry) and
     dequantises after.  ``spec.features="host"`` keeps the rank's halo
     rows in its own host store (see the module docstring).  ``axis``
-    names the partition axis: a tuple of several (the JAX package's
-    multi-pod mesh) is not ported yet and raises.
+    names the partition axis, or the tuple of a mesh's axes (the JAX
+    package's multi-pod mesh), which needs ``group`` to be the mesh.
     """
-    if not isinstance(axis, str) and len(tuple(axis)) > 1:
-        raise _not_ported(f"the multi-pod axis tuple {tuple(axis)} (nested "
-                          "process groups)")
+    if isinstance(group, Mesh):
+        group = group.group(axis)
+    elif not isinstance(axis, str) and len(tuple(axis)) > 1:
+        raise ValueError(f"the axis tuple {tuple(axis)} names the axes of "
+                         "a mesh: pass group=launch.mesh.make_mesh(...)")
     if spec.transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {spec.transport!r}; "
                          f"expected one of {TRANSPORTS}")

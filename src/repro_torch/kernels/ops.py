@@ -45,9 +45,9 @@ from .csr_spmm import ID_LIMIT, CsrPack, csr_spmm, csr_spmm_accumulate
 
 __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
            "csr_pack", "transpose_csr", "tail_csr", "pack_for_call",
-           "gather_pack", "coo_spmm", "EllSpmmFn", "HybridSpmmFn",
-           "GatherRowsFn", "ell_spmm", "hybrid_spmm", "gather_rows",
-           "pack_rows"]
+           "gather_pack", "segment_ids", "segment_sum", "coo_spmm",
+           "EllSpmmFn", "HybridSpmmFn", "GatherRowsFn", "ell_spmm",
+           "hybrid_spmm", "gather_rows", "pack_rows"]
 
 # A CSR row with more entries than this is long: the kernel cuts it into
 # segments of at most this many entries, one block each (PERF.md: the
@@ -242,17 +242,45 @@ def pack_for_call(build, *args, **kwargs) -> CsrPack:
 pack_for_call.builds = 0
 
 
+def segment_ids(dst: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``dst [P, M]`` as ids into a flattened ``[P * (n_rows + 1)]`` table:
+    row ``n_rows`` of each partition is its spare row."""
+    pidx = torch.arange(dst.shape[0], device=dst.device)[:, None]
+    return (pidx * (n_rows + 1) + dst.long()).reshape(-1)
+
+
+def segment_sum(x: torch.Tensor, dst: torch.Tensor, n_rows: int,
+                keep_spare: bool = False) -> torch.Tensor:
+    """``out[..., r, ...] = sum of x[..., e, ...] over dst[..., e] == r``
+    with ``index_add_``, for ``x [m, *rest]`` and ``dst [m]`` or a ``[P,
+    ...]`` stack of both.  Entries with ``dst == n_rows`` are padding:
+    they land in one spare row a partition, which is sliced off unless
+    ``keep_spare`` (the reference's ``segment_sum`` drops them; torch
+    would raise on an out-of-range index instead)."""
+    batched = dst.dim() == 2
+    if not batched:
+        x, dst = x[None], dst[None]
+    n_parts, rest = dst.shape[0], tuple(x.shape[2:])
+    out = x.new_zeros((n_parts * (n_rows + 1),) + rest)
+    out.index_add_(0, segment_ids(dst, n_rows),
+                   x.reshape((-1,) + rest))
+    out = out.view((n_parts, n_rows + 1) + rest)
+    if not keep_spare:
+        out = out[:, :n_rows]
+    return out if batched else out[0]
+
+
 def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
              h: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Edge-list aggregation ``out[..., dst[e], :] += w[e] * h[..., src[e], :]``
-    with ``index_add_``, for 2-D operands or a ``[P, ...]`` stack.
+    with ``index_add_`` (as :func:`segment_sum`), for 2-D operands or a
+    ``[P, ...]`` stack; differentiable in ``w`` and ``h``.
 
     The messages are one ``index_select`` over the flattened ``h`` at ids
     ``p * n_cols + src``, so their backward is an ``index_add_`` into the
     gradient of ``h`` (not the sort-based backward of two-index advanced
-    indexing).  Edges with ``dst == n_rows`` are padding: they land in one
-    spare row that is sliced off (the reference's segment sum drops them;
-    torch would raise on an out-of-range index instead).
+    indexing).  Edges with ``dst == n_rows`` are padding: they land in the
+    spare row that is sliced off.
     """
     batched = h.dim() == 3
     if not batched:
@@ -262,10 +290,9 @@ def coo_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     ids = (pidx * n_cols + src.long()).reshape(-1)
     msgs = h.reshape(-1, d).index_select(0, ids) * \
         w.reshape(-1, 1).to(h.dtype)                                # [P*M, d]
-    flat = (pidx * (n_rows + 1) + dst.long()).reshape(-1)
     out = torch.zeros((n_parts * (n_rows + 1), d), dtype=h.dtype,
                       device=h.device)
-    out.index_add_(0, flat, msgs)
+    out.index_add_(0, segment_ids(dst, n_rows), msgs)
     out = out.view(n_parts, n_rows + 1, d)[:, :n_rows]
     return out if batched else out[0]
 

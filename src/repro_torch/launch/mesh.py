@@ -9,6 +9,12 @@ never ``fork``: the parent may hold a CUDA context), each in a
 directory (no TCP port, so concurrent groups on one host never collide),
 and returns each rank's result to the parent.
 
+:func:`make_mesh` lays a device mesh over the group: the JAX
+package's multi-pod ``("pod", "data")`` mesh is the whole group, its ranks
+in row-major order (the order ``jax.lax`` collectives index an axis tuple
+in), with one subgroup per line of each axis for a collective that names
+that axis alone.
+
 Backends, chosen by the caller:
 
 - ``"nccl"``: one card per rank.  NCCL refuses two ranks on one GPU, so
@@ -20,16 +26,18 @@ Backends, chosen by the caller:
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import tempfile
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["BACKENDS", "rank_devices", "spawn"]
+__all__ = ["BACKENDS", "Mesh", "make_mesh", "rank_devices", "spawn"]
 
 BACKENDS = ("gloo", "nccl")
 # how long a collective waits for its peers before the group fails
@@ -106,3 +114,51 @@ def spawn(fn: Callable, world_size: int, *, backend: str,
         return [torch.load(os.path.join(tmp, f"result{r}.pt"),
                            weights_only=False)
                 for r in range(world_size)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device mesh over the default process group, one rank a device:
+    ``shape`` and ``axis_names`` as the JAX package's ``jax.make_mesh``
+    takes them, the ranks laid out row-major; ``axis_groups[name]`` is
+    this rank's subgroup along that axis alone."""
+    shape: tuple
+    axis_names: tuple
+    axis_groups: dict
+
+    def group(self, axis):
+        """The process group of the named axes: the default group (None)
+        for every axis of the mesh in the mesh's order (the axis tuple of
+        the JAX package's multi-pod runtime), this rank's subgroup for one
+        axis.  Raises ``ValueError`` for names the mesh lacks or any other
+        subset."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if names == self.axis_names:
+            return None
+        if len(names) == 1 and names[0] in self.axis_groups:
+            return self.axis_groups[names[0]]
+        raise ValueError(f"axes {names} of a mesh with axes "
+                         f"{self.axis_names}: name every axis in order, "
+                         "or one")
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """The :class:`Mesh` of ``shape`` over the default group, whose size
+    must be the shape's product.  Every rank calls it (``new_group`` is
+    collective): one subgroup for each line of each axis, in the same
+    order on every rank."""
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"{len(shape)} dims for axes {axis_names}")
+    size = dist.get_world_size()
+    if int(np.prod(shape)) != size:
+        raise ValueError(f"a mesh of shape {shape} over a group of {size} "
+                         "ranks")
+    ranks = np.arange(size).reshape(shape)
+    axis_groups = {}
+    for ax, name in enumerate(axis_names):
+        for line in np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax]):
+            sub = dist.new_group([int(r) for r in line])
+            if dist.get_rank() in line:
+                axis_groups[name] = sub
+    return Mesh(shape, axis_names, axis_groups)

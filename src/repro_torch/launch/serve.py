@@ -173,7 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--feat-dim", type=int, default=64)
     g.add_argument("--model", default="gcn",
                    choices=["gcn", "sage", "gat", "gin"],
-                   help="only gcn is ported; the others raise")
+                   help="gat needs --backend edges (its edge softmax)")
     g.add_argument("--backend", default="edges",
                    choices=["edges", "ell", "hybrid"],
                    help="aggregation backend for the precompute pass "

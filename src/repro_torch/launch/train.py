@@ -21,7 +21,7 @@ of the kernels and the CUDA context's first work.
 Not ported yet, each exiting with a message: ``--strategy spmm_15d``,
 ``--trace``, ``--device-trace-dir``, ``--faults``, ``--guard-every``,
 ``--checksums``, ``--fetch-retries``, ``--ckpt-dir``/``--resume``, and the
-``lm`` subcommand.  ``--model sage|gat|gin`` raises ``NotImplementedError``.
+``lm`` subcommand.
 """
 from __future__ import annotations
 
@@ -43,17 +43,11 @@ _NOT_PORTED_FLAGS = (
 
 
 def check_ported(args) -> None:
-    """Exit with a message for a flag whose machinery is not ported yet;
-    raise for a model that is not."""
-    from ..models.gnn import PORTED_MODELS
+    """Exit with a message for a flag whose machinery is not ported yet."""
     for attr, flag, asks in _NOT_PORTED_FLAGS:
         if asks(getattr(args, attr)):
             raise SystemExit(f"{flag} is not ported to repro_torch yet "
                              "(see ROADMAP.md); run without it")
-    if args.model not in PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported to repro_torch yet: the "
-            "SAGE, GIN and GAT layers come with a later slice; use --model gcn")
 
 
 def prepare_train(args) -> dict:
@@ -197,7 +191,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--feat-dim", type=int, default=64)
     g.add_argument("--model", default="gcn",
                    choices=["gcn", "sage", "gat", "gin"],
-                   help="only gcn is ported; the others raise")
+                   help="gat needs --backend edges (its edge softmax)")
     g.add_argument("--strategy", default="halo_1d",
                    choices=["halo_1d", "spmm_15d"],
                    help="spmm_15d is not ported yet")

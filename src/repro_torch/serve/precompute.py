@@ -14,7 +14,8 @@ raw input features, layers ``1..L-1`` = post-activation hidden states) and
 The pass runs eagerly over the explicit ``[P, ...]`` batch: one
 aggregation call per layer covers all P partitions (with ``ell`` or
 ``hybrid`` on the card, one ELL-SpMM kernel launch, and for ``hybrid``
-one CSR kernel launch over the COO tail).  Saving and loading a
+one CSR kernel launch over the COO tail; SAGE's ``degree()`` adds one
+of each).  Saving and loading a
 store come with the checkpoint slice.
 """
 from __future__ import annotations

@@ -19,7 +19,10 @@ column-0 slots (one value per row, the same bits at each) and two
 launches bit-equal.  The row gather's backward (the CSR kernel over the
 transposed index map) is bit-reproducible and within the CSR tolerance of
 the CPU's; one refresh step of the training slice per backend (``hybrid``,
-``ell``, ``edges``) matches the CPU within the train slice's tolerances.
+``ell``, ``edges``), and for SAGE, GIN and GAT, matches the CPU within the
+train slice's tolerances.  ``EllAdj.spmm_at`` (trained ELL values) runs
+the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
+stacked gradients stay finite over padding edges.
 """
 import numpy as np
 import pytest
@@ -624,6 +627,19 @@ def test_refresh_step_on_card_matches_cpu(card, backend):
     tolerances), the tier pulls' gradients through the gather backward
     (once per differentiated non-empty pull and exchanged layer), and no
     pack built for a call."""
+    _refresh_card_vs_cpu(card, backend, "gcn")
+
+
+@pytest.mark.parametrize("model,backend", [
+    ("sage", "hybrid"), ("sage", "ell"), ("sage", "edges"),
+    ("gin", "hybrid"), ("gin", "ell"), ("gat", "edges")])
+def test_model_refresh_step_on_card_matches_cpu(card, model, backend):
+    """:func:`test_refresh_step_on_card_matches_cpu` for SAGE, GIN (its
+    0-d ``eps`` gradient among the held ones) and GAT."""
+    _refresh_card_vs_cpu(card, backend, model)
+
+
+def _refresh_card_vs_cpu(card, backend, model):
     from repro_torch.dist import make_sim_runtime
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
@@ -631,7 +647,7 @@ def test_refresh_step_on_card_matches_cpu(card, backend):
 
     args = build_parser().parse_args(
         ["gnn", "--scale", "0.02", "--feat-dim", "32", "--hidden", "32",
-         "--backend", backend, "--epochs", "1"])
+         "--backend", backend, "--model", model, "--epochs", "1"])
     ctx = prepare_train(args)
     cfg, spec, xplan = ctx["cfg"], ctx["spec"], ctx["xplan"]
     params = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -838,3 +854,83 @@ def test_host_mode_equals_device_mode_on_card(card, halo_dtype):
                     assert float((a[k] - b[k]).abs().max()) <= 5e-3, kind
     torch.cuda.synchronize()
     assert host.host_store.delta(snap)["fetch_rows"] == expected
+
+
+def test_ell_spmm_at_on_card_matches_cpu(card):
+    """``EllAdj.spmm_at`` (trained values): its forward, the ``d_vals``
+    kernel and ``d_h`` over a pack built for the call, against the CPU's
+    plain versions; one ``d_vals`` launch, one ``d_h`` launch."""
+    from repro_torch.graph import rmat, symmetric_normalize
+    from repro_torch.models.gnn import make_local_adj
+    g = symmetric_normalize(rmat(300, 2400, seed=4))
+    rng = np.random.default_rng(4)
+    res = {}
+    for dev in ("cpu", card):
+        adj = make_local_adj(g, 250, "ell", device=dev)
+        e = torch.as_tensor(rng.normal(size=tuple(adj.vals.shape)).astype(
+            np.float32)) if dev == "cpu" else res["cpu"]["e"]
+        h = torch.as_tensor(rng.normal(size=(300, 64)).astype(np.float32)) \
+            if dev == "cpu" else res["cpu"]["h"]
+        gout = torch.as_tensor(rng.normal(size=(250, 64)).astype(
+            np.float32)) if dev == "cpu" else res["cpu"]["g"]
+        te = e.detach().to(dev).requires_grad_(True)
+        th = h.detach().to(dev).requires_grad_(True)
+        launches = (ell_spmm.ell_spmm_dvals.launches,
+                    csr_spmm.csr_spmm.launches)
+        out = adj.spmm_at(te, th)
+        (out * gout.to(dev)).sum().backward()
+        if dev == card:
+            torch.cuda.synchronize()
+            assert (ell_spmm.ell_spmm_dvals.launches - launches[0],
+                    csr_spmm.csr_spmm.launches - launches[1]) == (1, 1)
+        res[str(dev)] = {"e": e, "h": h, "g": gout, "out": out.detach().cpu(),
+                         "de": te.grad.cpu(), "dh": th.grad.cpu()}
+    c, k = res["cpu"], res[str(card)]
+    torch.testing.assert_close(k["out"], c["out"], **ELL_TOL)
+    torch.testing.assert_close(k["de"], c["de"], **ELL_TOL)
+    torch.testing.assert_close(k["dh"], c["dh"], **_csr_tol(c["dh"]))
+    assert (c["de"][adj.vals.cpu() == 0] == 0).all()
+
+
+def test_gat_padded_edge_grads_finite_on_card(card):
+    """One GAT layer over the stacked edge list of 4 uneven partitions
+    (padding edges with ``dst == n_inner_max`` in every partition with
+    fewer inner rows): gradients finite on the card and within 1e-5 of
+    their largest magnitude of the CPU's."""
+    from repro_torch.data.gnn_data import FullBatchTask, split_masks
+    from repro_torch.dist import stack_partitions
+    from repro_torch.graph import (build_partition, metis_partition, rmat,
+                                   symmetric_normalize, synth_features)
+    from repro_torch.models.gnn import (EdgeListAdj, GNNConfig, _layer_apply,
+                                        init_gnn)
+    g = rmat(360, 2200, seed=3)
+    feats, labels = synth_features(g, 12, 5, seed=3)
+    gn = symmetric_normalize(g)
+    tr, va, te = split_masks(g.num_nodes, seed=3)
+    task = FullBatchTask(graph=gn, features=feats, labels=labels,
+                         train_mask=tr, val_mask=va, test_mask=te,
+                         num_classes=5)
+    sp = stack_partitions(build_partition(gn, metis_partition(gn, 4, seed=3),
+                                          hops=1), task)
+    ni, nl = sp.n_inner_max, sp.n_inner_max + sp.n_halo_max
+    assert (sp.n_inner < ni).any() and (sp.e_dst == ni).any()
+    cfg = GNNConfig(model="gat", in_dim=12, hidden_dim=64, out_dim=5)
+    p0 = init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")[0]
+    rng = np.random.default_rng(0)
+    h = torch.as_tensor(rng.normal(size=(4, nl, 12)).astype(np.float32))
+    gout = torch.as_tensor(rng.normal(size=(4, ni, 64)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", card):
+        adj = EdgeListAdj(*(torch.as_tensor(a).to(dev) for a in (
+            sp.e_src.astype(np.int64), sp.e_dst.astype(np.int64), sp.e_w)),
+            ni, nl)
+        p = {k: v.detach().to(dev).requires_grad_(True)
+             for k, v in p0.items()}
+        out = _layer_apply(cfg, p, adj, h.to(dev), ni, False)
+        (out * gout.to(dev)).sum().backward()
+        grads[str(dev)] = {k: v.grad.cpu() for k, v in p.items()}
+    for k, want in grads["cpu"].items():
+        got = grads[str(card)][k]
+        assert torch.isfinite(got).all(), k
+        torch.testing.assert_close(
+            got, want, rtol=0.0, atol=1e-5 * float(want.abs().max()))

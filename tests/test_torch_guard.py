@@ -221,10 +221,42 @@ def test_unported_train_flags_exit(flag):
         ttrain.main(["gnn", "--device", "cpu", *flag])
 
 
+def _reference_layout(cfg) -> list:
+    """The JAX package's ``init_gnn`` of ``cfg``: per layer its parameter
+    names and shapes."""
+    import jax
+    from repro.models.gnn import GNNConfig as JConfig, init_gnn as jinit
+    jp = jinit(jax.random.PRNGKey(0), JConfig(**{
+        f: getattr(cfg, f) for f in ("model", "in_dim", "hidden_dim",
+                                     "out_dim", "num_layers", "num_heads")}))
+    return [{k: tuple(v.shape) for k, v in layer.items()} for layer in jp]
+
+
 @pytest.mark.parametrize("model", ["sage", "gat", "gin"])
-def test_unported_train_models_raise(model):
-    with pytest.raises(NotImplementedError, match=model):
-        ttrain.main(["gnn", "--device", "cpu", "--model", model])
+def test_train_cli_runs_model(model):
+    """The training CLI trains every model the JAX package does: finite
+    losses, and the parameters it trained laid out as the JAX package's
+    ``init_gnn`` lays them out."""
+    args = ttrain.build_parser().parse_args(
+        ["gnn", "--device", "cpu", "--model", model, "--scale", "0.01",
+         "--feat-dim", "8", "--hidden", "8", "--epochs", "2"])
+    out, ctx = ttrain.train_gnn(args)
+    assert out["model"] == model and np.isfinite(out["final_loss"])
+    got = [{k: tuple(v.shape) for k, v in layer.items()}
+           for layer in ctx["params"]]
+    assert got == _reference_layout(ctx["cfg"])
+
+
+@pytest.mark.parametrize("backend,adj", [("ell", "EllAdj"),
+                                         ("hybrid", "HybridAdj")])
+def test_gat_refuses_ell_and_hybrid(backend, adj):
+    """GAT's edge softmax needs the edge list: the training CLI raises
+    naming the backend's adjacency and the ``edges`` fallback, as the
+    reference does (``tests/test_backends.py:88-95``)."""
+    with pytest.raises(NotImplementedError, match=f"{adj}.*edges"):
+        ttrain.main(["gnn", "--device", "cpu", "--model", "gat",
+                     "--backend", backend, "--scale", "0.01",
+                     "--epochs", "1"])
 
 
 def test_unported_runtime_options_raise():
@@ -254,10 +286,15 @@ def test_slice_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("model", ["sage", "gat", "gin"])
-def test_unported_models_raise(model):
+def test_init_gnn_matches_reference_layout(model):
+    """``init_gnn`` gives the JAX package's parameter names and shapes
+    (GIN's ``eps`` 0-d, GAT's last layer ``dh = max(1, 3 // 4) = 1``)."""
     cfg = GNNConfig(model=model, in_dim=8, hidden_dim=8, out_dim=3)
-    with pytest.raises(NotImplementedError, match=model):
-        init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [{k: tuple(v.shape) for k, v in layer.items()}
+            for layer in params] == _reference_layout(cfg)
+    with pytest.raises(ValueError, match="nope"):
+        init_gnn(GNNConfig(model="nope"), torch.Generator(), device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -543,9 +543,15 @@ def test_spmd_adaptive_replans_match_sim(case_id):
 
 
 def test_spmd_unported_options_raise():
-    from repro_torch.dist.capgnn_spmd import make_spmd_runtime
+    """The tracer and the fault guard raise; an axis tuple (the multi-pod
+    mesh, ported) needs the mesh as the group and raises without it."""
+    from repro_torch.dist.capgnn_spmd import SpmdRuntime, make_spmd_runtime
+    with pytest.raises(NotImplementedError, match="tracer"):
+        SpmdRuntime.set_tracer(None, object())
+    with pytest.raises(NotImplementedError, match="fault guard"):
+        SpmdRuntime.set_fault_guard(None, object())
     b = _base()
-    with pytest.raises(NotImplementedError, match="multi-pod"):
+    with pytest.raises(ValueError, match="make_mesh"):
         make_spmd_runtime(b["tcfg"], None, b["tx"], sgd(1.0),
                           spec=TrainSpec(), device="cpu",
                           axis=("pod", "data"))

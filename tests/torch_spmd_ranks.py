@@ -161,3 +161,40 @@ def run_refresh(rank, world_size, device, cfg, sp, xplan, spec_kw,
     loss, grads = rt.loss_and_grads(params, rt.caches0)
     return {"loss": float(loss), "grads": _np(grads),
             "wire": rt.wire_log[-1]}
+
+
+MODEL_EPOCHS = 4      # refresh, cached, pipelined, cached at refresh_every=2
+
+
+def run_models(rank, world_size, device, cases):
+    """Each of ``cases`` (name, cfg, stacked layout, plan, spec kwargs,
+    numpy parameters, mesh shape or None) on this rank: one refresh
+    step's loss and gradients, then a :data:`MODEL_EPOCHS`-step
+    ``train_capgnn`` with ``sgd(0.5)``: its losses, parameters, report
+    counts and every step's wire counts.  A case with a mesh shape runs
+    over ``make_mesh(shape, ("pod", "data"))`` on the axis tuple, and its
+    rank also sums the ranks along ``"data"`` alone (``data_axis_sum``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for name, cfg, sp, xplan, spec_kw, params_np, mesh_shape in cases:
+        spec = TrainSpec(**spec_kw)
+        group, axis, res = None, "data", {}
+        if mesh_shape is not None:
+            group, axis = make_mesh(mesh_shape, ("pod", "data")), \
+                ("pod", "data")
+            t = torch.tensor([float(rank)])
+            dist.all_reduce(t, group=group.group("data"))
+            res["data_axis_sum"] = float(t)
+        opt = sgd(0.5)
+        rt = make_spmd_runtime(cfg, sp, xplan, opt, group, axis, spec=spec,
+                               device=device)
+        params = _params(params_np, device)
+        loss, grads = rt.loss_and_grads(params, rt.caches0)
+        p, rep = train_capgnn(cfg, rt, xplan, world_size, opt,
+                              epochs=MODEL_EPOCHS, params0=params, spec=spec)
+        res.update(loss=float(loss), grads=_np(grads),
+                   train=train_fields(rep), params=_np(p),
+                   wire=[w["counts"] for w in rt.wire_log])
+        out[name] = res
+    return out
