@@ -101,6 +101,27 @@ raises, and the script exits non-zero:
    host counts summed over the ranks equal to the plan's
    (``spmd_host_nccl`` and ``spmd_lru_nccl`` over NCCL on four cards);
    ``profile`` - ``measure_profile()`` on the card.
+   Faults and defenses, the tracer and checkpoints: ``train_faults`` -
+   the slice's path, ``launch.train --backend hybrid --features host
+   --refresh-every 2 --faults FAULT_SPEC --checksums --guard-every 2
+   --fetch-retries 1 --trace --ckpt-dir`` on the forced plan, after the
+   same flags with no fault (every injected class matched by exactly as
+   many counted defenses, the final loss within ``FAULT_LOSS_TOL`` of the
+   clean run's, the corrupted tier and the rollback step), and ``lru``
+   with ``mem_pressure@4``; ``train_traced`` - device and host features
+   on the forced plan, untraced, traced, traced, untraced (the traced
+   totals equal the report's, every step's launches equal, the trace
+   valid, the steady step ms of both); ``device_trace`` -
+   ``--device-trace-dir`` over 3 steps of the train cell (the kernels by
+   name inside the ``layer{li}/spmm`` and tier-pull ranges);
+   ``spmd_faults`` - 4 gloo ranks on the card, host features, both
+   transports in one spawn, ``fetch_drop@3;grad_nan@5`` under the guard,
+   against the card's single-process run under the same faults
+   (``spmd_faults_nccl`` on four cards); ``checkpoint`` - the
+   kill-and-resume scenario of ``tests/test_system.py`` at the train
+   cell's width, then ``launch.serve`` with ``--ckpt-dir`` and
+   ``--store-dir`` and with ``--load-store`` (the tables equal bit for
+   bit).
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -219,8 +240,14 @@ GATHER_REPLACES = "src/repro/kernels/cache_gather.py:38"
 GATHER_BWD_REPLACES = "src/repro/kernels/ops.py:128"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``elapsed_s``: the run's time budget by phase)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -2100,14 +2127,10 @@ def phase_train_host_cli(tctx: dict, argv: list[str]) -> dict:
     those of the device-features ``train`` run bit for bit, the launches
     its launches, the counted rows the plan's.  Then one reinstall
     (``set_plan`` of the same plan) is timed: the ``l0loc`` restage."""
-    from repro_torch.dist import TrainSpec
     from repro_torch.launch.train import build_parser, train_gnn
     args = build_parser().parse_args(argv)
-    keep = ("task", "ps", "profiles", "group", "cfg", "xplan", "sp")
-    ctx = {**{k: tctx[k] for k in keep}, "planner": None,
-           "spec": TrainSpec.from_cli_args(args), "host_plan_s": 0.0}
     zero_counts()
-    out, ctx = train_gnn(args, ctx)
+    out, ctx = train_gnn(args, cli_context(tctx, args))
     torch.cuda.synchronize()
     launches = read_counts()
     rep, rt, xplan = ctx["report"], ctx["runtime"], ctx["xplan"]
@@ -2208,7 +2231,7 @@ def phase_train_adaptive(fctx: dict) -> dict:
     host ms) and, apart, the gathers' transposed maps (``gather_pack``)
     rebuilt at the new plan."""
     from repro_torch.core import AdaptivePlanner
-    from repro_torch.dist import TrainSpec, exchange_arrays
+    from repro_torch.dist import exchange_arrays
     from repro_torch.launch.train import build_parser, train_gnn
     by_path = {}
     for policy, features in (("lru", "host"), ("drift", "device")):
@@ -2218,13 +2241,9 @@ def phase_train_adaptive(fctx: dict) -> dict:
         planner = AdaptivePlanner(fctx["ps"], fctx["cap"],
                                   refresh_every=args.refresh_every,
                                   policy=policy, seed=args.seed)
-        keep = ("task", "ps", "profiles", "group", "cfg", "sp")
         x0 = planner.exchange_plan()
-        ctx = {**{k: fctx[k] for k in keep}, "planner": planner,
-               "xplan": x0, "spec": TrainSpec.from_cli_args(args),
-               "host_plan_s": 0.0}
         zero_counts()
-        out, ctx = train_gnn(args, ctx)
+        out, ctx = train_gnn(args, cli_context(fctx, args, planner))
         torch.cuda.synchronize()
         launches = read_counts()
         rep, cfg = ctx["report"], ctx["cfg"]
@@ -2410,6 +2429,459 @@ def phase_spmd_host(name: str, fctx: dict, ref: dict, transport: str,
          hit_rate=ranks[0]["hit_rate"], launches=launches,
          test=ranks[0]["test"], spawn_wall_s=wall_s)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# faults and defenses, the tracer, checkpoints
+# ---------------------------------------------------------------------------
+
+# the slice's fault spec (one step a class) and its defense flags; every
+# injected event must be matched by exactly one counted defense
+FAULT_SPEC = ("fetch_drop@3;fetch_delay@2:delay_s=0.12;halo_corrupt@4;"
+              "grad_nan@5")
+GUARD_FLAGS = ["--guard-every", "2", "--fetch-retries", "1", "--checksums"]
+FAULT_PAIRS = {"fetch_drop": "fetch_errors", "fetch_delay": "slow_fetches",
+               "halo_corrupt": "corruptions_detected",
+               "grad_nan": "rollbacks", "mem_pressure": "mem_backoffs"}
+# a faulted run's final loss against the clean run's in the same call
+# (the JAX package's fault suite, benchmarks/fault_tolerance.py LOSS_TOL)
+FAULT_LOSS_TOL = 0.25
+SPMD_FAULT_SPEC = "fetch_drop@3;grad_nan@5"
+SPMD_FAULT_GUARD = {"guard_every": 2, "fetch_retries": 1}
+CKPT_TOL = 1e-6           # resumed against uninterrupted, the same card
+OUT_DIR = ROOT / "build" / "chip_smoke"   # traces and checkpoints (ignored)
+
+
+def cli_context(ctx: dict, args, planner=None) -> dict:
+    """``launch.train``'s context for ``args`` on the host plan of
+    ``ctx`` (its exchange plan, or ``planner``'s padded plan)."""
+    from repro_torch.dist import TrainSpec
+    keep = ("task", "ps", "profiles", "group", "cfg", "sp")
+    return {**{k: ctx[k] for k in keep}, "planner": planner,
+            "xplan": ctx["xplan"] if planner is None
+            else planner.exchange_plan(),
+            "spec": TrainSpec.from_cli_args(args), "host_plan_s": 0.0}
+
+
+def kind_ms(rep) -> dict:
+    """Median host ms of each step kind after step 0."""
+    out = {}
+    for kind in sorted(set(rep.step_kinds[1:])):
+        out[kind] = statistics.median(
+            1e3 * t for t, k in zip(rep.step_s[1:], rep.step_kinds[1:])
+            if k == kind)
+    return out
+
+
+def check_defended(name: str, rep) -> dict:
+    """Each injected fault class matched by exactly as many counted
+    defenses, and more than none."""
+    pairs = {}
+    for kind, n in rep.faults_injected.items():
+        if kind in FAULT_PAIRS and n:
+            got = rep.fault_events[FAULT_PAIRS[kind]]
+            if got != n:
+                raise AssertionError(f"{name}: {kind} injected {n}, "
+                                     f"{FAULT_PAIRS[kind]} {got}")
+            pairs[kind] = n
+    return pairs
+
+
+def phase_train_faults(fctx: dict) -> dict:
+    """The slice's path: ``launch.train gnn --backend hybrid --features
+    host --refresh-every 2 --faults FAULT_SPEC --checksums --guard-every 2
+    --fetch-retries 1 --trace --ckpt-dir`` on the forced host plan at full
+    width, 8 Adam steps (the CLI's ``fetch_timeout_s`` 0.1 s; the spec's
+    0.12 s delay exceeds it), after the same flags without the fault,
+    guard, trace and checkpoint flags (the clean run).  Then
+    ``--cache-policy lru --faults mem_pressure@4``.  Checks: every class injected == its
+    defense, exactly, and > 0; finite final losses within
+    ``FAULT_LOSS_TOL`` of the clean run's; the trace valid; the
+    checkpoint written.  Returns the faulted run's launches."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import AdaptivePlanner
+    from repro_torch.launch.train import build_parser, train_gnn
+    from repro_torch.obs.check import check_file
+    out_dir = OUT_DIR / "train_faults"
+    base = TRAIN_ARGV + ["--features", "host", "--refresh-every", "2"]
+    argv = base + ["--faults", FAULT_SPEC, *GUARD_FLAGS, "--trace",
+                   "--trace-dir", str(out_dir), "--ckpt-dir",
+                   str(out_dir / "ckpt")]
+    cargs = build_parser().parse_args(base)
+    _, cctx = train_gnn(cargs, cli_context(fctx, cargs))
+    clean = cctx["report"]
+    clean_losses = clean.losses
+    del cctx
+    args = build_parser().parse_args(argv)
+    zero_counts()
+    out, ctx = train_gnn(args, cli_context(fctx, args))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rep, tr = ctx["report"], ctx["tracer"]
+    pairs = check_defended("train_faults", rep)
+    if set(pairs) != {"fetch_drop", "fetch_delay", "halo_corrupt",
+                      "grad_nan"}:
+        raise AssertionError(f"train_faults: classes defended {pairs}")
+    gap = abs(rep.losses[-1] - clean_losses[-1])
+    if not (np.isfinite(rep.losses[-1]) and gap <= FAULT_LOSS_TOL):
+        raise AssertionError(f"train_faults: final loss {rep.losses[-1]}, "
+                             f"clean {clean_losses[-1]}")
+    stats = check_file(out["trace_file"], ["refresh", "cached", "rollback"])
+    if latest_step(args.ckpt_dir) != args.epochs:
+        raise AssertionError("train_faults: no checkpoint at the last step")
+    steady = kind_ms(rep)
+    del ctx
+    torch.cuda.empty_cache()
+
+    # memory pressure: the backoff shrinks the planner's capacity and
+    # replans this very step
+    largs = build_parser().parse_args(base + ["--cache-policy", "lru",
+                                              "--faults", "mem_pressure@4"])
+    planner = AdaptivePlanner(fctx["ps"], fctx["cap"], refresh_every=2,
+                              policy="lru", seed=largs.seed)
+    lout, lctx = train_gnn(largs, cli_context(fctx, largs, planner))
+    lrep = lctx["report"]
+    lpairs = check_defended("train_faults lru", lrep)
+    if lpairs != {"mem_pressure": 1} or not np.isfinite(lrep.losses[-1]):
+        raise AssertionError(f"train_faults lru: {lpairs}, losses "
+                             f"{lrep.losses}")
+    emit("train_faults", argv=argv, fault_spec=FAULT_SPEC,
+         faults_injected=rep.faults_injected, fault_events=rep.fault_events,
+         injected_equals_defended=pairs, corrupted_tier=rep.fault_tiers,
+         rollback_step=[s.step for s in tr.spans if s.kind == "rollback"],
+         losses=rep.losses, clean_losses=clean_losses,
+         final_loss_gap=gap, loss_tol=FAULT_LOSS_TOL,
+         step_kinds=rep.step_kinds, steady_step_ms=steady,
+         clean_steady_step_ms=kind_ms(clean),
+         host_fetch_rows=rep.host_fetch_rows, phase_stats=rep.phase_stats,
+         trace_spans_by_cat=stats["spans_by_cat"], launches=launches,
+         lru={"argv": largs.faults, "faults_injected": lrep.faults_injected,
+              "fault_events": lrep.fault_events,
+              "step_kinds": lrep.step_kinds, "losses": lrep.losses,
+              "replan_events": lrep.replan_events,
+              "hit_rate": lrep.hit_rate, "steady_step_ms": kind_ms(lrep)})
+    del lctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def step_launch_log(rt) -> list:
+    """Wrap ``rt``'s step functions so each call logs its kind and the
+    kernel launches it made (counted on the host at launch: no sync)."""
+    log = []
+    for kind in ("refresh", "cached", "pipelined"):
+        def logged(*state, _fn=getattr(rt, f"step_{kind}"), _kind=kind):
+            c0 = read_counts()
+            res = _fn(*state)
+            log.append((_kind, {k: v - c0[k]
+                                for k, v in read_counts().items()}))
+            return res
+        setattr(rt, f"step_{kind}", logged)
+    return log
+
+
+def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
+    """The train cell on the forced plan, device and host features, 8 Adam
+    steps untraced, traced, traced, untraced on one runtime each.  Checks:
+    the traced totals equal the report's exactly (``comm_bytes``,
+    ``host_fetch_rows`` / ``_bytes``, ``host_writeback_bytes``, steps);
+    the exported trace passes ``repro_torch.obs.check``; every step's
+    launches equal untraced and traced.  Prints ``phase_stats`` and the
+    steady step ms of both: the cost of the fence."""
+    import dataclasses as dc
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.obs import NULL_TRACER, Tracer
+    from repro_torch.obs.check import check_file
+    from repro_torch.optim import adam
+    cfg, sp, xplan = fctx["cfg"], fctx["sp"], fctx["xplan"]
+    params0 = init_gnn(cfg, torch.Generator().manual_seed(seed), "cuda")
+    res = {}
+    for features in ("device", "host"):
+        spec = dc.replace(fctx["spec"], features=features)
+        rt = make_sim_runtime(cfg, sp, xplan, adam(lr), spec=spec,
+                              device="cuda")
+        log = step_launch_log(rt)
+        runs = []
+        for traced in (False, True, True, False):
+            tr = Tracer() if traced else None
+            n0 = len(log)
+            _, rep = train_capgnn(
+                cfg, rt, xplan, len(fctx["ps"].parts), adam(lr), epochs=8,
+                controller=StalenessController(
+                    refresh_every=spec.refresh_every),
+                params0=params0, tracer=tr, spec=spec)
+            rt.set_tracer(NULL_TRACER)
+            runs.append((traced, rep, tr, log[n0:]))
+        untraced = [r for r in runs if not r[0]]
+        traced_runs = [r for r in runs if r[0]]
+        for _, rep, tr, steps in traced_runs:
+            tot = tr.totals()
+            want = {"wire_bytes": rep.comm_bytes,
+                    "host_fetch_rows": rep.host_fetch_rows,
+                    "host_fetch_bytes": rep.host_fetch_bytes,
+                    "host_writeback_bytes": rep.host_writeback_bytes,
+                    "steps": len(rep.losses)}
+            if {k: tot[k] for k in want} != want:
+                raise AssertionError(f"train_traced {features}: totals "
+                                     f"{tot}, report {want}")
+            if steps != untraced[0][3] or rep.losses != untraced[0][1].losses:
+                raise AssertionError(f"train_traced {features}: launches or "
+                                     "losses differ traced and untraced")
+        paths = traced_runs[0][2].export(str(OUT_DIR / "traced"),
+                                         prefix=f"train_{features}")
+        stats = check_file(paths["trace"], ["refresh", "cached", "pipelined"])
+
+        def steady(group):
+            return {k: statistics.median(
+                1e3 * t for _, rep, _, _ in group
+                for t, kk in zip(rep.step_s[1:], rep.step_kinds[1:])
+                if kk == k) for k in ("refresh", "cached", "pipelined")
+                if k in group[0][1].step_kinds[1:]}
+        res[features] = {
+            "phase_stats": traced_runs[0][1].phase_stats,
+            "totals": traced_runs[0][2].totals(),
+            "steady_step_ms_untraced": steady(untraced),
+            "steady_step_ms_traced": steady(traced_runs),
+            "launches_per_step": [{"kind": k, **c} for k, c in
+                                  untraced[0][3]],
+            "trace_spans_by_cat": stats["spans_by_cat"],
+            "step_kinds": untraced[0][1].step_kinds}
+        del rt, runs
+        torch.cuda.empty_cache()
+    emit("train_traced", launches_equal=True, totals_equal_report=True,
+         **res)
+
+
+def phase_device_trace(tctx: dict) -> None:
+    """``launch.train --device-trace-dir`` over 3 steps of the train cell:
+    the ``torch.profiler`` capture holds the port's kernels by name, each
+    ELL forward launched inside a ``layer{li}/spmm`` range and each row
+    gather inside a tier-pull range (a kernel is placed by the host launch
+    its ``correlation`` id names); the hybrid tail's CSR launches inside
+    the layer ranges."""
+    from repro_torch.launch.train import build_parser, train_gnn
+    argv = TRAIN_ARGV + ["--device-trace-dir", str(OUT_DIR / "device")]
+    argv[argv.index("--epochs") + 1] = "3"
+    args = build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    out, ctx = train_gnn(args, shared_context(tctx, argv))
+    wall_s = time.perf_counter() - t0
+    events = json.load(open(out["device_trace_file"]))["traceEvents"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+
+    def enclosing(ev) -> list:
+        return [r["name"] for r in ranges
+                if r["tid"] == ev["tid"] and r["pid"] == ev["pid"]
+                and r["ts"] <= ev["ts"] <= r["ts"] + r["dur"]]
+    kernels = {"ell_spmm": "ell_spmm_kernel", "csr_spmm": "csr_spmm_kernel",
+               "gather_rows": "gather_rows_kernel"}
+    found = {}
+    for short, sym in kernels.items():
+        evs = [e for e in events if e.get("cat") == "kernel"
+               and sym in e.get("name", "")]
+        where = [enclosing(launch[e["args"]["correlation"]])
+                 for e in evs if e["args"].get("correlation") in launch]
+        found[short] = {
+            "kernels": len(evs), "launches_found": len(where),
+            "in_layer_spmm": sum(any(re.fullmatch(r"layer\d+/spmm", n)
+                                     for n in w) for w in where),
+            "in_tier_pull": sum(any(n.startswith("tier_pull") for n in w)
+                                for w in where),
+            "device_ms": sum(e["dur"] for e in evs) / 1e3}
+    ell, csr, gat = found["ell_spmm"], found["csr_spmm"], found["gather_rows"]
+    if not (ell["kernels"] and ell["in_layer_spmm"] == ell["kernels"]
+            and gat["kernels"] and gat["in_tier_pull"] == gat["kernels"]
+            and csr["in_layer_spmm"] > 0):
+        raise AssertionError(f"device_trace: the kernels by range {found}")
+    emit("device_trace", argv=argv, trace_file=out["device_trace_file"],
+         events=len(events), kernels=found, wall_s=wall_s,
+         ranges={n: sum(r["name"] == n for r in ranges) for n in
+                 sorted({r["name"] for r in ranges})})
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def spmd_faults_rank(rank, world_size, device, cfg, sp, xplan, specs,
+                     params_np, lr, fault_spec, guard_kw):
+    """One rank of ``spmd_faults``: per spec of ``specs`` (id -> TrainSpec)
+    an 8-step ``train_capgnn`` with Adam under this rank's own fault plan
+    (seed 0) and guard; its losses, kinds, counts, wire counts and
+    launches."""
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_spmd_runtime, train_capgnn
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.optim import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, spec in specs.items():
+        opt = adam(lr)
+        rt = make_spmd_runtime(cfg, sp, xplan, opt, spec=spec, device=device)
+        params = [{k: torch.as_tensor(v, device=device) for k, v in p.items()}
+                  for p in params_np]
+        zero_counts()
+        _, rep = train_capgnn(
+            cfg, rt, xplan, world_size, opt, epochs=8,
+            controller=StalenessController(refresh_every=spec.refresh_every),
+            params0=params, faults=FaultPlan.parse(fault_spec, seed=0),
+            guard=GuardConfig(**guard_kw), spec=spec)
+        torch.cuda.synchronize(device)
+        out[name] = {"losses": rep.losses, "step_kinds": rep.step_kinds,
+                     "faults_injected": rep.faults_injected,
+                     "fault_events": rep.fault_events,
+                     "wire": [w["counts"] for w in rt.wire_log[:8]],
+                     "launches": read_counts(),
+                     "step_ms": [1e3 * s for s in rep.step_s],
+                     "host_fetch_rows": rep.host_fetch_rows}
+        del rt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_spmd_faults(name: str, fctx: dict, params0, lr: float, backend: str,
+                      devices) -> dict:
+    """The SPMD runtime on 4 ranks over ``backend``, host features on the
+    forced plan, both transports in one spawn, ``SPMD_FAULT_SPEC`` under
+    ``SPMD_FAULT_GUARD``, against the card's single-process runtime under
+    the same faults: every rank's injected and defense counts equal to
+    it, losses within ``TRAJ_ATOL``, every step's counted wire rows equal
+    to the plan's."""
+    import dataclasses as dc
+    from repro_torch.core import StalenessController
+    from repro_torch.dist import make_sim_runtime, train_capgnn
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import adam
+    cfg, sp, xplan = fctx["cfg"], fctx["sp"], fctx["xplan"]
+    p, layers = sp.num_parts, cfg.num_layers
+    specs = {t: dc.replace(fctx["spec"], transport=t, features="host")
+             for t in ("p2p", "allgather")}
+    rt = make_sim_runtime(cfg, sp, xplan, adam(lr), spec=specs["p2p"],
+                          device="cuda")
+    _, ref = train_capgnn(
+        cfg, rt, xplan, p, adam(lr), epochs=8,
+        controller=StalenessController(
+            refresh_every=specs["p2p"].refresh_every),
+        params0=params0, faults=FaultPlan.parse(SPMD_FAULT_SPEC, seed=0),
+        guard=GuardConfig(**SPMD_FAULT_GUARD), spec=specs["p2p"])
+    del rt
+    torch.cuda.empty_cache()
+    params_np = [{k: v.cpu().numpy() for k, v in q.items()} for q in params0]
+    t0 = time.perf_counter()
+    ranks = spawn(spmd_faults_rank, p, backend=backend, devices=devices,
+                  args=(cfg, sp, xplan, specs, params_np, lr,
+                        SPMD_FAULT_SPEC, SPMD_FAULT_GUARD))
+    wall_s = time.perf_counter() - t0
+    res, by_path = {}, {}
+    for t in specs:
+        runs = [r[t] for r in ranks]
+        for r in runs:
+            if (r["faults_injected"], r["fault_events"]) != \
+                    (ref.faults_injected, ref.fault_events):
+                raise AssertionError(f"{name} {t}: counts {r['fault_events']}"
+                                     f", the sim's {ref.fault_events}")
+        err = max(float(np.nanmax(np.abs(np.subtract(r["losses"],
+                                                     ref.losses))))
+                  for r in runs)
+        if not err <= TRAJ_ATOL or runs[0]["step_kinds"] != ref.step_kinds:
+            raise AssertionError(f"{name} {t}: losses {err} from the sim")
+        for s, kind in enumerate(ref.step_kinds):
+            want = xplan.transport_rows(t, kind != "cached")
+            for li in range(1, layers):
+                for tier in ("uncached", "local", "global"):
+                    c = sum(r["wire"][s].get((li, tier), {}).get(
+                        "valid_rows", 0) for r in runs)
+                    if c != want[tier]:
+                        raise AssertionError(f"{name} {t}: step {s} layer "
+                                             f"{li} {tier}: {c} rows, the "
+                                             f"plan's {want[tier]}")
+        by_path[f"{name}_{t}"] = {k: sum(r["launches"][k] for r in runs)
+                                  for k in runs[0]["launches"]}
+        res[t] = {"losses": runs[0]["losses"], "max_abs_err_vs_sim": err,
+                  "step_kinds": runs[0]["step_kinds"],
+                  "median_step_ms": statistics.median(runs[0]["step_ms"][1:]),
+                  "host_fetch_rows": [r["host_fetch_rows"] for r in runs],
+                  "launches": by_path[f"{name}_{t}"]}
+    emit(name, backend=backend, ranks=p,
+         devices=list(devices) if not isinstance(devices, str) else devices,
+         wire="gloo-host" if backend == "gloo" else "nccl",
+         fault_spec=SPMD_FAULT_SPEC, guard=SPMD_FAULT_GUARD,
+         faults_injected=ref.faults_injected, fault_events=ref.fault_events,
+         sim_losses=ref.losses, counts_equal_sim=True,
+         counted_equal_plan=True, tol=TRAJ_ATOL, spawn_wall_s=wall_s, **res)
+    return by_path
+
+
+def phase_checkpoint(tctx: dict) -> None:
+    """``tests/test_system.py``'s kill-and-resume scenario at the train
+    cell's width (``--no-pipeline``, so a resumed refresh is the
+    uninterrupted run's): 8 epochs straight; 4 with ``--ckpt-dir``; a
+    step-6 checkpoint truncated by ``ckpt_truncate`` (frac 0.5) and a
+    stray ``.tmp``; ``latest_step`` must be 4 and the resumed run's final
+    loss the straight run's within ``CKPT_TOL``.  Then ``launch.serve``
+    with the trained ``--ckpt-dir`` and ``--store-dir``, and again with
+    ``--load-store``: the tables equal bit for bit."""
+    import warnings
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.faults import FaultPlan
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import build_parser, train_gnn
+    d = OUT_DIR / "ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--no-pipeline"]
+
+    def run(*extra):
+        a = build_parser().parse_args(argv + list(extra))
+        out, ctx = train_gnn(a, shared_context(tctx, argv))
+        del ctx
+        torch.cuda.empty_cache()
+        return out
+    straight = run()
+    first = run("--epochs", "4", "--ckpt-dir", str(d))
+    shutil.copy(d / "ckpt_00000004.npz", d / "ckpt_00000006.npz")
+    shutil.copy(d / "ckpt_00000004.json", d / "ckpt_00000006.json")
+    kept = FaultPlan.parse("ckpt_truncate@0:frac=0.5").truncate_checkpoint(
+        str(d / "ckpt_00000006.npz"))
+    (d / "ckpt_00000006.npz.tmp").write_bytes(b"partial")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        step = latest_step(str(d))
+        resumed = run("--ckpt-dir", str(d), "--resume")
+    err = abs(resumed["final_loss"] - straight["final_loss"])
+    if step != 4 or resumed["resumed_from"] != 4 or not err <= CKPT_TOL:
+        raise AssertionError(f"checkpoint: latest {step}, resumed from "
+                             f"{resumed['resumed_from']}, final loss "
+                             f"{resumed['final_loss']} vs "
+                             f"{straight['final_loss']}")
+    store = OUT_DIR / "store"
+    shutil.rmtree(store, ignore_errors=True)
+    served = {}
+    for extra in (["--store-dir", str(store)],
+                  ["--store-dir", str(store), "--load-store"]):
+        sargs = tserve.build_parser().parse_args(
+            SLICE_ARGV + ["--ckpt-dir", str(d)] + extra)
+        t0 = time.perf_counter()
+        out, engine = tserve.serve_gnn(sargs)
+        served["load" if "--load-store" in extra else "save"] = (
+            out, engine.store.tables, time.perf_counter() - t0)
+        del engine
+    same = all(np.array_equal(a, b) for a, b in
+               zip(served["save"][1], served["load"][1]))
+    if not same:
+        raise AssertionError("checkpoint: the reloaded store's tables differ")
+    emit("checkpoint", argv=argv, straight_final_loss=straight["final_loss"],
+         first_final_loss=first["final_loss"], truncated_to_bytes=kept,
+         latest_step=step, resumed_from=resumed["resumed_from"],
+         resumed_final_loss=resumed["final_loss"], final_loss_err=err,
+         tol=CKPT_TOL, store_tables_equal=same,
+         serve_precompute_s={k: v[0]["precompute_s"]
+                             for k, v in served.items()},
+         serve_wall_s={k: v[2] for k, v in served.items()},
+         serve_qps={k: v[0]["qps"] for k, v in served.items()})
 
 
 def phase_profile() -> None:
@@ -2865,16 +3337,30 @@ def phase_spmm_at(sp, gen) -> dict:
            "d_h": check_close("spmm_at d_h", d_h, want_dh,
                               **csr_tol(want_dh))}
     del te, th, out, d_e, d_h, want_dv, want_dh
-    t = time_calls({
-        "kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
-        "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, v, h, g, n_cols,
-                                                 need_h=False)}, reps=5)
+    fns = {"kernel_ms": lambda: kell.ell_spmm_dvals(cols, g, h),
+           "plain_ms": lambda: ref.ell_spmm_bwd_ref(cols, v, h, g, n_cols,
+                                                    need_h=False)}
+    # the library yardstick at this width: torch.sparse.sampled_addmm at
+    # the live slots' CSR pattern (as phase_backward's at d = 256)
+    pattern = ell_csr(cols, vals, n_cols)
+    g2, h_t = g.reshape(-1, d), h.reshape(-1, d).t()
+    lib = torch.sparse.sampled_addmm(pattern, g2, h_t, beta=0.0)
+    lib_diff = float((lib.values()
+                      - kell.ell_spmm_dvals(cols, g, h)[live]).abs().max())
+    fns["library_ms"] = lambda: torch.sparse.sampled_addmm(pattern, g2, h_t,
+                                                           beta=0.0)
+    del lib
+    t = time_calls(fns, reps=5)
     rows = referenced_rows(cols, torch.ones_like(live), n_cols)
     nbytes = cols.numel() * 8 + g.numel() * 4 + rows * d * 4
     b, by = bound_ms(nbytes, 2.0 * cols.numel() * d)
     emit("kernel", name="ell_spmm_at", shape=[n_parts, n_rows, k, n_cols, d],
          live_slots=int(live.sum()), launches=launches, max_abs_err=err,
          dvals_ms=t["kernel_ms"], dvals_plain_ms=t["plain_ms"],
+         dvals_library_ms=t["library_ms"],
+         dvals_library_covers="the live slots only "
+                              "(torch.sparse.sampled_addmm)",
+         dvals_library_max_abs_diff=lib_diff,
          dvals_bound_ms=b, dvals_bound_by=by)
     return launches
 
@@ -3021,7 +3507,7 @@ def spmd_host_nccl(tctx: dict, lr: float) -> None:
     """The ``spmd_host`` run over NCCL, one card per rank (``p2p``, host
     features, the forced plan), and one ``lru`` re-planned run under
     ``allgather`` (``spmd_lru_nccl``), each against the card's
-    single-process run of the same spec."""
+    single-process run of the same spec; then ``spmd_faults_nccl``."""
     import dataclasses as dc
     from repro_torch.core import AdaptivePlanner
     from repro_torch.models.gnn import init_gnn
@@ -3042,6 +3528,7 @@ def spmd_host_nccl(tctx: dict, lr: float) -> None:
                         planner)
     phase_spmd_host("spmd_lru_nccl", fctx, ref, "allgather", "nccl", "cuda",
                     params0, lr, features="device", policy="lru")
+    phase_spmd_faults("spmd_faults_nccl", fctx, params0, lr, "nccl", "cuda")
 
 
 def main_spmd_nccl(device: dict) -> None:
@@ -3154,7 +3641,16 @@ def main(argv=None) -> None:
     by_path["spmd_host"] = phase_spmd_host(
         "spmd_host", fctx, host_ref, "p2p", "gloo", ["cuda:0"] * SPMD_RANKS,
         params0, lr)
+    # faults and defenses, the tracer and checkpoints
+    torch.cuda.empty_cache()
+    by_path["train_faults"] = phase_train_faults(fctx)
+    phase_train_traced(fctx, seed, lr)
+    by_path.update(phase_spmd_faults("spmd_faults", fctx, params0, lr,
+                                     "gloo", ["cuda:0"] * SPMD_RANKS))
     del fctx
+    torch.cuda.empty_cache()
+    phase_device_trace(tctx)
+    phase_checkpoint(tctx)
     torch.cuda.empty_cache()
     phase_profile()
     n_cards = torch.cuda.device_count()
@@ -3169,7 +3665,7 @@ def main(argv=None) -> None:
         spmd_host_nccl(tctx, lr)
     else:
         for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_models_nccl",
-                     "spmd_host_nccl", "spmd_lru_nccl"):
+                     "spmd_host_nccl", "spmd_lru_nccl", "spmd_faults_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
                  why="NCCL needs one card per rank")
     torch.cuda.empty_cache()

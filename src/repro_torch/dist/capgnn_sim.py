@@ -48,7 +48,14 @@ staged for the stale reads).  ``train_capgnn`` takes an
 :class:`~repro_torch.core.jaca.AdaptivePlanner` and swaps its re-plans in
 at the controller's boundaries (``set_plan`` / ``step_transition``).
 
-Not ported yet: the tracer and the fault guard; asking for one raises.
+Faults, defenses and tracing (``train_capgnn``'s ``faults``, ``guard``
+and ``tracer``; :mod:`repro_torch.faults`, :mod:`repro_torch.obs`) follow
+the JAX package's loop step for step.  With none of them the steps run
+no extra code: no sync beyond the one per step at the loss.  The step
+code names its device work with ``torch.profiler`` ranges at the JAX
+package's sites (``tier_pull_uncached``, ``tier_pull_refresh``,
+``refresh_ring_issue``, ``layer{li}/spmm``, ``refresh_ring_advance``,
+``refresh_ring_finish``): with no capture running they record nothing.
 
 The reference drops out-of-range scatter indices (``mode="drop"``); torch
 raises on them instead, so :func:`_scatter` writes into one spare row and
@@ -65,10 +72,14 @@ import numpy as np
 import torch
 
 from ..core.staleness import StalenessController
+from ..faults.guard import GuardConfig, TrainGuard
+from ..faults.plan import NULL_FAULTS
 from ..kernels.ops import (ell_row_end, gather_pack, pack_rows, tail_csr,
                            transpose_csr)
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, init_gnn)
+from ..obs.annotations import device_scope, host_annotation
+from ..obs.tracer import NULL_TRACER, StepCounters, device_peak_bytes
 from ..optim import Optimizer, tree_leaves, tree_map
 from .exchange import ExchangePlan, ExchangeTier, GlobalTier, StackedParts
 from .host_store import HostFeatureStore, halo_dtype_info
@@ -318,11 +329,6 @@ def exchange_arrays(xplan: ExchangePlan, n_inner: int, device="cuda",
     return out
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -410,6 +416,33 @@ class SimRuntime:
         self._state["set_plan"](xplan)
         self.xplan = xplan
 
+    def set_tracer(self, tracer) -> None:
+        """Attach a :class:`repro_torch.obs.Tracer`: the steps record
+        their staging sub-spans (``l0_stage``, ``h2d_prefetch``,
+        ``writeback``) on it and the host store its ``h2d_put`` copies.
+        Default is the shared no-op tracer — detaching is
+        ``set_tracer(NULL_TRACER)``."""
+        self._state["tracer"] = tracer
+        if self.host_store is not None:
+            self.host_store.set_tracer(tracer)
+
+    def set_fault_guard(self, guard) -> None:
+        """Attach a :class:`repro_torch.faults.FetchGuard`: the host-mode
+        staging routes through its retry/degrade/stale-reuse paths.
+        ``None`` (the default) keeps the unguarded staging code.  No-op
+        in device-feature mode."""
+        self._state["fetch_guard"] = guard
+        if guard is not None and "l0loc" in self._state:
+            # the resident layer-0 local rows are the natural stale
+            # fallback for a failed re-stage at the next plan install
+            guard.last_good.setdefault("l0loc", self._state["l0loc"])
+
+    def any_rank(self, flag: bool) -> bool:
+        """``flag`` of this process, or of any rank of the SPMD group: the
+        guard's step-kind decisions (a forced refresh) must be the same
+        on every rank."""
+        return self._state["ex"].any_rank(flag)
+
     def step_transition(self, params, opt_state, caches,
                         new_xplan: ExchangePlan):
         """Pipelined plan switch: consume the current plan's stale tiers
@@ -460,14 +493,18 @@ class _StackedExchange:
         autograd: the local tier's and the global buffer's, each with
         ``advance()`` (called after every later layer) and ``finish()``
         (after the last, giving the rows)."""
-        return (_Ready(self.pull(xe["loc"], h, (li, "local"))),
-                _Ready(self.build_global(xe["gl"], h, (li, "global"))))
+        with device_scope("tier_pull_refresh"):
+            return (_Ready(self.pull(xe["loc"], h, (li, "local"))),
+                    _Ready(self.build_global(xe["gl"], h, (li, "global"))))
 
     def sum_ranks(self, tensors: list) -> list:
         return tensors
 
     def max_ranks(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def any_rank(self, flag: bool) -> bool:
+        return bool(flag)
 
     def end_step(self, logged: bool) -> None:
         """Called once a step (``logged``), a fresh forward or a
@@ -515,7 +552,7 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                           ("val", view.val_mask), ("test", view.test_mask))}
     adj_leaves, build_adj = make_adj_builder(view, spec.backend, device)
     adj = build_adj(adj_leaves)
-    state: dict = {}
+    state: dict = {"tracer": NULL_TRACER, "fetch_guard": None, "ex": ex}
 
     def layer0_halo(xr, hostd):
         """Layer 0's halo inputs: the resident table, or in host mode the
@@ -546,9 +583,10 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                 halo = layer0_halo(xr, hostd)
             else:
                 halo = h.new_zeros((n_parts, nh, h.shape[-1]))
-                halo = _scatter(halo, xr["un"]["recv_halo_pos"],
-                                ex.pull(xr["un"], h, (li, "uncached")),
-                                xr["un"]["recv_valid"])
+                with device_scope("tier_pull_uncached"):
+                    halo = _scatter(halo, xr["un"]["recv_halo_pos"],
+                                    ex.pull(xr["un"], h, (li, "uncached")),
+                                    xr["un"]["recv_valid"])
                 if use_stale:
                     if emit_fresh:
                         # emitted only: pulled outside the autograd graph
@@ -560,25 +598,29 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
                     gl_t = xr["gl"]
                 else:
                     # fresh tiers feed the loss: gradients reach the owners
-                    loc_use, loc_t = ex.pull(xe["loc"], h, (li, "local")), \
-                        xe["loc"]
-                    buf_use, gl_t = ex.build_global(xe["gl"], h,
-                                                    (li, "global")), xe["gl"]
+                    with device_scope("tier_pull_refresh"):
+                        loc_use = ex.pull(xe["loc"], h, (li, "local"))
+                        buf_use = ex.build_global(xe["gl"], h, (li, "global"))
+                    loc_t, gl_t = xe["loc"], xe["gl"]
                     fresh["local"].append(loc_use.detach())
                     fresh["global"].append(buf_use.detach())
                 halo = _scatter(halo, loc_t["recv_halo_pos"], loc_use,
                                 loc_t["recv_valid"])
                 halo = _read_global(gl_t, buf_use, halo)
             h_local = torch.cat([h, halo], dim=1)
-            h = _layer_apply(cfg, lp, adj, h_local, ni,
-                             is_last=(li == layers - 1))
-            for pulls in emitted:
-                for pend in pulls:
-                    pend.advance()
-        with torch.no_grad():
-            for loc, glob in emitted:
-                fresh["local"].append(loc.finish())
-                fresh["global"].append(glob.finish())
+            with device_scope(f"layer{li}/spmm"):
+                h = _layer_apply(cfg, lp, adj, h_local, ni,
+                                 is_last=(li == layers - 1))
+            if emitted:
+                with device_scope("refresh_ring_advance"):
+                    for pulls in emitted:
+                        for pend in pulls:
+                            pend.advance()
+        if emitted:
+            with torch.no_grad(), device_scope("refresh_ring_finish"):
+                for loc, glob in emitted:
+                    fresh["local"].append(loc.finish())
+                    fresh["global"].append(glob.finish())
         return h, fresh
 
     def share_and_correct(logits: torch.Tensor, mask: torch.Tensor):
@@ -661,9 +703,11 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
     # the feature residency's hooks around a step: ``take(stale)`` the
     # step's staged host payloads off the ring (None with device
     # features), ``fetch(stale)`` the same staged apart from the ring (a
-    # fresh forward's), ``install(xp)`` after a plan install,
-    # ``finish(fresh)`` once the step's work is issued, ``out_caches``
-    # the caches a step hands on
+    # fresh forward's, unguarded as the JAX package's), ``install(xp)``
+    # after a plan install, ``prefetch()`` once the step's work is issued
+    # and ``writeback(fresh)`` after it, ``out_caches`` the caches a step
+    # hands on.  With a fault guard attached (``set_fault_guard``) the
+    # host staging goes through it where the JAX package's does.
     if not host_mode:
         def take(use_stale=False):
             return None
@@ -671,7 +715,7 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
         def install(xp):
             pass
 
-        def finish(fresh):
+        def writeback(fresh):
             pass
 
         def out_caches(caches, fresh):
@@ -700,57 +744,105 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
             return store.stage_rows((parts_idx, hn["feat_pos"]),
                                     valid=hn["feat_valid"])
 
-        def prefetch_l0():
+        def prefetch():
             """Refill the ring: keep the next steps' host rows in flight
-            while the current step computes."""
-            ring = state["l0_ring"]
+            while the current step computes.  Under a fault guard a
+            failed or slow fetch suspends the refill (consumption degrades
+            to synchronous staging)."""
+            ring, g = state["l0_ring"], state["fetch_guard"]
+            if g is not None and not g.prefetch_ok():
+                return
             while len(ring) < max(1, store.prefetch_depth - 1):
-                ring.append(stage_l0())
+                if g is None:
+                    ring.append(stage_l0())
+                    continue
+                sf = g.try_stage(stage_l0)
+                if sf is None:
+                    return
+                ring.append(sf)
 
-        def staged(use_stale, sf):
-            """The payloads of a step: the layer-0 fetch ``sf`` and, on a
-            stale step, the global buffers; accounted here, at
-            consumption, so flushed prefetches never count."""
+        def take_l0():
+            """The oldest prefetched layer-0 fetch (or one staged cold),
+            accounted here, at consumption, so flushed prefetches never
+            count.  Under a fault guard the cold path retries with backoff
+            and past the budget serves the previous step's rows."""
+            ring, g = state["l0_ring"], state["fetch_guard"]
+            if g is None:
+                sf = ring.popleft() if ring else stage_l0()
+                store.account_fetch(sf)
+                return store.ready(sf)
+            if ring:
+                return g.consume(ring.popleft(), store, "l0")
+            return g.fetch_sync(stage_l0, store, "l0")
+
+        def take_gl():
+            """A stale step's global buffers, staged from the host."""
+            g, out = state["fetch_guard"], []
+            for li in range(n_ex):
+                if g is not None:
+                    out.append(g.fetch_sync(lambda li=li: store.stage_buf(li),
+                                            store, f"gl{li}",
+                                            account=account_replicas))
+                    continue
+                sf = store.stage_buf(li)
+                if account_replicas:
+                    store.account_fetch(sf)
+                out.append(store.ready(sf))
+            return out
+
+        def take(use_stale=False):
+            """The payloads of a step: the layer-0 fetch and, on a stale
+            step, the global buffers."""
+            with state["tracer"].span("l0_stage"):
+                hostd = {"l0": take_l0()}
+                if use_stale:
+                    hostd["gl"] = take_gl()
+            return hostd
+
+        def fetch(use_stale=False):
+            sf = stage_l0()
             store.account_fetch(sf)
             hostd = {"l0": store.ready(sf)}
             if use_stale:
-                hostd["gl"] = []
-                for li in range(n_ex):
-                    sf = store.stage_buf(li)
-                    if account_replicas:
-                        store.account_fetch(sf)
-                    hostd["gl"].append(store.ready(sf))
+                hostd["gl"] = take_gl()
             return hostd
 
-        def take(use_stale=False):
-            """The oldest prefetched layer-0 fetch (or one staged cold)."""
-            ring = state["l0_ring"]
-            return staged(use_stale, ring.popleft() if ring else stage_l0())
+        def stage_l0loc():
+            """(Re)stage the layer-0 local-tier rows, the device-cached
+            slice of the host table: one accounted fetch an install."""
+            hn = state["hostnp"]
 
-        def fetch(use_stale=False):
-            return staged(use_stale, stage_l0())
+            def stage():
+                return store.stage_rows((parts_idx, hn["loc_pos"]),
+                                        valid=hn["loc_valid"])
+            g = state["fetch_guard"]
+            if g is not None:
+                state["l0loc"] = g.fetch_sync(stage, store, "l0loc")
+                return
+            sf = stage()
+            store.account_fetch(sf)
+            state["l0loc"] = store.ready(sf)
 
         def install(xp):
             """A plan install: flush the ring unaccounted (its prefetches
-            carry the old plan's rows), then (re)stage the layer-0
-            local-tier rows, the device-cached slice of the host table (one
-            accounted fetch an install), and refill the ring.  The host
-            global buffers keep their old-tiering content: the next step
-            refreshes them, or is the transition that emits them."""
-            state["hostnp"] = hn = host_np(xp)
+            carry the old plan's rows), then (re)stage ``l0loc`` and
+            refill the ring.  The host global buffers keep their
+            old-tiering content: the next step refreshes them, or is the
+            transition that emits them."""
+            tr = state["tracer"]
+            state["hostnp"] = host_np(xp)
             state["l0_ring"].clear()
-            sf = store.stage_rows((parts_idx, hn["loc_pos"]),
-                                  valid=hn["loc_valid"])
-            store.account_fetch(sf)
-            state["l0loc"] = store.ready(sf)
-            prefetch_l0()
+            with tr.span("l0_stage"):
+                stage_l0loc()
+            with tr.span("h2d_prefetch"):
+                prefetch()
 
-        def finish(fresh):
-            """The next step's host rows, gathered and copied while this
-            step's work runs; then this step's emitted global buffers
-            written back, under the installed plan's membership."""
-            prefetch_l0()
-            if fresh is not None:
+        def writeback(fresh):
+            """This step's emitted global buffers, written back under the
+            installed plan's membership."""
+            if fresh is None:
+                return
+            with state["tracer"].span("writeback"):
                 for li, buf in enumerate(fresh["global"]):
                     store.write_buf(li, buf, state["hostnp"]["gl_rows"],
                                     account=account_replicas)
@@ -764,13 +856,20 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
         for li, d in enumerate(cfg.feat_dims[1:layers]):
             store.init_buf(li, (xplan.glob.buf_size, d), xplan.glob.n_unique)
 
-    def wrap(use_stale, emit_fresh):
+    def wrap(name, use_stale, emit_fresh):
         def stepper(params, opt_state, caches):
             hostd = take(use_stale)
             xa = state["xarr"]
-            new_p, new_s, fresh, m = step(use_stale, emit_fresh, params,
-                                          opt_state, caches, xa, xa, hostd)
-            finish(fresh)
+            with host_annotation(f"capgnn/step_{name}"):
+                new_p, new_s, fresh, m = step(use_stale, emit_fresh, params,
+                                              opt_state, caches, xa, xa,
+                                              hostd)
+            if host_mode:
+                # the next step's host rows, gathered and copied while
+                # this step's work runs; then the writeback
+                with state["tracer"].span("h2d_prefetch"):
+                    prefetch()
+            writeback(fresh)
             return new_p, new_s, out_caches(caches, fresh), m
         return stepper
 
@@ -783,11 +882,12 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
         # tier rows pulled (and emitted) on the new plan's
         hostd = take(True)
         xe = timed_maps(new_xp)
-        new_p, new_s, fresh, m = step(True, True, params, opt_state, caches,
-                                      state["xarr"], xe, hostd)
+        with host_annotation("capgnn/step_transition"):
+            new_p, new_s, fresh, m = step(True, True, params, opt_state,
+                                          caches, state["xarr"], xe, hostd)
         state["xarr"] = xe
         install(new_xp)
-        finish(fresh)
+        writeback(fresh)
         return new_p, new_s, out_caches(caches, fresh), m
 
     state.update(set_plan=set_plan, transition=transition)
@@ -823,8 +923,10 @@ def _build_runtime(cls, cfg: GNNConfig, sp: StackedParts,
         comm_dims = comm_dims[1:]
 
     return cls(cfg=cfg, xplan=xplan, comm_dims=comm_dims,
-               forward_fresh=forward_fresh, step_refresh=wrap(False, True),
-               step_cached=wrap(True, False), step_pipelined=wrap(True, True),
+               forward_fresh=forward_fresh,
+               step_refresh=wrap("refresh", False, True),
+               step_cached=wrap("cached", True, False),
+               step_pipelined=wrap("pipelined", True, True),
                evaluate=evaluate, loss_and_grads=loss_and_grads,
                caches0=caches0, backend=spec.backend,
                halo_dtype_bytes=halo_dtype_info(spec.halo_dtype)[1],
@@ -886,6 +988,18 @@ class TrainReport:
     # steady-state only; on the card it holds the first-use kernel builds
     # and the CUDA context's first work
     compile_s: float = 0.0
+    # per step-kind {count, p50_ms, p99_ms, total_s} from the tracer's
+    # depth-0 spans; None on untraced runs (timing them adds syncs)
+    phase_stats: dict | None = None
+    # fault-injection accounting (repro_torch.faults): per-kind injected
+    # event counts and the run's DefenseEvents totals; None on clean runs.
+    # The matched pairs are EQUAL: fetch_drop==fetch_errors,
+    # fetch_delay==slow_fetches, halo_corrupt==corruptions_detected,
+    # grad_nan==rollbacks, mem_pressure==mem_backoffs.
+    faults_injected: dict | None = None
+    fault_events: dict | None = None
+    # per halo_corrupt injection: (step, the corrupted tier's name)
+    fault_tiers: list = dataclasses.field(default_factory=list)
     # the serialised TrainSpec (spec.to_dict()) of the run
     spec: dict | None = None
     # per step: its kind (refresh / cached / pipelined / transition) and
@@ -918,8 +1032,8 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     """Full-batch CaPGNN training under the staleness schedule, on a
     :class:`SimRuntime` or, on each rank of its group, a
     :class:`~repro_torch.dist.capgnn_spmd.SpmdRuntime` (every rank's
-    report is the same, except the host counts: each rank's store counts
-    its own fetches).
+    report is the same, except the host counts and the fault and defense
+    counts: each rank's store, plan and guard count its own).
 
     ``spec`` (default: the runtime's) supplies ``pipeline`` and ``seed``
     and is recorded into ``report.spec``.  One step per epoch (full
@@ -942,18 +1056,41 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     per step and stays exact across re-plan events.
 
     ``params0``/``opt_state0`` start from given state (the parity tests
-    pass the JAX package's initial parameters); otherwise the parameters
-    are initialised from ``spec.seed`` with a ``torch.Generator``, which
-    does not replay the reference's ``jax.random`` draw.
+    pass the JAX package's initial parameters; ``launch.train --resume`` a
+    checkpoint's); otherwise the parameters are initialised from
+    ``spec.seed`` with a ``torch.Generator``, which does not replay the
+    reference's ``jax.random`` draw.
+
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) records one depth-0
+    span per step — kind ``refresh``/``cached``/``pipelined``/
+    ``transition``, with the ``replan``/``l0_stage``/``writeback``/
+    ``h2d_prefetch``/``eval`` sub-phases nested inside — plus one typed
+    :class:`repro_torch.obs.StepCounters` record per step whose totals
+    equal this report's ``comm_bytes`` / ``host_fetch_*`` figures
+    exactly.  Traced steps are fenced (``torch.cuda.synchronize``) so
+    span durations measure completed device work.
+
+    ``faults`` (a :class:`repro_torch.faults.FaultPlan`) arms
+    deterministic fault injection; ``guard`` (a
+    :class:`repro_torch.faults.GuardConfig`) configures the defenses —
+    fetch retry/stale-reuse (via the runtime's ``set_fault_guard``), the
+    divergence guard (per-step loss finiteness plus a parameter sweep and
+    snapshot every ``guard_every`` steps, rolling back and forcing a
+    plain refresh on divergence), opt-in per-tier payload checksums
+    (corruption forces a refresh) and memory-pressure capacity backoff
+    (requires ``planner``).  Guard-forced refreshes are *plain*
+    refreshes: a poisoned stale tier is never consumed.  Under the SPMD
+    runtime the forced-refresh decision is agreed over the ranks (one
+    uncounted ``max`` all-reduce a step, only with a guard attached).
+    Injected and defended event counts land in the report
+    (``faults_injected`` / ``fault_events``) and as per-step
+    :class:`~repro_torch.obs.StepCounters` fields.  With no tracer, no
+    plan and no guard the loop adds nothing: one sync a step, at the
+    loss.
 
     Step 0 is timed separately (``report.compile_s``); ``wall_time_s``
-    covers the remaining steps.  ``tracer``, ``faults`` and ``guard`` are
-    not ported yet and raise when given.
+    covers the remaining steps.
     """
-    for name, obj in (("the tracer", tracer), ("fault injection", faults),
-                      ("the fault guard", guard)):
-        if obj is not None:
-            raise _not_ported(name)
     spec = spec if spec is not None else runtime.spec
     pipeline = spec.pipeline
     if controller is None:
@@ -971,74 +1108,205 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     # vanilla baseline ships the same payload dtype
     dim_bytes = sum(d * runtime.halo_dtype_bytes for d in dims)
 
+    tr = tracer if tracer is not None else NULL_TRACER
+    if tr.enabled:
+        runtime.set_tracer(tr)
+    fa = faults if faults is not None else NULL_FAULTS
+    if fa.enabled and fa.has("mem_pressure") and planner is None:
+        raise ValueError(
+            "mem_pressure faults need an AdaptivePlanner: the backoff "
+            "defense shrinks capacity and replans through it")
+    gd = None
+    ev_snap = inj_snap = None
+    if fa.enabled or guard is not None:
+        gd = TrainGuard(guard if guard is not None else GuardConfig(),
+                        store=store)
+        runtime.set_fault_guard(gd.fetch_guard)
+        if fa.enabled and store is not None:
+            store.set_faults(fa)
+        if gd.cfg.guard_every > 0:
+            gd.snapshot(-1, params, opt_state)   # rollback floor
+        gd.seal(caches)                          # checksum baseline
+        ev_snap = gd.events.as_dict()
+        inj_snap = fa.total_injected()
+
     losses: list[float] = []
     val_acc: list[float] = []
     kinds: list[str] = []
     step_s: list[float] = []
     replan_ms: list[dict] = []
+    fault_tiers: list = []
     comm = vanilla = refresh_steps = replan_events = 0
     x_active = xplan
+    rows_by_worker = None   # per-worker uncached recv rows (traced runs)
+    step_snap = (store.snapshot()
+                 if store is not None and tr.enabled else None)
     compile_s = 0.0
+    pending_refresh = False   # guard-forced refresh for the NEXT step
     t0 = time.perf_counter()
     for e in range(epochs):
         ts = time.perf_counter()
+        force_refresh, pending_refresh = pending_refresh, False
+        mem = False
+        if fa.enabled:
+            fa.begin_step(e)
+            params = fa.corrupt_params(params)
+            caches, tier = fa.corrupt_caches(caches, store)
+            if tier is not None:
+                fault_tiers.append((e, tier))
+            mem = fa.mem_pressure()
+        if gd is not None:
+            if gd.cfg.checksums:
+                with tr.span("integrity", step=e):
+                    if gd.verify(caches):
+                        force_refresh = True
+            # the step's kind must be the same on every rank
+            force_refresh = runtime.any_rank(force_refresh)
         refresh = controller.should_refresh()
         replan = planner is not None and controller.should_replan()
+        if mem:
+            # memory-pressure backoff: shrink the cache capacity and
+            # replan through the slot-stable machinery this very step
+            with tr.span("mem_backoff", step=e):
+                planner.shrink_capacity(gd.cfg.mem_backoff_factor)
+            gd.events.mem_backoffs += 1
+            replan = True
+        if force_refresh:
+            gd.events.forced_refreshes += 1
+        refresh = refresh or force_refresh or mem
+        # a guard-forced refresh must be a PLAIN refresh: pipelined /
+        # transition flavours consume the stale tiers being quarantined
         if replan:
-            kind = "transition" if pipeline else "refresh"
-            tp = time.perf_counter()
-            x_next = planner.exchange_plan(planner.replan())
-            plan_ms = 1e3 * (time.perf_counter() - tp)
-            if pipeline:
-                # consume and exchange on the old plan, pull the new
-                # plan's tier rows
-                params, opt_state, caches, m = runtime.step_transition(
-                    params, opt_state, caches, x_next)
-                x_read, x_emit = x_active, x_next
-            else:
-                runtime.set_plan(x_next)
-                params, opt_state, caches, m = runtime.step_refresh(
-                    params, opt_state, caches)
-                x_read = x_emit = x_next
-            replan_ms.append({"step": e, "plan_ms": plan_ms,
-                              "maps_ms": 1e3 * runtime.maps_s})
-            refreshed_tiers = True
-            x_active = x_next
-            replan_events += 1
+            kind = ("transition" if pipeline and not force_refresh
+                    else "refresh")
+        elif refresh and pipeline and controller.step > 0 \
+                and not force_refresh:
+            kind = "pipelined"
+        elif refresh:
+            kind = "refresh"
         else:
-            if refresh and pipeline and controller.step > 0:
-                kind, step_fn = "pipelined", runtime.step_pipelined
-            elif refresh:
-                kind, step_fn = "refresh", runtime.step_refresh
+            kind = "cached"
+        with tr.step_span(kind, e):
+            if replan:
+                tp = time.perf_counter()
+                with tr.span("replan", step=e):
+                    x_next = planner.exchange_plan(planner.replan())
+                plan_ms = 1e3 * (time.perf_counter() - tp)
+                if kind == "transition":
+                    # consume and exchange on the old plan, pull the new
+                    # plan's tier rows
+                    params, opt_state, caches, m = runtime.step_transition(
+                        params, opt_state, caches, x_next)
+                    x_read, x_emit = x_active, x_next
+                else:
+                    runtime.set_plan(x_next)
+                    params, opt_state, caches, m = runtime.step_refresh(
+                        params, opt_state, caches)
+                    x_read = x_emit = x_next
+                replan_ms.append({"step": e, "plan_ms": plan_ms,
+                                  "maps_ms": 1e3 * runtime.maps_s})
+                refreshed_tiers = True
+                x_active = x_next
+                replan_events += 1
             else:
-                kind, step_fn = "cached", runtime.step_cached
-            params, opt_state, caches, m = step_fn(params, opt_state, caches)
-            x_read = x_emit = x_active
-            refreshed_tiers = refresh
+                step_fn = {"pipelined": runtime.step_pipelined,
+                           "refresh": runtime.step_refresh,
+                           "cached": runtime.step_cached}[kind]
+                params, opt_state, caches, m = step_fn(params, opt_state,
+                                                       caches)
+                x_read = x_emit = x_active
+                refreshed_tiers = refresh
+            step_rows = _step_rows(x_read, x_emit, refresh=refreshed_tiers)
+            tr.fence(m["loss"])
         losses.append(float(m["loss"]))      # fences the step
         step_s.append(time.perf_counter() - ts)
         kinds.append(kind)
         if e == 0:
             compile_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-        comm += _step_rows(x_read, x_emit, refresh=refreshed_tiers) \
-            * dim_bytes
+        comm += step_rows * dim_bytes
         vanilla += xplan.total_halo * dim_bytes
         refresh_steps += int(refresh)
+        # divergence guard: the loss is already a host float (a free check
+        # every step); the parameter sweep and snapshot run on the
+        # guard_every cadence.  Divergence rolls back to the last good
+        # snapshot and forces the next step to be a plain refresh.  The
+        # loss is summed over ranks and the parameters are replicated, so
+        # every rank decides the same.
+        diverged = False
+        if gd is not None and gd.cfg.guard_every > 0:
+            diverged = not np.isfinite(losses[-1])
+            if not diverged and (e + 1) % gd.cfg.guard_every == 0:
+                with tr.span("divergence_check", step=e):
+                    diverged = not gd.params_finite(params)
+                if not diverged:
+                    gd.snapshot(e, params, opt_state)
+            if diverged:
+                with tr.span("rollback", step=e):
+                    params, opt_state = gd.rollback(params, opt_state)
+                pending_refresh = True
         # a transition's fresh rows follow the NEW plan while the compared
         # caches hold the OLD plan's rows: its drift compares different
-        # vertices and is skipped
-        drift = float(m["drift"]) if "drift" in m and not replan else None
+        # vertices and is skipped (as is a diverged step's, non-finite)
+        drift = (float(m["drift"])
+                 if "drift" in m and not replan and not diverged else None)
         if planner is not None:
             planner.observe_step(layers=max(1, len(dims)))
-            if "drift_local_rows" in m and not replan:
+            if "drift_local_rows" in m and not replan and not diverged:
                 planner.observe_drift(
                     runtime.all_parts(m["drift_local_rows"]),
                     m["drift_global_rows"].cpu().numpy())
         controller.observe(drift, refreshed=refresh)
         if eval_every and (e + 1) % eval_every == 0:
-            val_acc.append(runtime.evaluate(params, "val")[1])
+            with tr.span("eval", step=e):
+                val_acc.append(runtime.evaluate(params, "val")[1])
+        if tr.enabled:
+            # counters are recorded at iteration end so the store deltas
+            # (step + any eval fetches) attribute to this step exactly —
+            # the per-step stream sums to the report totals
+            sd = {}
+            if store is not None:
+                sd = store.delta(step_snap)
+                step_snap = store.snapshot()
+            if refreshed_tiers or rows_by_worker is None:
+                rows_by_worker = [int(n) for n in np.asarray(
+                    x_read.uncached.recv_valid).sum(axis=1)]
+            extra = {}
+            if gd is not None:
+                # per-step defense/injection deltas: the stream sums to
+                # the report's fault_events / faults_injected exactly
+                extra = gd.events.delta(ev_snap)
+                ev_snap = gd.events.as_dict()
+                extra["faults_injected"] = fa.total_injected() - inj_snap
+                inj_snap = fa.total_injected()
+            tr.count(StepCounters(
+                step=e, kind=kind,
+                wire_rows_uncached=x_read.uncached.n_rows,
+                wire_rows_local=(x_emit.local.n_rows
+                                 if refreshed_tiers else 0),
+                wire_rows_global=(x_emit.glob.n_unique
+                                  if refreshed_tiers else 0),
+                wire_bytes=step_rows * dim_bytes,
+                wire_bytes_vanilla=xplan.total_halo * dim_bytes,
+                cache_hit_rate=(None if refreshed_tiers else
+                                1.0 - x_read.uncached.n_rows
+                                / max(1, x_read.total_halo)),
+                planner_hit_rate=(planner.hit_rate()
+                                  if planner is not None else None),
+                drift=drift,
+                host_fetch_rows=int(sd.get("fetch_rows", 0)),
+                host_fetch_bytes=int(sd.get("fetch_bytes", 0)),
+                host_writeback_rows=int(sd.get("writeback_rows", 0)),
+                host_writeback_bytes=int(sd.get("writeback_bytes", 0)),
+                device_peak_bytes=device_peak_bytes(runtime.device),
+                wire_rows_by_worker=rows_by_worker, **extra))
+        if gd is not None and gd.cfg.checksums:
+            # seal the post-step tier payloads: the digests the next
+            # consuming step must still observe
+            with tr.span("integrity", step=e):
+                gd.seal(caches)
     wall = time.perf_counter() - t0
+    fa.end_run()
 
     # eval_every runs also consume accounted host fetches
     hostd = store.delta(store_snap) if store is not None else {}
@@ -1053,6 +1321,10 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
         host_fetch_rows=int(hostd.get("fetch_rows", 0)),
         host_fetch_bytes=int(hostd.get("fetch_bytes", 0)),
         host_writeback_bytes=int(hostd.get("writeback_bytes", 0)),
-        compile_s=compile_s, spec=spec.to_dict(), step_kinds=kinds,
+        compile_s=compile_s,
+        phase_stats=tr.phase_stats() if tr.enabled else None,
+        faults_injected=dict(fa.injected) if fa.enabled else None,
+        fault_events=gd.events.as_dict() if gd is not None else None,
+        fault_tiers=fault_tiers, spec=spec.to_dict(), step_kinds=kinds,
         step_s=step_s, replan_ms=replan_ms)
     return params, report

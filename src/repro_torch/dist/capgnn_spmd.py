@@ -59,8 +59,13 @@ of the named axes, the whole mesh's ranks in row-major order, which is
 the order the reference's collectives index the tuple in; the numerics
 and counts are those of the flat group.
 
-Not ported yet, each raising with a message: the tracer and the fault
-guard.
+The tracer, the fault plan and the guard (``train_capgnn``'s ``tracer``,
+``faults``, ``guard``) are one each per rank, built from the same seed:
+each rank's report carries that rank's counts.  The plan is
+deterministic, but the tier digests are rank-local, so with a guard
+attached the ranks agree on a forced refresh through one ``max``
+all-reduce of a flag a step (:meth:`SpmdRuntime.any_rank`), outside the
+counted wire; with no guard nothing is added.
 """
 from __future__ import annotations
 
@@ -72,9 +77,10 @@ import torch
 
 from ..launch.mesh import Mesh
 from ..models.gnn import GNNConfig
+from ..obs.annotations import device_scope
 from ..optim import Optimizer
 from .capgnn_sim import (SimRuntime, _build_runtime, _gather, _gather_map,
-                         _host_dict, _idx, _mask, _not_ported, _Ready,
+                         _host_dict, _idx, _mask, _Ready,
                          _StackedExchange)
 from .collectives import AllGatherFn, RingBroadcastFn, RotateFn, Wire
 from .exchange import ExchangePlan, ExchangeTier, StackedParts
@@ -235,9 +241,10 @@ class WireExchange(_StackedExchange):
     ``log`` gets this rank's :meth:`~.collectives.Wire.take` of every
     step."""
 
-    def __init__(self, wire: Wire, p2p: bool, halo_dtype):
+    def __init__(self, wire: Wire, p2p: bool, halo_dtype, device="cpu"):
         super().__init__(halo_dtype)
         self.wire, self.p2p = wire, p2p
+        self.device = torch.device(device)
         self.log: list = []
 
     def _quant(self, x: torch.Tensor) -> torch.Tensor:
@@ -314,8 +321,9 @@ class WireExchange(_StackedExchange):
         pulls themselves."""
         if not self.p2p:
             return super().emit(xe, h, li)
-        return (self._tier(xe["loc"], h, (li, "local"), True),
-                self._global(xe["gl"], h, (li, "global"), True))
+        with device_scope("refresh_ring_issue"):
+            return (self._tier(xe["loc"], h, (li, "local"), True),
+                    self._global(xe["gl"], h, (li, "global"), True))
 
     def sum_ranks(self, tensors: list) -> list:
         flat = torch.cat([t.reshape(-1) for t in tensors])
@@ -328,6 +336,13 @@ class WireExchange(_StackedExchange):
 
     def max_ranks(self, x: torch.Tensor) -> torch.Tensor:
         return self.wire.all_reduce(x, "max")
+
+    def any_rank(self, flag: bool) -> bool:
+        """``flag`` of any rank: one uncounted ``max`` all-reduce of a
+        host flag (on the rank's card under NCCL)."""
+        x = torch.tensor([int(flag)], dtype=torch.int32,
+                         device="cpu" if self.wire.gloo else self.device)
+        return bool(self.wire.all_reduce(x, "max")[0])
 
     def end_step(self, logged: bool) -> None:
         taken = self.wire.take()
@@ -358,12 +373,6 @@ class SpmdRuntime(SimRuntime):
         """``x``, this rank's ``[1, ...]`` row of a per-partition metric,
         gathered over the ranks (uncounted), on the host."""
         return self.wire.all_gather(x.contiguous()).cpu().numpy()
-
-    def set_tracer(self, tracer) -> None:
-        raise _not_ported("the tracer")
-
-    def set_fault_guard(self, guard) -> None:
-        raise _not_ported("the fault guard")
 
 
 def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
@@ -402,7 +411,7 @@ def make_spmd_runtime(cfg: GNNConfig, sp: StackedParts, xplan: ExchangePlan,
     device = torch.device(device)
     hdt = halo_dtype_info(spec.halo_dtype)[0]
     p2p = spec.transport == "p2p"
-    ex = WireExchange(wire, p2p, hdt)
+    ex = WireExchange(wire, p2p, hdt, device)
 
     def maps(xp):
         return spmd_exchange_arrays(xp, p2p, wire.rank, sp.n_inner_max,

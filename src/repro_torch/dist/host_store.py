@@ -37,9 +37,16 @@ Byte accounting is exact and driven by consumption: a staged fetch is a
 issued — prefetches flushed by a plan change never count.
 
 On the CPU (``device="cpu"``) a fetch is a fresh gather: nothing is pinned
-and there is no stream.  Fault injection and tracing come with later
-slices; :meth:`~HostFeatureStore.set_faults` and
-:meth:`~HostFeatureStore.set_tracer` raise until then.
+and there is no stream.
+
+Fault injection and tracing (:meth:`~HostFeatureStore.set_faults`,
+:meth:`~HostFeatureStore.set_tracer`): every stage op consults the
+attached :class:`~repro_torch.faults.FaultPlan` once, after its gather
+clock starts and before it takes a ring slot or gathers — an injected
+drop raises :class:`~repro_torch.faults.FetchError` having taken no slot,
+recorded no event and issued no copy; an injected delay stalls inside
+the timed gather, so it shows in ``gather_s``.  Every copy to the device
+records an ``h2d_put`` span (with its bytes) on the attached tracer.
 """
 from __future__ import annotations
 
@@ -48,6 +55,9 @@ import time
 
 import numpy as np
 import torch
+
+from ..faults.plan import NULL_FAULTS
+from ..obs.tracer import NULL_TRACER
 
 __all__ = ["HostFeatureStore", "StagedFetch", "halo_dtype_info",
            "suggest_prefetch_depth"]
@@ -160,14 +170,23 @@ class HostFeatureStore:
         # with timing on: (kind, start event, end event) of every copy
         # ("h2d_rows" / "h2d_buf") and every wait on one ("wait_...")
         self.copy_log: list = []
+        self.tracer = NULL_TRACER
+        self.faults = NULL_FAULTS
 
     def set_tracer(self, tracer) -> None:
-        raise NotImplementedError("the tracer is not ported to repro_torch "
-                                  "yet (see ROADMAP.md)")
+        """Attach a :class:`repro_torch.obs.Tracer`: every copy to the
+        device records an ``h2d_put`` sub-span (nested inside whatever
+        staging span the caller holds open).  Default is the shared no-op
+        tracer."""
+        self.tracer = tracer
 
     def set_faults(self, faults) -> None:
-        raise NotImplementedError("fault injection is not ported to "
-                                  "repro_torch yet (see ROADMAP.md)")
+        """Attach a :class:`repro_torch.faults.FaultPlan`: every stage op
+        consults it once (``on_fetch`` — injected drops raise
+        :class:`repro_torch.faults.FetchError`, injected delays stall the
+        host gather).  Default is the shared disabled plan, whose consult
+        is a single attribute check."""
+        self.faults = faults
 
     # -- staging -----------------------------------------------------------
 
@@ -188,7 +207,9 @@ class HostFeatureStore:
         (the ring slot it came from, if any) keeps."""
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._side):
+        nbytes = host.numel() * host.element_size()
+        with self.tracer.span("h2d_put", nbytes=nbytes), \
+                torch.cuda.stream(self._side):
             start = self._event()
             if self.timing:
                 start.record(self._side)
@@ -214,6 +235,11 @@ class HostFeatureStore:
         it, through :meth:`ready`.
         """
         t0 = time.perf_counter()
+        # injected faults land inside the timed gather window, before a
+        # ring slot is taken: the slow-fetch defense sees a delay through
+        # ``gather_s``, and a drop leaks no slot
+        if self.faults.enabled:
+            self.faults.on_fetch()
         flat = self._ids[idx]
         shape = flat.shape + (self._table.shape[1],)
         ids = torch.from_numpy(np.ascontiguousarray(flat, np.int64).ravel())
@@ -345,6 +371,8 @@ class HostFeatureStore:
                            "never written back; run a refresh step first")
         host, n_valid, _ = self._buf(layer)
         t0 = time.perf_counter()
+        if self.faults.enabled:
+            self.faults.on_fetch()
         payload = host
         if self.cast_dtype is not None:
             payload = torch.empty(host.shape, dtype=self.cast_dtype,

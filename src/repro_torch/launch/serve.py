@@ -12,9 +12,16 @@ It runs on ``--device cuda`` (the default) or ``--device cpu``.  With
 the hand-written ELL-SpMM kernel, and hot-tier queries go through the
 row-gather kernel.  f32 matrix products run in full f32: TF32 is off.
 
-Not ported yet: ``--ckpt-dir``, ``--store-dir`` and ``--load-store``
-(checkpoint slice), ``--trace`` (observability slice) and the ``lm``
-subcommand; passing one of the flags exits with a message.
+As the JAX package's CLI: ``--ckpt-dir`` loads the parameters that
+``launch.train gnn --ckpt-dir`` saved (the latest valid checkpoint);
+``--store-dir`` saves the precomputed embedding store there, and
+``--load-store`` loads it instead of precomputing (the model config and
+backend then come from the store); ``--trace`` records one
+``serve_batch`` span and one counter record a micro-batch, written as
+``trace_serve.json`` / ``metrics_serve.jsonl`` under ``--trace-dir``
+(the JSON gains ``trace_file`` and ``metrics_file``).
+
+Not ported yet: the ``lm`` subcommand, which exits with a message.
 """
 from __future__ import annotations
 
@@ -24,10 +31,6 @@ import time
 
 import numpy as np
 import torch
-
-_NOT_PORTED_FLAGS = (("ckpt_dir", "--ckpt-dir"), ("store_dir", "--store-dir"),
-                     ("load_store", "--load-store"), ("trace", "--trace"))
-
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA request on a machine
@@ -40,15 +43,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def not_ported_lm(sub) -> None:
+    """The ``lm`` subcommand of the JAX package's CLIs, which exits with
+    a message: the LM scaffolding is not ported."""
+    def refuse(args):
+        raise SystemExit("the lm subcommand is not ported to repro_torch "
+                         "yet (see ROADMAP.md)")
+    lm = sub.add_parser("lm", help="not ported yet")
+    lm.set_defaults(fn=refuse)
+
+
 def set_fp32_numerics() -> None:
     """Full-f32 matrix products and convolutions on the card (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
-def prepare_gnn(args):
-    """The slice's task, partition set, device profiles and model config:
-    ``(task, ps, profiles, cfg)``, the same for the same ``args.seed``."""
+def prepare_gnn(args, cfg=None):
+    """The slice's task, partition set, device profiles and model config
+    (``cfg``, when given: a loaded store's): ``(task, ps, profiles,
+    cfg)``, the same for the same ``args.seed``."""
     from ..core import PROFILES, PAPER_GROUPS, make_group
     from ..data import make_task
     from ..graph import metis_partition, random_partition, build_partition
@@ -63,9 +77,10 @@ def prepare_gnn(args):
     ps = build_partition(g, part_fn(g, p, seed=args.seed), hops=1)
     profiles = make_group(PAPER_GROUPS[f"x{p}"]) if f"x{p}" in PAPER_GROUPS \
         else [PROFILES["rtx3090"]] * p
-    cfg = GNNConfig(model=args.model, in_dim=task.features.shape[1],
-                    hidden_dim=args.hidden, out_dim=task.num_classes,
-                    num_layers=args.layers)
+    if cfg is None:
+        cfg = GNNConfig(model=args.model, in_dim=task.features.shape[1],
+                        hidden_dim=args.hidden, out_dim=task.num_classes,
+                        num_layers=args.layers)
     return task, ps, profiles, cfg
 
 
@@ -100,27 +115,50 @@ def slice_stream(args, g):
 
 def serve_gnn(args):
     """Run the ``gnn`` serving slice; returns ``(report, engine)``."""
+    from ..checkpoint import latest_step, load_checkpoint
     from ..models.gnn import init_gnn
-    from ..serve import (BatchConfig, GNNServeEngine, precompute_embeddings,
-                         rank_hot_nodes, serve_stream)
+    from ..obs import Tracer
+    from ..optim import adam
+    from ..serve import (BatchConfig, GNNServeEngine, load_store,
+                         precompute_embeddings, rank_hot_nodes, save_store,
+                         serve_stream)
 
-    for attr, flag in _NOT_PORTED_FLAGS:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             "(see ROADMAP.md); run without it")
     device = resolve_device(args.device)
     set_fp32_numerics()
 
-    task, ps, profiles, cfg = prepare_gnn(args)
+    # a loaded store fixes the model config and backend (it was
+    # precomputed with them); otherwise they come from the flags
+    store = None
+    if args.load_store:
+        if not args.store_dir:
+            raise SystemExit("--load-store requires --store-dir")
+        store = load_store(args.store_dir)
+    task, ps, profiles, cfg = prepare_gnn(
+        args, store.cfg if store is not None else None)
     g = task.graph
     p = args.parts
-    backend = args.backend
+    backend = store.backend if store is not None else args.backend
+    if store is not None and store.num_nodes != g.num_nodes:
+        raise SystemExit(
+            f"store in {args.store_dir} was precomputed over "
+            f"{store.num_nodes} nodes but this task has {g.num_nodes}; "
+            "re-run precompute (drop --load-store)")
     params = init_gnn(cfg, torch.Generator().manual_seed(args.seed), device)
+    if args.ckpt_dir:
+        # weights trained by `repro_torch.launch.train gnn --ckpt-dir ...`
+        step = latest_step(args.ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {args.ckpt_dir}")
+        like = {"params": params, "opt_state": adam(1e-2).init(params)}
+        params = load_checkpoint(args.ckpt_dir, step, like)["params"]
 
     t0 = time.perf_counter()
-    xplan, sp = plan_and_stack(args, task, ps, profiles, cfg)
-    store = precompute_embeddings(cfg, ps, sp, xplan, params,
-                                  backend=backend, device=device)
+    if store is None:
+        xplan, sp = plan_and_stack(args, task, ps, profiles, cfg)
+        store = precompute_embeddings(cfg, ps, sp, xplan, params,
+                                      backend=backend, device=device)
+        if args.store_dir:
+            save_store(args.store_dir, store)
     precompute_s = time.perf_counter() - t0
 
     hot_capacity = int(round(args.hot_frac * g.num_nodes))
@@ -138,9 +176,11 @@ def serve_gnn(args):
             + rng.normal(scale=0.5, size=(upd.size,
                                           task.features.shape[1])))
 
+    tracer = Tracer() if args.trace else None
     report = serve_stream(engine, slice_stream(args, g),
                           BatchConfig(max_batch=args.max_batch,
-                                      deadline_ms=args.deadline_ms))
+                                      deadline_ms=args.deadline_ms),
+                          tracer=tracer)
     out = {
         "dataset": args.dataset, "model": cfg.model,
         "backend": backend, "parts": p,
@@ -151,6 +191,10 @@ def serve_gnn(args):
         **{k: (round(v, 4) if isinstance(v, float) else v)
            for k, v in report.items()},
     }
+    if tracer is not None:
+        paths = tracer.export(args.trace_dir, prefix="serve")
+        out["trace_file"] = paths["trace"]
+        out["metrics_file"] = paths["metrics"]
     return out, engine
 
 
@@ -185,10 +229,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["metis", "random"])
     g.add_argument("--refresh-every", type=int, default=4)
     g.add_argument("--cpu-cache-gib", type=float, default=4.0)
-    g.add_argument("--ckpt-dir", default="", help="not ported yet")
-    g.add_argument("--store-dir", default="", help="not ported yet")
+    g.add_argument("--ckpt-dir", default="",
+                   help="load trained params from "
+                        "repro_torch.launch.train gnn --ckpt-dir")
+    g.add_argument("--store-dir", default="",
+                   help="persist the precomputed embedding store here")
     g.add_argument("--load-store", action="store_true",
-                   help="not ported yet")
+                   help="skip precompute; load the store from --store-dir")
     g.add_argument("--hot-frac", type=float, default=0.1,
                    help="fraction of nodes resident in the device hot tier")
     g.add_argument("--hot-rank", default="degree",
@@ -214,9 +261,15 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--fresh-hops", type=int, default=None,
                    help="k for the fresh recompute (default: num layers, "
                         "which is exact)")
-    g.add_argument("--trace", action="store_true", help="not ported yet")
+    g.add_argument("--trace", action="store_true",
+                   help="per-batch spans + hit/miss counters, exported as "
+                        "a Perfetto-loadable Chrome trace")
+    g.add_argument("--trace-dir", default="experiments",
+                   help="directory for trace_serve.json / "
+                        "metrics_serve.jsonl (with --trace)")
     g.add_argument("--seed", type=int, default=0)
     g.set_defaults(fn=run_gnn)
+    not_ported_lm(sub)
     return ap
 
 

@@ -18,10 +18,27 @@ f32 matrix products run in full f32: TF32 is off.  ``compile_s`` is the
 first step's wall time; on the card it holds the first-use ``nvcc`` builds
 of the kernels and the CUDA context's first work.
 
-Not ported yet, each exiting with a message: ``--strategy spmm_15d``,
-``--trace``, ``--device-trace-dir``, ``--faults``, ``--guard-every``,
-``--checksums``, ``--fetch-retries``, ``--ckpt-dir``/``--resume``, and the
-``lm`` subcommand.
+Robustness and observability, as the JAX package's CLI:
+
+- ``--faults SPEC`` arms seeded fault injection
+  (:class:`repro_torch.faults.FaultPlan`); ``--guard-every``,
+  ``--fetch-retries`` and ``--checksums`` configure the defenses (any of
+  them builds the guard, also with no fault injected); the JSON gains
+  ``faults``, ``faults_injected`` and ``fault_events``;
+- ``--trace`` records per-step spans and counters
+  (:class:`repro_torch.obs.Tracer`), written as ``trace_train.json`` (a
+  Chrome trace, ``python -m repro_torch.obs.check`` validates it) and
+  ``metrics_train.jsonl`` under ``--trace-dir``; the JSON gains
+  ``phase_stats``, ``trace_file`` and ``metrics_file``;
+- ``--device-trace-dir`` captures a ``torch.profiler`` trace of the run
+  (the kernels by name under the step code's ranges) into that directory;
+- ``--ckpt-dir`` saves the parameters and the optimizer state after the
+  run (the JAX package's checkpoint format); ``--resume`` restores the
+  latest valid checkpoint there and trains the remaining epochs up to
+  ``--epochs`` (the total across runs).
+
+Not ported yet, each exiting with a message: ``--strategy spmm_15d`` and
+the ``lm`` subcommand.
 """
 from __future__ import annotations
 
@@ -29,16 +46,13 @@ import argparse
 import json
 import time
 
-from .serve import resolve_device, set_fp32_numerics
+import torch
+
+from .serve import not_ported_lm, resolve_device, set_fp32_numerics
 
 # (attribute, flag, value that asks for it)
 _NOT_PORTED_FLAGS = (
     ("strategy", "--strategy spmm_15d", lambda v: v != "halo_1d"),
-    ("trace", "--trace", bool), ("device_trace_dir", "--device-trace-dir", bool),
-    ("faults", "--faults", bool), ("guard_every", "--guard-every", bool),
-    ("checksums", "--checksums", bool),
-    ("fetch_retries", "--fetch-retries", lambda v: v is not None),
-    ("ckpt_dir", "--ckpt-dir", bool), ("resume", "--resume", bool),
 )
 
 
@@ -117,14 +131,54 @@ def prepare_train(args) -> dict:
             "host_plan_s": time.perf_counter() - t0}
 
 
+def fault_options(args) -> tuple:
+    """``(faults, guard)`` of the flags: a ``--faults`` spec enables the
+    seeded injectors; any of the defense knobs builds a
+    :class:`~repro_torch.faults.GuardConfig` even without injected
+    faults (a defense-only run)."""
+    from ..faults import FaultPlan, GuardConfig
+    faults = guard = None
+    if args.faults:
+        faults = FaultPlan.parse(args.faults, seed=args.seed)
+    if (faults is not None or args.guard_every or args.checksums
+            or args.fetch_retries is not None):
+        guard = GuardConfig(
+            guard_every=args.guard_every,
+            fetch_retries=(2 if args.fetch_retries is None
+                           else args.fetch_retries),
+            checksums=args.checksums)
+    return faults, guard
+
+
+def resume_state(args, cfg, opt, device) -> tuple:
+    """``(start_epoch, params0, opt_state0)``: with ``--resume``, the
+    latest valid checkpoint in ``--ckpt-dir`` (a corrupt or partial one
+    is skipped), else a fresh start."""
+    from ..checkpoint import latest_step, load_checkpoint
+    from ..models.gnn import init_gnn
+    if not (args.resume and args.ckpt_dir):
+        return 0, None, None
+    step = latest_step(args.ckpt_dir)
+    if step is None:
+        return 0, None, None
+    like = init_gnn(cfg, torch.Generator().manual_seed(args.seed), device)
+    state = load_checkpoint(args.ckpt_dir, step,
+                            {"params": like, "opt_state": opt.init(like)})
+    return step, state["params"], state["opt_state"]
+
+
 def train_gnn(args, ctx: dict | None = None):
     """Run the ``gnn`` training slice: ``(out, ctx)`` with ``out`` the
     JSON report and ``ctx`` :func:`prepare_train`'s dict plus the runtime,
-    the final parameters and the :class:`TrainReport`.  A ``ctx`` given
-    is :func:`prepare_train`'s dict for these ``args`` (a caller that
-    already ran the host pipeline); it is built when None."""
+    the final parameters, the :class:`TrainReport` and the tracer (None
+    without ``--trace``).  A ``ctx`` given is :func:`prepare_train`'s dict
+    for these ``args`` (a caller that already ran the host pipeline); it
+    is built when None.  With ``--trace`` the trace files are written,
+    with ``--ckpt-dir`` the checkpoint."""
+    from ..checkpoint import save_checkpoint
     from ..core import StalenessController
     from ..dist.capgnn_sim import make_sim_runtime, train_capgnn
+    from ..obs import Tracer, device_trace
     from ..optim import adam
 
     check_ported(args)
@@ -138,9 +192,18 @@ def train_gnn(args, ctx: dict | None = None):
     ctl = StalenessController(refresh_every=args.refresh_every,
                               adaptive=args.adaptive_staleness,
                               replan_every=args.replan_every)
-    params, report = train_capgnn(cfg, runtime, xplan, args.parts, opt,
-                                  epochs=args.epochs, controller=ctl,
-                                  planner=ctx.get("planner"), spec=spec)
+    # --epochs is the total budget across runs
+    start_epoch, params0, opt_state0 = resume_state(args, cfg, opt, device)
+    run_epochs = max(0, args.epochs - start_epoch)
+    faults, guard = fault_options(args)
+    tracer = Tracer() if args.trace else None
+    with device_trace(args.device_trace_dir, device) as device_trace_file:
+        params, report = train_capgnn(cfg, runtime, xplan, args.parts, opt,
+                                      epochs=run_epochs, controller=ctl,
+                                      params0=params0, opt_state0=opt_state0,
+                                      planner=ctx.get("planner"),
+                                      tracer=tracer, faults=faults,
+                                      guard=guard, spec=spec)
     _, test_acc = runtime.evaluate(params, "test")
     out = {
         "dataset": args.dataset, "model": args.model, "parts": args.parts,
@@ -148,7 +211,7 @@ def train_gnn(args, ctx: dict | None = None):
         "group": ctx["group"], "uneven": bool(args.uneven),
         "inner_sizes": [pt.n_inner for pt in ps.parts],
         "stack_waste_frac": runtime.padding_stats().get("waste_frac"),
-        "epochs": args.epochs, "resumed_from": 0,
+        "epochs": args.epochs, "resumed_from": start_epoch,
         "final_loss": report.losses[-1] if report.losses else None,
         "halo_dtype": spec.halo_dtype,
         "features": spec.features, "prefetch_depth": spec.prefetch_depth,
@@ -166,7 +229,22 @@ def train_gnn(args, ctx: dict | None = None):
         "compile_s": round(report.compile_s, 3),
         "wall_time_s": round(report.wall_time_s, 2),
     }
-    ctx.update(runtime=runtime, params=params, report=report)
+    if report.fault_events is not None:
+        out["faults"] = faults.spec_string() if faults is not None else ""
+        out["faults_injected"] = report.faults_injected
+        out["fault_events"] = report.fault_events
+    if tracer is not None:
+        paths = tracer.export(args.trace_dir, prefix="train")
+        out["phase_stats"] = report.phase_stats
+        out["trace_file"] = paths["trace"]
+        out["metrics_file"] = paths["metrics"]
+    if device_trace_file is not None:
+        out["device_trace_file"] = device_trace_file
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, start_epoch + run_epochs,
+                        {"params": params,
+                         "opt_state": report.final_opt_state})
+    ctx.update(runtime=runtime, params=params, report=report, tracer=tracer)
     return out, ctx
 
 
@@ -234,19 +312,44 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--replan-every", type=int, default=1)
     g.add_argument("--adaptive-staleness", action="store_true")
     g.add_argument("--cpu-cache-gib", type=float, default=4.0)
-    g.add_argument("--trace", action="store_true", help="not ported yet")
-    g.add_argument("--trace-dir", default="experiments")
-    g.add_argument("--device-trace-dir", default="", help="not ported yet")
-    g.add_argument("--faults", default="", help="not ported yet")
+    g.add_argument("--trace", action="store_true",
+                   help="per-step spans + typed counters, exported as a "
+                        "Perfetto-loadable Chrome trace and a JSONL "
+                        "metrics stream")
+    g.add_argument("--trace-dir", default="experiments",
+                   help="directory for trace_train.json / "
+                        "metrics_train.jsonl (with --trace)")
+    g.add_argument("--device-trace-dir", default="",
+                   help="torch.profiler capture directory "
+                        "(device_trace.json: the kernels by name)")
+    g.add_argument("--faults", default="",
+                   help="fault-injection spec, e.g. "
+                        "'grad_nan@3;fetch_drop@2,5' — clauses "
+                        "kind@step,step[:key=val,...] joined by ';' "
+                        "(kinds: fetch_drop fetch_delay halo_corrupt "
+                        "grad_nan mem_pressure ckpt_truncate); seeded "
+                        "by --seed, deterministic")
     g.add_argument("--guard-every", type=int, default=0,
-                   help="not ported yet")
+                   help="divergence guard cadence: check parameter "
+                        "finiteness and snapshot a rollback point every k "
+                        "steps (0 = guard off)")
     g.add_argument("--fetch-retries", type=int, default=None,
-                   help="not ported yet")
-    g.add_argument("--checksums", action="store_true", help="not ported yet")
+                   help="bounded retries for failed host-store fetches "
+                        "before stale-tier reuse (default 2 when any "
+                        "fault/guard flag is set)")
+    g.add_argument("--checksums", action="store_true",
+                   help="per-tier payload checksums: verify before each "
+                        "step, force a plain refresh of corrupted tiers "
+                        "(reads every tier back each step)")
     g.add_argument("--seed", type=int, default=0)
-    g.add_argument("--ckpt-dir", default="", help="not ported yet")
-    g.add_argument("--resume", action="store_true", help="not ported yet")
+    g.add_argument("--ckpt-dir", default="",
+                   help="save (params, opt_state) here after the run")
+    g.add_argument("--resume", action="store_true",
+                   help="restore the latest valid checkpoint in "
+                        "--ckpt-dir and train the remaining epochs up to "
+                        "--epochs")
     g.set_defaults(fn=run_gnn)
+    not_ported_lm(sub)
     return ap
 
 

@@ -21,14 +21,17 @@ __all__ = ["Optimizer", "sgd", "adam", "adamw", "clip_by_global_norm",
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of nested lists, tuples and dicts (the
-    parameter layout ``[{"w": ..., "b": ...}, ...]``)."""
+    """``fn`` over the tensors of nested lists, tuples (named tuples too:
+    the Adam state) and dicts (the parameter layout ``[{"w": ..., "b":
+    ...}, ...]``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        items = [tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return fn(tree, *rest)
 
 

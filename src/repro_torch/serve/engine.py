@@ -22,6 +22,11 @@ within ``num_layers`` forward hops of an update as stale; a stale query is
 answered by recomputing its k-hop in-neighbourhood subgraph with current
 features, substituting precomputed layer tables at the subgraph frontier
 (exact for ``k >= num_layers``).
+
+**Tracing** (:meth:`GNNServeEngine.set_tracer`, ``serve_stream(...,
+tracer=)``): the query paths record ``hot_gather`` / ``host_fetch`` /
+``fresh_recompute`` sub-spans inside one ``serve_batch`` span a
+micro-batch, and one ``kind="serve"`` counter record a batch.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from ..graph.graph import Graph
 from ..graph.partition import PartitionSet
 from ..kernels.ops import gather_rows
 from ..models.gnn import EdgeListAdj, gnn_forward
+from ..obs.tracer import NULL_TRACER, StepCounters, device_peak_bytes
 
 from .precompute import EmbeddingStore
 from .workload import QueryStream
@@ -222,6 +228,15 @@ class GNNServeEngine:
         self.stats = {"queries": 0, "hot_hits": 0, "host_hits": 0,
                       "fresh_recomputes": 0, "batches": 0,
                       "rejected_queries": 0, "host_fetch_s": 0.0}
+        self.tracer = NULL_TRACER
+
+    def set_tracer(self, tracer) -> None:
+        """Attach a :class:`repro_torch.obs.Tracer`: the query paths
+        record ``hot_gather`` / ``host_fetch`` / ``fresh_recompute``
+        sub-spans (and the host store its ``h2d_put`` copies) nested
+        inside the caller's per-batch span."""
+        self.tracer = tracer
+        self.host_store.set_tracer(tracer)
 
     # -- input validation ----------------------------------------------------
 
@@ -302,11 +317,13 @@ class GNNServeEngine:
         slots = self.hot_slot[nodes]
         hit = slots >= 0
         if hit.any():
-            idx = torch.as_tensor(slots[hit], device=self.device)
-            out[hit] = gather_rows(self.hot_buf, idx).cpu().numpy()
+            with self.tracer.span("hot_gather", rows=int(hit.sum())):
+                idx = torch.as_tensor(slots[hit], device=self.device)
+                out[hit] = gather_rows(self.hot_buf, idx).cpu().numpy()
         if (~hit).any():
             t0 = time.perf_counter()
-            out[~hit] = self.host_store.fetch_rows(nodes[~hit])
+            with self.tracer.span("host_fetch", rows=int((~hit).sum())):
+                out[~hit] = self.host_store.fetch_rows(nodes[~hit])
             self.stats["host_fetch_s"] += time.perf_counter() - t0
         self.stats["queries"] += int(nodes.size)
         self.stats["hot_hits"] += int(hit.sum())
@@ -325,7 +342,8 @@ class GNNServeEngine:
         if (~st).any():
             out[~st] = self.lookup(nodes[~st])
             self.stats["batches"] -= 1   # one logical batch, not two
-        out[st] = self._recompute(nodes[st])
+        with self.tracer.span("fresh_recompute", rows=int(st.sum())):
+            out[st] = self._recompute(nodes[st])
         self.stats["queries"] += int(st.sum())
         self.stats["fresh_recomputes"] += int(st.sum())
         self.stats["batches"] += 1
@@ -348,7 +366,7 @@ class GNNServeEngine:
 
 def serve_stream(engine: GNNServeEngine, stream: QueryStream,
                  bcfg: BatchConfig, fresh: bool = True,
-                 warmup: bool = True) -> dict:
+                 warmup: bool = True, tracer=None) -> dict:
     """Micro-batch ``stream`` through the engine and report throughput,
     latency and per-tier hit rates.
 
@@ -358,24 +376,45 @@ def serve_stream(engine: GNNServeEngine, stream: QueryStream,
     = queueing in the batcher (bounded by the deadline) + queueing behind
     earlier batches + measured service time.  QPS is service throughput
     (``queries / busy_seconds``).
+
+    ``tracer`` records one ``serve_batch`` span per micro-batch (with the
+    engine's ``hot_gather``/``host_fetch``/``fresh_recompute`` sub-spans
+    nested inside) and one ``kind="serve"`` counter record per batch from
+    the engine's stat deltas.
     """
+    tr = tracer if tracer is not None else NULL_TRACER
+    if tr.enabled:
+        engine.set_tracer(tr)
     batches = plan_batches(stream.t, bcfg)
     if warmup:
-        engine.warmup(bcfg.max_batch)
+        # own depth-0 span: the warmup's lookups are not batch work
+        with tr.span("warmup", n=int(bcfg.max_batch)):
+            engine.warmup(bcfg.max_batch)
     before = dict(engine.stats)
     latency = np.zeros(stream.num_queries)
     free = 0.0
     busy = 0.0
-    for b in batches:
+    for bi, b in enumerate(batches):
         nodes = stream.node[b.idx]
+        snap = dict(engine.stats) if tr.enabled else None
         t0 = time.perf_counter()
-        out = engine.query(nodes) if fresh else engine.lookup(nodes)
+        with tr.span("serve_batch", step=bi, n=int(nodes.size)):
+            out = engine.query(nodes) if fresh else engine.lookup(nodes)
         service = time.perf_counter() - t0
         assert out.shape == (nodes.size, engine.cfg.out_dim)
         begin = max(b.close_time, free)
         free = begin + service
         busy += service
         latency[b.idx] = free - stream.t[b.idx]
+        if tr.enabled:
+            db = {k: engine.stats[k] - snap[k] for k in engine.stats}
+            tr.count(StepCounters(
+                step=bi, kind="serve",
+                queries=int(db["queries"]),
+                hot_hits=int(db["hot_hits"]),
+                host_hits=int(db["host_hits"]),
+                fresh_recomputes=int(db["fresh_recomputes"]),
+                device_peak_bytes=device_peak_bytes(engine.device)))
     q = stream.num_queries
     d = {k: engine.stats[k] - before[k] for k in engine.stats}
     served = max(1, d["queries"])

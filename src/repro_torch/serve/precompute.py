@@ -15,23 +15,31 @@ The pass runs eagerly over the explicit ``[P, ...]`` batch: one
 aggregation call per layer covers all P partitions (with ``ell`` or
 ``hybrid`` on the card, one ELL-SpMM kernel launch, and for ``hybrid``
 one CSR kernel launch over the COO tail; SAGE's ``degree()`` adds one
-of each).  Saving and loading a
-store come with the checkpoint slice.
+of each).  :func:`save_store` / :func:`load_store` persist a store
+through :mod:`repro_torch.checkpoint` in the JAX package's format (the
+tables as one checkpoint's leaves and a ``store_meta.json``), so a store
+saved by either package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
 
+from ..checkpoint import latest_step, load_checkpoint, save_checkpoint
 from ..dist.capgnn_sim import (_build_global, _pull, _read_global,
                                _scatter, exchange_arrays, make_adj_builder)
 from ..dist.exchange import ExchangePlan, StackedParts
 from ..graph.partition import PartitionSet
 from ..models.gnn import GNNConfig, _layer_apply
 
-__all__ = ["EmbeddingStore", "precompute_embeddings"]
+__all__ = ["EmbeddingStore", "precompute_embeddings", "save_store",
+           "load_store"]
+
+_META_NAME = "store_meta.json"
 
 
 @dataclasses.dataclass
@@ -105,3 +113,37 @@ def precompute_embeddings(cfg: GNNConfig, ps: PartitionSet, sp: StackedParts,
             table[part.inner_nodes] = o[i, : part.n_inner]
         tables.append(table)
     return EmbeddingStore(cfg=cfg, backend=backend, tables=tables)
+
+
+# ---------------------------------------------------------------------------
+# Persistence (rides on repro_torch.checkpoint: atomic npz + json meta)
+# ---------------------------------------------------------------------------
+
+def save_store(store_dir: str, store: EmbeddingStore, step: int = 0) -> str:
+    """Persist the tables via :mod:`repro_torch.checkpoint` plus a meta
+    sidecar describing the model config, so :func:`load_store` is
+    self-contained."""
+    path = save_checkpoint(store_dir, step, store.tables)
+    meta = {"backend": store.backend,
+            "num_nodes": store.num_nodes,
+            "dims": store.dims,
+            "cfg": dataclasses.asdict(store.cfg)}
+    meta_path = os.path.join(store_dir, _META_NAME)
+    with open(meta_path + ".tmp", "w") as f:
+        json.dump(meta, f)
+    os.replace(meta_path + ".tmp", meta_path)
+    return path
+
+
+def load_store(store_dir: str, step: int | None = None) -> EmbeddingStore:
+    with open(os.path.join(store_dir, _META_NAME)) as f:
+        meta = json.load(f)
+    if step is None:
+        step = latest_step(store_dir)
+        if step is None:
+            raise FileNotFoundError(f"no embedding checkpoint in {store_dir}")
+    like = [np.zeros((meta["num_nodes"], d), np.float32)
+            for d in meta["dims"]]
+    tables = [np.asarray(t) for t in load_checkpoint(store_dir, step, like)]
+    return EmbeddingStore(cfg=GNNConfig(**meta["cfg"]),
+                          backend=meta["backend"], tables=tables)

@@ -45,6 +45,7 @@ from repro_torch.dist import (TrainSpec, build_exchange_plan, exchange_arrays,
                               stack_partitions, train_capgnn)
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CPU = "cpu"
 TOL = 1e-5

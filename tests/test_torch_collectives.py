@@ -36,6 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import spawn
 
 import torch_spmd_ranks
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FNS = ("all_gather", "rotate", "ring_broadcast")

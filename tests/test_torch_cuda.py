@@ -22,7 +22,10 @@ the CPU's; one refresh step of the training slice per backend (``hybrid``,
 ``ell``, ``edges``), and for SAGE, GIN and GAT, matches the CPU within the
 train slice's tolerances.  ``EllAdj.spmm_at`` (trained ELL values) runs
 the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
-stacked gradients stay finite over padding edges.
+stacked gradients stay finite over padding edges.  The host store drops
+an injected fetch before it takes a pinned ring slot; the tracer's
+``device_peak_bytes`` is the allocator's peak and its fence synchronises
+the card only when enabled.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,10 @@ import torch
 import dataclasses
 
 from repro_torch.kernels import cache_gather, csr_spmm, ell_spmm, ops, ref
+from repro_torch.dist import HostFeatureStore
+from repro_torch.faults import FaultPlan, FetchError
+from repro_torch.obs import NULL_TRACER, Tracer, device_peak_bytes
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -934,3 +941,47 @@ def test_gat_padded_edge_grads_finite_on_card(card):
         assert torch.isfinite(got).all(), k
         torch.testing.assert_close(
             got, want, rtol=0.0, atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------- faults and the tracer
+
+def test_dropped_fetch_leaks_no_ring_slot(card):
+    """On the card a dropped stage op takes no pinned slot, records no
+    event and issues no copy: the ring hands out its slots in the same
+    order as a store that never saw the drop."""
+    table = np.arange(400, dtype=np.float32).reshape(100, 4)
+    store = HostFeatureStore(table, prefetch_depth=2, device=card)
+    fp = FaultPlan.parse("fetch_drop@1")
+    store.set_faults(fp)
+    first = store.stage_rows(np.arange(8))
+    fp.begin_step(1)
+    with pytest.raises(FetchError):
+        store.stage_rows(np.arange(8, 16))
+    fp.end_run()
+    assert store._next[torch.float32] == 1
+    second = store.stage_rows(np.arange(16, 24))
+    assert store._next[torch.float32] == 0
+    np.testing.assert_array_equal(store.ready(first).cpu().numpy(),
+                                  table[:8])
+    np.testing.assert_array_equal(store.ready(second).cpu().numpy(),
+                                  table[16:24])
+    assert store.snapshot()["fetches"] == 0
+
+
+def test_device_peak_bytes_on_card(card):
+    torch.cuda.reset_peak_memory_stats(card)
+    x = torch.empty(1 << 20, device=card)
+    got = device_peak_bytes(card)
+    assert got == torch.cuda.max_memory_allocated(card) >= x.numel() * 4
+
+
+def test_fence_syncs_the_card(card, monkeypatch):
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (calls.append(device),
+                                             real(device)))
+    x = torch.ones(4, device=card)
+    NULL_TRACER.fence(x)
+    assert calls == []
+    assert Tracer().fence(x) is x and calls == [x.device]

@@ -32,6 +32,7 @@ from repro_torch.dist import capgnn_sim as tsim
 from repro_torch.dist.exchange import ExchangeTier, GlobalTier
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 GRAD_TOL = dict(rtol=1e-6, atol=1e-6)
 

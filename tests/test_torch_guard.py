@@ -9,8 +9,13 @@
   to the CPU (``launch.serve``, ``launch.train``, ``launch.mesh``), and so
   does ``chip_smoke.py``; ``launch.mesh.spawn`` refuses NCCL, before any
   process starts, with fewer cards than ranks;
-- the parts of the JAX package that are not ported yet fail loudly.
+- the parts of the JAX package that are not ported yet fail loudly
+  (``--strategy spmm_15d``, the ``lm`` subcommands), and the flags this
+  port has taken over from them run on the CPU and print the JAX
+  package's keys (``--trace``, ``--faults``, the guard's knobs,
+  ``--ckpt-dir`` / ``--resume``, ``--store-dir`` / ``--load-store``).
 """
+import json
 import os
 import re
 import subprocess
@@ -25,6 +30,7 @@ from repro_torch.kernels import cache_gather, csr_spmm, ell_spmm, ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.launch import train as ttrain
 from repro_torch.models.gnn import GNNConfig, init_gnn
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -205,20 +211,75 @@ def test_profiler_refuses_the_cpu(module):
         prof.main(["gnn", "--device", "cpu"])
 
 
+_TINY = ["--device", "cpu", "--scale", "0.005", "--feat-dim", "8",
+         "--hidden", "8"]
+
+
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--store-dir", "st"],
                                   ["--load-store"], ["--trace"]])
-def test_unported_cli_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        tlaunch.main(["gnn", "--device", "cpu", *flag])
+def test_unported_cli_flags_exit(flag, tmp_path, monkeypatch, capsys):
+    """The serving CLI's checkpoint, store and trace flags (refused until
+    they were ported) run on the CPU: ``--ckpt-dir`` loads the parameters
+    ``launch.train --ckpt-dir`` saved, ``--store-dir`` saves the store
+    that ``--load-store`` loads (with ``--store-dir``; alone it exits as
+    the JAX package's does), ``--trace`` prints ``trace_file`` and
+    ``metrics_file``."""
+    from repro_torch.checkpoint import latest_step
+    monkeypatch.chdir(tmp_path)
+    argv = ["gnn", *_TINY, "--queries", "16"]
+    if flag[0] == "--ckpt-dir":
+        ttrain.main(["gnn", *_TINY, "--epochs", "1", "--ckpt-dir", "ck"])
+        assert latest_step("ck") == 1
+    if flag == ["--load-store"]:
+        with pytest.raises(SystemExit, match="requires --store-dir"):
+            tlaunch.main(argv + flag)
+        tlaunch.main(argv + ["--store-dir", "st"])
+        flag = flag + ["--store-dir", "st"]
+    capsys.readouterr()
+    out = tlaunch.main(argv + flag)
+    assert json.loads(capsys.readouterr().out) == out
+    assert np.isfinite(out["p50_ms"]) and out["queries"] == 16
+    if flag[0] == "--store-dir":
+        assert sorted(os.listdir("st")) == ["ckpt_00000000.json",
+                                            "ckpt_00000000.npz",
+                                            "store_meta.json"]
+    if flag == ["--trace"]:
+        assert os.path.isfile(out["trace_file"])
+        assert os.path.isfile(out["metrics_file"])
 
 
 @pytest.mark.parametrize("flag", [
     ["--strategy", "spmm_15d"], ["--trace"], ["--device-trace-dir", "dt"],
     ["--faults", "grad_nan@3"], ["--guard-every", "2"], ["--checksums"],
     ["--fetch-retries", "1"], ["--ckpt-dir", "ck"], ["--resume"]])
-def test_unported_train_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        ttrain.main(["gnn", "--device", "cpu", *flag])
+def test_unported_train_flags_exit(flag, tmp_path, monkeypatch, capsys):
+    """``--strategy spmm_15d`` still exits with a message; every other
+    flag of the JAX package's CLI that the port once refused runs on the
+    CPU and prints its JAX key: the fault flags ``faults`` /
+    ``faults_injected`` / ``fault_events`` (the guard's knobs alone
+    ``fault_events``), ``--trace`` ``phase_stats`` / ``trace_file`` /
+    ``metrics_file``; ``--ckpt-dir`` saves a checkpoint and ``--resume``
+    with none starts at ``resumed_from`` 0."""
+    if flag[0] == "--strategy":
+        with pytest.raises(SystemExit, match="not ported"):
+            ttrain.main(["gnn", "--device", "cpu", *flag])
+        return
+    monkeypatch.chdir(tmp_path)
+    out = ttrain.main(["gnn", *_TINY, "--epochs", "2", *flag])
+    assert json.loads(capsys.readouterr().out) == out
+    assert np.isfinite(out["final_loss"]) and out["resumed_from"] == 0
+    keys = {"--trace": ("phase_stats", "trace_file", "metrics_file"),
+            "--device-trace-dir": ("device_trace_file",),
+            "--faults": ("faults", "faults_injected", "fault_events")}.get(
+        flag[0], ("fault_events",) if flag[0] in (
+            "--guard-every", "--checksums", "--fetch-retries") else ())
+    assert set(keys) <= set(out)
+    if flag[0] == "--faults":
+        assert out["faults"] == "grad_nan@3"
+        assert out["faults_injected"]["grad_nan"] == 0   # 2 epochs: 0, 1
+    if flag[0] == "--ckpt-dir":
+        from repro_torch.checkpoint import latest_step
+        assert latest_step("ck") == 2
 
 
 def _reference_layout(cfg) -> list:
@@ -260,13 +321,14 @@ def test_gat_refuses_ell_and_hybrid(backend, adj):
 
 
 def test_unported_runtime_options_raise():
-    from repro_torch.dist import get_strategy, init_caches, train_capgnn
+    from repro_torch.dist import get_strategy, init_caches
     with pytest.raises(NotImplementedError, match="spmm_15d"):
         get_strategy("spmm_15d")
     with pytest.raises(ValueError, match="features mode"):
         init_caches(GNNConfig(), None, 4, features="disk")
-    with pytest.raises(NotImplementedError, match="tracer"):
-        train_capgnn(GNNConfig(), None, None, 4, None, tracer=object())
+    for main in (ttrain.main, tlaunch.main):
+        with pytest.raises(SystemExit, match="lm subcommand is not ported"):
+            main(["lm"])
 
 
 def test_slice_entry_points_default_to_the_card(monkeypatch):

@@ -52,6 +52,7 @@ from repro_torch.graph import (build_partition, metis_partition, rmat,
                                symmetric_normalize, synth_features)
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import sgd
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CPU = "cpu"
 P = 4
@@ -262,10 +263,23 @@ def test_measure_profile_fields_on_cpu():
 
 
 def test_unported_store_hooks_raise():
+    """The tracer and fault hooks (refused until they were ported) attach:
+    a stage op records nothing on the CPU (no copy), consults the plan
+    once, and a dropped one changes no count."""
+    from repro_torch.faults import NULL_FAULTS, FaultPlan, FetchError
+    from repro_torch.obs import NULL_TRACER, Tracer
     store = HostFeatureStore(np.zeros((2, 2), np.float32), device=CPU)
-    for hook in (store.set_tracer, store.set_faults):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            hook(object())
+    assert store.tracer is NULL_TRACER and store.faults is NULL_FAULTS
+    tr, fp = Tracer(), FaultPlan.parse("fetch_drop@0")
+    store.set_tracer(tr)
+    store.set_faults(fp)
+    assert store.tracer is tr and store.faults is fp
+    store.stage_rows(np.array([1]))
+    fp.begin_step(0)
+    with pytest.raises(FetchError):
+        store.stage_rows(np.array([0]))
+    assert fp.injected["fetch_drop"] == 1 and store.stats["fetches"] == 0
+    assert tr.spans == []
 
 
 # --------------------------------------------- the runtime's staging ring

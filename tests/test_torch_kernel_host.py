@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import ell_spmm as kell
 from repro_torch.kernels import ops
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # (d, element bytes) of the main paths: h at d = 500 (layer 0) and 256
 # (layers 1-2) in f32, and the bf16 forward at d = 500; then ragged widths

@@ -16,6 +16,7 @@ from repro.kernels.cache_gather import gather_rows_pallas
 from repro.kernels.ell_spmm import ell_spmm_pallas
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # tests/test_kernels.py's SHAPES (n_rows, max_deg, n_cols, d), plus ragged
 # shapes that are no multiple of the Pallas blocks, among them the widths

@@ -68,6 +68,7 @@ from repro_torch.launch import serve as tlaunch_serve, train as tlaunch_train
 from repro_torch.models import gnn as tgnn
 from repro_torch.optim import sgd
 from repro_torch.serve import GNNServeEngine, precompute_embeddings
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 P = 4
 TOL = 1e-5

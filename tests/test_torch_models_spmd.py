@@ -24,6 +24,7 @@ from repro_torch.optim import sgd
 import torch_spmd_ranks
 from test_torch_models import (P, TOL, _base, _cfgs, _close, _close_tree,
                                _params_np, _spec_kw, _stacked, _tparams)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 _CACHE: dict = {}
 

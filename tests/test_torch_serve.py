@@ -34,6 +34,7 @@ from repro_torch.models.gnn import GNNConfig
 from repro_torch.serve import (BatchConfig, GNNServeEngine, make_stream,
                                precompute_embeddings, rank_hot_nodes,
                                serve_stream)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 BACKENDS = ("edges", "ell", "hybrid")
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -8,8 +8,10 @@ The graph of ``tests/spmd_parity_script.py``: rmat 360 / 2,200, GCN 12 ->
 plan (``c_gpu`` 10 rows a worker, ``c_cpu`` 25) so that the uncached,
 local and global tiers all carry rows.  Parameters come from the JAX
 package's ``init_gnn`` and are carried across as numpy.  One spawn of 4
-ranks per configuration runs every check of it
-(``torch_spmd_ranks.run_spmd``).  Held, per configuration:
+ranks runs every check of every configuration
+(``torch_spmd_ranks.run_spmd`` for each, one after another in one group),
+and the configuration's tests share its results.  Held, per
+configuration:
 
 - ``forward_fresh``: logits within 1e-5 of both references (bf16: see
   below);
@@ -74,6 +76,7 @@ from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam, sgd
 
 import torch_spmd_ranks
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 P = 4
 EPOCHS = 8
@@ -181,20 +184,44 @@ def _train_plans(case_id, kinds):
     return out
 
 
+def _spec_kw(case_id) -> dict:
+    transport, backend, halo_dtype, features, _ = CASES[case_id]
+    return dict(backend=backend, transport=transport, halo_dtype=halo_dtype,
+                pipeline=True, refresh_every=2, features=features)
+
+
+def _stacked(backend):
+    key = ("stacked", backend)
+    if key not in _CACHE:
+        b = _base()
+        _CACHE[key] = stack_partitions(b["tps"], b["ttask"], backend=backend)
+    return _CACHE[key]
+
+
+def _ranks(case_id):
+    """The 4 ranks' results of one configuration, from the one spawn that
+    runs every configuration."""
+    if "ranks" not in _CACHE:
+        b = _base()
+        cases = {cid: (b["tcfg"], _stacked(CASES[cid][1]), _plan(cid),
+                       _spec_kw(cid), b["params_np"], EPOCHS, b["switch"],
+                       _planner(cid)) for cid in CASES}
+        per_rank = spawn(torch_spmd_ranks.run_spmd_cases, P, backend="gloo",
+                         devices="cpu", args=(cases,))
+        _CACHE["ranks"] = {cid: [r[cid] for r in per_rank] for cid in CASES}
+    return _CACHE["ranks"][case_id]
+
+
 def _case(case_id):
     """The 4 ranks' results and both references for one configuration."""
     if case_id in _CACHE:
         return _CACHE[case_id]
     b = _base()
-    transport, backend, halo_dtype, features, _ = CASES[case_id]
-    kw = dict(backend=backend, transport=transport, halo_dtype=halo_dtype,
-              pipeline=True, refresh_every=2, features=features)
-    tsp = stack_partitions(b["tps"], b["ttask"], backend=backend)
+    _, backend, halo_dtype, _, _ = CASES[case_id]
+    kw = _spec_kw(case_id)
+    tsp = _stacked(backend)
     x = _plan(case_id)
-    ranks = spawn(torch_spmd_ranks.run_spmd, P, backend="gloo",
-                  devices="cpu",
-                  args=(b["tcfg"], tsp, x, kw, b["params_np"], EPOCHS,
-                        b["switch"], _planner(case_id)))
+    ranks = _ranks(case_id)
     spec, cfg = TrainSpec(**kw), b["tcfg"]
     params = _tparams(b)
     sim = make_sim_runtime(cfg, tsp, x, sgd(1.0), spec=spec,
@@ -543,13 +570,16 @@ def test_spmd_adaptive_replans_match_sim(case_id):
 
 
 def test_spmd_unported_options_raise():
-    """The tracer and the fault guard raise; an axis tuple (the multi-pod
-    mesh, ported) needs the mesh as the group and raises without it."""
-    from repro_torch.dist.capgnn_spmd import SpmdRuntime, make_spmd_runtime
-    with pytest.raises(NotImplementedError, match="tracer"):
-        SpmdRuntime.set_tracer(None, object())
-    with pytest.raises(NotImplementedError, match="fault guard"):
-        SpmdRuntime.set_fault_guard(None, object())
+    """The tracer and the fault guard (refused until they were ported) are
+    the single-process runtime's hooks, and the guard's agreement is the
+    SPMD exchange's own; an axis tuple (the multi-pod mesh, ported) needs
+    the mesh as the group and raises without it."""
+    from repro_torch.dist.capgnn_sim import SimRuntime, _StackedExchange
+    from repro_torch.dist.capgnn_spmd import (SpmdRuntime, WireExchange,
+                                              make_spmd_runtime)
+    for hook in ("set_tracer", "set_fault_guard", "any_rank"):
+        assert getattr(SpmdRuntime, hook) is getattr(SimRuntime, hook)
+    assert WireExchange.any_rank is not _StackedExchange.any_rank
     b = _base()
     with pytest.raises(ValueError, match="make_mesh"):
         make_spmd_runtime(b["tcfg"], None, b["tx"], sgd(1.0),

@@ -23,6 +23,7 @@ import repro_torch.dist as tdist
 import repro_torch.graph as tgraph
 import repro_torch.kernels.ops as tops
 import repro_torch.serve as tserve
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SCALE, FEAT, PARTS, SEED = 0.02, 32, 4, 0
 FEAT_DIMS = [FEAT, 32, 32, 7]

@@ -43,6 +43,7 @@ from repro_torch.dist import (TrainSpec, build_exchange_plan, make_sim_runtime,
 from repro_torch.launch import train as tlaunch
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.optim import adam, adamw, sgd
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 P = 4
 EPOCHS = 8

@@ -24,6 +24,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import csr_spmm as kcsr
 from repro_torch.kernels import ops, ref
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -198,3 +198,41 @@ def run_models(rank, world_size, device, cases):
                    wire=[w["counts"] for w in rt.wire_log])
         out[name] = res
     return out
+
+
+def run_spmd_cases(rank, world_size, device, cases):
+    """:func:`run_spmd` for each of ``cases`` (name -> its arguments after
+    ``device``) on this rank, in one group: one spawn for every
+    configuration."""
+    return {name: run_spmd(rank, world_size, device, *args)
+            for name, args in cases.items()}
+
+
+def run_faults(rank, world_size, device, cfg, sp, xplan, cases, params_np,
+               epochs):
+    """Each of ``cases`` (name -> (spec kwargs, fault spec, guard kwargs))
+    on this rank: an ``epochs``-step ``train_capgnn`` with ``adam`` under
+    this rank's own fault plan (seed 0), guard and tracer; its losses,
+    report counts, fault and defense counts, and the tracer's per-step
+    records and totals."""
+    import dataclasses
+
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.obs import Tracer
+    out = {}
+    for name, (spec_kw, fault_spec, guard_kw) in cases.items():
+        spec = TrainSpec(**spec_kw)
+        opt = adam(1e-2)
+        rt = make_spmd_runtime(cfg, sp, xplan, opt, spec=spec, device=device)
+        tr = Tracer()
+        _, rep = train_capgnn(cfg, rt, xplan, world_size, opt, epochs=epochs,
+                              params0=_params(params_np, device), tracer=tr,
+                              faults=FaultPlan.parse(fault_spec, seed=0),
+                              guard=GuardConfig(**guard_kw), spec=spec)
+        out[name] = {**train_fields(rep),
+                     "faults_injected": rep.faults_injected,
+                     "fault_events": rep.fault_events,
+                     "counters": [dataclasses.asdict(c) for c in tr.counters],
+                     "totals": tr.totals(),
+                     "wire": [w["counts"] for w in rt.wire_log]}
+    return out
