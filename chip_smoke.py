@@ -83,6 +83,17 @@ raises, and the script exits non-zero:
    a refresh step's loss and gradients and four steps against the card's
    single-process runtime, the counted rows against the plan's, the
    launches summed over ranks.
+   ``spmm15d`` - the 1.5D replicated-row strategy (``--strategy spmm_15d``)
+   at the train cell's width through the CLI's own host pipeline and rank
+   program (``launch.train.prepare_train`` / ``train_15d_rank``), ``c=2,
+   pr=2`` and ``c=1, pr=4`` on 4 ranks, ``c=2, pr=4`` on 8, GCN and GIN,
+   6 Adam steps, the ranks sharing the card over gloo (all cases of one
+   world size in one spawn): the losses against the card's
+   ``capgnn_sim`` at ``refresh_every=1`` on the same block rows, every
+   rank's counted forward bytes equal to the byte model, no launch of the
+   port's kernels; steady step and host-staging ms per rank, peak memory
+   (``spmm15d_nccl``: the two 4-rank shapes with GCN over NCCL on four
+   cards).
    JACA's CPU tier and online adaptation, on the train cell's host plan
    under a forced capacity (``forced_capacity``: half the widest worker's
    halo rows on the host) that fills every tier: ``train_host`` - a
@@ -109,11 +120,13 @@ raises, and the script exits non-zero:
    many counted defenses, the final loss within ``FAULT_LOSS_TOL`` of the
    clean run's, the corrupted tier and the rollback step), and ``lru``
    with ``mem_pressure@4``; ``train_traced`` - device and host features
-   on the forced plan, untraced, traced, traced, untraced (the traced
-   totals equal the report's, every step's launches equal, the trace
-   valid, the steady step ms of both); ``device_trace`` -
-   ``--device-trace-dir`` over 3 steps of the train cell (the kernels by
-   name inside the ``layer{li}/spmm`` and tier-pull ranges);
+   on the forced plan, untraced, traced, traced with a fence on the whole
+   device (twice), traced, untraced (the traced totals equal the
+   report's, every step's launches equal, the trace valid, the steady
+   step ms of the three); ``device_trace`` - ``--device-trace-dir`` over
+   3 steps of the train cell (the kernels by name inside the
+   ``layer{li}/spmm`` and tier-pull ranges, every CSR launch inside a
+   range, the backward's inside ``transpose(...)``);
    ``spmd_faults`` - 4 gloo ranks on the card, host features, both
    transports in one spawn, ``fetch_drop@3;grad_nan@5`` under the guard,
    against the card's single-process run under the same faults
@@ -1337,7 +1350,10 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
     mat = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[live],
                                   (n_parts * ni, n_parts * n_cols)
                                   ).coalesce().to_sparse_csr()
-    hf = h.detach().view(-1, d)
+    mat_t = torch.sparse_coo_tensor(torch.stack([cols, rows]), w[live],
+                                    (n_parts * n_cols, n_parts * ni)
+                                    ).coalesce().to_sparse_csr()
+    hf, gf = h.detach().view(-1, d), g.view(-1, d)
     t = time_calls({
         "backward_ms": lambda: torch.autograd.grad(new, h, g,
                                                    retain_graph=True),
@@ -1346,6 +1362,7 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
         "forward_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(), ni),
         "old_forward_ms": lambda: coo_old_route(src, dst, w, h.detach(), ni),
         "library_forward_ms": lambda: torch.sparse.mm(mat, hf),
+        "library_backward_ms": lambda: torch.sparse.mm(mat_t, gf),
     }, reps=3, rounds=2)
     nnz = int(live.sum())
     # backward: each live message's gradient row read once (from g), d_h
@@ -1356,8 +1373,61 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
                live_edges=nnz, max_abs_err=err, forward_max_abs_err=fwd_err,
                messages_bit_equal=True, bound_ms=b, bound_by=by, **t)
     emit("coo_spmm", **rec)
-    del new, old, d_new, d_old, h, mat
+    del new, old, d_new, d_old, h, mat, mat_t
     return rec
+
+
+def phase_coo_spmm_15d(layout, rank: int, seed: int = 0,
+                       dev="cuda") -> None:
+    """``ops.coo_spmm`` at the 1.5D chunk's shapes: rank ``rank``'s edge
+    chunk over its gathered group buffer ``[g*ni, d]`` into ``[ni, d]``,
+    at d = 500 (layer 0, whose input needs no gradient) and 256 (forward
+    and backward), each against ``torch.sparse.mm`` of the same matrix
+    (and of its transpose for the backward: the library calls), timed
+    beside the least time the card could take (each input read once,
+    each output written once)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = int(layout.n_edges_dev[rank])
+    src, dst, w = (torch.as_tensor(a[rank, :m], device=dev) for a in (
+        layout.chunk_src, layout.chunk_dst, layout.chunk_w))
+    ni, n_cols = layout.ni, layout.g * layout.ni
+    idx = torch.stack([dst.long(), src.long()])
+    mat = torch.sparse_coo_tensor(idx, w, (ni, n_cols)).coalesce() \
+        .to_sparse_csr()
+    mat_t = torch.sparse_coo_tensor(idx.flip(0), w, (n_cols, ni)) \
+        .coalesce().to_sparse_csr()
+    rec = {}
+    for d in (500, 256):
+        h = torch.randn((n_cols, d), generator=gen, device=dev,
+                        requires_grad=d == 256)
+        g = torch.randn((ni, d), generator=gen, device=dev)
+        y = ops.coo_spmm(src, dst, w, h, ni)
+        want = torch.sparse.mm(mat, h.detach())
+        err = check_close(f"coo_spmm_15d forward d={d}", y, want,
+                          **csr_tol(want))
+        fns = {"forward_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(),
+                                                  ni),
+               "library_forward_ms": lambda: torch.sparse.mm(
+                   mat, h.detach())}
+        fwd_bytes = h.numel() * 4 + m * 12 + ni * d * 4
+        b, by = bound_ms(fwd_bytes, 2.0 * m * d)
+        rec[f"d{d}"] = {"max_abs_err": err, "bound_ms": b, "bound_by": by}
+        if d == 256:
+            d_h = torch.autograd.grad(y, h, g, retain_graph=True)[0]
+            want = torch.sparse.mm(mat_t, g)
+            rec["d256"]["backward_max_abs_err"] = check_close(
+                "coo_spmm_15d backward d=256", d_h, want, **csr_tol(want))
+            fns["backward_ms"] = lambda: torch.autograd.grad(
+                y, h, g, retain_graph=True)
+            fns["library_backward_ms"] = lambda: torch.sparse.mm(mat_t, g)
+            bwd_bytes = g.numel() * 4 + m * 12 + h.numel() * 4
+            rec["d256"]["backward_bound_ms"] = bound_ms(bwd_bytes,
+                                                        2.0 * m * d)[0]
+        rec[f"d{d}"].update(time_calls(fns, reps=5, rounds=2))
+        del h, g, y
+    emit("coo_spmm_15d", case=f"c{layout.c}pr{layout.pr}", rank=rank,
+         edges=m, ni=ni, n_cols=n_cols, **rec)
 
 
 def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
@@ -2582,12 +2652,16 @@ def step_launch_log(rt) -> list:
 
 def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
     """The train cell on the forced plan, device and host features, 8 Adam
-    steps untraced, traced, traced, untraced on one runtime each.  Checks:
+    steps untraced, traced, traced with the device-wide fence (twice),
+    traced, untraced on one runtime each.  Checks:
     the traced totals equal the report's exactly (``comm_bytes``,
     ``host_fetch_rows`` / ``_bytes``, ``host_writeback_bytes``, steps);
     the exported trace passes ``repro_torch.obs.check``; every step's
     launches equal untraced and traced.  Prints ``phase_stats`` and the
-    steady step ms of both: the cost of the fence."""
+    steady step ms of the three: the cost of the fence, which waits on the
+    loss's stream, beside a fence on the whole device (the port's before
+    it; in host mode that one also waits for the next step's ring copy on
+    the side stream)."""
     import dataclasses as dc
     from repro_torch.core import StalenessController
     from repro_torch.dist import make_sim_runtime, train_capgnn
@@ -2595,6 +2669,12 @@ def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
     from repro_torch.obs import NULL_TRACER, Tracer
     from repro_torch.obs.check import check_file
     from repro_torch.optim import adam
+
+    class DeviceFenceTracer(Tracer):
+        def fence(self, x):
+            if self.enabled and self.do_fence and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            return x
     cfg, sp, xplan = fctx["cfg"], fctx["sp"], fctx["xplan"]
     params0 = init_gnn(cfg, torch.Generator().manual_seed(seed), "cuda")
     res = {}
@@ -2604,8 +2684,10 @@ def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
                               device="cuda")
         log = step_launch_log(rt)
         runs = []
-        for traced in (False, True, True, False):
-            tr = Tracer() if traced else None
+        for traced in (False, True, "device_fence", "device_fence", True,
+                       False):
+            tr = (None if not traced else DeviceFenceTracer()
+                  if traced == "device_fence" else Tracer())
             n0 = len(log)
             _, rep = train_capgnn(
                 cfg, rt, xplan, len(fctx["ps"].parts), adam(lr), epochs=8,
@@ -2615,8 +2697,9 @@ def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
             rt.set_tracer(NULL_TRACER)
             runs.append((traced, rep, tr, log[n0:]))
         untraced = [r for r in runs if not r[0]]
-        traced_runs = [r for r in runs if r[0]]
-        for _, rep, tr, steps in traced_runs:
+        traced_runs = [r for r in runs if r[0] is True]
+        device_fenced = [r for r in runs if r[0] == "device_fence"]
+        for _, rep, tr, steps in traced_runs + device_fenced:
             tot = tr.totals()
             want = {"wire_bytes": rep.comm_bytes,
                     "host_fetch_rows": rep.host_fetch_rows,
@@ -2644,6 +2727,7 @@ def phase_train_traced(fctx: dict, seed: int, lr: float) -> None:
             "totals": traced_runs[0][2].totals(),
             "steady_step_ms_untraced": steady(untraced),
             "steady_step_ms_traced": steady(traced_runs),
+            "steady_step_ms_traced_device_fence": steady(device_fenced),
             "launches_per_step": [{"kind": k, **c} for k, c in
                                   untraced[0][3]],
             "trace_spans_by_cat": stats["spans_by_cat"],
@@ -2659,8 +2743,10 @@ def phase_device_trace(tctx: dict) -> None:
     the ``torch.profiler`` capture holds the port's kernels by name, each
     ELL forward launched inside a ``layer{li}/spmm`` range and each row
     gather inside a tier-pull range (a kernel is placed by the host launch
-    its ``correlation`` id names); the hybrid tail's CSR launches inside
-    the layer ranges."""
+    its ``correlation`` id names); every CSR launch inside a range: the
+    hybrid tail's inside the layer ranges, ``d_h`` (launched by autograd's
+    thread) inside ``transpose(layer{li}/spmm)`` and the gather's backward
+    inside ``transpose(tier_pull_...)``."""
     from repro_torch.launch.train import build_parser, train_gnn
     argv = TRAIN_ARGV + ["--device-trace-dir", str(OUT_DIR / "device")]
     argv[argv.index("--epochs") + 1] = "3"
@@ -2692,11 +2778,25 @@ def phase_device_trace(tctx: dict) -> None:
                                      for n in w) for w in where),
             "in_tier_pull": sum(any(n.startswith("tier_pull") for n in w)
                                 for w in where),
+            "in_transpose_layer_spmm": sum(
+                any(re.fullmatch(r"transpose\(layer\d+/spmm\)", n)
+                    for n in w) for w in where),
+            "in_transpose_tier_pull": sum(
+                any(n.startswith("transpose(tier_pull") for n in w)
+                for w in where),
+            "in_no_range": sum(not w for w in where),
             "device_ms": sum(e["dur"] for e in evs) / 1e3}
     ell, csr, gat = found["ell_spmm"], found["csr_spmm"], found["gather_rows"]
+    # every CSR launch: the hybrid tail's forward inside its layer's range,
+    # d_h inside the transpose of it, the gather's backward inside the
+    # transpose of its tier pull
+    csr_placed = (csr["in_layer_spmm"] + csr["in_transpose_layer_spmm"]
+                  + csr["in_transpose_tier_pull"])
     if not (ell["kernels"] and ell["in_layer_spmm"] == ell["kernels"]
             and gat["kernels"] and gat["in_tier_pull"] == gat["kernels"]
-            and csr["in_layer_spmm"] > 0):
+            and csr["kernels"] and csr["launches_found"] == csr["kernels"]
+            and csr_placed == csr["kernels"]
+            and csr["in_transpose_layer_spmm"] > 0):
         raise AssertionError(f"device_trace: the kernels by range {found}")
     emit("device_trace", argv=argv, trace_file=out["device_trace_file"],
          events=len(events), kernels=found, wall_s=wall_s,
@@ -2882,6 +2982,215 @@ def phase_checkpoint(tctx: dict) -> None:
                              for k, v in served.items()},
          serve_wall_s={k: v[2] for k, v in served.items()},
          serve_qps={k: v[0]["qps"] for k, v in served.items()})
+
+
+# the 1.5D strategy's cases: (c, pr) on c * pr ranks; each with GCN and GIN
+SPMM15D_SHAPES = ((2, 2), (1, 4), (2, 4))
+SPMM15D_MODELS = ("gcn", "gin")
+SPMM15D_EPOCHS = 6
+# over NCCL, a card per rank: the shapes of 4 ranks
+SPMM15D_NCCL_SHAPES = ((2, 2), (1, 4))
+# the ranks' loss against the card's sim at the shared initial parameters
+# (step 0): f32 sums in other orders, as the spmd phase's refresh loss
+SPMM15D_TOL = LOSS_ATOL
+# steps 1-5, of the loss: Adam's first update moves every weight by about
+# lr * sign(g), so a gradient entry within rounding of zero (summed in
+# another order: index_add_'s atomics in both runtimes) moves by up to
+# 2 * lr.  At GIN's step-2 spike (loss ~7.3-7.7) the card's sim run twice
+# on the same inputs differs by up to 3.7e-4, 5e-5 of the loss, and the
+# runs reconverge after it; GCN stays within 1e-6
+SPMM15D_TRAJ_RTOL = 1e-3
+
+
+def spmm15d_argv(c: int, pr: int, model: str) -> list[str]:
+    """The train cell's flags under ``--strategy spmm_15d`` on ``c * pr``
+    ranks: ``--backend edges`` (the strategy's one backend), JACA on (so
+    the layer-0 block is pre-replicated), 6 epochs."""
+    argv = with_backend(TRAIN_ARGV, "edges", model=model)
+    argv[argv.index("--parts") + 1] = str(c * pr)
+    argv[argv.index("--epochs") + 1] = str(SPMM15D_EPOCHS)
+    return argv + ["--strategy", "spmm_15d", "--replication", str(c)]
+
+
+def spmm15d_contexts(tctx: dict, shapes) -> dict:
+    """``(c, pr) -> launch.train.prepare_train``'s 1.5D context of the
+    shape's flags (GCN): the CLI's own host pipeline, ``P / c`` block
+    rows; a shape with as many block rows as the train cell ``tctx`` has
+    partitions takes its task and partition (the same flags partition
+    the graph the same way), which spares a host pipeline."""
+    import dataclasses as dc
+    from repro_torch.dist import TrainSpec
+    from repro_torch.dist.strategy_15d import build_spmm15d_layout
+    from repro_torch.launch.train import build_parser, prepare_train
+    out = {}
+    for c, pr in shapes:
+        args = build_parser().parse_args(spmm15d_argv(c, pr, "gcn"))
+        if pr != len(tctx["ps"].parts):
+            out[(c, pr)] = prepare_train(args)
+            continue
+        spec = TrainSpec.from_cli_args(args)
+        out[(c, pr)] = {
+            **{k: tctx[k] for k in ("task", "ps", "group")},
+            "cfg": dc.replace(tctx["cfg"], model="gcn"), "spec": spec,
+            "layout": build_spmm15d_layout(tctx["ps"], tctx["task"], spec)}
+    return out
+
+
+def spmm15d_jobs(ctxs: dict, shapes, models=SPMM15D_MODELS) -> list[dict]:
+    """``launch.train.train_15d_rank``'s jobs: each shape with each model,
+    the CLI's own flags and context."""
+    import dataclasses as dc
+    from repro_torch.launch.train import build_parser
+    jobs = []
+    for c, pr in shapes:
+        ctx = ctxs[(c, pr)]
+        for model in models:
+            args = build_parser().parse_args(spmm15d_argv(c, pr, model))
+            jobs.append({"args": args, "layout": ctx["layout"],
+                         "cfg": dc.replace(ctx["cfg"], model=model),
+                         "spec": ctx["spec"], "group": ctx["group"],
+                         "inner_sizes": [pt.n_inner
+                                         for pt in ctx["ps"].parts]})
+    return jobs
+
+
+def spmm15d_rank(rank, world_size, device, jobs):
+    """One rank of the 1.5D phases: the CLI's rank program
+    (``launch.train.train_15d_rank``) over ``jobs``, its launches counted
+    from zero (the 1.5D path launches none of the port's kernels)."""
+    from repro_torch.launch.train import train_15d_rank
+    zero_counts()
+    res = train_15d_rank(rank, world_size, device, jobs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"jobs": res, "launches": read_counts()}
+
+
+def spmm15d_sim(job: dict, ps, device="cuda") -> list[float]:
+    """The oracle: the card's single-process ``capgnn_sim`` at
+    ``refresh_every=1`` on the same block rows (the layout's ``edges``
+    stacking, a plan with every halo row uncached: a refresh step's
+    numerics do not depend on the tiers) of ``ps``, the partition of
+    the layout's block rows, ``SPMM15D_EPOCHS`` Adam steps
+    from ``init_gnn`` of the run's seed, as the ranks start."""
+    from repro_torch.core import CacheCapacity, build_cache_plan
+    from repro_torch.dist import (TrainSpec, build_exchange_plan,
+                                  make_sim_runtime)
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.optim import adam
+    args, layout, cfg = job["args"], job["layout"], job["cfg"]
+    xplan = build_exchange_plan(ps, build_cache_plan(
+        ps, CacheCapacity(c_gpu=[0] * layout.pr, c_cpu=0), refresh_every=1))
+    opt = adam(args.lr)
+    spec = TrainSpec(backend="edges", exchange_layer0=False)
+    rt = make_sim_runtime(cfg, layout.sp, xplan, opt, spec=spec,
+                          device=device)
+    params = init_gnn(cfg, torch.Generator().manual_seed(args.seed), device)
+    state = (params, opt.init(params), rt.caches0)
+    losses = []
+    for _ in range(SPMM15D_EPOCHS):
+        *state, m = rt.step_refresh(*state)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
+                  models=SPMM15D_MODELS) -> None:
+    """The 1.5D strategy (``--strategy spmm_15d``) at the train cell's
+    width through the CLI's rank program, ``c * pr`` ranks over
+    ``backend`` (``devices``: ``"cuda"`` for a card per rank, or ranks
+    sharing card 0), all cases of one world size in one spawn.
+
+    Checks, per case: every rank's 6 losses the same, the first (at the
+    shared initial parameters) within ``SPMM15D_TOL`` of the card's
+    ``capgnn_sim`` at ``refresh_every=1`` on the same block rows and the
+    later ones within ``SPMM15D_TRAJ_RTOL`` of its losses (the sim run
+    twice: its own spread is printed); every rank's counted forward bytes, every step,
+    equal to ``forward_collective_bytes_per_device``, and their sum over
+    the ranks to ``step_bytes_total``; the report's bytes; finite losses;
+    no launch of the port's kernels.  Prints per case the steady step ms
+    and host-staging ms of every rank and its peak device memory."""
+    from repro_torch.dist.strategy_15d import (
+        forward_collective_bytes_per_device, step_bytes_total)
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ctxs = spmm15d_contexts(tctx, shapes)
+    plan_s = time.perf_counter() - t0
+    if backend == "gloo":
+        # the chunk aggregation of the first shape's rank 0, timed alone
+        phase_coo_spmm_15d(ctxs[shapes[0]]["layout"], 0)
+    by_size: dict = {}
+    for c, pr in shapes:
+        by_size.setdefault(c * pr, []).append((c, pr))
+    for size, group in sorted(by_size.items()):
+        jobs = spmm15d_jobs(ctxs, group, models)
+        devs = (devices if isinstance(devices, str)
+                else [devices[0]] * size)
+        t0 = time.perf_counter()
+        ranks = spawn(spmm15d_rank, size, backend=backend, devices=devs,
+                      args=(jobs,))
+        spawn_wall_s = time.perf_counter() - t0
+        for r in ranks:
+            if any(r["launches"].values()):
+                raise AssertionError(f"{name}: rank launches "
+                                     f"{r['launches']}")
+        for ji, job in enumerate(jobs):
+            per = [r["jobs"][ji] for r in ranks]
+            layout, cfg, spec = job["layout"], job["cfg"], job["spec"]
+            case = f"c{layout.c}pr{layout.pr}-{cfg.model}"
+            losses = per[0]["losses"]
+            if any(p["losses"] != losses for p in per) or not \
+                    np.all(np.isfinite(losses)):
+                raise AssertionError(f"{name} {case}: losses "
+                                     f"{[p['losses'] for p in per]}")
+            ps = ctxs[(layout.c, layout.pr)]["ps"]
+            sim = spmm15d_sim(job, ps)
+            rerun = spmm15d_sim(job, ps)
+            diff = np.abs(np.subtract(losses, sim))
+            err = float(diff.max())
+            rel = float((diff[1:] / np.abs(sim[1:])).max())
+            if diff[0] > SPMM15D_TOL or rel > SPMM15D_TRAJ_RTOL:
+                raise AssertionError(f"{name} {case}: losses {losses}, the "
+                                     f"card's sim {sim} (max err {err})")
+            model_b = forward_collective_bytes_per_device(layout, cfg, spec)
+            total_b = step_bytes_total(layout, cfg, spec)
+            for p in per:
+                if p["forward_bytes"] != [model_b] * SPMM15D_EPOCHS:
+                    raise AssertionError(f"{name} {case}: rank {p['rank']} "
+                                         f"counted {p['forward_bytes']}, the "
+                                         f"model gives {model_b}")
+            if sum(p["forward_bytes"][0] for p in per) != total_b or \
+                    per[0]["out"]["comm_bytes"] != SPMM15D_EPOCHS * total_b:
+                raise AssertionError(f"{name} {case}: step bytes")
+
+            def steady(key):
+                return [statistics.median(1e3 * t for t in p[key][1:])
+                        for p in per]
+            emit(name, case=case, c=layout.c, g=layout.g, pr=layout.pr,
+                 ranks=size, model=cfg.model, backend=backend,
+                 devices=devs if isinstance(devs, str) else devs[0],
+                 wire="gloo-host" if backend == "gloo" else "nccl",
+                 argv=spmm15d_argv(layout.c, layout.pr, cfg.model),
+                 ni=layout.ni, edges_per_rank=[int(e) for e in
+                                               layout.n_edges_dev],
+                 losses=losses, sim_losses=sim, max_abs_err_vs_sim=err,
+                 step0_err=float(diff[0]), max_rel_err_after_step0=rel,
+                 tol=SPMM15D_TOL, traj_rtol=SPMM15D_TRAJ_RTOL,
+                 sim_rerun_max_abs=float(np.abs(np.subtract(sim,
+                                                            rerun)).max()),
+                 fwd_collective_bytes_per_device=model_b,
+                 counted_equal_model=True, step_bytes_total=total_b,
+                 comm_reduction_vs_vanilla=per[0]["out"][
+                     "comm_reduction_vs_vanilla"],
+                 test_acc=per[0]["out"]["test_acc"],
+                 compile_s=[p["out"]["compile_s"] for p in per],
+                 steady_step_ms=steady("step_s"),
+                 steady_host_stage_ms=steady("host_stage_s"),
+                 peak_mem_gb=[p["peak_mem_gb"] for p in per],
+                 launches=ranks[0]["launches"], spawn_wall_s=spawn_wall_s,
+                 host_plan_s=plan_s)
+        del ranks, jobs
+        torch.cuda.empty_cache()
 
 
 def phase_profile() -> None:
@@ -3536,8 +3845,9 @@ def main_spmd_nccl(device: dict) -> None:
     phases; then the training
     cell's host plan, the card's single-process refresh step from
     ``init_gnn`` of its seed, the ``spmd_nccl`` phase under both
-    transports, and the host-features and ``lru`` runs over NCCL
-    (:func:`spmd_host_nccl`)."""
+    transports, the host-features and ``lru`` runs over NCCL
+    (:func:`spmd_host_nccl`), and the 1.5D strategy's 4-rank GCN cases
+    (``spmm15d_nccl``)."""
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
     tiers = tiers_context()
@@ -3555,6 +3865,8 @@ def main_spmd_nccl(device: dict) -> None:
         phase_spmd("spmd_nccl", ctx, ref, transport, "nccl", "cuda",
                    args.epochs, args.lr)
     spmd_host_nccl(ctx, args.lr)
+    phase_spmm15d("spmm15d_nccl", ctx, SPMM15D_NCCL_SHAPES, "nccl", "cuda",
+                  models=("gcn",))
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
@@ -3628,6 +3940,9 @@ def main(argv=None) -> None:
     by_path.update(phase_spmd_models("spmd_models", models_context(tiers),
                                      "gloo", ["cuda:0"] * SPMD_RANKS))
     torch.cuda.empty_cache()
+    # the 1.5D strategy: its ranks share card 0 over gloo
+    phase_spmm15d("spmm15d", tctx, SPMM15D_SHAPES, "gloo", ["cuda:0"])
+    torch.cuda.empty_cache()
     # JACA's CPU tier and online adaptation on the train cell's host plan
     fctx = forced_context(tctx)
     seed = int(TRAIN_ARGV[TRAIN_ARGV.index("--seed") + 1])
@@ -3663,9 +3978,12 @@ def main(argv=None) -> None:
         by_path.update(phase_spmd_models(
             "spmd_models_nccl", models_context(tiers), "nccl", "cuda"))
         spmd_host_nccl(tctx, lr)
+        phase_spmm15d("spmm15d_nccl", tctx, SPMM15D_NCCL_SHAPES, "nccl",
+                      "cuda", models=("gcn",))
     else:
         for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_models_nccl",
-                     "spmd_host_nccl", "spmd_lru_nccl", "spmd_faults_nccl"):
+                     "spmd_host_nccl", "spmd_lru_nccl", "spmd_faults_nccl",
+                     "spmm15d_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
                  why="NCCL needs one card per rank")
     torch.cuda.empty_cache()

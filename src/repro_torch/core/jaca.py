@@ -630,8 +630,9 @@ class AdaptivePlanner:
                                    pad_to=self._pad)
 
     def shrink_capacity(self, factor: float) -> CacheCapacity:
-        """Memory-pressure backoff (the fault slice's defense, not ported
-        yet): scale every cache budget by ``factor`` and rebuild the
+        """Memory-pressure backoff (the fault slice's defense, driven by
+        ``train_capgnn`` under ``mem_pressure``): scale every cache budget
+        by ``factor`` and rebuild the
         planner state under the smaller budget, so the next
         :meth:`replan` emits a plan that fits.  The exchange padding is
         pinned to the *pre-shrink* capacity first — shrunk plans keep the

@@ -8,7 +8,7 @@ the period when the measured embedding drift approaches the epsilon_H bound
 — implemented here as a beyond-paper feature.
 
 The controller also schedules *re-planning* for the online cache
-adaptation loop (the JAX package's ``AdaptivePlanner``, not ported yet):
+adaptation loop (:class:`~repro_torch.core.jaca.AdaptivePlanner`):
 tier membership may only change at a refresh boundary (the refresh
 rewrites every cache row, so a re-ranked plan never reads rows laid out
 by its predecessor), and ``replan_every`` thins that further to every

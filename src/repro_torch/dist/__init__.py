@@ -8,8 +8,11 @@
   over a ``torch.distributed`` group, both halo transports;
 - :mod:`.collectives` — the exchange's collectives as autograd Functions
   and the counting :class:`~.collectives.Wire`;
-- :mod:`.spec`, :mod:`.strategy` — ``TrainSpec`` and the ``halo_1d``
-  strategy front door.
+- :mod:`.spec`, :mod:`.strategy` — ``TrainSpec``, the strategy interface
+  and registry (``halo_1d``'s front door);
+- :mod:`.strategy_15d` — the 1.5D replicated-row strategy ``spmm_15d``:
+  its numpy layout and byte models, and its runtime with one process per
+  device (permute, gather and all-reduce per layer).
 - :mod:`.host_store` — the host-resident store (JACA's CPU tier) behind
   the runtimes' ``features="host"`` mode and the serve engine's host
   tier: a ring of pinned slots, side-stream copies, host global buffers.
@@ -28,7 +31,8 @@ from .capgnn_spmd import (TRANSPORTS, SpmdRuntime, make_spmd_runtime,
                           spmd_exchange_arrays)
 from .collectives import Wire
 from .spec import TrainSpec
-from .strategy import Halo1DStrategy, get_strategy
+from .strategy import (DistStrategy, Halo1DStrategy, StrategyCaps,
+                       StrategyCapabilityError, get_strategy)
 
 __all__ = [
     "ExchangeCapacity", "ExchangePlan", "ExchangeTier", "GlobalTier",
@@ -40,5 +44,6 @@ __all__ = [
     "exchange_arrays", "init_caches", "SimRuntime", "make_sim_runtime",
     "TrainReport", "train_capgnn", "TRANSPORTS", "SpmdRuntime",
     "make_spmd_runtime", "spmd_exchange_arrays", "Wire", "TrainSpec",
-    "Halo1DStrategy", "get_strategy",
+    "DistStrategy", "Halo1DStrategy", "StrategyCaps",
+    "StrategyCapabilityError", "get_strategy",
 ]

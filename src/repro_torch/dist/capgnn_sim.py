@@ -1067,8 +1067,9 @@ def train_capgnn(cfg: GNNConfig, runtime, xplan: ExchangePlan,
     ``h2d_prefetch``/``eval`` sub-phases nested inside — plus one typed
     :class:`repro_torch.obs.StepCounters` record per step whose totals
     equal this report's ``comm_bytes`` / ``host_fetch_*`` figures
-    exactly.  Traced steps are fenced (``torch.cuda.synchronize``) so
-    span durations measure completed device work.
+    exactly.  Traced steps are fenced (:meth:`~repro_torch.obs.Tracer.
+    fence`: the loss's stream synchronised) so span durations measure
+    completed device work.
 
     ``faults`` (a :class:`repro_torch.faults.FaultPlan`) arms
     deterministic fault injection; ``guard`` (a

@@ -17,7 +17,14 @@ transposes:
 - :class:`RingBroadcastFn` — the ring broadcast of a buffer (each rank's
   payload originates once and circulates over ``P - 1`` rotations, giving
   the ``[P, ...]`` an all-gather would); backward the reverse rotations,
-  each rank's share summed in a fixed order.
+  each rank's share summed in a fixed order;
+- :class:`PermuteFn` — a general permutation (the JAX ``ppermute`` of an
+  explicit pair list: the 1.5D strategy's ``(grp, repl)`` involution):
+  send to one global rank, receive from another; backward the inverse
+  permutation.  A rank at a fixed point copies locally;
+- :class:`AllReduceFn` — a counted ``all_reduce`` (SUM, the JAX ``psum``
+  of the 1.5D partial aggregations); backward the all-reduce of the
+  cotangent over the same group.
 
 The backward's sums (the reduce-scatter, the ring broadcast's reverse)
 run in f32 and round once to the payload's dtype, as the single-process
@@ -39,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Wire", "Pending", "AllGatherFn", "RotateFn", "RingBroadcastFn",
-           "BACKWARD"]
+           "PermuteFn", "AllReduceFn", "BACKWARD"]
 
 # the tier key under which the backward's collectives are recorded
 BACKWARD = "backward"
@@ -178,10 +185,16 @@ class Wire:
                                        group=self.group)
         return out
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, op: str = "sum",
+                   key=None) -> torch.Tensor:
         """In place over ranks (``op`` ``"sum"`` or ``"max"``); returns
-        ``x``.  Not counted: the step's reductions, not the halo."""
+        ``x``.  Counted under ``key`` as its result's ``[n, ...]`` rows on
+        every rank (the 1.5D aggregation's sum); without a key, as for
+        the step's reductions (loss, gradients, metrics), not counted."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if key is not None:
+            row = x[0].numel() * x.element_size() if x.shape[0] else 0
+            self.record(key, x.shape[0], x.shape[0], row)
         if self._staged(x):
             host = self._d2h(x)
             dist.all_reduce(host, op=red, group=self.group)
@@ -195,11 +208,28 @@ class Wire:
         """Issue one rotation: send ``x`` to rank ``rank + shift``, receive
         the same shape from ``rank - shift`` (mod size).  Returns at once;
         :meth:`Pending.wait` gives the received tensor."""
+        return self.permute(x, self._peer((self.rank + shift) % self.size),
+                            self._peer((self.rank - shift) % self.size),
+                            tag, key, valid_rows)
+
+    def permute(self, x: torch.Tensor, dst: int, src: int, tag: int,
+                key=None, valid_rows: int = 0) -> Pending:
+        """Post one permutation step: send ``x`` to global rank ``dst``,
+        receive the same shape from global rank ``src``.  Counted as
+        ``valid_rows`` valid and ``x``'s rows padded, on every rank, a
+        rank at a fixed point (``dst`` and ``src`` itself) too: it copies
+        ``x`` and posts nothing.  Returns at once; :meth:`Pending.wait`
+        gives the received tensor."""
         x = x.contiguous()
         row = x[0].numel() * x.element_size() if x.shape[0] else 0
         self.record(key, valid_rows, x.shape[0], row)
-        dst = self._peer((self.rank + shift) % self.size)
-        src = self._peer((self.rank - shift) % self.size)
+        me = self._peer(self.rank)
+        if dst == me or src == me:
+            if (dst, src) != (me, me):
+                raise ValueError(f"rank {me} sends to {dst} and receives "
+                                 f"from {src}: a fixed point does both")
+            out = x.clone()
+            return Pending(self, [], x, out, out)
         out = torch.empty_like(x)
         if self._staged(x):
             send, recv = self._d2h(x), self._host_empty(x, x.shape)
@@ -293,3 +323,42 @@ class RingBroadcastFn(torch.autograd.Function):
                                      ctx.tag + r + _BWD_TAG, BACKWARD,
                                      g.shape[1]).wait())
         return _sum_in_f32(parts, ctx.dtype), None, None, None, None, None
+
+
+class PermuteFn(torch.autograd.Function):
+    """``PermuteFn.apply(x, wire, dst, src, tag, key, valid_rows)``: the
+    tensor global rank ``src`` sent, this rank's ``x`` going to global
+    rank ``dst`` (a rank at a fixed point keeps a copy of its own);
+    backward the inverse permutation of the cotangent: it goes back to
+    ``src``, and the cotangent of ``x`` comes from ``dst``."""
+
+    @staticmethod
+    def forward(ctx, x, wire, dst, src, tag, key=None, valid_rows=0):
+        ctx.wire, ctx.dst, ctx.src, ctx.tag = wire, dst, src, tag
+        return wire.permute(x, dst, src, tag, key, valid_rows).wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.wire.permute(g, ctx.src, ctx.dst, ctx.tag + _BWD_TAG,
+                             BACKWARD, g.shape[0]).wait()
+        return d, None, None, None, None, None, None
+
+
+class AllReduceFn(torch.autograd.Function):
+    """``AllReduceFn.apply(x, wire, key)``: the sum of ``x`` over
+    ``wire``'s group, counted under ``key`` (the result's rows); backward
+    the all-reduce (SUM) of the cotangent over the same group: every
+    rank's output depends on every rank's input, so that is the
+    transpose."""
+
+    @staticmethod
+    def forward(ctx, x, wire, key=None):
+        ctx.wire = wire
+        return wire.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               "sum", key)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.wire.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                                "sum", BACKWARD)
+        return d, None, None

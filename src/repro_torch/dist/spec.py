@@ -60,7 +60,7 @@ class TrainSpec:
     cache_policy: str = "static"
     replan_every: int = 1
     cpu_cache_gib: float = 4.0
-    # fault injection + defenses (not ported yet)
+    # fault injection + defenses (repro_torch.faults)
     faults: str = ""
     guard_every: int = 0
     fetch_retries: int | None = None
@@ -124,8 +124,10 @@ class TrainSpec:
             seed=int(get("seed", 0)),
         )
         if strategy == "spmm_15d":
-            # the JAX package's normalisation of the halo-only knobs; the
-            # strategy itself is refused by get_strategy
+            # the JAX package's normalisation: every 1.5D step is exact, so
+            # the CLI's halo-only defaults (pipelined refresh, staleness,
+            # the cache policy) do not apply; an explicit halo-only request
+            # that survives this is refused by Spmm15DStrategy.validate_spec
             spec.update(pipeline=False, refresh_every=1,
                         cache_policy="static", replan_every=1)
         return cls(**spec)

@@ -1,18 +1,38 @@
-"""Distribution strategies of the port: ``halo_1d`` only.
+"""Pluggable distribution strategies of the port (the JAX package's
+``dist/strategy.py``).
 
-The JAX package's ``dist/strategy.py`` registry with its ``halo_1d``
-front door (:class:`Halo1DStrategy`): layout construction
-(``stack_partitions`` + ``build_exchange_plan``), the single-process and
-the SPMD runtimes, the training loop, and the modeled byte count of a
-refresh step.
-The 1.5D replicated-row strategy ``spmm_15d`` is not ported yet:
-:func:`get_strategy` raises for it, naming the strategy.
+A :class:`DistStrategy` owns the three things that define how the graph
+is distributed:
+
+1. **Layout construction** — turning a ``PartitionSet`` + task into the
+   stacked arrays and index programs of one model (``halo_1d``:
+   ``stack_partitions`` + ``build_exchange_plan``; ``spmm_15d``: block-row
+   stacking + per-replica edge chunks).
+2. **Per-layer collective steps** — the runtime whose steps run that
+   model's exchange (halo tier pulls vs permute/gather/all-reduce), in one
+   process or one process per device over ``torch.distributed``.
+3. **The byte-accounting contract** — modeled == counted bytes (the
+   :class:`~.collectives.Wire` counts of the SPMD runtimes).
+
+Strategies declare *capabilities* (:class:`StrategyCaps`): the JACA cache
+tiers, bounded staleness, pipelined refresh and the host feature store
+are ``halo_1d`` machinery; ``spmm_15d`` runs refresh-equivalent exact
+steps with its own exact byte model.  ``TrainSpec`` validation routes
+through :meth:`DistStrategy.validate_spec`, so an unsupported combination
+fails at spec-build time with a message naming the strategy.
+
+Registry::
+
+    get_strategy("halo_1d")   # -> Halo1DStrategy
+    get_strategy("spmm_15d")  # -> Spmm15DStrategy (strategy_15d.py)
+    get_strategy("2d")        # -> ValueError naming valid options
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
-__all__ = ["Halo1DStrategy", "HaloLayout",
+__all__ = ["StrategyCaps", "DistStrategy", "Halo1DStrategy", "HaloLayout",
            "StrategyCapabilityError", "STRATEGY_NAMES", "get_strategy"]
 
 STRATEGY_NAMES = ("halo_1d", "spmm_15d")
@@ -20,7 +40,41 @@ STRATEGY_NAMES = ("halo_1d", "spmm_15d")
 
 class StrategyCapabilityError(ValueError):
     """A TrainSpec/operation asks for a feature the selected distribution
-    strategy does not implement."""
+    strategy does not implement (e.g. host features under spmm_15d)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class StrategyCaps:
+    """What a distribution strategy supports — the capability matrix the
+    README documents and ``TrainSpec`` validates against."""
+    jaca_tiers: bool            # local/global cache tiers + staleness
+    pipeline: bool              # overlapped refresh (step_pipelined)
+    host_features: bool         # out-of-core host feature store
+    adaptive_cache: bool        # AdaptivePlanner live re-planning
+    fault_guard: bool           # repro_torch.faults injection + defenses
+    sim_runtime: bool           # single-process stacked oracle available
+    transports: tuple           # SPMD wire lowerings
+    backends: tuple             # local aggregation operators
+    models: tuple               # GNN kinds the step functions implement
+    replicated: bool            # uses a replication factor c > 1
+
+
+@runtime_checkable
+class DistStrategy(Protocol):
+    """The distribution-model interface.  ``build_layout`` compiles the
+    static index programs, ``make_*_runtime`` builds the steps over them,
+    ``train`` runs the strategy's loop, and the ``*_bytes`` methods are
+    the modeled side of the byte-accounting contract."""
+    name: str
+    caps: StrategyCaps
+
+    def validate_spec(self, spec) -> None: ...
+    def build_layout(self, ps, task, spec, **kw): ...
+    def make_sim_runtime(self, cfg, layout, opt, spec, **kw): ...
+    def make_spmd_runtime(self, cfg, layout, opt, spec, group, **kw): ...
+    def train(self, cfg, runtime, layout, opt, spec, epochs, **kw): ...
+    def step_bytes(self, layout, cfg, spec) -> int: ...
+    def forward_collective_bytes(self, layout, cfg, spec, mesh_size) -> int: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +92,17 @@ class HaloLayout:
 class Halo1DStrategy:
     """The paper's model: 1D vertex partitioning + per-layer halo exchange
     with the JACA cache tiers, bounded staleness and pipelined refresh,
+    adaptive re-planning, the host feature store and both wire transports,
     in one process over the stacked ``[P, ...]`` layout or in one process
     per partition."""
     name = "halo_1d"
+    caps = StrategyCaps(jaca_tiers=True, pipeline=True, host_features=True,
+                        adaptive_cache=True, fault_guard=True,
+                        sim_runtime=True,
+                        transports=("allgather", "p2p"),
+                        backends=("edges", "ell", "hybrid"),
+                        models=("gcn", "sage", "gat", "gin"),
+                        replicated=False)
 
     def validate_spec(self, spec) -> None:
         if spec.replication != 1:
@@ -84,16 +146,22 @@ class Halo1DStrategy:
                                                dtype_bytes=dtype_bytes)
                    for d in dims)
 
+    def forward_collective_bytes(self, layout, cfg, spec,
+                                 mesh_size) -> int:
+        """The modeled p2p per-device refresh figure (the SPMD runtime's
+        ``Wire`` counts under ``p2p`` sum to :meth:`step_bytes` over the
+        ranks)."""
+        return self.step_bytes(layout, cfg, spec) // max(1, mesh_size)
 
-def get_strategy(name: str) -> Halo1DStrategy:
-    """Resolve a strategy by registry name; ``spmm_15d`` is not ported
-    yet, and unknown names fail with the valid options spelled out."""
+
+def get_strategy(name: str) -> DistStrategy:
+    """Resolve a strategy by registry name; unknown names fail with the
+    valid options spelled out."""
     if name == "halo_1d":
         return _HALO_1D
     if name == "spmm_15d":
-        raise NotImplementedError(
-            "strategy 'spmm_15d' (1.5D replicated-row SpMM) is not ported "
-            "to repro_torch yet (see ROADMAP.md); use strategy='halo_1d'")
+        from .strategy_15d import SPMM_15D
+        return SPMM_15D
     raise ValueError(f"unknown distribution strategy {name!r}; "
                      f"valid strategies: {', '.join(STRATEGY_NAMES)}")
 

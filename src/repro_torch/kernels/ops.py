@@ -25,6 +25,11 @@ autograd records: its backward is the CSR kernel in write mode over the
 transposed index map (:func:`gather_pack`), so no path meets PyTorch's
 sort-based indexing backward.  Outside autograd it is the raw kernel call.
 
+Each of the three Functions keeps the name of the device scope its forward
+ran under (:func:`~repro_torch.obs.annotations.current_scope`) and runs
+its backward inside ``transpose(<that name>)``: the backward's kernels,
+launched by autograd's thread, land in a profiler range too.
+
 Out-of-range ids have one contract on both devices: an id outside
 ``[0, n)`` reads a zero row, in the gather and in the ELL slots (their
 columns), as the CUDA kernels do and as :mod:`.ref` does with
@@ -38,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.annotations import current_scope, transpose_scope
 from . import cache_gather as _gather_mod
 from . import ell_spmm as _ell
 from . import ref as _ref
@@ -368,23 +374,25 @@ class EllSpmmFn(torch.autograd.Function):
         ctx.save_for_backward(cols, vals, h if trained else None)
         ctx.dh_pack = dh_pack
         ctx.h_meta = (h.shape, h.dtype)
+        ctx.scope = current_scope("ell_spmm")
         return _ell_forward(cols, vals, h, col_chunk, row_end)
 
     @staticmethod
     def backward(ctx, g):
         cols, vals, h = ctx.saved_tensors
         h_shape, h_dtype = ctx.h_meta
-        g32 = g.float().contiguous()
         d_vals = d_h = None
-        if ctx.needs_input_grad[1]:
-            d_vals = _ell_dvals(cols, vals, h, g32).to(vals.dtype)
-        if ctx.needs_input_grad[2]:
-            pack = ctx.dh_pack
-            if pack is None:
-                pack = pack_for_call(transpose_csr, cols, vals, h_shape[-2],
-                                     device=g.device)
-            d_h = _csr(pack, g32.view(-1, g.shape[-1]))
-            d_h = d_h.view(h_shape).to(h_dtype)
+        with transpose_scope(ctx.scope):
+            g32 = g.float().contiguous()
+            if ctx.needs_input_grad[1]:
+                d_vals = _ell_dvals(cols, vals, h, g32).to(vals.dtype)
+            if ctx.needs_input_grad[2]:
+                pack = ctx.dh_pack
+                if pack is None:
+                    pack = pack_for_call(transpose_csr, cols, vals,
+                                         h_shape[-2], device=g.device)
+                d_h = _csr(pack, g32.view(-1, g.shape[-1]))
+                d_h = d_h.view(h_shape).to(h_dtype)
         return None, d_vals, d_h, None, None, None
 
 
@@ -437,27 +445,29 @@ class HybridSpmmFn(torch.autograd.Function):
                               h if trained else None)
         ctx.dh_pack = dh_pack
         ctx.h_meta = (h.shape, h.dtype)
+        ctx.scope = current_scope("hybrid_spmm")
         return out.view(*cols.shape[:-1], d)
 
     @staticmethod
     def backward(ctx, g):
         cols, vals, tail_src, tail_dst, tail_w, h = ctx.saved_tensors
         h_shape, h_dtype = ctx.h_meta
-        g32 = g.float().contiguous()
         d_vals = d_tw = d_h = None
-        if ctx.needs_input_grad[1]:
-            d_vals = _ell_dvals(cols, vals, h, g32).to(vals.dtype)
-        if ctx.needs_input_grad[4]:
-            d_tw = _tail_dw(tail_src, tail_dst, g32, h, cols.shape[-2]
-                            ).to(tail_w.dtype)
-        if ctx.needs_input_grad[5]:
-            pack = ctx.dh_pack
-            if pack is None:
-                pack = pack_for_call(transpose_csr, cols, vals, h_shape[-2],
-                                     tail_src, tail_dst, tail_w,
-                                     device=g.device)
-            d_h = _csr(pack, g32.view(-1, g.shape[-1]))
-            d_h = d_h.view(h_shape).to(h_dtype)
+        with transpose_scope(ctx.scope):
+            g32 = g.float().contiguous()
+            if ctx.needs_input_grad[1]:
+                d_vals = _ell_dvals(cols, vals, h, g32).to(vals.dtype)
+            if ctx.needs_input_grad[4]:
+                d_tw = _tail_dw(tail_src, tail_dst, g32, h, cols.shape[-2]
+                                ).to(tail_w.dtype)
+            if ctx.needs_input_grad[5]:
+                pack = ctx.dh_pack
+                if pack is None:
+                    pack = pack_for_call(transpose_csr, cols, vals,
+                                         h_shape[-2], tail_src, tail_dst,
+                                         tail_w, device=g.device)
+                d_h = _csr(pack, g32.view(-1, g.shape[-1]))
+                d_h = d_h.view(h_shape).to(h_dtype)
         return None, d_vals, None, None, d_tw, d_h, None, None, None
 
 
@@ -536,6 +546,7 @@ class GatherRowsFn(torch.autograd.Function):
                 f"src of {src.shape[0]} rows and {idx.numel()} ids")
         ctx.pack = pack
         ctx.src_meta = (src.shape[0], src.dtype)
+        ctx.scope = current_scope("gather_rows")
         ctx.save_for_backward(idx if pack is None else None)
         return _gather(src, idx)
 
@@ -544,12 +555,14 @@ class GatherRowsFn(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         n_src, dtype = ctx.src_meta
         pack = ctx.pack
-        if pack is None:
-            pack = pack_for_call(gather_pack, idx, n_src, device=g.device)
-        if g.device.type == "cpu":
-            d_src = _ref.csr_spmm_ref(pack, g)
-        else:
-            d_src = _gather_mod.gather_rows_bwd(pack, g)
+        with transpose_scope(ctx.scope):
+            if pack is None:
+                pack = pack_for_call(gather_pack, idx, n_src,
+                                     device=g.device)
+            if g.device.type == "cpu":
+                d_src = _ref.csr_spmm_ref(pack, g)
+            else:
+                d_src = _gather_mod.gather_rows_bwd(pack, g)
         return d_src.to(dtype), None, None
 
 

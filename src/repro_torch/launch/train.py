@@ -37,8 +37,19 @@ Robustness and observability, as the JAX package's CLI:
   latest valid checkpoint there and trains the remaining epochs up to
   ``--epochs`` (the total across runs).
 
-Not ported yet, each exiting with a message: ``--strategy spmm_15d`` and
-the ``lm`` subcommand.
+``--strategy spmm_15d --replication c`` is the 1.5D replicated-row
+strategy (:mod:`repro_torch.dist.strategy_15d`): ``--parts`` is then the
+device count ``P`` (``P % c**2 == 0``), the graph is partitioned into
+``P / c`` block rows, and ``P`` ranks start through
+:func:`repro_torch.launch.mesh.spawn` — gloo ranks on the CPU with
+``--device cpu``; on the card, NCCL with one card per rank when ``P``
+cards are visible, else gloo ranks sharing the cards.  The launching
+process prints rank 0's report (the JAX package's keys); rank 0 saves the
+checkpoint and every rank resumes from it.  A halo-only flag (host
+features, the cache policies, faults, a backend other than ``edges``)
+exits with the strategy's message.
+
+Not ported yet, exiting with a message: the ``lm`` subcommand.
 """
 from __future__ import annotations
 
@@ -50,19 +61,6 @@ import torch
 
 from .serve import not_ported_lm, resolve_device, set_fp32_numerics
 
-# (attribute, flag, value that asks for it)
-_NOT_PORTED_FLAGS = (
-    ("strategy", "--strategy spmm_15d", lambda v: v != "halo_1d"),
-)
-
-
-def check_ported(args) -> None:
-    """Exit with a message for a flag whose machinery is not ported yet."""
-    for attr, flag, asks in _NOT_PORTED_FLAGS:
-        if asks(getattr(args, attr)):
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             "(see ROADMAP.md); run without it")
-
 
 def prepare_train(args) -> dict:
     """The host pipeline of ``run_gnn``: task, profile-weighted partition,
@@ -71,39 +69,53 @@ def prepare_train(args) -> dict:
     (``host_plan_s``).  With ``--cache-policy`` other than ``static`` the
     :class:`~repro_torch.core.jaca.AdaptivePlanner` (``planner``) owns the
     initial plan and the slot-stable padding, so the runtime's installed
-    plan and the planner's accounting cannot drift apart."""
+    plan and the planner's accounting cannot drift apart.
+
+    Under ``--strategy spmm_15d`` the partition has ``P / c`` block rows
+    and the dict holds the 1.5D ``layout`` instead of a plan and a
+    stacking."""
     from ..core import (PROFILES, PAPER_GROUPS, make_group, cal_capacity,
                         build_cache_plan, do_partition, RapaConfig,
                         CacheCapacity, capability_weights, AdaptivePlanner)
     from ..data import make_task
     from ..dist import build_exchange_plan, stack_partitions
     from ..dist.spec import TrainSpec
+    from ..dist.strategy import StrategyCapabilityError, get_strategy
     from ..graph import metis_partition, random_partition, build_partition
     from ..models.gnn import GNNConfig
 
     t0 = time.perf_counter()
-    task = make_task(args.dataset, scale=args.scale, feat_dim=args.feat_dim,
-                     seed=args.seed)
-    g = task.graph
     p = args.parts
     try:
         spec = TrainSpec.from_cli_args(args)
-    except ValueError as e:
+    except ValueError as e:       # includes StrategyCapabilityError
         raise SystemExit(str(e))
+    is_15d = spec.strategy == "spmm_15d"
+    c = spec.replication
+    if is_15d and p % (c * c):
+        raise SystemExit(
+            f"spmm_15d needs --parts divisible by replication**2 "
+            f"(P % c**2 == 0): got --parts={p} --replication={c}")
+    # under spmm_15d --parts is the total device count P; the graph is
+    # partitioned into the pr = P / c block rows
+    n_parts = p // c if is_15d else p
+    task = make_task(args.dataset, scale=args.scale, feat_dim=args.feat_dim,
+                     seed=args.seed)
+    g = task.graph
 
     group = args.group
     if group == "auto":
-        group = f"x{p}" if f"x{p}" in PAPER_GROUPS else "uniform"
-    profiles = ([PROFILES["rtx3090"]] * p if group == "uniform"
+        group = f"x{n_parts}" if f"x{n_parts}" in PAPER_GROUPS else "uniform"
+    profiles = ([PROFILES["rtx3090"]] * n_parts if group == "uniform"
                 else make_group(PAPER_GROUPS[group]))
-    if len(profiles) != p:
+    if len(profiles) != n_parts:
         raise SystemExit(f"device group {group!r} has {len(profiles)} "
-                         f"devices but the run needs {p} partitions")
+                         f"devices but the run needs {n_parts} partitions")
     weights = capability_weights(profiles) if args.uneven else None
     part_fn = {"metis": metis_partition,
                "random": random_partition}[args.partitioner]
-    assign = part_fn(g, p, seed=args.seed, weights=weights)
-    ps = build_partition(g, assign, hops=1, parts=p)
+    assign = part_fn(g, n_parts, seed=args.seed, weights=weights)
+    ps = build_partition(g, assign, hops=1, parts=n_parts)
     if args.rapa:
         ps = do_partition(ps, profiles,
                           RapaConfig(feat_dim=args.feat_dim)).partition_set
@@ -111,6 +123,16 @@ def prepare_train(args) -> dict:
     cfg = GNNConfig(model=args.model, in_dim=task.features.shape[1],
                     hidden_dim=args.hidden, out_dim=task.num_classes,
                     num_layers=args.layers)
+    if is_15d:
+        from ..dist.strategy_15d import check_model
+        try:
+            check_model(cfg)
+            layout = get_strategy("spmm_15d").build_layout(ps, task, spec)
+        except StrategyCapabilityError as e:
+            raise SystemExit(str(e))
+        return {"task": task, "ps": ps, "profiles": profiles,
+                "group": group, "cfg": cfg, "spec": spec, "layout": layout,
+                "host_plan_s": time.perf_counter() - t0}
     if args.jaca:
         cap = cal_capacity(ps, cfg.feat_dims, profiles,
                            m_cpu_gib=args.cpu_cache_gib)
@@ -181,10 +203,11 @@ def train_gnn(args, ctx: dict | None = None):
     from ..obs import Tracer, device_trace
     from ..optim import adam
 
-    check_ported(args)
     device = resolve_device(args.device)
     set_fp32_numerics()
     ctx = prepare_train(args) if ctx is None else dict(ctx)
+    if "layout" in ctx:
+        return train_gnn_15d(args, ctx, device)
     cfg, spec, xplan, ps = ctx["cfg"], ctx["spec"], ctx["xplan"], ctx["ps"]
     opt = adam(args.lr)
     runtime = make_sim_runtime(cfg, ctx["sp"], xplan, opt, spec=spec,
@@ -248,6 +271,105 @@ def train_gnn(args, ctx: dict | None = None):
     return out, ctx
 
 
+def train_15d_rank(rank: int, world_size: int, device, jobs: list) -> list:
+    """One rank of ``--strategy spmm_15d``: for each job (``args``,
+    ``layout``, ``cfg``, ``spec``, as :func:`prepare_train` gives them)
+    the 1.5D runtime on this rank, ``--resume``'s checkpoint, the
+    training loop and the test evaluation; rank 0 saves ``--ckpt-dir``'s
+    checkpoint.  Returns per job the report (``out``, the JAX package's
+    keys) and this rank's measurements: losses, each step's host seconds,
+    counted forward bytes and host-staging seconds, and the peak device
+    memory.  The meshes are built once per shape."""
+    from ..checkpoint import save_checkpoint
+    from ..dist.strategy import get_strategy
+    from ..dist.strategy_15d import counted_forward_bytes, make_spmm15d_mesh
+    from ..obs import device_peak_bytes
+    from ..optim import adam
+
+    set_fp32_numerics()
+    strat = get_strategy("spmm_15d")
+    meshes: dict = {}
+    results = []
+    for job in jobs:
+        args, layout, cfg, spec = (job["args"], job["layout"], job["cfg"],
+                                   job["spec"])
+        shape = (layout.c, layout.g)
+        if shape not in meshes:
+            meshes[shape] = make_spmm15d_mesh(*shape)
+        opt = adam(args.lr)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        runtime = strat.make_spmd_runtime(cfg, layout, opt, spec,
+                                          mesh=meshes[shape], device=device)
+        start_epoch, params0, opt_state0 = resume_state(args, cfg, opt,
+                                                        device)
+        run_epochs = max(0, args.epochs - start_epoch)
+        params, report = strat.train(cfg, runtime, layout, opt, spec,
+                                     epochs=run_epochs, seed=args.seed,
+                                     params0=params0, opt_state0=opt_state0)
+        _, test_acc = runtime.evaluate(params, "test")
+        out = {
+            "dataset": args.dataset, "model": args.model, "parts": args.parts,
+            "strategy": spec.strategy, "replication": spec.replication,
+            "block_rows": layout.pr, "group_size": layout.g,
+            "group": job["group"], "uneven": bool(args.uneven),
+            "inner_sizes": job["inner_sizes"],
+            "epochs": args.epochs, "resumed_from": start_epoch,
+            "final_loss": report.losses[-1] if report.losses else None,
+            "halo_dtype": spec.halo_dtype,
+            "test_acc": test_acc, "comm_bytes": report.comm_bytes,
+            # vanilla = dense 1D full-H all-gather on the same block rows,
+            # so the reduction isolates the replication benefit
+            "comm_reduction_vs_vanilla": report.comm_reduction,
+            "fwd_collective_bytes_per_device":
+                runtime.forward_bytes_per_device,
+            "refresh_steps": report.refresh_steps,
+            "cached_steps": report.cached_steps,
+            "compile_s": round(report.compile_s, 3),
+            "wall_time_s": round(report.wall_time_s, 2),
+        }
+        if args.ckpt_dir and rank == 0:
+            save_checkpoint(args.ckpt_dir, start_epoch + run_epochs,
+                            {"params": params,
+                             "opt_state": report.final_opt_state})
+        peak = device_peak_bytes(device)
+        results.append({
+            "out": out, "rank": rank, "losses": report.losses,
+            "step_s": report.step_s,
+            "forward_bytes": [counted_forward_bytes(w["counts"])
+                              for w in runtime.wire_log],
+            "host_stage_s": [w["host_stage_s"] for w in runtime.wire_log],
+            "peak_mem_gb": None if peak is None else peak / 1e9})
+        del runtime, params, report
+    return results
+
+
+def spmm15d_backend(device: torch.device, world_size: int) -> str:
+    """The process-group backend of ``world_size`` ranks on ``device``:
+    gloo on the CPU; on the card NCCL when every rank has a card of its
+    own, else gloo with the ranks sharing the cards."""
+    if device.type != "cuda":
+        return "gloo"
+    return "nccl" if torch.cuda.device_count() >= world_size else "gloo"
+
+
+def train_gnn_15d(args, ctx: dict, device) -> tuple:
+    """The ``--strategy spmm_15d`` branch of :func:`train_gnn`: ``P``
+    ranks of :func:`train_15d_rank` through ``launch.mesh.spawn``, on
+    ``device``'s kind (the ranks never run on the CPU when the card was
+    asked for: ``spawn`` raises without CUDA).  Returns rank 0's report
+    and ``ctx`` with every rank's result (``ranks``)."""
+    from .mesh import spawn
+    job = {"args": args, "layout": ctx["layout"], "cfg": ctx["cfg"],
+           "spec": ctx["spec"], "group": ctx["group"],
+           "inner_sizes": [pt.n_inner for pt in ctx["ps"].parts]}
+    p = ctx["layout"].n_devices
+    ranks = spawn(train_15d_rank, p, backend=spmm15d_backend(device, p),
+                  devices=device.type, args=([job],))
+    ctx.update(ranks=[r[0] for r in ranks])
+    return ranks[0][0]["out"], ctx
+
+
 def run_gnn(args) -> dict:
     out, _ = train_gnn(args)
     print(json.dumps(out, indent=1))
@@ -272,8 +394,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gat needs --backend edges (its edge softmax)")
     g.add_argument("--strategy", default="halo_1d",
                    choices=["halo_1d", "spmm_15d"],
-                   help="spmm_15d is not ported yet")
-    g.add_argument("--replication", type=int, default=1)
+                   help="halo_1d: the paper's 1D partition + halo "
+                        "exchange; spmm_15d: 1.5D replicated-row block "
+                        "SpMM on --parts ranks (P / c block rows)")
+    g.add_argument("--replication", type=int, default=1,
+                   help="1.5D row-replication factor c (spmm_15d only; "
+                        "needs P %% c**2 == 0); c=1 is the dense 1D "
+                        "all-gather")
     g.add_argument("--backend", default="edges",
                    choices=["edges", "ell", "hybrid"],
                    help="local aggregation backend (ell/hybrid run the "

@@ -10,8 +10,9 @@ the host store and the serve engine compute:
   per-step :class:`StepCounters` records (wire rows/bytes per tier,
   cache hit rate, drift, host fetch/writeback, device memory
   watermarks).  A disabled tracer is a shared no-op — no allocation, no
-  ``torch.cuda.synchronize`` — so the hot path pays nothing when tracing
-  is off; span timing fences via :meth:`Tracer.fence` only when enabled.
+  stream synchronisation — so the hot path pays nothing when tracing is
+  off; span timing fences via :meth:`Tracer.fence` only when enabled
+  (it waits for the current stream of the fenced value's device).
 - :mod:`repro_torch.obs.export` — per-step JSONL metrics stream and a
   Chrome ``trace_event`` JSON (loads in Perfetto: spans as duration
   events, counters as counter tracks, one track per worker).

@@ -10,9 +10,9 @@ reproduce the report/plan accounting exactly (asserted in tests).
 Zero-overhead contract: a disabled tracer (``Tracer(enabled=False)`` or
 the shared :data:`NULL_TRACER`) allocates nothing per call — ``span()``
 returns one shared reusable no-op context manager, ``count()`` /
-``fence()`` return immediately, and no ``torch.cuda.synchronize`` is ever
-issued.  Fencing happens only on an *enabled* tracer, so span durations
-measure completed device work rather than queued launches.
+``fence()`` return immediately, and no stream is ever synchronised.
+Fencing happens only on an *enabled* tracer, so span durations measure
+completed device work rather than queued launches.
 """
 from __future__ import annotations
 
@@ -179,12 +179,16 @@ class Tracer:
         return _OpenSpan(self, kind, kind, step, None)
 
     def fence(self, x):
-        """Wait for ``x``'s device (``torch.cuda.synchronize``) *only when
-        span timing is on* — the disabled tracer adds no sync points.  A
-        CPU tensor is complete when it is returned."""
+        """Wait for ``x`` *only when span timing is on* — the disabled
+        tracer adds no sync points.  The wait is for the work queued on
+        the current stream of ``x``'s device up to the fence (the stream
+        that computed ``x``), as the reference's ``block_until_ready(x)``
+        waits for ``x`` alone: work on other streams, such as the host
+        store's side-stream copy of the next step's rows, stays in flight.
+        A CPU tensor is complete when it is returned."""
         if self.enabled and self.do_fence and isinstance(x, torch.Tensor) \
                 and x.is_cuda:
-            torch.cuda.synchronize(x.device)
+            torch.cuda.current_stream(x.device).synchronize()
         return x
 
     # -- counters ----------------------------------------------------------

@@ -25,7 +25,7 @@ the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
 stacked gradients stay finite over padding edges.  The host store drops
 an injected fetch before it takes a pinned ring slot; the tracer's
 ``device_peak_bytes`` is the allocator's peak and its fence synchronises
-the card only when enabled.
+the value's stream (not the card) only when enabled.
 """
 import numpy as np
 import pytest
@@ -976,12 +976,27 @@ def test_device_peak_bytes_on_card(card):
 
 
 def test_fence_syncs_the_card(card, monkeypatch):
+    """The fence waits for the current stream of the value's device (the
+    work queued there up to the fence), and never for the whole device:
+    a copy queued on a side stream stays in flight."""
     calls = []
-    real = torch.cuda.synchronize
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda device=None: (calls.append(device),
-                                             real(device)))
+    real = torch.cuda.current_stream
     x = torch.ones(4, device=card)
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e8))         # ~0.1 s of spinning on side
+
+    def current(device=None):
+        s = real(device)
+        calls.append(device)
+        return s
+
+    def device_wide(device=None):
+        raise AssertionError("the fence waited on the whole device")
+    monkeypatch.setattr(torch.cuda, "current_stream", current)
+    monkeypatch.setattr(torch.cuda, "synchronize", device_wide)
     NULL_TRACER.fence(x)
     assert calls == []
     assert Tracer().fence(x) is x and calls == [x.device]
+    assert not side.query()                 # the side stream still runs
+    side.synchronize()

@@ -9,11 +9,11 @@
   to the CPU (``launch.serve``, ``launch.train``, ``launch.mesh``), and so
   does ``chip_smoke.py``; ``launch.mesh.spawn`` refuses NCCL, before any
   process starts, with fewer cards than ranks;
-- the parts of the JAX package that are not ported yet fail loudly
-  (``--strategy spmm_15d``, the ``lm`` subcommands), and the flags this
-  port has taken over from them run on the CPU and print the JAX
-  package's keys (``--trace``, ``--faults``, the guard's knobs,
-  ``--ckpt-dir`` / ``--resume``, ``--store-dir`` / ``--load-store``).
+- the parts of the JAX package that are not ported yet fail loudly (the
+  ``lm`` subcommands), and the flags this port has taken over from them
+  run on the CPU and print the JAX package's keys (``--strategy
+  spmm_15d``, ``--trace``, ``--faults``, the guard's knobs, ``--ckpt-dir``
+  / ``--resume``, ``--store-dir`` / ``--load-store``).
 """
 import json
 import os
@@ -79,6 +79,7 @@ def test_spmd_slice_modules_import_neither_jax_nor_repro():
         "import importlib.util, sys\n"
         "import repro_torch.dist.capgnn_spmd, repro_torch.dist.collectives\n"
         "import repro_torch.launch.mesh, repro_torch.core.halo\n"
+        "import repro_torch.dist.strategy_15d, repro_torch.launch.train\n"
         "spec = importlib.util.spec_from_file_location(\n"
         "    'quickstart_torch', 'examples/quickstart_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -253,16 +254,24 @@ def test_unported_cli_flags_exit(flag, tmp_path, monkeypatch, capsys):
     ["--faults", "grad_nan@3"], ["--guard-every", "2"], ["--checksums"],
     ["--fetch-retries", "1"], ["--ckpt-dir", "ck"], ["--resume"]])
 def test_unported_train_flags_exit(flag, tmp_path, monkeypatch, capsys):
-    """``--strategy spmm_15d`` still exits with a message; every other
-    flag of the JAX package's CLI that the port once refused runs on the
-    CPU and prints its JAX key: the fault flags ``faults`` /
+    """Every flag of the JAX package's CLI that the port once refused runs
+    on the CPU and prints its JAX key: ``--strategy spmm_15d`` (a tiny
+    training on 4 gloo ranks) ``block_rows`` / ``group_size`` /
+    ``fwd_collective_bytes_per_device``, the fault flags ``faults`` /
     ``faults_injected`` / ``fault_events`` (the guard's knobs alone
     ``fault_events``), ``--trace`` ``phase_stats`` / ``trace_file`` /
     ``metrics_file``; ``--ckpt-dir`` saves a checkpoint and ``--resume``
     with none starts at ``resumed_from`` 0."""
     if flag[0] == "--strategy":
-        with pytest.raises(SystemExit, match="not ported"):
-            ttrain.main(["gnn", "--device", "cpu", *flag])
+        out = ttrain.main(["gnn", *_TINY, "--epochs", "2", *flag,
+                           "--parts", "4", "--replication", "2"])
+        assert json.loads(capsys.readouterr().out) == out
+        assert {"block_rows", "group_size", "comm_reduction_vs_vanilla",
+                "fwd_collective_bytes_per_device"} <= set(out)
+        assert (out["strategy"], out["block_rows"], out["group_size"]) == \
+            ("spmm_15d", 2, 1)
+        assert out["fwd_collective_bytes_per_device"] > 0
+        assert np.isfinite(out["final_loss"]) and out["refresh_steps"] == 2
         return
     monkeypatch.chdir(tmp_path)
     out = ttrain.main(["gnn", *_TINY, "--epochs", "2", *flag])
@@ -321,9 +330,14 @@ def test_gat_refuses_ell_and_hybrid(backend, adj):
 
 
 def test_unported_runtime_options_raise():
+    """``get_strategy("spmm_15d")`` is the ported strategy, its
+    capabilities the JAX package's; an unknown features mode and the
+    ``lm`` subcommands still raise."""
+    from repro.dist import get_strategy as jget
     from repro_torch.dist import get_strategy, init_caches
-    with pytest.raises(NotImplementedError, match="spmm_15d"):
-        get_strategy("spmm_15d")
+    s = get_strategy("spmm_15d")
+    assert s.name == "spmm_15d"
+    assert vars(s.caps) == vars(jget("spmm_15d").caps)
     with pytest.raises(ValueError, match="features mode"):
         init_caches(GNNConfig(), None, 4, features="disk")
     for main in (ttrain.main, tlaunch.main):

@@ -4,8 +4,9 @@
 Held:
 
 - spans nest strictly and step kinds never interleave; a disabled tracer
-  is one shared no-op that allocates nothing and never calls
-  ``torch.cuda.synchronize`` (an enabled one fences a CUDA tensor only);
+  is one shared no-op that allocates nothing and never synchronises (an
+  enabled one fences a CUDA tensor only, by synchronising the current
+  stream of its device, never the whole device);
 - ``phase_stats``' percentiles and the totals;
 - the Chrome trace and the JSONL stream round-trip, and the JAX
   package's ``validate_chrome_trace`` and ``python -m repro.obs.check``
@@ -74,10 +75,28 @@ def test_spans_nest_strictly():
                                                           ("replan", 0)]
 
 
+class _Stream:
+    """A stand-in for the current CUDA stream of a device: its
+    ``synchronize`` records the device (the fence's test)."""
+
+    def __init__(self, device, syncs):
+        self.device, self.syncs = device, syncs
+
+    def synchronize(self):
+        self.syncs.append(self.device)
+
+
 def test_disabled_tracer_is_noop_and_never_syncs(monkeypatch):
+    """A disabled tracer never synchronises; an enabled one fences a CUDA
+    tensor by synchronising the current stream of its device, never the
+    whole device."""
     syncs = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda device=None: syncs.append(device))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream(device, syncs))
+
+    def device_wide(device=None):
+        raise AssertionError("the fence waited on the whole device")
+    monkeypatch.setattr(torch.cuda, "synchronize", device_wide)
     x = torch.zeros(2).as_subclass(_CudaLike)
     off = Tracer(enabled=False)
     assert off.span("a") is off.span("b") is NULL_TRACER.span("c")
@@ -211,6 +230,45 @@ def test_device_trace_captures_the_step_ranges(tmp_path):
     assert {"layer0/spmm", "layer1/spmm", "layer2/spmm",
             "tier_pull_uncached", "tier_pull_refresh",
             "capgnn/step_refresh", "capgnn/step_cached"} <= names
+
+
+def _backward_case(fn: str):
+    """A small product through one of the three Functions with a backward
+    of its own: ``(output, the input that needs a gradient)``."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn(5, 4, generator=gen, requires_grad=True)
+    cols = torch.tensor([[0, 1], [1, 2], [3, 4]], dtype=torch.int32)
+    vals = torch.tensor([[0.5, 0.5], [1.0, 0.0], [0.25, 2.0]])
+    if fn == "ell_spmm":
+        return ops.ell_spmm(cols, vals, h), h
+    if fn == "hybrid_spmm":
+        return ops.hybrid_spmm(cols, vals, torch.tensor([4, 0]),
+                               torch.tensor([0, 3]), torch.tensor([1.5, 0.0]),
+                               h), h
+    return ops.gather_rows(h, torch.tensor([4, 0, 4, 2])), h
+
+
+@pytest.mark.parametrize("fn", ["ell_spmm", "hybrid_spmm", "gather_rows"])
+def test_backward_runs_inside_transpose_range(fn):
+    """Under ``torch.profiler`` on the CPU (the plain versions), the
+    backward of each Function the port defines opens
+    ``transpose(<the scope its forward ran under>)``, and
+    ``transpose(<the op>)`` when its forward ran under none; the backward
+    leaves no scope open."""
+    from repro_torch.obs.annotations import current_scope
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with device_scope("layer1/spmm"):
+            y, h = _backward_case(fn)
+        y.square().sum().backward()
+        y2, h2 = _backward_case(fn)
+        y2.sum().backward()
+    names = [e.name for e in prof.events()]
+    assert names.count("transpose(layer1/spmm)") == 1
+    assert names.count(f"transpose({fn})") == 1
+    assert h.grad is not None and h2.grad is not None
+    assert current_scope("none") == "none"
 
 
 def test_device_scope_outside_a_capture_records_nothing():
