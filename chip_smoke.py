@@ -29,7 +29,10 @@ raises, and the script exits non-zero:
    wrapper); the precompute's tables are held against the same pass on
    the CPU (plain versions, same parameters).  ``serve_sage`` - the same
    with ``--model sage``: SAGE's ``degree()`` adds one ELL forward and
-   one tail launch a layer (recomputed per call, as the reference does).
+   one tail launch a layer (recomputed per call, as the reference does);
+   its card-vs-CPU pass runs at scale ``SERVE_SAGE_CHECK_SCALE`` (the
+   same flags and parameters; the served answers against the card's own
+   tables).
 5. ``train`` - the training slice through ``repro_torch.launch.train``'s
    own entry on ``cuda``: the same GCN over Flickr at scale 1.0, 4 METIS
    partitions weighted by the x4 device group, RAPA, JACA, hybrid backend,
@@ -86,9 +89,9 @@ raises, and the script exits non-zero:
    ``spmm15d`` - the 1.5D replicated-row strategy (``--strategy spmm_15d``)
    at the train cell's width through the CLI's own host pipeline and rank
    program (``launch.train.prepare_train`` / ``train_15d_rank``), ``c=2,
-   pr=2`` and ``c=1, pr=4`` on 4 ranks, ``c=2, pr=4`` on 8, GCN and GIN,
-   6 Adam steps, the ranks sharing the card over gloo (all cases of one
-   world size in one spawn): the losses against the card's
+   pr=2`` and ``c=1, pr=4`` on 4 ranks, GCN and GIN, 6 Adam steps, the
+   ranks sharing the card over gloo (all cases in one spawn; the 8-rank
+   ``c=2, pr=4`` case runs in the CPU tests): the losses against the card's
    ``capgnn_sim`` at ``refresh_every=1`` on the same block rows, every
    rank's counted forward bytes equal to the byte model, no launch of the
    port's kernels; steady step and host-staging ms per rank, peak memory
@@ -135,6 +138,25 @@ raises, and the script exits non-zero:
    cell's width, then ``launch.serve`` with ``--ckpt-dir`` and
    ``--store-dir`` and with ``--load-store`` (the tables equal bit for
    bit).
+   The transformer zoo (plain torch: the reference's attention, MoE
+   dispatch and scans are jnp, so no kernel of the port runs there; the
+   counters are zeroed before each phase and must read 0 after it):
+   ``lm_reduced`` - every architecture's reduced config, card against
+   CPU from one CPU generator's parameters, in f32 (prefill logits and
+   ``aux``, one step's loss and gradients at 520 tokens, 8 decode steps
+   and their caches, within 1e-4 of the largest magnitude) and in bf16
+   (finite; decode against prefill at the reference's bar);
+   ``lm_serve`` - ``launch.serve``'s decode loop (``decode_lm``) at
+   qwen3-1.7b's published width in bf16, batch 4, cache 256, 32 greedy
+   steps: tokens/s, the steady step beside its bound (the weights read
+   once), peak memory, a profiled window (device-busy ms, idle share,
+   kernels a step), ``blocked_attention`` at a 4,096-token prefill and the
+   ring decode attention beside their bounds and
+   ``scaled_dot_product_attention``; then f32 decode against the card's
+   own prefill; ``lm_train`` - ``launch.train lm --arch qwen3-1.7b --full
+   --steps 8 --batch 4 --seq-len 128`` through the CLI's parser and loop
+   (``train_lm``): falling finite losses, step ms, tokens/s, peak memory
+   and one profiled step.
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -152,7 +174,8 @@ raises, and the script exits non-zero:
    (``launches_by_path``: serve, serve_sage, train, train_sage,
    train_gin, train_edges, train_gat, train_ell, the SPMD runs summed over
    ranks (spmd_models_<model> per model), train_host, train_host_cli,
-   train_adaptive_lru, train_adaptive_drift, spmd_host, ell_spmm_at), its
+   train_adaptive_lru, train_adaptive_drift, spmd_host, ell_spmm_at, and
+   0 on lm_reduced, lm_serve, lm_train), its
    largest
    error against the plain
    version and its times.
@@ -217,6 +240,8 @@ GAT_LR = "0.001"
 # of reach; at 0.3 the pack is [4, 7335, 3089], 0.73 GB (its refresh step
 # is held against the CPU at TRAIN_SGD_SCALE)
 TRAIN_ELL_SCALE = "0.3"
+# serve_sage's card-vs-CPU pass (at 1.0 the CPU's plain pass took ~81 s)
+SERVE_SAGE_CHECK_SCALE = "0.1"
 SPMD_RANKS = 4
 COL_CHUNK = 8192          # 8 MB of h rows at d = 256: an L2 tile
 
@@ -297,14 +322,19 @@ def time_calls(fns: dict, reps: int, rounds: int = 4) -> dict:
 # phase 1-2
 # ---------------------------------------------------------------------------
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -842,17 +872,21 @@ def hot_batches(engine, args) -> int:
                for b in batches)
 
 
-def phase_main(name: str, argv: list[str], ctx) -> dict:
+def phase_main(name: str, argv: list[str], ctx,
+               check_scale: str | None = None) -> dict:
     """The serving slice of ``argv`` through ``launch.serve``'s own entry
     (``ctx``: the host plan of its flags, for the CPU pass), its launches
     counted from zero: per layer one ELL forward and one CSR tail launch
     (SAGE two of each: its ``degree()``), no backward, no pack built for
     a call, a gather per micro-batch with hot hits; its tables against
     the same pass on the CPU, and served answers against the CPU's
-    logits."""
+    logits.  With ``check_scale``, the card's and the CPU's passes run
+    the same flags and parameters at that scale (their own host plan),
+    and the served answers are held against the card's own tables."""
     from repro_torch.kernels import cache_gather as kgather
     from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
-    from repro_torch.launch.serve import build_parser, serve_gnn
+    from repro_torch.launch.serve import (build_parser, plan_and_stack,
+                                          prepare_gnn, serve_gnn)
     from repro_torch.serve import precompute_embeddings
 
     args = build_parser().parse_args(argv)
@@ -904,13 +938,23 @@ def phase_main(name: str, argv: list[str], ctx) -> dict:
     device_pass_s = time.perf_counter() - t0
 
     # the same pass on the CPU with the plain versions and the same params
+    # (at check_scale: both passes on that scale's host plan)
+    card_tables = store.tables
+    if check_scale is not None:
+        cargs = build_parser().parse_args(
+            with_backend(argv, args.backend, check_scale))
+        ctask, ps, cprofiles, _ = prepare_gnn(cargs)
+        xplan, sp = plan_and_stack(cargs, ctask, ps, cprofiles, cfg)
+        card_tables = precompute_embeddings(
+            cfg, ps, sp, xplan, engine.params, backend=args.backend,
+            device=args.device).tables
     cpu_params = [{k: v.cpu() for k, v in p.items()} for p in engine.params]
     t0 = time.perf_counter()
     cpu_store = precompute_embeddings(cfg, ps, sp, xplan, cpu_params,
                                       backend=args.backend, device="cpu")
     cpu_pass_s = time.perf_counter() - t0
     errs = [float(np.abs(a - b).max())
-            for a, b in zip(store.tables, cpu_store.tables)]
+            for a, b in zip(card_tables, cpu_store.tables)]
     if errs[-1] > LOGITS_ATOL:
         raise AssertionError(f"card logits differ from the CPU pass by "
                              f"{errs[-1]} > {LOGITS_ATOL}")
@@ -919,9 +963,11 @@ def phase_main(name: str, argv: list[str], ctx) -> dict:
     sample = np.concatenate([engine.hot_ids[:64],
                              rng.choice(n, 64, replace=False)])
     served = engine.lookup(sample)
-    serve_err = float(np.abs(served - cpu_store.logits[sample]).max())
+    want_logits = store.logits if check_scale else cpu_store.logits
+    serve_err = float(np.abs(served - want_logits[sample]).max())
     if serve_err > LOGITS_ATOL:
-        raise AssertionError(f"served logits differ from the CPU pass by "
+        raise AssertionError(f"served logits differ from the "
+                             f"{'card' if check_scale else 'CPU'} pass by "
                              f"{serve_err}")
 
     fields = ("precompute_s", "qps", "p50_ms", "p99_ms", "hot_hit_rate",
@@ -933,8 +979,9 @@ def phase_main(name: str, argv: list[str], ctx) -> dict:
          **{k: report[k] for k in fields},
          wall_s=wall_s, host_plan_s=ctx["host_plan_s"],
          device_pass_s=device_pass_s, cpu_pass_s=cpu_pass_s,
-         compared_at_scale=args.scale, table_max_abs_err=errs,
-         served_max_abs_err=serve_err)
+         compared_at_scale=float(check_scale or args.scale),
+         table_max_abs_err=errs, served_max_abs_err=serve_err,
+         served_held_against="card tables" if check_scale else "CPU pass")
     return launches
 
 
@@ -2985,7 +3032,9 @@ def phase_checkpoint(tctx: dict) -> None:
 
 
 # the 1.5D strategy's cases: (c, pr) on c * pr ranks; each with GCN and GIN
-SPMM15D_SHAPES = ((2, 2), (1, 4), (2, 4))
+# (the 8-rank c=2, pr=4 case runs in tests/test_torch_strategy15d.py on
+# the CPU; on one card its spawn took ~85-100 s of the script's budget)
+SPMM15D_SHAPES = ((2, 2), (1, 4))
 SPMM15D_MODELS = ("gcn", "gin")
 SPMM15D_EPOCHS = 6
 # over NCCL, a card per rank: the shapes of 4 ranks
@@ -3191,6 +3240,362 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
                  host_plan_s=plan_s)
         del ranks, jobs
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the transformer zoo: plain torch on every path (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+LM_SEQ = 520              # > blocked attention's 512-row chunks, every
+                          # reduced window (hymba 32, mixtral 64), the
+                          # mLSTM's 128-row chunks
+LM_DECODE_STEPS = 8
+LM_TOL_OF_MAX = 1e-4      # f32 card vs CPU, of the largest magnitude
+LM_BF16_AGREE, LM_BF16_TOL = 0.75, 0.12   # tests/test_archs_smoke.py's bar
+LM_SERVE_ARGV = ["lm", "--device", "cuda", "--arch", "qwen3-1.7b",
+                 "--batch", "4", "--steps", "32", "--cache-len", "256",
+                 "--seed", "0"]
+LM_F32_DECODE_STEPS = 16
+LM_F32_TOL_OF_MAX = 1e-3  # f32 decode vs the card's own prefill, 28 layers
+LM_TRAIN_ARGV = ["lm", "--arch", "qwen3-1.7b", "--full", "--steps", "8",
+                 "--batch", "4", "--seq-len", "128", "--device", "cuda"]
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+LM_PREFILL_S = 4096       # blocked_attention timed at qwen3-1.7b prefill
+LM_PROFILE_STEPS = 4      # decode steps under torch.profiler
+
+
+def tree_err(got, want) -> tuple[float, float]:
+    """``(largest |got - want| over the float leaves, largest |want|
+    among them)`` of two trees of tensors (on any devices); integer
+    leaves (a ring cache's positions) must be equal."""
+    from repro_torch.optim.optimizers import tree_leaves
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    for a, b in pairs:
+        if not b.is_floating_point() and not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError("integer leaves differ")
+    pairs = [(a, b) for a, b in pairs if b.is_floating_point()]
+    return (max(float((a.cpu().double() - b.cpu().double()).abs().max())
+                for a, b in pairs),
+            max(float(b.abs().max()) for _, b in pairs))
+
+
+def lm_check(name: str, what: str, got, want, tol_of_max: float) -> float:
+    err, scale = tree_err(got, want)
+    if not err <= tol_of_max * scale:
+        raise AssertionError(f"{name}: {what} differs by {err}, more than "
+                             f"{tol_of_max} of {scale}")
+    return err / scale
+
+
+def lm_decode(cfg, params, toks, device, steps: int):
+    """``steps`` ``serve_step`` calls from an empty cache over ``toks``'
+    first columns: the logits [steps, B, V] (f32) and the caches."""
+    from repro_torch.models.transformer import init_decode_cache, serve_step
+    caches = init_decode_cache(cfg, toks.shape[0], steps, device)
+    outs = []
+    for t in range(steps):
+        lg, caches = serve_step(cfg, params, caches, toks[:, t:t + 1], t)
+        outs.append(lg.float())
+    return torch.stack(outs), caches
+
+
+def phase_lm_reduced(seed: int = 0) -> dict:
+    """Every architecture's reduced config on the card against the CPU,
+    from the same parameters (``init_model`` of one CPU generator, copied
+    to the card): in f32 (TF32 off) the prefill logits and ``aux``, one
+    ``train_step_fn`` step's loss and gradients (``loss_and_grads``) at
+    ``LM_SEQ`` tokens, and ``LM_DECODE_STEPS`` decode steps with their
+    caches, all within ``LM_TOL_OF_MAX`` of the largest magnitude; in
+    bf16 every output finite and the card's decode against its own
+    prefill at the reference's bar (phi-3-vision: prefill only).  No
+    launch of the port's kernels."""
+    import dataclasses as dc
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.models.transformer import forward, init_model, \
+        loss_and_grads
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    zero_counts()
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = dc.replace(get_reduced(arch), dtype="float32")
+        params = init_model(cfg, torch.Generator().manual_seed(seed), "cpu")
+        on_card = tree_map(lambda t: t.to("cuda"), params)
+        rng = np.random.default_rng(seed)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                  (1, LM_SEQ)))
+                 for k in ("tokens", "labels")}
+        if cfg.vision_tokens:
+            batch["patches"] = torch.from_numpy(rng.normal(
+                size=(1, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+        cbatch = {k: v.to("cuda") for k, v in batch.items()}
+        errs = {}
+        with torch.no_grad():
+            lg_card, aux_card = forward(cfg, on_card, cbatch)
+            lg_cpu, aux_cpu = forward(cfg, params, batch)
+        errs["logits"] = lm_check(arch, "prefill logits", [lg_card],
+                                  [lg_cpu], LM_TOL_OF_MAX)
+        errs["aux"] = abs(float(aux_card) - float(aux_cpu))
+        if errs["aux"] > LM_TOL_OF_MAX * max(1.0, abs(float(aux_cpu))):
+            raise AssertionError(f"{arch}: aux {aux_card} vs {aux_cpu}")
+        loss_card, _, g_card = loss_and_grads(cfg, on_card, cbatch)
+        loss_cpu, _, g_cpu = loss_and_grads(cfg, params, batch)
+        errs["loss"] = lm_check(arch, "loss", [loss_card], [loss_cpu],
+                                LM_TOL_OF_MAX)
+        errs["grads"] = lm_check(arch, "gradients", g_card, g_cpu,
+                                 LM_TOL_OF_MAX)
+        toks = batch["tokens"][:, :LM_DECODE_STEPS]
+        with torch.no_grad():
+            dec_card, c_card = lm_decode(cfg, on_card, toks.to("cuda"),
+                                         "cuda", LM_DECODE_STEPS)
+            dec_cpu, c_cpu = lm_decode(cfg, params, toks, "cpu",
+                                       LM_DECODE_STEPS)
+        errs["decode"] = lm_check(arch, "decode logits", [dec_card],
+                                  [dec_cpu], LM_TOL_OF_MAX)
+        errs["caches"] = lm_check(arch, "decode caches", c_card, c_cpu,
+                                  LM_TOL_OF_MAX)
+        f32_s = time.perf_counter() - t0
+        del on_card, g_card, g_cpu, c_card, c_cpu
+
+        # bf16, the config's own dtype, on the card
+        cfg16 = get_reduced(arch)
+        p16 = init_model(cfg16, torch.Generator().manual_seed(seed), "cuda")
+        loss16, _, g16 = loss_and_grads(cfg16, p16, cbatch)
+        finite = bool(torch.isfinite(loss16)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(g16))
+        bf16 = {"loss": float(loss16)}
+        with torch.no_grad():
+            full, _ = forward(cfg16, p16, {"tokens": cbatch["tokens"][
+                :, :LM_DECODE_STEPS]})
+            dec, _ = lm_decode(cfg16, p16, cbatch["tokens"], "cuda",
+                               LM_DECODE_STEPS)
+        dec, full = dec[:, 0].cpu(), full[0].float().cpu()
+        finite = finite and bool(torch.isfinite(dec).all()) and \
+            bool(torch.isfinite(full).all())
+        if not finite:
+            raise AssertionError(f"{arch}: bf16 outputs not finite")
+        if not cfg16.vision_tokens:
+            agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+            # assert_allclose(dec, full, rtol=0.12, atol=0.12)
+            excess = float(((dec - full).abs()
+                            - LM_BF16_TOL * full.abs()).max())
+            if agree < LM_BF16_AGREE or excess > LM_BF16_TOL:
+                raise AssertionError(f"{arch}: bf16 decode vs prefill: top-1 "
+                                     f"agreement {agree}, |dec - full| - "
+                                     f"rtol |full| up to {excess}")
+            bf16.update(top1_agree=agree,
+                        max_abs_err=float((dec - full).abs().max()))
+        del p16, g16
+        emit("lm_reduced", arch=arch, name=cfg.name, seq=LM_SEQ,
+             params=sum(t.numel() for t in tree_leaves(params)),
+             f32_err_of_max=errs, tol_of_max=LM_TOL_OF_MAX, bf16=bf16,
+             f32_s=f32_s, arch_s=time.perf_counter() - t0)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_reduced launched the port's kernels: "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_attention() -> dict:
+    """``blocked_attention`` (plain torch, the reference's algorithm) at
+    qwen3-1.7b prefill (1 x ``LM_PREFILL_S`` tokens, 16 / 8 heads of 128,
+    bf16) and the ring decode attention at ``serve lm``'s step (4 x 1
+    query over a 256-slot cache), each beside its bound and one
+    ``scaled_dot_product_attention`` call on the same inputs (timed here,
+    used nowhere in the port)."""
+    import torch.nn.functional as F
+    from repro_torch.models.transformer.attention import blocked_attention
+    from repro_torch.models.transformer.blocks import _decode_attn_ring
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hq, hkv, hd = 16, 8, 128
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    out = {}
+    s = LM_PREFILL_S
+    q, k, v = rnd(1, s, hq, hd), rnd(1, s, hkv, hd), rnd(1, s, hkv, hd)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt_e, vt_e = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+    with torch.inference_mode():
+        got = blocked_attention(q, k, v, causal=True)
+        lib = F.scaled_dot_product_attention(qt, kt_e, vt_e, is_causal=True)
+        err = float((got.float() - lib.transpose(1, 2).float()).abs().max())
+        t = time_calls({
+            "plain": lambda: blocked_attention(q, k, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt_e, vt_e, is_causal=True)}, reps=3)
+    nbytes = 2 * (2 * s * hq * hd + 2 * s * hkv * hd)
+    flops = 2 * 2 * hq * hd * s * (s + 1) / 2      # causal QK^T and PV
+    b_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    out["blocked_attention_prefill"] = {
+        "shape": [1, s, hq, hkv, hd], "dtype": "bfloat16",
+        "plain_ms": t["plain"], "library_ms": t["library"],
+        "bound_ms": b_ms, "bound_by": "operations"
+        if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+        "max_abs_err_vs_library": err}
+    b, w = 4, 256
+    qd, ck, cv = rnd(b, 1, hq, hd), rnd(b, w, hkv, hd), rnd(b, w, hkv, hd)
+    valid = torch.arange(w, device="cuda")[None].expand(b, w) < 32
+    qdt = qd.transpose(1, 2)
+    ckt, cvt = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                for x in (ck, cv))
+    mask = valid[:, None, None, :]
+    with torch.inference_mode():
+        got = _decode_attn_ring(qd, ck, cv, valid)
+        lib = F.scaled_dot_product_attention(qdt, ckt, cvt, attn_mask=mask)
+        err = float((got.float() - lib.transpose(1, 2).float()).abs().max())
+        t = time_calls({
+            "plain": lambda: _decode_attn_ring(qd, ck, cv, valid),
+            "library": lambda: F.scaled_dot_product_attention(
+                qdt, ckt, cvt, attn_mask=mask)}, reps=50)
+    nbytes = 2 * (2 * b * w * hkv * hd + 2 * b * hq * hd) + b * w
+    flops = 2 * 2 * b * hq * hd * w
+    out["decode_attention_step"] = {
+        "shape": [b, 1, w, hq, hkv, hd], "dtype": "bfloat16",
+        "per_layer": True, "plain_ms": t["plain"],
+        "library_ms": t["library"],
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / BF16_FLOP_PER_S) * 1e3, "bound_by": "bytes",
+        "max_abs_err_vs_library": err}
+    return out
+
+
+def phase_lm_serve(seed: int = 0) -> dict:
+    """``serve lm``'s decode loop (``launch.serve.decode_lm``) at
+    qwen3-1.7b's published width in bf16 (28 layers, d 2048, GQA 16 / 8,
+    qk-norm, tied embeddings, vocab 151,936): batch 4, cache 256, 32
+    greedy steps, tokens/s and the steady step beside its bound (the
+    weights read once over HBM) and peak memory; then the same weights in
+    f32, batch 1: ``LM_F32_DECODE_STEPS`` decode steps against the card's
+    own prefill within ``LM_F32_TOL_OF_MAX`` of the largest logit.  No
+    launch of the port's kernels."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser, decode_lm
+    from repro_torch.models.transformer import forward, init_model
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    args = build_parser().parse_args(LM_SERVE_ARGV)
+    cfg = get_config(args.arch)
+    zero_counts()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(args.seed),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, detail = decode_lm(cfg, params, args)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not out["logits_finite"]:
+        raise AssertionError(f"lm_serve: logits not finite: {out}")
+    step_ms = detail["step_ms"]
+    attention = time_attention()
+    fed = torch.from_numpy(detail["tokens"].T.copy()).to("cuda")
+    profile = lm_profile("decode", lambda: lm_decode(
+        cfg, params, fed, "cuda", LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+
+    # f32 at the same width: decode against the card's own prefill
+    cfg32 = dc.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params, detail
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, LM_F32_DECODE_STEPS))).to("cuda")
+    with torch.inference_mode():
+        full, _ = forward(cfg32, p32, {"tokens": toks})
+        dec, _ = lm_decode(cfg32, p32, toks, "cuda", LM_F32_DECODE_STEPS)
+    err = lm_check("lm_serve", "f32 decode vs prefill", [dec[:, 0]],
+                   [full[0]], LM_F32_TOL_OF_MAX)
+    del p32, full, dec
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_serve launched the port's kernels: "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+    emit("lm_serve", argv=LM_SERVE_ARGV, config=cfg.name,
+         layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads], vocab=cfg.vocab_size,
+         dtype=cfg.dtype, out=out, steady_step_ms=statistics.median(step_ms),
+         step_ms=step_ms, weight_bytes=weight_bytes,
+         step_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         step_bound_by="bytes (the weights read once)",
+         peak_mem_gb=peak_gb, init_s=init_s,
+         f32_decode_vs_prefill_err_of_max=err,
+         f32_tol_of_max=LM_F32_TOL_OF_MAX, f32_steps=LM_F32_DECODE_STEPS,
+         attention=attention, profile=profile, launches=launches,
+         card=nvidia_smi())
+    return launches
+
+
+def lm_profile(name: str, fn, steps: int) -> dict:
+    """``fn`` (``steps`` steps) under ``torch.profiler`` after one
+    unprofiled call: wall and device-busy ms a step, the idle share and
+    the kernels launched a step (``launch.profile_serve``'s summary)."""
+    from repro_torch.launch.profile_serve import _profiled, _summary
+    with torch.inference_mode(name == "decode"):
+        fn()
+        prof, wall = _profiled(fn)
+    rec = _summary(name, prof, wall, top=6)
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"steps": steps, "wall_ms_per_step": rec["wall_ms"] / steps,
+            "device_busy_ms_per_step": rec["device_busy_ms"] / steps,
+            "idle_share": rec["idle_share"],
+            "kernels_per_step": n_kernels / steps,
+            "device_top": rec["device_top"]}
+
+
+def phase_lm_train() -> dict:
+    """``train lm --arch qwen3-1.7b --full --steps 8 --batch 4 --seq-len
+    128 --device cuda`` through the CLI's parser and loop
+    (``launch.train.train_lm``): finite losses, the last below the
+    first, step ms, tokens/s and peak memory (bf16 parameters, gradients
+    and AdamW's two moments, and the activations).  No launch of the
+    port's kernels."""
+    from repro_torch.launch.train import build_parser, lm_config, train_lm
+    args = build_parser().parse_args(LM_TRAIN_ARGV)
+    cfg = lm_config(args)
+    zero_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, detail = train_lm(cfg, args)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = detail["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"lm_train: losses {losses}")
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_train launched the port's kernels: "
+                             f"{launches}")
+    steady_ms = statistics.median(detail["step_ms"][1:])
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models.transformer import train_step_fn
+    from repro_torch.optim import adamw
+    hb = next(synthetic_token_batches(cfg.vocab_size, args.seq_len,
+                                      args.batch, seed=args.seed))
+    batch = {k: torch.from_numpy(hb[k]).to("cuda")
+             for k in ("tokens", "labels")}
+    step = train_step_fn(cfg, adamw(args.lr))
+    state = [detail.pop("params"), detail.pop("opt_state")]
+
+    def one_step():
+        state[:] = step(state[0], state[1], batch)[:2]
+    profile = lm_profile("train", one_step, 1)
+    del state, step
+    torch.cuda.empty_cache()
+    emit("lm_train", argv=LM_TRAIN_ARGV, config=cfg.name,
+         layers=cfg.num_layers, dtype=cfg.dtype, out=out, losses=losses,
+         step_ms=detail["step_ms"], steady_step_ms=steady_ms,
+         steady_tokens_per_s=args.batch * args.seq_len / steady_ms * 1e3,
+         peak_mem_gb=peak_gb, wall_s=wall_s, profile=profile,
+         launches=launches, card=nvidia_smi())
+    return launches
 
 
 def phase_profile() -> None:
@@ -3902,7 +4307,8 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     by_path = {"serve": serve_launches}
     by_path["serve_sage"] = phase_main(
-        "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx)
+        "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx,
+        check_scale=SERVE_SAGE_CHECK_SCALE)
     torch.cuda.empty_cache()
     by_path["train"], tctx, tref = phase_train("train", TRAIN_ARGV,
                                                sgd_check=True)
@@ -3968,6 +4374,10 @@ def main(argv=None) -> None:
     phase_checkpoint(tctx)
     torch.cuda.empty_cache()
     phase_profile()
+    # the transformer zoo: plain torch, no kernel of the port on its paths
+    by_path["lm_reduced"] = phase_lm_reduced()
+    by_path["lm_serve"] = phase_lm_serve()
+    by_path["lm_train"] = phase_lm_train()
     n_cards = torch.cuda.device_count()
     if n_cards >= SPMD_RANKS:
         for transport in ("p2p", "allgather"):

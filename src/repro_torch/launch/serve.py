@@ -21,7 +21,12 @@ backend then come from the store); ``--trace`` records one
 ``trace_serve.json`` / ``metrics_serve.jsonl`` under ``--trace-dir``
 (the JSON gains ``trace_file`` and ``metrics_file``).
 
-Not ported yet: the ``lm`` subcommand, which exits with a message.
+``python -m repro_torch.launch.serve lm ...`` — batched greedy transformer
+decode against the KV / SSM cache (the architecture-zoo serve path), the
+JAX package's ``repro.launch.serve lm``: the reduced config of ``--arch``,
+``--batch`` sequences, ``--steps`` one-token steps against a
+``--cache-len`` cache, printing ``tokens_per_s`` and ``logits_finite``.
+The loop is :func:`decode_lm`, which takes any ``ModelConfig``.
 """
 from __future__ import annotations
 
@@ -43,14 +48,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def not_ported_lm(sub) -> None:
-    """The ``lm`` subcommand of the JAX package's CLIs, which exits with
-    a message: the LM scaffolding is not ported."""
-    def refuse(args):
-        raise SystemExit("the lm subcommand is not ported to repro_torch "
-                         "yet (see ROADMAP.md)")
-    lm = sub.add_parser("lm", help="not ported yet")
-    lm.set_defaults(fn=refuse)
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def set_fp32_numerics() -> None:
@@ -204,6 +204,76 @@ def run_gnn(args) -> dict:
     return out
 
 
+def decode_lm(cfg, params, args) -> tuple[dict, dict]:
+    """``serve lm``'s loop for any ``ModelConfig``: ``args.batch`` random
+    first tokens (numpy, ``args.seed``), one warm-up step at position 0,
+    then ``args.steps - 1`` greedy steps (ids past ``vocab_size``, the
+    padded vocabulary's rows, fold to 0), under ``inference_mode``.
+    Returns ``(out, detail)``: ``out`` the CLI's JSON, ``detail`` the
+    token fed at each step (``tokens`` [steps, batch]) and the ms of each
+    timed step (``step_ms``)."""
+    from ..models.transformer import init_decode_cache, serve_step
+
+    device = params["embed"].device
+    caches = init_decode_cache(cfg, args.batch, args.cache_len, device)
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (args.batch, 1))).to(
+        device=device, dtype=torch.int32)
+    fed = [tokens]
+    # each step's end: a CUDA event on the card (read after the loop's
+    # one synchronize), the host clock on the CPU
+    cuda = device.type == "cuda"
+    marks: list = []
+
+    def mark():
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        else:
+            marks.append(time.perf_counter())
+
+    with torch.inference_mode():
+        # warm up, then sync before starting the clock
+        logits, caches = serve_step(cfg, params, caches, tokens, 0)
+        synchronize(device)
+        t0 = time.perf_counter()
+        mark()
+        for i in range(1, args.steps):
+            nxt = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            nxt = torch.where(nxt >= cfg.vocab_size, 0, nxt)
+            fed.append(nxt)
+            logits, caches = serve_step(cfg, params, caches, nxt, i)
+            mark()
+        synchronize(device)
+        wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) if cuda else (b - a) * 1e3
+               for a, b in zip(marks, marks[1:])]
+    out = {
+        "arch": cfg.name, "batch": args.batch, "steps": args.steps,
+        "tokens_per_s": round(args.batch * (args.steps - 1)
+                              / max(wall, 1e-9), 1),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+    }
+    return out, {"tokens": torch.cat(fed, 1).T.cpu().numpy(),
+                 "step_ms": step_ms}
+
+
+def run_lm(args) -> dict:
+    from ..configs import get_reduced
+    from ..models.transformer import init_model
+
+    device = resolve_device(args.device)
+    set_fp32_numerics()
+    cfg = get_reduced(args.arch)
+    params = init_model(cfg, torch.Generator().manual_seed(args.seed),
+                        device)
+    out, _ = decode_lm(cfg, params, args)
+    print(json.dumps(out, indent=1))
+    return out
+
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -269,7 +339,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "metrics_serve.jsonl (with --trace)")
     g.add_argument("--seed", type=int, default=0)
     g.set_defaults(fn=run_gnn)
-    not_ported_lm(sub)
+
+    lm = sub.add_parser("lm")
+    lm.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    lm.add_argument("--arch", default="qwen3-1.7b")
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--steps", type=int, default=32)
+    lm.add_argument("--cache-len", type=int, default=256)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.set_defaults(fn=run_lm)
     return ap
 
 

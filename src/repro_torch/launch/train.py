@@ -49,7 +49,15 @@ checkpoint and every rank resumes from it.  A halo-only flag (host
 features, the cache policies, faults, a backend other than ``edges``)
 exits with the strategy's message.
 
-Not ported yet, exiting with a message: the ``lm`` subcommand.
+``python -m repro_torch.launch.train lm --arch <id> ...`` — token-LM
+training of the architecture-zoo configs (``--reduced``, the default, or
+``--full``, the published widths) with the port's ``adamw`` on the
+synthetic token stream, the JAX package's ``repro.launch.train lm``:
+``--ckpt-dir`` saves ``{"params", "opt_state"}`` after the run and
+``--resume`` restores the latest valid checkpoint there (the data stream
+skips the batches already trained on) and runs the remaining steps up to
+``--steps``; checkpoints cross between the two packages.  The loop is
+:func:`train_lm`, which takes any ``ModelConfig``.
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ import time
 
 import torch
 
-from .serve import not_ported_lm, resolve_device, set_fp32_numerics
+from .serve import resolve_device, set_fp32_numerics
 
 
 def prepare_train(args) -> dict:
@@ -376,6 +384,80 @@ def run_gnn(args) -> dict:
     return out
 
 
+def lm_config(args):
+    """``train lm``'s ``ModelConfig``: the reduced or the published one."""
+    from ..configs import get_config, get_reduced
+    return get_reduced(args.arch) if args.reduced else get_config(args.arch)
+
+
+def train_lm(cfg, args) -> tuple[dict, dict]:
+    """``train lm``'s loop for any ``ModelConfig`` on ``args.device``:
+    ``init_model`` of ``args.seed``, ``adamw(args.lr)``, the resume, the
+    synthetic stream (VLM configs get zero patches) and ``args.steps``
+    steps in all, then the checkpoint.  Returns ``(out, detail)``:
+    ``out`` the CLI's JSON, ``detail`` the ``losses``, each step's
+    ``step_ms`` (host clock, the step ending in its loss read) and the
+    final ``params`` and ``opt_state``."""
+    from ..checkpoint import latest_step, load_checkpoint, save_checkpoint
+    from ..data import synthetic_token_batches
+    from ..models.transformer import init_model, train_step_fn
+    from ..models.transformer.blocks import torch_dtype
+    from ..optim import adamw
+
+    device = resolve_device(args.device)
+    set_fp32_numerics()
+    params = init_model(cfg, torch.Generator().manual_seed(args.seed),
+                        device)
+    opt = adamw(args.lr)
+    opt_state = opt.init(params)
+    start_step = 0
+    if args.resume and args.ckpt_dir:
+        s = latest_step(args.ckpt_dir)
+        if s is not None:
+            state = load_checkpoint(args.ckpt_dir, s,
+                                    {"params": params,
+                                     "opt_state": opt_state})
+            params, opt_state = state["params"], state["opt_state"]
+            start_step = s
+    run_steps = max(0, args.steps - start_step)
+    step = train_step_fn(cfg, opt)
+    gen = synthetic_token_batches(cfg.vocab_size, args.seq_len, args.batch,
+                                  seed=args.seed)
+    for _ in range(start_step):   # resume the data stream where it stopped
+        next(gen)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    for _, host_batch in zip(range(run_steps), gen):
+        t_step = time.perf_counter()
+        batch = {k: torch.from_numpy(host_batch[k]).to(device)
+                 for k in ("tokens", "labels")}
+        if cfg.vision_tokens:
+            batch["patches"] = torch.zeros(
+                (args.batch, cfg.vision_tokens, cfg.d_model),
+                dtype=torch_dtype(cfg), device=device)
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    wall = time.perf_counter() - t0
+    out = {"arch": cfg.name, "steps": args.steps,
+           "resumed_from": start_step,
+           "loss_first": losses[0] if losses else None,
+           "loss_last": losses[-1] if losses else None,
+           "tokens_per_s":
+           round(run_steps * args.batch * args.seq_len / max(wall, 1e-9), 1)}
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, start_step + run_steps,
+                        {"params": params, "opt_state": opt_state})
+    return out, {"losses": losses, "step_ms": step_ms, "params": params,
+                 "opt_state": opt_state}
+
+
+def run_lm(args) -> dict:
+    out, _ = train_lm(lm_config(args), args)
+    print(json.dumps(out, indent=1))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ..core.device_profile import PAPER_GROUPS
 
@@ -476,7 +558,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "--ckpt-dir and train the remaining epochs up to "
                         "--epochs")
     g.set_defaults(fn=run_gnn)
-    not_ported_lm(sub)
+
+    lm = sub.add_parser("lm")
+    lm.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--reduced", action="store_true", default=True)
+    lm.add_argument("--full", dest="reduced", action="store_false")
+    lm.add_argument("--steps", type=int, default=20)
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--seq-len", type=int, default=128)
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--ckpt-dir", default="")
+    lm.add_argument("--resume", action="store_true",
+                    help="restore (params, opt_state, step) from the "
+                         "latest checkpoint in --ckpt-dir and run the "
+                         "remaining steps up to --steps")
+    lm.set_defaults(fn=run_lm)
     return ap
 
 

@@ -1,3 +1,5 @@
-from .init import glorot, zeros_init
+from .init import glorot, he, normal_init, zeros_init
+from .layers import dense, layer_norm, rms_norm, dropout
 
-__all__ = ["glorot", "zeros_init"]
+__all__ = ["glorot", "he", "normal_init", "zeros_init", "dense",
+           "layer_norm", "rms_norm", "dropout"]

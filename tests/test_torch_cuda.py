@@ -1000,3 +1000,43 @@ def test_fence_syncs_the_card(card, monkeypatch):
     assert Tracer().fence(x) is x and calls == [x.device]
     assert not side.query()                 # the side stream still runs
     side.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the transformer zoo: card against CPU (plain torch on both: no kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3_1_7b", "hymba_1_5b"])
+def test_lm_reduced_on_card_matches_cpu(card, arch):
+    """A reduced config in f32 from the same parameters: prefill logits,
+    one step's gradients and 8 decode steps on the card within 1e-4 of the
+    largest magnitude of the CPU's (S = 40: hymba's window 32 banded)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import (forward, init_decode_cache,
+                                                init_model, loss_and_grads,
+                                                serve_step)
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda t: t.to(card), params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    cbatch = {k: v.to(card) for k, v in batch.items()}
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+    close(forward(cfg, on_card, cbatch)[0], forward(cfg, params, batch)[0])
+    _, _, g_card = loss_and_grads(cfg, on_card, cbatch)
+    _, _, g_cpu = loss_and_grads(cfg, params, batch)
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        close(a, b)
+    caches = [init_decode_cache(cfg, 2, 16, dev) for dev in (card, "cpu")]
+    for t in range(8):
+        tok = toks[:, t:t + 1]
+        lg_card, caches[0] = serve_step(cfg, on_card, caches[0],
+                                        tok.to(card), t)
+        lg_cpu, caches[1] = serve_step(cfg, params, caches[1], tok, t)
+        close(lg_card, lg_cpu)

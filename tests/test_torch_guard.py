@@ -9,11 +9,12 @@
   to the CPU (``launch.serve``, ``launch.train``, ``launch.mesh``), and so
   does ``chip_smoke.py``; ``launch.mesh.spawn`` refuses NCCL, before any
   process starts, with fewer cards than ranks;
-- the parts of the JAX package that are not ported yet fail loudly (the
-  ``lm`` subcommands), and the flags this port has taken over from them
-  run on the CPU and print the JAX package's keys (``--strategy
-  spmm_15d``, ``--trace``, ``--faults``, the guard's knobs, ``--ckpt-dir``
-  / ``--resume``, ``--store-dir`` / ``--load-store``).
+- the ``lm`` subcommands run on the card by default and raise without
+  CUDA unless given ``--device cpu``; the flags this port has taken over
+  from the JAX package's CLIs run on the CPU and print the JAX package's
+  keys (``--strategy spmm_15d``, ``--trace``, ``--faults``, the guard's
+  knobs, ``--ckpt-dir`` / ``--resume``, ``--store-dir`` /
+  ``--load-store``).
 """
 import json
 import os
@@ -65,9 +66,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
 
 
 def test_sources_import_neither_jax_nor_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "examples" /
-                                          "quickstart_torch.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(list((ROOT / "examples").glob("*_torch.py"))) >= 3
     assert len(files) > 30
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -83,6 +84,27 @@ def test_spmd_slice_modules_import_neither_jax_nor_repro():
         "spec = importlib.util.spec_from_file_location(\n"
         "    'quickstart_torch', 'examples/quickstart_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
+        "      n.startswith('jax.') or n == 'repro' or\n"
+        "      n.startswith('repro.')))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_lm_slice_modules_import_neither_jax_nor_repro():
+    """The transformer zoo, its configs, the token stream, both ``lm``
+    CLIs and the two LM example twins, imported alone."""
+    res = _run(
+        "import importlib.util, sys\n"
+        "import repro_torch.models.transformer, repro_torch.configs\n"
+        "import repro_torch.data.token_stream, repro_torch.nn.layers\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
+        "for name in ('serve_transformer_torch', 'train_lm_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
         "      n.startswith('jax.') or n == 'repro' or\n"
         "      n.startswith('repro.')))\n")
@@ -329,10 +351,11 @@ def test_gat_refuses_ell_and_hybrid(backend, adj):
                      "--epochs", "1"])
 
 
-def test_unported_runtime_options_raise():
+def test_unported_runtime_options_raise(monkeypatch, capsys):
     """``get_strategy("spmm_15d")`` is the ported strategy, its
-    capabilities the JAX package's; an unknown features mode and the
-    ``lm`` subcommands still raise."""
+    capabilities the JAX package's; an unknown features mode raises.  The
+    ``lm`` subcommands are ported: they run on the card by default, raise
+    without CUDA, and run with ``--device cpu``."""
     from repro.dist import get_strategy as jget
     from repro_torch.dist import get_strategy, init_caches
     s = get_strategy("spmm_15d")
@@ -340,9 +363,21 @@ def test_unported_runtime_options_raise():
     assert vars(s.caps) == vars(jget("spmm_15d").caps)
     with pytest.raises(ValueError, match="features mode"):
         init_caches(GNNConfig(), None, 4, features="disk")
-    for main in (ttrain.main, tlaunch.main):
-        with pytest.raises(SystemExit, match="lm subcommand is not ported"):
-            main(["lm"])
+    assert ttrain.build_parser().parse_args(
+        ["lm", "--arch", "qwen3-1.7b"]).device == "cuda"
+    assert tlaunch.build_parser().parse_args(["lm"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.main(["lm", "--arch", "qwen3-1.7b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlaunch.main(["lm", "--steps", "2"])
+    out = ttrain.main(["lm", "--arch", "qwen3-1.7b", "--steps", "1",
+                       "--batch", "1", "--seq-len", "8", "--device", "cpu"])
+    assert np.isfinite(out["loss_first"])
+    out = tlaunch.main(["lm", "--steps", "2", "--batch", "1",
+                        "--cache-len", "4", "--device", "cpu"])
+    assert out["logits_finite"]
+    capsys.readouterr()
 
 
 def test_slice_entry_points_default_to_the_card(monkeypatch):
