@@ -27,7 +27,9 @@ raises, and the script exits non-zero:
    The launch counters are zeroed just before and read just after (one ELL
    forward and one CSR tail launch per layer, no pack built in a
    wrapper); the precompute's tables are held against the same pass on
-   the CPU (plain versions, same parameters).  ``serve_sage`` - the same
+   the CPU (plain versions, same parameters; on a thread of its own
+   beside the later phases, compared in ``main_path_cpu_check``).
+   ``serve_sage`` - the same
    with ``--model sage``: SAGE's ``degree()`` adds one ELL forward and
    one tail launch a layer (recomputed per call, as the reference does);
    its card-vs-CPU pass runs at scale ``SERVE_SAGE_CHECK_SCALE`` (the
@@ -67,7 +69,8 @@ raises, and the script exits non-zero:
    ``spmd`` - the SPMD runtime (``repro_torch.dist.capgnn_spmd``) at the
    training slice's flags, 4 ranks sharing the card over gloo (the wire
    staged through pinned host buffers: ``"wire": "gloo-host"``, a measure
-   of correctness and compute, not of NVLink), once per transport: the
+   of correctness and compute, not of NVLink), once per transport (both
+   in one spawn): the
    refresh step's loss and gradients against the card's single-process
    runtime on the same parameters, every step's counted rows and bytes
    equal to the plan's, the launches summed over the ranks, the step and
@@ -112,8 +115,9 @@ raises, and the script exits non-zero:
    scale 0.1 the card's ``lru`` re-plans equal the CPU's);
    ``spmd_host`` - the SPMD runtime, 4 ranks on the card over gloo,
    ``p2p``, one host store per rank, against the card's host run, the
-   host counts summed over the ranks equal to the plan's
-   (``spmd_host_nccl`` and ``spmd_lru_nccl`` over NCCL on four cards);
+   host counts summed over the ranks equal to the plan's (in one spawn
+   with ``spmd_faults``; ``spmd_host_nccl`` and ``spmd_lru_nccl`` over
+   NCCL on four cards);
    ``profile`` - ``measure_profile()`` on the card.
    Faults and defenses, the tracer and checkpoints: ``train_faults`` -
    the slice's path, ``launch.train --backend hybrid --features host
@@ -157,6 +161,29 @@ raises, and the script exits non-zero:
    --steps 8 --batch 4 --seq-len 128`` through the CLI's parser and loop
    (``train_lm``): falling finite losses, step ms, tokens/s, peak memory
    and one profiled step.
+   The transformer zoo sharded (DTensor on a ``("data", "model")``
+   DeviceMesh; plain torch, the counters read 0): ``lm_spmd`` -
+   qwen3-1.7b at its published CONFIG, full depth, on 4 ranks sharing the
+   card as a 2 x 2 mesh over the ``staged`` backend (gloo, CUDA tensors
+   through pinned host buffers): one f32 forward and backward against
+   the card's single-device one (the logits, and rank 0's shard of every
+   gradient), 4 bf16 AdamW steps with ZeRO-1 moments (remat on)
+   at ``lm_train``'s batch against its losses, 16 decode steps at batch 4
+   and cache 256 teacher-forced on the single-device greedy tokens (top-1
+   agreement), step ms, peak memory and the op counter's collective
+   bytes per kind per rank, rank 0's equal to the dry run's for the same
+   step and mesh; ``lm_spmd_moe`` - mixtral-8x7b at its published widths,
+   2 of 32 layers, f32, expert-parallel on the 2 x 2 mesh: logits,
+   ``aux``, loss and one backward's gradients against the per-block plain
+   version in one process, each MoE layer's all-to-all and FSDP
+   all-gather bytes against the byte model from the shapes;
+   ``lm_dryrun`` - ``launch.dryrun.run_one`` of qwen3-14b ``train_4k`` on
+   ``(16, 16)`` and mixtral-8x7b ``decode_32k`` on ``(2, 16, 16)`` (a
+   ``fake`` group, fake tensors; run on the CPU in a child process from
+   the start, beside the card's phases): per-device FLOPs, bytes,
+   collectives and memory, and the roofline terms over the card's
+   constants.  ``lm_spmd_nccl`` and ``lm_spmd_moe_nccl`` - the two over
+   NCCL, a card per rank, where 4 cards are visible.
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -196,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
 import statistics
@@ -243,6 +271,9 @@ TRAIN_ELL_SCALE = "0.3"
 # serve_sage's card-vs-CPU pass (at 1.0 the CPU's plain pass took ~81 s)
 SERVE_SAGE_CHECK_SCALE = "0.1"
 SPMD_RANKS = 4
+# the card-vs-CPU passes' intra-op threads, on their thread beside the
+# card's phases: half the host's cores, the rest for the phases' ranks
+CPU_CHECK_THREADS = max(1, (os.cpu_count() or 2) // 2)
 COL_CHUNK = 8192          # 8 MB of h rows at d = 256: an L2 tile
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth and
@@ -860,6 +891,39 @@ def ptxas_report() -> None:
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
 
+class CpuChecks:
+    """The card-vs-CPU checks' CPU passes, one after another on a thread
+    of their own beside the card's later phases (torch's CPU operations
+    release the GIL), each with ``CPU_CHECK_THREADS`` intra-op threads.
+    :meth:`finish` waits for each, holds it against the card's result and
+    prints it as ``{name}_cpu_check``; a check that fails fails the
+    script there."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+        self.pool = ThreadPoolExecutor(1, initializer=torch.set_num_threads,
+                                       initargs=(CPU_CHECK_THREADS,))
+        self.pending = []
+
+    def submit(self, name: str, cpu_pass, compare) -> None:
+        """Run ``cpu_pass()`` on the thread; :meth:`finish` calls
+        ``compare`` on its result and its seconds, which raises past its
+        tolerance and returns the fields to print."""
+        def timed():
+            t0 = time.perf_counter()
+            return cpu_pass(), time.perf_counter() - t0
+        self.pending.append((name, self.pool.submit(timed), compare))
+
+    def finish(self) -> None:
+        t0 = time.perf_counter()
+        for name, fut, compare in self.pending:
+            res, seconds = fut.result()
+            emit(f"{name}_cpu_check", **compare(res, seconds),
+                 waited_s=time.perf_counter() - t0)
+        self.pending.clear()
+        self.pool.shutdown()
+
+
 def hot_batches(engine, args) -> int:
     """Micro-batches of the slice's stream with at least one hot-tier hit
     (each launches the row gather once)."""
@@ -872,7 +936,7 @@ def hot_batches(engine, args) -> int:
                for b in batches)
 
 
-def phase_main(name: str, argv: list[str], ctx,
+def phase_main(name: str, argv: list[str], ctx, checks: CpuChecks,
                check_scale: str | None = None) -> dict:
     """The serving slice of ``argv`` through ``launch.serve``'s own entry
     (``ctx``: the host plan of its flags, for the CPU pass), its launches
@@ -880,9 +944,10 @@ def phase_main(name: str, argv: list[str], ctx,
     (SAGE two of each: its ``degree()``), no backward, no pack built for
     a call, a gather per micro-batch with hot hits; its tables against
     the same pass on the CPU, and served answers against the CPU's
-    logits.  With ``check_scale``, the card's and the CPU's passes run
-    the same flags and parameters at that scale (their own host plan),
-    and the served answers are held against the card's own tables."""
+    logits (the CPU pass and both comparisons through ``checks``).  With
+    ``check_scale``, the card's and the CPU's passes run the same flags
+    and parameters at that scale (their own host plan), and the served
+    answers are held against the card's own tables."""
     from repro_torch.kernels import cache_gather as kgather
     from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
     from repro_torch.launch.serve import (build_parser, plan_and_stack,
@@ -949,26 +1014,31 @@ def phase_main(name: str, argv: list[str], ctx,
             cfg, ps, sp, xplan, engine.params, backend=args.backend,
             device=args.device).tables
     cpu_params = [{k: v.cpu() for k, v in p.items()} for p in engine.params]
-    t0 = time.perf_counter()
-    cpu_store = precompute_embeddings(cfg, ps, sp, xplan, cpu_params,
-                                      backend=args.backend, device="cpu")
-    cpu_pass_s = time.perf_counter() - t0
-    errs = [float(np.abs(a - b).max())
-            for a, b in zip(card_tables, cpu_store.tables)]
-    if errs[-1] > LOGITS_ATOL:
-        raise AssertionError(f"card logits differ from the CPU pass by "
-                             f"{errs[-1]} > {LOGITS_ATOL}")
     # served answers: hot hits (row gather) and host misses (host store)
     rng = np.random.default_rng(args.seed)
     sample = np.concatenate([engine.hot_ids[:64],
                              rng.choice(n, 64, replace=False)])
     served = engine.lookup(sample)
-    want_logits = store.logits if check_scale else cpu_store.logits
-    serve_err = float(np.abs(served - want_logits[sample]).max())
-    if serve_err > LOGITS_ATOL:
-        raise AssertionError(f"served logits differ from the "
-                             f"{'card' if check_scale else 'CPU'} pass by "
-                             f"{serve_err}")
+    served_against = "card tables" if check_scale else "CPU pass"
+
+    def compare(cpu_store, cpu_pass_s):
+        errs = [float(np.abs(a - b).max())
+                for a, b in zip(card_tables, cpu_store.tables)]
+        if errs[-1] > LOGITS_ATOL:
+            raise AssertionError(f"{name}: card logits differ from the CPU "
+                                 f"pass by {errs[-1]} > {LOGITS_ATOL}")
+        want_logits = store.logits if check_scale else cpu_store.logits
+        serve_err = float(np.abs(served - want_logits[sample]).max())
+        if serve_err > LOGITS_ATOL:
+            raise AssertionError(f"{name}: served logits differ from the "
+                                 f"{served_against} by {serve_err}")
+        return {"cpu_pass_s": cpu_pass_s,
+                "compared_at_scale": float(check_scale or args.scale),
+                "table_max_abs_err": errs, "served_max_abs_err": serve_err,
+                "served_held_against": served_against}
+    checks.submit(name, lambda: precompute_embeddings(
+        cfg, ps, sp, xplan, cpu_params, backend=args.backend, device="cpu"),
+        compare)
 
     fields = ("precompute_s", "qps", "p50_ms", "p99_ms", "hot_hit_rate",
               "host_hit_rate", "host_fetch_ms", "batches", "mean_batch",
@@ -978,10 +1048,7 @@ def phase_main(name: str, argv: list[str], ctx,
          launches=launches, hot_batches=n_hot_batches,
          **{k: report[k] for k in fields},
          wall_s=wall_s, host_plan_s=ctx["host_plan_s"],
-         device_pass_s=device_pass_s, cpu_pass_s=cpu_pass_s,
-         compared_at_scale=float(check_scale or args.scale),
-         table_max_abs_err=errs, served_max_abs_err=serve_err,
-         served_held_against="card tables" if check_scale else "CPU pass")
+         device_pass_s=device_pass_s)
     return launches
 
 
@@ -1141,30 +1208,32 @@ def refresh_grads(cfg, spec, sp, xplan, params0, lr: float, device,
             time.perf_counter() - t0)
 
 
-def card_vs_cpu(cfg, spec, sp, xplan, seed: int, lr: float, card: str,
-                card_rt=None) -> dict:
+def card_vs_cpu(name: str, cfg, spec, sp, xplan, seed: int, lr: float,
+                card: str, checks: CpuChecks, card_rt=None) -> dict:
     """One refresh step's loss and gradients on the card (``card_rt``, or
     a runtime built here on ``card``) and on the CPU from the same
-    parameters (``init_gnn`` of ``seed``); raises past ``LOSS_ATOL`` /
-    ``GRAD_RTOL``.  The card's loss and gradients are returned too, the
-    reference of the SPMD phases."""
+    parameters (``init_gnn`` of ``seed``), the CPU's through ``checks``:
+    it raises past ``LOSS_ATOL`` / ``GRAD_RTOL``.  Returns the card's
+    parameters, loss and gradients, the reference of the SPMD phases."""
     from repro_torch.models.gnn import init_gnn
     params0 = init_gnn(cfg, torch.Generator().manual_seed(seed), "cpu")
-    res = {dev: refresh_grads(cfg, spec, sp, xplan, params0, lr, dev,
-                              card_rt if dev == card else None)
-           for dev in (card, "cpu")}
-    loss_err = abs(res[card][0] - res["cpu"][0])
-    if loss_err > LOSS_ATOL:
-        raise AssertionError(f"refresh-step loss differs from the CPU's by "
-                             f"{loss_err}")
-    return {"params0": params0, "loss": res[card][0],
-            "grads": res[card][1],
-            "fields": {"refresh_loss_card": res[card][0],
-                       "refresh_loss_cpu": res["cpu"][0],
-                       "refresh_loss_err": loss_err,
-                       "refresh_grad_err": grads_err(res[card][1],
-                                                     res["cpu"][1]),
-                       "cpu_refresh_step_s": res["cpu"][2]}}
+    loss, grads, _ = refresh_grads(cfg, spec, sp, xplan, params0, lr, card,
+                                   card_rt)
+
+    def compare(res, cpu_s):
+        loss_err = abs(loss - res[0])
+        if loss_err > LOSS_ATOL:
+            raise AssertionError(f"{name}: refresh-step loss differs from "
+                                 f"the CPU's by {loss_err}")
+        return {"refresh_loss_card": loss, "refresh_loss_cpu": res[0],
+                "refresh_loss_err": loss_err,
+                "refresh_grad_err": grads_err(grads, res[1]),
+                "cpu_refresh_step_s": res[2]}
+    cpu_params = [{k: v.clone() for k, v in q.items()} for q in params0]
+    checks.submit(name, lambda: refresh_grads(cfg, spec, sp, xplan,
+                                              cpu_params, lr, "cpu"),
+                  compare)
+    return {"params0": params0, "loss": loss, "grads": grads}
 
 
 def sgd_trajectories(args) -> dict:
@@ -1196,8 +1265,8 @@ def sgd_trajectories(args) -> dict:
             "sgd_traj_err": traj_err}
 
 
-def phase_train(name: str, argv: list[str], ctx: dict | None = None,
-                check_scale: str | None = None,
+def phase_train(name: str, argv: list[str], checks: CpuChecks,
+                ctx: dict | None = None, check_scale: str | None = None,
                 sgd_check: bool = False) -> tuple[dict, dict, dict]:
     """One training cell through launch.train's entry (``ctx``: the host
     plan of the same flags but the stacking, reused; built when None).
@@ -1206,10 +1275,10 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
     zeroed just before the run and read just after; the gathers worked
     out from the plan's arrays), finite falling losses, the bytes equal
     to the plan's; one refresh step's loss and gradients on the card
-    against the CPU (at ``check_scale`` when given: the same flags at
-    that scale), and with ``sgd_check`` an 8-step SGD trajectory at
-    ``TRAIN_SGD_SCALE``.  Returns the launches, the run's context and the
-    card's refresh step (parameters, loss, gradients)."""
+    against the CPU (through ``checks``; at ``check_scale`` when given:
+    the same flags at that scale), and with ``sgd_check`` an 8-step SGD
+    trajectory at ``TRAIN_SGD_SCALE``.  Returns the launches, the run's
+    context and the card's refresh step (parameters, loss, gradients)."""
     from repro_torch.launch.train import build_parser, prepare_train, train_gnn
 
     args = build_parser().parse_args(argv)
@@ -1265,8 +1334,8 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
             cctx["cfg"], cctx["sp"], cctx["xplan"], cctx["spec"])
         rt = None
     bwd0 = read_counts()["gather_rows_bwd"]
-    ref = card_vs_cpu(check_cfg, check_spec, check_sp, check_x, args.seed,
-                      args.lr, args.device, rt)
+    ref = card_vs_cpu(name, check_cfg, check_spec, check_sp, check_x,
+                      args.seed, args.lr, args.device, checks, rt)
     del ctx["runtime"], rt
     torch.cuda.empty_cache()
     refresh_bwd = read_counts()["gather_rows_bwd"] - bwd0
@@ -1305,7 +1374,7 @@ def phase_train(name: str, argv: list[str], ctx: dict | None = None,
          steady_step_ms=steady_ms, gather_launches_per_kind=per_kind,
          host_plan_s=ctx["host_plan_s"], launch_wall_s=wall_s,
          launches=launches, checked_at_scale=float(check_scale or args.scale),
-         **ref["fields"], **extra, peak_mem_gb=peak_gb)
+         **extra, peak_mem_gb=peak_gb)
     return launches, ctx, ref
 
 
@@ -1477,6 +1546,29 @@ def phase_coo_spmm_15d(layout, rank: int, seed: int = 0,
          edges=m, ni=ni, n_cols=n_cols, **rec)
 
 
+def rank_jobs(rank, world_size, device, jobs):
+    """Several rank programs, ``(fn, args)`` each, one after another on
+    one process group: the ranks reach the card once for them all."""
+    out = []
+    for fn, args in jobs:
+        out.append(fn(rank, world_size, device, *args))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def spawn_jobs(jobs: list, world_size: int, backend: str,
+               devices) -> tuple[list, float]:
+    """:func:`rank_jobs` of ``jobs`` in one spawn of ``world_size`` ranks:
+    each job's results in rank order, and the spawn's wall seconds."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(rank_jobs, world_size, backend=backend, devices=devices,
+                  args=(jobs,))
+    return ([[r[i] for r in ranks] for i in range(len(jobs))],
+            time.perf_counter() - t0)
+
+
 def spmd_rank(rank, world_size, device, cfg, sp, xplan, spec, params_np,
               epochs, lr, steady, planner=None):
     """One rank of the SPMD phases: the refresh step's loss and gradients
@@ -1567,10 +1659,23 @@ def spmd_gather_launches(xplan, transport: str, bf16: bool,
                 "gather_rows_bwd": n_exchanged * bwd[k]} for k in fwd}
 
 
-def phase_spmd(name: str, ctx: dict, ref: dict, transport: str,
-               backend: str, devices, epochs: int, lr: float) -> dict:
+def spmd_jobs(ctx: dict, ref: dict, transports, epochs: int,
+              lr: float) -> list:
+    """:func:`phase_spmd`'s rank programs, one for each transport."""
+    import dataclasses as dc
+    params_np = [{k: v.numpy() for k, v in q.items()} for q in ref["params0"]]
+    return [(spmd_rank, (ctx["cfg"], ctx["sp"], ctx["xplan"],
+                         dc.replace(ctx["spec"], transport=t), params_np,
+                         epochs, lr, 3)) for t in transports]
+
+
+def phase_spmd(name: str, ctx: dict, ref: dict, transports,
+               backend: str, devices, epochs: int, lr: float,
+               spawned=None) -> dict:
     """The SPMD runtime of the train cell's flags on ``P`` ranks over
-    ``backend`` (``devices``: one per rank), under ``transport``.
+    ``backend`` (``devices``: one per rank), under each of ``transports``
+    (all in one spawn; ``spawned``: :func:`spmd_jobs`' results from a
+    spawn shared with other phases, and its wall seconds).
 
     Checks, over the ranks: one refresh step's loss within ``LOSS_ATOL``
     and its gradients within ``GRAD_RTOL`` of the card's single-process
@@ -1578,99 +1683,101 @@ def phase_spmd(name: str, ctx: dict, ref: dict, transport: str,
     and padded rows and bytes equal to the plan's (``transport_rows``;
     under ``p2p`` ``bytes_per_step``); the report's bytes and step counts
     equal to the plan's; finite falling losses; every rank's losses the
-    same; the launches, summed over ranks, those the backend gives."""
-    import dataclasses as dc
-    from repro_torch.launch.mesh import spawn
+    same; the launches, summed over ranks, those the backend gives.
+    Returns the launches by path, ``{name}_{transport}``."""
     cfg, sp, xplan = ctx["cfg"], ctx["sp"], ctx["xplan"]
-    spec = dc.replace(ctx["spec"], transport=transport)
     p, layers = sp.num_parts, cfg.num_layers
-    params_np = [{k: v.numpy() for k, v in q.items()} for q in ref["params0"]]
-    t0 = time.perf_counter()
-    ranks = spawn(spmd_rank, p, backend=backend, devices=devices,
-                  args=(cfg, sp, xplan, spec, params_np, epochs, lr, 3))
-    spawn_wall_s = time.perf_counter() - t0
-    grad_err = []
-    for r in ranks:
-        loss_err = abs(r["loss"] - ref["loss"])
-        if loss_err > LOSS_ATOL:
-            raise AssertionError(f"{name}: refresh loss differs from the "
-                                 f"card's sim runtime by {loss_err}")
-        grad_err.append(grads_err(r["grads"], ref["grads"]))
-        if r["losses"] != ranks[0]["losses"]:
-            raise AssertionError(f"{name}: ranks disagree on the losses")
-    kinds = ranks[0]["step_kinds"]
-    losses = ranks[0]["losses"]
-    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"{name}: losses {losses}")
-    comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
-    if ranks[0]["comm_bytes"] != comm:
-        raise AssertionError(f"{name}: comm_bytes {ranks[0]['comm_bytes']}, "
-                             f"the plan gives {comm}")
-    width = 2 if spec.halo_dtype == "bf16" else 4
-    counted = []
-    for s, kind in enumerate(kinds):
-        refresh = kind != "cached"
-        valid = xplan.transport_rows(transport, refresh)
-        padded = xplan.transport_rows(transport, refresh, padded=True)
-        for li in range(1, layers):
-            d = cfg.feat_dims[li]
-            got = {t: {f: sum(r["wire"][s].get((li, t), {}).get(f, 0)
-                              for r in ranks)
-                       for f in ("valid_rows", "padded_rows", "bytes",
-                                 "wire_bytes")}
-                   for t in ("uncached", "local", "global")}
-            for t, c in got.items():
-                if (c["valid_rows"], c["padded_rows"], c["bytes"]) != \
-                        (valid[t], padded[t], valid[t] * d * width):
-                    raise AssertionError(f"{name}: step {s} ({kind}) layer "
-                                         f"{li} {t}: counted {c}, the plan "
-                                         f"gives {valid[t]} / {padded[t]}")
-            step_bytes = sum(c["bytes"] for c in got.values())
-            if transport == "p2p" and step_bytes != xplan.bytes_per_step(
-                    d, refresh, dtype_bytes=width):
-                raise AssertionError(f"{name}: step {s} layer {li}: "
-                                     f"{step_bytes} bytes counted")
-            counted.append({"step": s, "kind": kind, "layer": li, **got})
-    launches = {k: sum(r["launches"][k] for r in ranks)
-                for k in ranks[0]["launches"]}
-    per_kind = spmd_gather_launches(xplan, transport,
-                                    spec.halo_dtype == "bf16", layers - 1)
-    want = {k: p * v for k, v in train_launches(
-        spec.backend, layers, kinds, per_kind).items()}
-    want["packs_built_for_a_call"] = 0
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    jobs = spmd_jobs(ctx, ref, transports, epochs, lr)
+    res, spawn_wall_s = spawned or spawn_jobs(jobs, p, backend, devices)
+    by_path = {}
+    for transport, (_, job), ranks in zip(transports, jobs, res):
+        spec = job[3]
+        grad_err = []
+        for r in ranks:
+            loss_err = abs(r["loss"] - ref["loss"])
+            if loss_err > LOSS_ATOL:
+                raise AssertionError(f"{name}: refresh loss differs from the "
+                                     f"card's sim runtime by {loss_err}")
+            grad_err.append(grads_err(r["grads"], ref["grads"]))
+            if r["losses"] != ranks[0]["losses"]:
+                raise AssertionError(f"{name}: ranks disagree on the losses")
+        kinds = ranks[0]["step_kinds"]
+        losses = ranks[0]["losses"]
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses}")
+        comm, vanilla = plan_bytes(cfg, spec, xplan, kinds)
+        if ranks[0]["comm_bytes"] != comm:
+            raise AssertionError(f"{name}: comm_bytes "
+                                 f"{ranks[0]['comm_bytes']}, the plan gives "
+                                 f"{comm}")
+        width = 2 if spec.halo_dtype == "bf16" else 4
+        counted = []
+        for s, kind in enumerate(kinds):
+            refresh = kind != "cached"
+            valid = xplan.transport_rows(transport, refresh)
+            padded = xplan.transport_rows(transport, refresh, padded=True)
+            for li in range(1, layers):
+                d = cfg.feat_dims[li]
+                got = {t: {f: sum(r["wire"][s].get((li, t), {}).get(f, 0)
+                                  for r in ranks)
+                           for f in ("valid_rows", "padded_rows", "bytes",
+                                     "wire_bytes")}
+                       for t in ("uncached", "local", "global")}
+                for t, c in got.items():
+                    if (c["valid_rows"], c["padded_rows"], c["bytes"]) != \
+                            (valid[t], padded[t], valid[t] * d * width):
+                        raise AssertionError(
+                            f"{name}: step {s} ({kind}) layer {li} {t}: "
+                            f"counted {c}, the plan gives {valid[t]} / "
+                            f"{padded[t]}")
+                step_bytes = sum(c["bytes"] for c in got.values())
+                if transport == "p2p" and step_bytes != xplan.bytes_per_step(
+                        d, refresh, dtype_bytes=width):
+                    raise AssertionError(f"{name}: step {s} layer {li}: "
+                                         f"{step_bytes} bytes counted")
+                counted.append({"step": s, "kind": kind, "layer": li, **got})
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        per_kind = spmd_gather_launches(xplan, transport,
+                                        spec.halo_dtype == "bf16", layers - 1)
+        want = {k: p * v for k, v in train_launches(
+            spec.backend, layers, kinds, per_kind).items()}
+        want["packs_built_for_a_call"] = 0
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
 
-    def by_kind(key):
-        return {k: statistics.median(t for t, kk in
-                                     zip(ranks[0][key], kinds) if kk == k)
-                for k in sorted(set(kinds))}
-    emit(name, transport=transport, backend=backend, ranks=p,
-         devices=list(devices) if not isinstance(devices, str) else devices,
-         wire="gloo-host" if backend == "gloo" else "nccl",
-         argv=TRAIN_ARGV, losses=losses, step_kinds=kinds,
-         median_step_ms=by_kind("step_ms"),
-         median_host_stage_ms=by_kind("host_stage_ms"),
-         steady_step_ms=ranks[0]["steady_step_ms"],
-         steady_host_stage_ms=ranks[0]["steady_host_stage_ms"],
-         steady_step_ms_max_rank={k: max(r["steady_step_ms"][k]
-                                         for r in ranks)
-                                  for k in ranks[0]["steady_step_ms"]},
-         comm_bytes=comm, comm_bytes_vanilla=vanilla,
-         refresh_steps=ranks[0]["refresh_steps"],
-         cached_steps=ranks[0]["cached_steps"],
-         counted_equal_plan=True, counted=counted[:2 * (layers - 1)],
-         launches=launches, gather_launches_per_kind_per_rank=per_kind,
-         refresh_loss_err=max(abs(r["loss"] - ref["loss"]) for r in ranks),
-         refresh_grad_err_max_rel=max(e["max_rel"] for g in grad_err
-                                      for e in g),
-         test=ranks[0]["test"],
-         traj_vs_sim_max_abs=(float(np.abs(np.subtract(
-             losses, ref["run_losses"])).max()) if "run_losses" in ref
-             else None),
-         build_s=[r["build_s"] for r in ranks], spawn_wall_s=spawn_wall_s,
-         peak_mem_gb=[r["peak_mem_gb"] for r in ranks])
-    return launches
+        def by_kind(key):
+            return {k: statistics.median(t for t, kk in
+                                         zip(ranks[0][key], kinds) if kk == k)
+                    for k in sorted(set(kinds))}
+        emit(name, transport=transport, backend=backend, ranks=p,
+             devices=(list(devices) if not isinstance(devices, str)
+                      else devices),
+             wire="gloo-host" if backend == "gloo" else "nccl",
+             argv=TRAIN_ARGV, losses=losses, step_kinds=kinds,
+             median_step_ms=by_kind("step_ms"),
+             median_host_stage_ms=by_kind("host_stage_ms"),
+             steady_step_ms=ranks[0]["steady_step_ms"],
+             steady_host_stage_ms=ranks[0]["steady_host_stage_ms"],
+             steady_step_ms_max_rank={k: max(r["steady_step_ms"][k]
+                                             for r in ranks)
+                                      for k in ranks[0]["steady_step_ms"]},
+             comm_bytes=comm, comm_bytes_vanilla=vanilla,
+             refresh_steps=ranks[0]["refresh_steps"],
+             cached_steps=ranks[0]["cached_steps"],
+             counted_equal_plan=True, counted=counted[:2 * (layers - 1)],
+             launches=launches, gather_launches_per_kind_per_rank=per_kind,
+             refresh_loss_err=max(abs(r["loss"] - ref["loss"]) for r in ranks),
+             refresh_grad_err_max_rel=max(e["max_rel"] for g in grad_err
+                                          for e in g),
+             test=ranks[0]["test"],
+             traj_vs_sim_max_abs=(float(np.abs(np.subtract(
+                 losses, ref["run_losses"])).max()) if "run_losses" in ref
+                 else None),
+             build_s=[r["build_s"] for r in ranks], spawn_wall_s=spawn_wall_s,
+             peak_mem_gb=[r["peak_mem_gb"] for r in ranks])
+        by_path[f"{name}_{transport}"] = launches
+    return by_path
 
 
 # the tier schedule of the spmd_tiers phase: (step, plan index).  The
@@ -1769,7 +1876,19 @@ def spmd_tiers_rank(rank, world_size, device, cfg, sp, plans, specs,
     return out
 
 
-def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
+def tier_jobs(tctx: dict) -> list:
+    """:func:`phase_spmd_tiers`' rank program: every case of
+    :data:`TIER_CASES`."""
+    from repro_torch.dist import TrainSpec
+    specs = [TrainSpec(backend="hybrid", transport=transport,
+                       halo_dtype=halo, refresh_every=2, pipeline=True)
+             for transport, halo in TIER_CASES]
+    return [(spmd_tiers_rank, (tctx["cfg"], tctx["sp"], tctx["plans"], specs,
+                               tctx["params_np"]))]
+
+
+def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices,
+                     spawned=None) -> None:
     """The SPMD runtime on :func:`tiers_context`'s graph, 4 ranks over
     ``backend``, under each of :data:`TIER_CASES` (both transports, and a
     bf16 ``p2p`` wire): :data:`TIER_SCHEDULE`, whose refresh steps
@@ -1778,9 +1897,10 @@ def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
     transition steps run the deferred rings beside the uncached tier's
     synchronous exchange.  Every step's loss, parameters and emitted
     caches against the card's single-process runtime doing the same steps
-    (:data:`TIER_TOL`), and its counted rows against the plans'."""
-    from repro_torch.dist import TrainSpec, make_sim_runtime
-    from repro_torch.launch.mesh import spawn
+    (:data:`TIER_TOL`), and its counted rows against the plans'.
+    ``spawned``: :func:`tier_jobs`' results from a spawn shared with other
+    phases, and its wall seconds."""
+    from repro_torch.dist import make_sim_runtime
     from repro_torch.optim import sgd
     cfg, sp, plans = tctx["cfg"], tctx["sp"], tctx["plans"]
     # each step's (read, emit) plan: a transition exchanges the uncached
@@ -1794,14 +1914,10 @@ def phase_spmd_tiers(name: str, tctx: dict, backend: str, devices) -> None:
         else:
             plan_of.append((installed, installed))
         installed = plan if plan is not None else installed
-    specs = [TrainSpec(backend="hybrid", transport=transport,
-                       halo_dtype=halo, refresh_every=2, pipeline=True)
-             for transport, halo in TIER_CASES]
-    t0 = time.perf_counter()
-    by_rank = spawn(spmd_tiers_rank, SPMD_RANKS, backend=backend,
-                    devices=devices,
-                    args=(cfg, sp, plans, specs, tctx["params_np"]))
-    wall_s = time.perf_counter() - t0
+    jobs = tier_jobs(tctx)
+    specs = jobs[0][1][3]
+    (by_rank,), wall_s = spawned or spawn_jobs(jobs, SPMD_RANKS, backend,
+                                               devices)
     cases = []
     for c, ((transport, halo), spec) in enumerate(zip(TIER_CASES, specs)):
         ranks = [r[c] for r in by_rank]
@@ -1935,7 +2051,7 @@ def spmd_models_rank(rank, world_size, device, cases):
 
 
 def phase_spmd_models(name: str, cases: list[dict], backend: str,
-                      devices) -> dict:
+                      devices, spawned=None) -> dict:
     """The SPMD runtime with SAGE (``hybrid``, ``p2p``), GIN (``ell``,
     ``allgather``) and GAT (``edges``, ``p2p``) on the parity graph, 4
     ranks over ``backend``: each rank's refresh-step loss, gradients (GIN's
@@ -1945,14 +2061,13 @@ def phase_spmd_models(name: str, cases: list[dict], backend: str,
     ``GRAD_RTOL`` of their largest magnitude, as the ``spmd`` phase holds
     them); every step's counted rows equal to the plan's; the
     launches, summed over ranks, those the model and backend give.
-    Returns the launches of each case, by path."""
+    Returns the launches of each case, by path.  ``spawned``: its rank
+    program's results from a spawn shared with other phases, and its wall
+    seconds."""
     from repro_torch.dist import make_sim_runtime
-    from repro_torch.launch.mesh import spawn
     from repro_torch.optim import sgd
-    t0 = time.perf_counter()
-    by_rank = spawn(spmd_models_rank, SPMD_RANKS, backend=backend,
-                    devices=devices, args=(cases,))
-    wall_s = time.perf_counter() - t0
+    (by_rank,), wall_s = spawned or spawn_jobs(
+        [(spmd_models_rank, (cases,))], SPMD_RANKS, backend, devices)
     out, recs = {}, []
     for i, c in enumerate(cases):
         ranks = [r[i] for r in by_rank]
@@ -2441,22 +2556,11 @@ def sim_reference(fctx: dict, spec, params0, lr: float, planner=None) -> dict:
     return out
 
 
-def phase_spmd_host(name: str, fctx: dict, ref: dict, transport: str,
-                    backend: str, devices, params0, lr: float,
-                    features: str = "host", policy: str = "static") -> dict:
-    """The SPMD runtime on 4 ranks over ``backend`` under ``transport``,
-    the forced plan, ``features`` (each rank staging its own host tier
-    from its own store) and the cache ``policy``: 8 Adam steps against
-    the card's single-process run of the same spec (``ref``), losses
-    within ``TRAJ_ATOL``; every step's counted wire rows those of its
-    read and emit plans; with host features, the counted host rows,
-    bytes and writebacks summed over the ranks equal to the plan's; the
-    launches summed over the ranks those the backend gives."""
+def host_spec(fctx: dict, transport: str, features: str, policy: str):
+    """An ``spmd_host`` run's spec on the forced plan, and a maker of its
+    planner (None under the ``static`` policy)."""
     import dataclasses as dc
-    from repro_torch.core import AdaptivePlanner, StalenessController
-    from repro_torch.launch.mesh import spawn
-    cfg, sp = fctx["cfg"], fctx["sp"]
-    p, layers = sp.num_parts, cfg.num_layers
+    from repro_torch.core import AdaptivePlanner
     spec = dc.replace(fctx["spec"], transport=transport, features=features,
                       cache_policy=policy)
 
@@ -2464,13 +2568,41 @@ def phase_spmd_host(name: str, fctx: dict, ref: dict, transport: str,
         return (None if policy == "static" else AdaptivePlanner(
             fctx["ps"], fctx["cap"], refresh_every=spec.refresh_every,
             policy=policy, seed=spec.seed))
+    return spec, planner
+
+
+def spmd_host_job(fctx: dict, transport: str, params0, lr: float,
+                  features: str = "host", policy: str = "static") -> tuple:
+    """:func:`phase_spmd_host`'s rank program."""
+    spec, planner = host_spec(fctx, transport, features, policy)
     pl = planner()
     x0 = fctx["xplan"] if pl is None else pl.exchange_plan()
     params_np = [{k: v.cpu().numpy() for k, v in q.items()} for q in params0]
-    t0 = time.perf_counter()
-    ranks = spawn(spmd_rank, p, backend=backend, devices=devices,
-                  args=(cfg, sp, x0, spec, params_np, 8, lr, 0, pl))
-    wall_s = time.perf_counter() - t0
+    return (spmd_rank, (fctx["cfg"], fctx["sp"], x0, spec, params_np, 8, lr,
+                        0, pl))
+
+
+def phase_spmd_host(name: str, fctx: dict, ref: dict, transport: str,
+                    backend: str, devices, params0, lr: float,
+                    features: str = "host", policy: str = "static",
+                    spawned=None) -> dict:
+    """The SPMD runtime on 4 ranks over ``backend`` under ``transport``,
+    the forced plan, ``features`` (each rank staging its own host tier
+    from its own store) and the cache ``policy``: 8 Adam steps against
+    the card's single-process run of the same spec (``ref``), losses
+    within ``TRAJ_ATOL``; every step's counted wire rows those of its
+    read and emit plans; with host features, the counted host rows,
+    bytes and writebacks summed over the ranks equal to the plan's; the
+    launches summed over the ranks those the backend gives.
+    ``spawned``: :func:`spmd_host_job`'s results from a spawn shared with
+    other phases, and its wall seconds."""
+    from repro_torch.core import StalenessController
+    cfg, sp = fctx["cfg"], fctx["sp"]
+    p, layers = sp.num_parts, cfg.num_layers
+    job = spmd_host_job(fctx, transport, params0, lr, features, policy)
+    (ranks,), wall_s = spawned or spawn_jobs([job], p, backend, devices)
+    spec, planner = host_spec(fctx, transport, features, policy)
+    x0 = job[1][2]
     kinds, losses = ranks[0]["step_kinds"], ranks[0]["losses"]
     err = max(abs(a - b) for r in ranks
               for a, b in zip(r["losses"], ref["losses"]))
@@ -2889,24 +3021,35 @@ def spmd_faults_rank(rank, world_size, device, cfg, sp, xplan, specs,
     return out
 
 
+def spmd_faults_job(fctx: dict, params0, lr: float) -> tuple:
+    """:func:`phase_spmd_faults`' rank program: host features on the
+    forced plan under both transports."""
+    import dataclasses as dc
+    specs = {t: dc.replace(fctx["spec"], transport=t, features="host")
+             for t in ("p2p", "allgather")}
+    params_np = [{k: v.cpu().numpy() for k, v in q.items()} for q in params0]
+    return (spmd_faults_rank, (fctx["cfg"], fctx["sp"], fctx["xplan"], specs,
+                               params_np, lr, SPMD_FAULT_SPEC,
+                               SPMD_FAULT_GUARD))
+
+
 def phase_spmd_faults(name: str, fctx: dict, params0, lr: float, backend: str,
-                      devices) -> dict:
+                      devices, spawned=None) -> dict:
     """The SPMD runtime on 4 ranks over ``backend``, host features on the
     forced plan, both transports in one spawn, ``SPMD_FAULT_SPEC`` under
     ``SPMD_FAULT_GUARD``, against the card's single-process runtime under
     the same faults: every rank's injected and defense counts equal to
     it, losses within ``TRAJ_ATOL``, every step's counted wire rows equal
-    to the plan's."""
-    import dataclasses as dc
+    to the plan's.  ``spawned``: :func:`spmd_faults_job`'s results from a
+    spawn shared with other phases, and its wall seconds."""
     from repro_torch.core import StalenessController
     from repro_torch.dist import make_sim_runtime, train_capgnn
     from repro_torch.faults import FaultPlan, GuardConfig
-    from repro_torch.launch.mesh import spawn
     from repro_torch.optim import adam
     cfg, sp, xplan = fctx["cfg"], fctx["sp"], fctx["xplan"]
     p, layers = sp.num_parts, cfg.num_layers
-    specs = {t: dc.replace(fctx["spec"], transport=t, features="host")
-             for t in ("p2p", "allgather")}
+    job = spmd_faults_job(fctx, params0, lr)
+    specs = job[1][3]
     rt = make_sim_runtime(cfg, sp, xplan, adam(lr), spec=specs["p2p"],
                           device="cuda")
     _, ref = train_capgnn(
@@ -2917,12 +3060,7 @@ def phase_spmd_faults(name: str, fctx: dict, params0, lr: float, backend: str,
         guard=GuardConfig(**SPMD_FAULT_GUARD), spec=specs["p2p"])
     del rt
     torch.cuda.empty_cache()
-    params_np = [{k: v.cpu().numpy() for k, v in q.items()} for q in params0]
-    t0 = time.perf_counter()
-    ranks = spawn(spmd_faults_rank, p, backend=backend, devices=devices,
-                  args=(cfg, sp, xplan, specs, params_np, lr,
-                        SPMD_FAULT_SPEC, SPMD_FAULT_GUARD))
-    wall_s = time.perf_counter() - t0
+    (ranks,), wall_s = spawned or spawn_jobs([job], p, backend, devices)
     res, by_path = {}, {}
     for t in specs:
         runs = [r[t] for r in ranks]
@@ -3262,6 +3400,7 @@ LM_TRAIN_ARGV = ["lm", "--arch", "qwen3-1.7b", "--full", "--steps", "8",
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 LM_PREFILL_S = 4096       # blocked_attention timed at qwen3-1.7b prefill
 LM_PROFILE_STEPS = 4      # decode steps under torch.profiler
+LM_TRAIN_LOSSES: list = []   # lm_train's, for lm_spmd
 
 
 def tree_err(got, want) -> tuple[float, float]:
@@ -3589,6 +3728,7 @@ def phase_lm_train() -> dict:
     profile = lm_profile("train", one_step, 1)
     del state, step
     torch.cuda.empty_cache()
+    LM_TRAIN_LOSSES[:] = losses
     emit("lm_train", argv=LM_TRAIN_ARGV, config=cfg.name,
          layers=cfg.num_layers, dtype=cfg.dtype, out=out, losses=losses,
          step_ms=detail["step_ms"], steady_step_ms=steady_ms,
@@ -4203,6 +4343,533 @@ def phase_backward(sp, gen) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The transformer zoo sharded: DTensor on a ("data", "model") DeviceMesh
+# ---------------------------------------------------------------------------
+
+LM_SPMD_MESH = (2, 2)
+LM_SPMD_STEPS = 4               # the wire's ~8 s a step sets the phase
+LM_SPMD_DECODE_STEPS = 16
+LM_SPMD_CACHE = 256
+LM_SPMD_F32_TOL_OF_MAX = 1e-4   # sharded f32 logits, gradients vs the card's
+LM_SPMD_LOSS_RTOL = 2e-2        # bf16 AdamW losses vs single-device
+LM_SPMD_TOP1_MIN = 0.9          # bf16 teacher-forced decode argmax agreement
+LM_MOE_LAYERS = 2               # mixtral-8x7b: 32 layers are ~93 GB in bf16
+LM_MOE_TOL_OF_MAX = 1e-4        # EP ranks vs the per-block plain version
+LM_DRYRUN_CASES = (("qwen3-14b", "train_4k", False),
+                   ("mixtral-8x7b", "decode_32k", True))
+
+
+def lm_spmd_cfg():
+    """qwen3-1.7b at its published CONFIG (bf16, 28 layers) with remat on,
+    as the dry run's training step forces it, and the step's shape."""
+    import dataclasses as dc
+    from repro_torch.launch.train import build_parser, lm_config
+    args = build_parser().parse_args(LM_TRAIN_ARGV)
+    return dc.replace(lm_config(args), remat=True), args
+
+
+def lm_dryrun_child(out_dir: str, device: str = "cuda") -> None:
+    """The dry runs this script compares with, on the CPU in a process of
+    their own (a ``fake`` group, fake tensors): qwen3-1.7b's training step
+    at ``train lm``'s shape on the 2 x 2 mesh, and the production cases of
+    :data:`LM_DRYRUN_CASES`.  Each writes its JSON to ``out_dir``."""
+    import logging
+    logging.disable(logging.WARNING)
+    from repro_torch.launch.dryrun import fake_group, run_one
+    from repro_torch.launch.mesh import make_device_mesh
+    cfg, args = lm_spmd_cfg()
+    fake_group(LM_SPMD_MESH[0] * LM_SPMD_MESH[1])
+    mesh = make_device_mesh(LM_SPMD_MESH, ("data", "model"), device)
+    res = run_one(cfg.name, (args.seq_len, args.batch, "train"),
+                  cfg_override=cfg, mesh=mesh, device=device)
+    Path(out_dir, "qwen3-1.7b_2x2.json").write_text(json.dumps(res))
+    for arch, shape, multi_pod in LM_DRYRUN_CASES:
+        res = run_one(arch, shape, multi_pod=multi_pod, device=device)
+        Path(out_dir, f"{arch}_{shape}.json").write_text(json.dumps(res))
+
+
+def start_lm_dryruns():
+    """Start :func:`lm_dryrun_child` beside the card's phases (it needs the
+    CPU only); :func:`wait_lm_dryruns` joins it."""
+    import multiprocessing as mproc
+    out = OUT_DIR / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    proc = mproc.get_context("spawn").Process(target=lm_dryrun_child,
+                                             args=(str(out),))
+    proc.start()
+    return proc, out, time.perf_counter()
+
+
+def wait_lm_dryruns(started) -> dict:
+    proc, out, t0 = started
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the dry runs' process exited {proc.exitcode}")
+    return {p.stem: json.loads(p.read_text()) for p in out.glob("*.json")}, \
+        time.perf_counter() - t0
+
+
+def _rank_quiet():
+    import logging
+    import warnings
+    warnings.filterwarnings("ignore")
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+
+
+def _reset_peak() -> None:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def logits_and_grads(cfg, params, batch):
+    """``loss_and_grads`` of ``params`` on ``batch`` with the logits and
+    ``aux`` of the loss's own forward: ``(logits, aux, metrics,
+    grads)``."""
+    from repro_torch.models.transformer import loss_and_grads, model
+    real, kept = model.forward, []
+    model.forward = lambda *a, **k: kept.append(real(*a, **k)) or kept[-1]
+    try:
+        _, met, grads = loss_and_grads(cfg, params, batch)
+    finally:
+        model.forward = real
+    logits, aux = kept[0]
+    return logits.detach(), aux.detach(), met, grads
+
+
+def shard_grad_err(grads, want) -> tuple[float, float]:
+    """Rank 0's shard of every gradient (its chunk starts at 0 on each
+    sharded dim) against the single-device gradient: the worst leaf's
+    error over that leaf's largest magnitude, and the largest error over
+    the largest magnitude of all leaves."""
+    from repro_torch.optim.optimizers import tree_leaves
+    worst, err, top = 0.0, 0.0, 0.0
+    for leaf, ref in zip(tree_leaves(grads), want):
+        got = leaf.to_local()
+        ref = ref[tuple(slice(0, n) for n in got.shape)].to(got.device)
+        e, m = float((got - ref).abs().max()), float(ref.abs().max())
+        worst = max(worst, e / m if m else (0.0 if e == 0 else float("inf")))
+        err, top = max(err, e), max(top, m)
+    return worst, err / top
+
+
+def lm_spmd_rank(rank, world_size, device, losses_ref):
+    """One rank of ``lm_spmd``: qwen3-1.7b (full width and depth) sharded
+    on the 2 x 2 mesh.  Rank 0 also runs the single-device references
+    (the f32 forward and backward, the greedy bf16 decode) on its card
+    while the others wait at the next collective."""
+    _rank_quiet()
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.dist import staged
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.hlo_cost import OpCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.transformer import (
+        init_decode_cache, init_model, serve_step, train_step_fn, use_spmd)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    import dataclasses as dc
+    cfg, args = lm_spmd_cfg()
+    zero_counts()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(args.seed), "cpu")
+    out = {"rank": rank, "init_s": time.perf_counter() - t0}
+    mesh = make_device_mesh(LM_SPMD_MESH, ("data", "model"), device.type)
+    hb = synthetic_token_batches(cfg.vocab_size, args.seq_len, args.batch,
+                                 seed=args.seed)
+    batches = [{k: torch.from_numpy(b[k]).to(device)
+                for k in ("tokens", "labels")}
+               for _, b in zip(range(LM_SPMD_STEPS), hb)]
+    cfg32 = dc.replace(cfg, dtype="float32")
+    ref = None
+    if rank == 0:                  # the single-device f32 forward, backward
+        p32 = tree_map(lambda t: t.to(device).float(), params)
+        logits, _, _, grads = logits_and_grads(cfg32, p32, batches[0])
+        ref = {"logits": logits, "grads": tree_leaves(grads)}
+        del p32, logits, grads
+        _reset_peak()
+    # f32 forward and backward, sharded
+    ctx = shd.make_spmd_ctx(mesh, cfg, "train", False)
+    bspec = shd.batch_specs(mesh, cfg, args.seq_len, args.batch, "train",
+                            False)
+    dbatches = [shd.place(b, mesh, bspec) for b in batches]
+    d32 = tree_map(lambda t: t.float(), shd.shard_params(params, mesh, cfg))
+    with use_spmd(ctx):
+        logits, _, _, grads = logits_and_grads(cfg32, d32, dbatches[0])
+    logits = logits.full_tensor()
+    if rank == 0:
+        out["f32_err"] = float((logits - ref["logits"]).abs().max())
+        out["f32_max"] = float(ref["logits"].abs().max())
+        out["grad_err_leaf"], out["grad_err_of_max"] = shard_grad_err(
+            grads, ref["grads"])
+    del d32, logits, grads, ref
+    _reset_peak()
+    # bf16 AdamW with ZeRO-1 moments
+    opt = adamw(args.lr)
+    dparams = shd.shard_params(params, mesh, cfg)
+    state = shd.shard_params(opt.init(params), mesh, cfg, zero_data=True)
+    step = train_step_fn(cfg, opt)
+    torch.cuda.synchronize()
+    _reset_peak()
+    staged.host_stage_s(reset=True)
+    losses, step_ms, counted = [], [], None
+    with use_spmd(ctx):
+        for i, b in enumerate(dbatches):
+            t1 = time.perf_counter()
+            if i == 1:                  # the dry run's step, counted
+                with OpCounter() as oc:
+                    dparams, state, met = step(dparams, state, b)
+                counted = oc.cost
+                loss = float(met["loss"].full_tensor())
+            else:
+                dparams, state, met = step(dparams, state, b)
+                loss = float(met["loss"].full_tensor())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss)
+    out.update(losses=losses, step_ms=step_ms,
+               steady_step_ms=statistics.median(step_ms[1:]),
+               host_stage_s=staged.host_stage_s(),
+               train_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               collectives=dict(counted.collective_bytes),
+               collective_counts=dict(counted.collective_counts),
+               flops=counted.flops)
+    del state
+    # bf16 decode, teacher-forced on the single-device greedy tokens
+    b, w, n = args.batch, LM_SPMD_CACHE, LM_SPMD_DECODE_STEPS
+    toks = torch.zeros((b, n + 1), dtype=torch.int64, device=device)
+    toks[:, 0] = batches[0]["tokens"][:, 0]
+    if rank == 0:
+        p16 = tree_map(lambda t: t.to(device), params)
+        caches = init_decode_cache(cfg, b, w, device)
+        with torch.no_grad():
+            for t in range(n):
+                lg, caches = serve_step(cfg, p16, caches, toks[:, t:t + 1], t)
+                toks[:, t + 1] = lg.float().argmax(-1)
+        del p16, caches
+        _reset_peak()
+    import torch.distributed as dist
+    dist.broadcast(toks, 0)
+    dparams = shd.shard_params(params, mesh, cfg)
+    del params
+    dctx = shd.make_spmd_ctx(mesh, cfg, "decode", False)
+    caches = shd.place(init_decode_cache(cfg, b, w, device), mesh,
+                       shd.decode_state_specs(mesh, cfg, b, w, False))
+    tok_spec = shd.P(shd.dp_axes(mesh), None)
+    agree, dec_ms = [], []
+    _reset_peak()
+    with use_spmd(dctx), torch.no_grad():
+        for t in range(n):
+            t1 = time.perf_counter()
+            lg, caches = serve_step(cfg, dparams, caches, shd.place(
+                toks[:, t:t + 1].contiguous(), mesh, tok_spec), t)
+            top = lg.full_tensor().float().argmax(-1)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t1) * 1e3)
+            agree.append((top == toks[:, t + 1]).float().mean().item())
+    out.update(top1_agree=float(np.mean(agree)), decode_step_ms=dec_ms,
+               decode_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=read_counts())
+    if rank == 0 and losses_ref is not None:
+        out["loss_rel_err"] = [abs(a - r) / abs(r)
+                               for a, r in zip(losses, losses_ref)]
+    return out
+
+
+def lm_spmd_ranks(rank, world_size, device, losses_ref):
+    """``lm_spmd``'s and ``lm_spmd_moe``'s rank programs in one spawn (the
+    four processes reach the card once)."""
+    dense = lm_spmd_rank(rank, world_size, device, losses_ref)
+    _reset_peak()
+    return {"spmd": dense, "moe": lm_moe_rank(rank, world_size, device, 128)}
+
+
+def phase_lm_spmd_all(names, losses_ref, dryrun: dict | None, backend: str,
+                      devices) -> dict:
+    """The two sharded LM phases from one spawn of 4 ranks: ``names``
+    (``lm_spmd`` and ``lm_spmd_moe``, or their NCCL twins) checked and
+    printed by :func:`phase_lm_spmd` and :func:`phase_lm_spmd_moe`;
+    returns the launches summed over both."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    res = spawn(lm_spmd_ranks, 4, backend=backend, devices=devices,
+                args=(losses_ref,))
+    wall_s = time.perf_counter() - t0
+    a = phase_lm_spmd(names[0], [r["spmd"] for r in res], losses_ref,
+                      dryrun, backend, wall_s)
+    b = phase_lm_spmd_moe(names[1], [r["moe"] for r in res], backend,
+                          wall_s)
+    return {k: a[k] + b[k] for k in a}
+
+
+def phase_lm_spmd(name: str, res: list, losses_ref, dryrun: dict | None,
+                  backend: str, wall_s: float) -> dict:
+    """``lm_spmd``: qwen3-1.7b at its published CONFIG (28 layers, d 2048,
+    GQA 16 / 8 of 128, vocab 151,936) on 4 ranks as a ``("data",
+    "model")`` 2 x 2 DeviceMesh (``staged``: ranks sharing the card, their
+    collectives staged through pinned host buffers into gloo; ``nccl``: a
+    card per rank).  One f32 forward and backward against the card's
+    single-device one: the logits within ``LM_SPMD_F32_TOL_OF_MAX`` of
+    their largest magnitude, and rank 0's shard of every gradient within
+    ``LM_SPMD_F32_TOL_OF_MAX`` of that leaf's largest magnitude;
+    ``LM_SPMD_STEPS`` bf16 AdamW steps with ZeRO-1 moments at ``train
+    lm``'s batch 4 x 128, each loss within
+    ``LM_SPMD_LOSS_RTOL`` of single-device ``train_lm``'s
+    (``losses_ref``); ``LM_SPMD_DECODE_STEPS`` decode steps at batch 4 and
+    cache 256, teacher-forced on the single-device greedy tokens, top-1
+    agreement at least ``LM_SPMD_TOP1_MIN``.  Step ms, peak memory and the
+    counter's collective bytes per kind, per rank; the bytes of rank 0 (the
+    dry run's rank) equal the dry run's for the same step and mesh."""
+    r0 = res[0]
+    if not r0["f32_err"] <= LM_SPMD_F32_TOL_OF_MAX * r0["f32_max"]:
+        raise AssertionError(f"{name}: f32 forward differs by {r0['f32_err']}"
+                             f" of {r0['f32_max']}")
+    if not r0["grad_err_leaf"] <= LM_SPMD_F32_TOL_OF_MAX:
+        raise AssertionError(f"{name}: an f32 gradient differs by "
+                             f"{r0['grad_err_leaf']} of its largest value")
+    if losses_ref is not None and max(r0["loss_rel_err"]) > \
+            LM_SPMD_LOSS_RTOL:
+        raise AssertionError(f"{name}: losses {r0['losses']} against "
+                             f"{losses_ref}")
+    if not np.all(np.isfinite(r0["losses"])):
+        raise AssertionError(f"{name}: losses {r0['losses']}")
+    if min(r["top1_agree"] for r in res) < LM_SPMD_TOP1_MIN:
+        raise AssertionError(f"{name}: decode top-1 agreement "
+                             f"{[r['top1_agree'] for r in res]}")
+    launches = _summed_launches(name, res)
+    equal = None
+    if dryrun is not None:
+        want = dryrun["qwen3-1.7b_2x2"]
+        equal = (want["collectives"] == r0["collectives"]
+                 and want["collective_counts"] == r0["collective_counts"])
+        if not equal:
+            raise AssertionError(f"{name}: counted {r0['collectives']} "
+                                 f"{r0['collective_counts']}, the dry run "
+                                 f"{want['collectives']} "
+                                 f"{want['collective_counts']}")
+    emit(name, config="qwen3-1.7b", layers=28, mesh=list(LM_SPMD_MESH),
+         backend=backend, f32_err_of_max=r0["f32_err"] / r0["f32_max"],
+         f32_grad_err_of_leaf_max=r0["grad_err_leaf"],
+         f32_grad_err_of_max=r0["grad_err_of_max"],
+         f32_tol_of_max=LM_SPMD_F32_TOL_OF_MAX, losses=r0["losses"],
+         losses_single_device=losses_ref,
+         loss_rel_err=r0.get("loss_rel_err"),
+         loss_rtol=LM_SPMD_LOSS_RTOL,
+         top1_agree=[r["top1_agree"] for r in res],
+         top1_min=LM_SPMD_TOP1_MIN,
+         steady_step_ms=[r["steady_step_ms"] for r in res],
+         step_ms_rank0=r0["step_ms"],
+         decode_step_ms_median=[statistics.median(r["decode_step_ms"])
+                                for r in res],
+         host_stage_s=[r["host_stage_s"] for r in res],
+         train_peak_gb=[r["train_peak_gb"] for r in res],
+         decode_peak_gb=[r["decode_peak_gb"] for r in res],
+         collectives=[r["collectives"] for r in res],
+         collective_counts=[r["collective_counts"] for r in res],
+         flops_per_rank=[r["flops"] for r in res],
+         equals_dryrun=equal, init_s=[r["init_s"] for r in res],
+         launches=launches, spawn_wall_s=wall_s, card=nvidia_smi())
+    return launches
+
+
+def _summed_launches(name: str, res: list) -> dict:
+    """The port's kernel launches summed over the ranks: none on the
+    transformer zoo's paths (its attention, MoE and scans are plain
+    torch)."""
+    total = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+    if any(total.values()):
+        raise AssertionError(f"{name} launched the port's kernels: {total}")
+    return total
+
+
+def _moe_cfg():
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    return dc.replace(get_config("mixtral-8x7b"),
+                      num_layers=LM_MOE_LAYERS, dtype="float32")
+
+
+def plain_ep_dispatch(mesh_shape):
+    """``blocks._moe_dispatch`` replaced by the plain version of the
+    expert-parallel MoE: ``_apply_moe`` on each device's token block of
+    the ``P(dp, "model", None)`` layout (batch over the data axis, the
+    sequence over the model axis), with that block's capacity, and ``aux``
+    averaged over the blocks."""
+    from repro_torch.models.transformer import blocks
+
+    def dispatch(cfg, p, h):
+        d_sz, m_sz = mesh_shape
+        outs, auxes = [], []
+        for hb in h.chunk(d_sz, 0):
+            row = []
+            for blk in hb.chunk(m_sz, 1):
+                o, a = blocks._apply_moe(cfg, p, blk)
+                row.append(o)
+                auxes.append(a)
+            outs.append(torch.cat(row, 1))
+        return torch.cat(outs, 0), torch.stack(auxes).mean()
+    return dispatch
+
+
+def lm_moe_rank(rank, world_size, device, seq: int):
+    """One rank of ``lm_spmd_moe``: mixtral-8x7b at its published widths,
+    ``LM_MOE_LAYERS`` layers, f32, expert-parallel on the 2 x 2 mesh (8
+    experts over the 2-way model axis).  Rank 0 first runs the plain
+    version on its card (forward, aux, one backward)."""
+    _rank_quiet()
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.hlo_cost import OpCounter
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.transformer import blocks, init_model, use_spmd
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    import dataclasses as dc
+    cfg = _moe_cfg()
+    zero_counts()
+    gen = torch.Generator(device=device).manual_seed(0)
+    # drawn in bf16 on the card (the same values on every rank), held f32
+    p16 = init_model(dc.replace(cfg, dtype="bfloat16"), gen, device)
+    b = 4
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, seq), generator=g)
+             .to(device) for k in ("tokens", "labels")}
+    out = {"rank": rank}
+    ref = None
+    if rank == 0:
+        real = blocks._moe_dispatch
+        blocks._moe_dispatch = plain_ep_dispatch(LM_SPMD_MESH)
+        try:
+            p32 = tree_map(lambda t: t.float(), p16)
+            logits, aux, met, grads = logits_and_grads(cfg, p32, batch)
+            ref = {"logits": logits.cpu(), "aux": float(aux),
+                   "loss": float(met["loss"]),
+                   "grads": [t.cpu() for t in tree_leaves(grads)]}
+            del p32, grads, logits
+        finally:
+            blocks._moe_dispatch = real
+        _reset_peak()
+    mesh = make_device_mesh(LM_SPMD_MESH, ("data", "model"), device.type)
+    dp = tree_map(lambda t: t.float(), shd.shard_params(p16, mesh, cfg))
+    del p16
+    _reset_peak()
+    bspec = shd.batch_specs(mesh, cfg, seq, b, "train", False)
+    dbatch = shd.place(batch, mesh, bspec)
+    ctx = shd.make_spmd_ctx(mesh, cfg, "train", False)
+    moe_costs = []
+    real_ep = blocks._apply_moe_ep
+
+    def counted_ep(*a, **k):           # the MoE layers' own collectives
+        with OpCounter() as oc:
+            res = real_ep(*a, **k)
+        moe_costs.append(oc.cost)
+        return res
+    blocks._apply_moe_ep = counted_ep
+    torch.cuda.synchronize()
+    _reset_peak()
+    t0 = time.perf_counter()
+    try:
+        with use_spmd(ctx), OpCounter() as oc:
+            logits, aux, met, grads = logits_and_grads(cfg, dp, dbatch)
+        torch.cuda.synchronize()
+        fwd_costs = moe_costs[:LM_MOE_LAYERS]
+    finally:
+        blocks._apply_moe_ep = real_ep
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3   # forward + backward
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    full = logits.full_tensor().cpu()
+    aux_v, loss_v = float(aux.full_tensor()), float(met["loss"].full_tensor())
+    del dp, dbatch, logits
+    _reset_peak()
+    shapes = {"e": cfg.n_experts, "e_loc": cfg.n_experts // LM_SPMD_MESH[1],
+              "d": cfg.d_model, "f": cfg.moe_d_ff, "seq": seq,
+              "t": (b // LM_SPMD_MESH[0]) * (seq // LM_SPMD_MESH[1])}
+    cap = max(1, int(shapes["t"] * cfg.top_k / shapes["e"] * 1.25))
+    out.update(launches=read_counts(), cap=cap,
+               fwd_moe=[dict(c.collective_bytes) for c in fwd_costs],
+               step_collectives=dict(oc.cost.collective_bytes),
+               step_counts=dict(oc.cost.collective_counts), shapes=shapes)
+    if rank == 0:
+        # rank 0's shard of every gradient against the plain version's:
+        # gathering the 13 GB of f32 gradients over the staged wire took
+        # ~40 s
+        gleaf, gerr = shard_grad_err(grads, ref["grads"])
+        out.update(logits_err=float((full - ref["logits"]).abs().max()),
+                   logits_max=float(ref["logits"].abs().max()),
+                   aux=aux_v, aux_plain=ref["aux"], loss=loss_v,
+                   loss_plain=ref["loss"], grad_err_of_max=gerr,
+                   grad_err_of_leaf_max=gleaf)
+    return out
+
+
+def phase_lm_spmd_moe(name: str, res: list, backend: str,
+                      wall_s: float) -> dict:
+    """``lm_spmd_moe``: mixtral-8x7b at its published widths (d 4096, 32 /
+    8 heads, 8 experts top-2, F 14,336, vocab 32,000) with
+    ``LM_MOE_LAYERS`` layers (32 are ~93 GB in bf16) on the 2 x 2 mesh,
+    expert-parallel (``8 % 2 == 0``), f32 at batch 4 x 128: logits, aux,
+    loss and one backward's gradients (rank 0's shard of every leaf: a
+    quarter of the experts, every replicated leaf) against the plain
+    version
+    (:func:`plain_ep_dispatch` in one process on the card) within
+    ``LM_MOE_TOL_OF_MAX``; each MoE layer's counted all-to-all and FSDP
+    all-gather bytes equal the byte model from the shapes (two all-to-alls
+    of ``e * cap * d`` and three gathers of ``e_loc * D * F``, f32)."""
+    r0 = res[0]
+    tol = LM_MOE_TOL_OF_MAX
+    for what, err, scale in (("logits", r0["logits_err"], r0["logits_max"]),
+                             ("grads", r0["grad_err_of_max"], 1.0),
+                             ("aux", abs(r0["aux"] - r0["aux_plain"]), 1.0),
+                             ("loss", abs(r0["loss"] - r0["loss_plain"]),
+                              r0["loss_plain"])):
+        if not err <= tol * scale:
+            raise AssertionError(f"{name}: {what} differs by {err} of {scale}")
+    launches = _summed_launches(name, res)
+    s = r0["shapes"]
+    model = {"all-to-all": 2 * s["e"] * r0["cap"] * s["d"] * 4,
+             "all-gather": 3 * s["e_loc"] * s["d"] * s["f"] * 4}
+    for r in res:
+        for layer in r["fwd_moe"]:
+            got = {k: layer[k] for k in model}
+            if got != model:
+                raise AssertionError(f"{name}: rank {r['rank']} MoE layer "
+                                     f"counted {got}, the byte model {model}")
+    emit(name, config="mixtral-8x7b", layers=LM_MOE_LAYERS,
+         reduced=f"depth {LM_MOE_LAYERS} of 32 (bf16 weights ~93 GB)",
+         mesh=list(LM_SPMD_MESH), backend=backend, batch=4,
+         seq=r0["shapes"]["seq"],
+         cap=r0["cap"], logits_err_of_max=r0["logits_err"] / r0["logits_max"],
+         grad_err_of_max=r0["grad_err_of_max"],
+         grad_err_of_leaf_max=r0["grad_err_of_leaf_max"],
+         aux=r0["aux"], aux_plain=r0["aux_plain"], loss=r0["loss"],
+         loss_plain=r0["loss_plain"], tol_of_max=tol,
+         moe_layer_bytes=res[0]["fwd_moe"], byte_model=model,
+         step_collectives=[r["step_collectives"] for r in res],
+         step_ms=[r["step_ms"] for r in res],
+         peak_gb=[r["peak_gb"] for r in res], launches=launches,
+         spawn_wall_s=wall_s, card=nvidia_smi())
+    return launches
+
+
+def phase_lm_dryrun(dryrun: dict, wait_s: float) -> None:
+    """``lm_dryrun``: ``run_one`` of :data:`LM_DRYRUN_CASES` (a ``fake``
+    group of 256 or 512 ranks, fake tensors on ``cuda``; counts, not
+    timings): per-device FLOPs, bytes, collectives and memory, and the
+    roofline terms over the card's constants (``launch.mesh.HW``)."""
+    from repro_torch.launch.mesh import HW
+    for arch, shape, _ in LM_DRYRUN_CASES:
+        r = dryrun[f"{arch}_{shape}"]
+        terms = {"compute_s": r["hlo_flops_per_device"] / HW.PEAK_BF16_FLOPS,
+                 "memory_s": r["hlo_bytes_per_device"] / HW.HBM_BW,
+                 "collective_s": r["collective_bytes_per_device"]
+                 / HW.LINK_BW}
+        emit("lm_dryrun", **{k: r[k] for k in (
+            "arch", "shape", "mesh", "devices", "kind", "trace_s",
+            "hlo_flops_per_device", "hlo_bytes_per_device",
+            "collective_bytes_per_device", "collectives",
+            "collective_counts", "memory")},
+             roofline_terms=terms, bound_by=max(terms, key=terms.get),
+             dryrun_wait_s=wait_s)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sweep", action="store_true",
@@ -4213,7 +4880,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run only the SPMD runtime over NCCL (one card per "
                         "rank: needs 4 cards), every tier non-empty and at "
                         "the training cell's flags, against the card's "
-                        "single-process runtime")
+                        "single-process runtime, and the transformer zoo's "
+                        "two sharded cases (lm_spmd_nccl, lm_spmd_moe_nccl)")
     return p.parse_args(argv)
 
 
@@ -4251,8 +4919,9 @@ def main_spmd_nccl(device: dict) -> None:
     cell's host plan, the card's single-process refresh step from
     ``init_gnn`` of its seed, the ``spmd_nccl`` phase under both
     transports, the host-features and ``lru`` runs over NCCL
-    (:func:`spmd_host_nccl`), and the 1.5D strategy's 4-rank GCN cases
-    (``spmm15d_nccl``)."""
+    (:func:`spmd_host_nccl`), the 1.5D strategy's 4-rank GCN cases
+    (``spmm15d_nccl``), and the transformer zoo's ``lm_spmd_nccl`` and
+    ``lm_spmd_moe_nccl``."""
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
     tiers = tiers_context()
@@ -4266,12 +4935,14 @@ def main_spmd_nccl(device: dict) -> None:
     loss, grads, _ = refresh_grads(ctx["cfg"], ctx["spec"], ctx["sp"],
                                    ctx["xplan"], params0, args.lr, "cuda")
     ref = {"params0": params0, "loss": loss, "grads": grads}
-    for transport in ("p2p", "allgather"):
-        phase_spmd("spmd_nccl", ctx, ref, transport, "nccl", "cuda",
-                   args.epochs, args.lr)
+    phase_spmd("spmd_nccl", ctx, ref, ("p2p", "allgather"), "nccl", "cuda",
+               args.epochs, args.lr)
     spmd_host_nccl(ctx, args.lr)
     phase_spmm15d("spmm15d_nccl", ctx, SPMM15D_NCCL_SHAPES, "nccl", "cuda",
                   models=("gcn",))
+    # the transformer zoo's two sharded cases, a card per rank
+    phase_lm_spmd_all(("lm_spmd_nccl", "lm_spmd_moe_nccl"), None, None,
+                      "nccl", "cuda")
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
@@ -4284,6 +4955,7 @@ def main(argv=None) -> None:
     phase_build()
     if opts.spmd_nccl:
         return main_spmd_nccl(device)
+    dryruns = start_lm_dryruns()     # CPU only: beside the card's phases
     if opts.sweep:
         ptxas_report()
 
@@ -4303,48 +4975,58 @@ def main(argv=None) -> None:
                           cfg.out_dim, args.max_batch, gen)
     torch.cuda.empty_cache()
 
-    serve_launches = phase_main("main_path", SLICE_ARGV, ctx)
+    checks = CpuChecks()
+    serve_launches = phase_main("main_path", SLICE_ARGV, ctx, checks)
     torch.cuda.empty_cache()
     by_path = {"serve": serve_launches}
     by_path["serve_sage"] = phase_main(
         "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx,
-        check_scale=SERVE_SAGE_CHECK_SCALE)
+        checks, check_scale=SERVE_SAGE_CHECK_SCALE)
     torch.cuda.empty_cache()
-    by_path["train"], tctx, tref = phase_train("train", TRAIN_ARGV,
+    by_path["train"], tctx, tref = phase_train("train", TRAIN_ARGV, checks,
                                                sgd_check=True)
     tref["run_losses"] = tctx["report"].losses
     # SAGE and GIN on the same host plan (every model has the same widths)
     for model in ("sage", "gin"):
         argv = with_backend(TRAIN_ARGV, "hybrid", model=model)
         by_path[f"train_{model}"], _, _ = phase_train(
-            f"train_{model}", argv, shared_context(tctx, argv))
+            f"train_{model}", argv, checks, shared_context(tctx, argv))
         torch.cuda.empty_cache()
     # the default flags (--backend edges) on the same host plan, and GAT,
     # which runs on the edge list only
     edges_argv = with_backend(TRAIN_ARGV, "edges")
     by_path["train_edges"], ectx, _ = phase_train(
-        "train_edges", edges_argv, shared_context(tctx, edges_argv))
+        "train_edges", edges_argv, checks, shared_context(tctx, edges_argv))
     phase_coo_spmm(ectx["sp"], gen)
     gat_argv = with_backend(TRAIN_ARGV, "edges", model="gat")
     gat_argv[gat_argv.index("--lr") + 1] = GAT_LR
     by_path["train_gat"], _, _ = phase_train(
-        "train_gat", gat_argv, shared_context(ectx, gat_argv))
+        "train_gat", gat_argv, checks, shared_context(ectx, gat_argv))
     del ectx
     torch.cuda.empty_cache()
     by_path["train_ell"], _, _ = phase_train(
         "train_ell", with_backend(TRAIN_ARGV, "ell", TRAIN_ELL_SCALE),
-        check_scale=TRAIN_SGD_SCALE)
+        checks, check_scale=TRAIN_SGD_SCALE)
     torch.cuda.empty_cache()
     epochs = len(tctx["report"].losses)
     lr = float(TRAIN_ARGV[TRAIN_ARGV.index("--lr") + 1])
-    for transport in ("p2p", "allgather"):
-        by_path[f"spmd_{transport}"] = phase_spmd(
-            "spmd", tctx, tref, transport, "gloo", ["cuda:0"] * SPMD_RANKS,
-            epochs, lr)
+    # the SPMD runtime: 4 ranks sharing card 0 over gloo, the spmd,
+    # spmd_tiers and spmd_models rank programs in one spawn
+    shared = ["cuda:0"] * SPMD_RANKS
+    transports = ("p2p", "allgather")
     tiers = tiers_context()
-    phase_spmd_tiers("spmd_tiers", tiers, "gloo", ["cuda:0"] * SPMD_RANKS)
-    by_path.update(phase_spmd_models("spmd_models", models_context(tiers),
-                                     "gloo", ["cuda:0"] * SPMD_RANKS))
+    cases = models_context(tiers)
+    res, wall_s = spawn_jobs(
+        spmd_jobs(tctx, tref, transports, epochs, lr) + tier_jobs(tiers)
+        + [(spmd_models_rank, (cases,))], SPMD_RANKS, "gloo", shared)
+    n = len(transports)
+    by_path.update(phase_spmd("spmd", tctx, tref, transports, "gloo", shared,
+                              epochs, lr, spawned=(res[:n], wall_s)))
+    phase_spmd_tiers("spmd_tiers", tiers, "gloo", shared,
+                     spawned=(res[n:n + 1], wall_s))
+    by_path.update(phase_spmd_models("spmd_models", cases, "gloo", shared,
+                                     spawned=(res[n + 1:], wall_s)))
+    del res
     torch.cuda.empty_cache()
     # the 1.5D strategy: its ranks share card 0 over gloo
     phase_spmm15d("spmm15d", tctx, SPMM15D_SHAPES, "gloo", ["cuda:0"])
@@ -4357,43 +5039,59 @@ def main(argv=None) -> None:
     by_path["train_host_cli"] = phase_train_host_cli(
         tctx, TRAIN_ARGV + ["--features", "host"])
     by_path.update(phase_train_adaptive(fctx))
-    host_ref = {"losses": host_losses, "step_kinds": TRAIN_KINDS,
-                "replan_events": 0, "hit_rate": None}
-    by_path["spmd_host"] = phase_spmd_host(
-        "spmd_host", fctx, host_ref, "p2p", "gloo", ["cuda:0"] * SPMD_RANKS,
-        params0, lr)
     # faults and defenses, the tracer and checkpoints
     torch.cuda.empty_cache()
     by_path["train_faults"] = phase_train_faults(fctx)
     phase_train_traced(fctx, seed, lr)
+    # spmd_host and spmd_faults: host features on 4 ranks sharing the
+    # card, in one spawn
+    host_ref = {"losses": host_losses, "step_kinds": TRAIN_KINDS,
+                "replan_events": 0, "hit_rate": None}
+    (host_ranks, fault_ranks), wall_s = spawn_jobs(
+        [spmd_host_job(fctx, "p2p", params0, lr),
+         spmd_faults_job(fctx, params0, lr)], SPMD_RANKS, "gloo", shared)
+    by_path["spmd_host"] = phase_spmd_host(
+        "spmd_host", fctx, host_ref, "p2p", "gloo", shared, params0, lr,
+        spawned=([host_ranks], wall_s))
     by_path.update(phase_spmd_faults("spmd_faults", fctx, params0, lr,
-                                     "gloo", ["cuda:0"] * SPMD_RANKS))
+                                     "gloo", shared,
+                                     spawned=([fault_ranks], wall_s)))
     del fctx
     torch.cuda.empty_cache()
     phase_device_trace(tctx)
     phase_checkpoint(tctx)
     torch.cuda.empty_cache()
     phase_profile()
+    # the card-vs-CPU checks, before the phases whose step is host-bound
+    checks.finish()
     # the transformer zoo: plain torch, no kernel of the port on its paths
     by_path["lm_reduced"] = phase_lm_reduced()
     by_path["lm_serve"] = phase_lm_serve()
     by_path["lm_train"] = phase_lm_train()
+    torch.cuda.empty_cache()
+    # the transformer zoo sharded: 4 ranks sharing the card as a 2 x 2 mesh
+    dryrun, dryrun_wait_s = wait_lm_dryruns(dryruns)
+    by_path["lm_spmd"] = phase_lm_spmd_all(
+        ("lm_spmd", "lm_spmd_moe"), list(LM_TRAIN_LOSSES), dryrun, "staged",
+        ["cuda:0"] * SPMD_RANKS)
+    phase_lm_dryrun(dryrun, dryrun_wait_s)
     n_cards = torch.cuda.device_count()
     if n_cards >= SPMD_RANKS:
-        for transport in ("p2p", "allgather"):
-            by_path[f"spmd_nccl_{transport}"] = phase_spmd(
-                "spmd_nccl", tctx, tref, transport, "nccl", "cuda", epochs,
-                lr)
+        by_path.update(phase_spmd("spmd_nccl", tctx, tref,
+                                  ("p2p", "allgather"), "nccl", "cuda",
+                                  epochs, lr))
         phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
         by_path.update(phase_spmd_models(
             "spmd_models_nccl", models_context(tiers), "nccl", "cuda"))
         spmd_host_nccl(tctx, lr)
         phase_spmm15d("spmm15d_nccl", tctx, SPMM15D_NCCL_SHAPES, "nccl",
                       "cuda", models=("gcn",))
+        phase_lm_spmd_all(("lm_spmd_nccl", "lm_spmd_moe_nccl"),
+                          list(LM_TRAIN_LOSSES), dryrun, "nccl", "cuda")
     else:
         for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_models_nccl",
                      "spmd_host_nccl", "spmd_lru_nccl", "spmd_faults_nccl",
-                     "spmm15d_nccl"):
+                     "spmm15d_nccl", "lm_spmd_nccl", "lm_spmd_moe_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,
                  why="NCCL needs one card per rank")
     torch.cuda.empty_cache()

@@ -31,6 +31,20 @@ run in f32 and round once to the payload's dtype, as the single-process
 runtime's CSR backward does; on a bf16 wire that keeps the two runtimes'
 gradients equal.
 
+The transformer zoo's manual regions (the MoE dispatch, the
+``shard_map`` bodies of the JAX package) run on local shards of DTensors
+and call the functional collectives over a ``DeviceMesh`` axis's group,
+which DTensor's own redistributions use too, so one counter
+(:class:`repro_torch.launch.hlo_cost.OpCounter`) sees both:
+
+- :func:`mesh_all_reduce` — ``psum`` over an axis, with either transpose
+  (the result used per rank, or as the one value every rank holds);
+- :func:`mesh_all_gather` — ``all_gather(..., tiled=True)``; backward the
+  reduce-scatter;
+- :func:`mesh_all_to_all` — ``all_to_all(..., split_axis=0,
+  concat_axis=0, tiled=True)``; backward the reverse all-to-all (the
+  operation ``repro_torch::all_to_all``, which the counter also sees).
+
 On a ``gloo`` group a CUDA tensor is staged through the host: a copy
 into a pinned host buffer, the gloo collective, a copy back; the copies'
 seconds are ``host_stage_s``.  gloo takes these collectives on CPU
@@ -46,7 +60,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Wire", "Pending", "AllGatherFn", "RotateFn", "RingBroadcastFn",
-           "PermuteFn", "AllReduceFn", "BACKWARD"]
+           "PermuteFn", "AllReduceFn", "BACKWARD", "mesh_all_reduce",
+           "mesh_all_gather", "mesh_all_to_all"]
 
 # the tier key under which the backward's collectives are recorded
 BACKWARD = "backward"
@@ -362,3 +377,83 @@ class AllReduceFn(torch.autograd.Function):
         d = ctx.wire.all_reduce(g.clone(memory_format=torch.contiguous_format),
                                 "sum", BACKWARD)
         return d, None, None
+
+
+# ---------------------------------------------------------------------------
+# functional collectives over a DeviceMesh axis, with their transposes
+# ---------------------------------------------------------------------------
+
+def _funcol():
+    import torch.distributed._functional_collectives as funcol
+    return funcol
+
+
+class _MeshAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, varying):
+        ctx.group, ctx.varying = group, varying
+        return _funcol().wait_tensor(_funcol().all_reduce(
+            x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.varying:
+            return g, None, None
+        return _funcol().wait_tensor(_funcol().all_reduce(
+            g.contiguous(), "sum", ctx.group)), None, None
+
+
+def mesh_all_reduce(x: torch.Tensor, group, *, varying: bool
+                    ) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (JAX's ``psum`` over one axis).
+    ``varying``: the sum is then used differently on each rank (added to a
+    rank's own tokens), so the backward all-reduces the cotangent (psum
+    then pvary); otherwise every rank holds and uses the one value, and
+    each rank's cotangent is its input's (psum to an invariant value)."""
+    return _MeshAllReduce.apply(x, group, varying)
+
+
+def mesh_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s blocks along ``dim`` from every rank of ``group``, in rank
+    order (``all_gather(..., axis=dim, tiled=True)``); backward the
+    reduce-scatter (SUM) of the cotangent."""
+    funcol = _funcol()
+    gather = getattr(funcol, "all_gather_single_autograd",
+                     None) or funcol.all_gather_tensor_autograd
+    return gather(x.contiguous(), dim, group)
+
+
+@torch.library.custom_op("repro_torch::all_to_all", mutates_args=())
+def _all_to_all(x: torch.Tensor, group_name: str) -> torch.Tensor:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=_resolve_process_group(group_name))
+    return out
+
+
+@_all_to_all.register_fake
+def _(x, group_name):
+    return torch.empty_like(x)
+
+
+class _MeshAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_name):
+        ctx.group_name = group_name
+        return torch.ops.repro_torch.all_to_all(x, group_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.ops.repro_torch.all_to_all(g.contiguous(),
+                                                 ctx.group_name), None)
+
+
+def mesh_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of ``x``'s dim 0 goes to rank ``j`` of ``group``, block
+    ``j`` of the result came from rank ``j`` (``all_to_all(...,
+    split_axis=0, concat_axis=0, tiled=True)``); backward the reverse
+    all-to-all.  An operation of its own (``repro_torch::all_to_all``, over
+    ``dist.all_to_all_single``): the functional collective's all-to-all
+    finds no CUDA backend on a process group written in Python (the
+    ``staged`` one of ranks sharing a card)."""
+    return _MeshAllToAll.apply(x.contiguous(), group.group_name)

@@ -23,6 +23,18 @@ Backends, chosen by the caller:
 - ``"gloo"``: ranks on the CPU, or several ranks sharing cards (the SPMD
   runtime then stages its CUDA tensors through the host,
   :class:`repro_torch.dist.collectives.Wire`).
+- ``"staged"``: gloo for CPU tensors and :mod:`repro_torch.dist.staged`
+  for CUDA ones (their collectives staged through pinned host buffers):
+  the transformer zoo's DTensor mesh of ranks sharing a card.
+
+The transformer zoo's production meshes are the reference's:
+:func:`make_production_mesh` lays a ``torch.distributed`` ``DeviceMesh``
+of ``(16, 16)`` ``("data", "model")`` or ``(2, 16, 16)`` ``("pod",
+"data", "model")`` over the process group that is up (the ``fake``
+backend of the dry run, or real ranks), :func:`dp_axes` names its
+token-sharding axes, and :class:`HW` holds the card's constants for the
+roofline terms.  :class:`AbstractMesh` is a mesh of names and sizes alone,
+for the sharding rules where no group is needed.
 """
 from __future__ import annotations
 
@@ -37,9 +49,11 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["BACKENDS", "Mesh", "make_mesh", "rank_devices", "spawn"]
+__all__ = ["BACKENDS", "Mesh", "make_mesh", "rank_devices", "spawn",
+           "make_production_mesh", "make_device_mesh", "dp_axes",
+           "mesh_sizes", "AbstractMesh", "HW"]
 
-BACKENDS = ("gloo", "nccl")
+BACKENDS = ("gloo", "nccl", "staged")
 # how long a collective waits for its peers before the group fails
 _TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -87,6 +101,9 @@ def _worker(rank: int, fn: Callable, world_size: int, backend: str,
     else:
         # P ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    if backend == "staged":
+        from ..dist import staged
+        staged.register()
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world_size,
                             timeout=_TIMEOUT)
@@ -162,3 +179,74 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
             if dist.get_rank() in line:
                 axis_groups[name] = sub
     return Mesh(shape, axis_names, axis_groups)
+
+
+# ---------------------------------------------------------------------------
+# The transformer zoo's DeviceMesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of axis names and sizes with no devices or group behind it
+    (``jax.sharding.AbstractMesh``): enough for the sharding rules, which
+    read only ``shape`` and ``mesh_dim_names`` (as a ``DeviceMesh`` has
+    them)."""
+    shape: tuple
+    mesh_dim_names: tuple
+
+
+def mesh_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`AbstractMesh`
+    (the reference's ``dict(mesh.shape)``)."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                     device_type: str | None = None):
+    """A ``DeviceMesh`` of ``shape`` over the default group, ranks laid out
+    row-major (every rank calls it).  ``device_type`` defaults to
+    ``"cuda"`` where CUDA is available, else ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, tuple(int(n) for n in shape),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
+    """The reference's production mesh over the process group that is up:
+    ``(16, 16)`` as ``("data", "model")``, or ``(2, 16, 16)`` as ``("pod",
+    "data", "model")`` with ``multi_pod`` (the ``pod`` axis extends data
+    parallelism, or sequence sharding for long context).  Raises when the
+    group is smaller than the mesh; the dry run brings up a ``fake`` group
+    of 256 or 512 ranks first."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks but the process group has {have}; "
+            "the dry run must init_process_group('fake', world_size="
+            f"{n}) first")
+    if have != n:
+        raise RuntimeError(f"mesh {shape} over a group of {have} ranks: the "
+                           "mesh must cover the group")
+    return make_device_mesh(shape, axes, device_type)
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Axes that shard tokens (everything except 'model')."""
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+class HW:
+    """Per-card constants of one NVIDIA H100 80GB HBM3 (SXM) at its 700 W
+    limit (``nvidia-smi --query-gpu=name,power.limit``: "NVIDIA H100 80GB
+    HBM3, 700.00 W"), from NVIDIA's data sheet, for the roofline terms.  A
+    card set below 700 W runs slower under load."""
+    PEAK_BF16_FLOPS = 989e12     # FLOP/s, dense bf16 tensor cores
+    HBM_BW = 3.35e12             # B/s
+    LINK_BW = 450e9              # B/s, NVLink 4, one direction per card
+    HBM_GIB = 80e9 / 2 ** 30     # 80 GB of HBM3

@@ -25,7 +25,11 @@ the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
 stacked gradients stay finite over padding edges.  The host store drops
 an injected fetch before it takes a pinned ring slot; the tracer's
 ``device_peak_bytes`` is the allocator's peak and its fence synchronises
-the value's stream (not the card) only when enabled.
+the value's stream (not the card) only when enabled.  The transformer
+zoo's SPMD half: the ``staged`` process group's collectives of CUDA
+tensors equal gloo's of the same CPU tensors, ``shard_params`` places
+each shard on the card, and the op counter counts a matmul of CUDA
+tensors.
 """
 import numpy as np
 import pytest
@@ -1040,3 +1044,40 @@ def test_lm_reduced_on_card_matches_cpu(card, arch):
                                         tok.to(card), t)
         lg_cpu, caches[1] = serve_step(cfg, params, caches[1], tok, t)
         close(lg_card, lg_cpu)
+
+
+# ---------------------------------------------------------------------------
+# The transformer zoo's SPMD half on the card
+# ---------------------------------------------------------------------------
+
+def test_staged_collectives_match_cpu(card):
+    """The ``staged`` group (ranks sharing the card): all-gather,
+    reduce-scatter, all-reduce and all-to-all of CUDA tensors equal the
+    same collectives of CPU tensors."""
+    from repro_torch.launch.mesh import spawn
+    import torch_lm_spmd_ranks
+    diffs = spawn(torch_lm_spmd_ranks.staged_collectives_rank, 2,
+                  backend="staged", devices=["cuda:0"] * 2)[0]
+    assert diffs == {"all-gather": 0.0, "reduce-scatter": 0.0,
+                     "all-reduce": 0.0, "all-to-all": 0.0}
+
+
+def test_shard_params_on_a_cuda_mesh(card):
+    from repro_torch.launch.mesh import spawn
+    import torch_lm_spmd_ranks
+    err, devices = spawn(torch_lm_spmd_ranks.cuda_shards_rank, 2,
+                         backend="staged", devices=["cuda:0"] * 2,
+                         args=((1, 2),))[0]
+    assert err == 0.0
+    assert devices == ["cuda:0"]
+
+
+def test_counter_on_cuda_tensors(card):
+    from repro_torch.launch.hlo_cost import analyse_ops
+    a = torch.ones(64, 32, device=card)
+    b = torch.ones(32, 16, device=card)
+    out, cost = analyse_ops(torch.mm, a, b)
+    assert out.is_cuda
+    assert cost.flops == 2 * 64 * 32 * 16
+    assert cost.bytes_accessed == 4 * (64 * 32 + 32 * 16 + 64 * 16)
+

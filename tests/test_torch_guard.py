@@ -2,7 +2,8 @@
 
 - ``repro_torch`` (every module), ``chip_smoke.py`` and
   ``examples/quickstart_torch.py`` import neither ``jax`` nor anything of
-  ``repro``, at import time or in their sources;
+  ``repro``, at import time or in their sources; nor do the transformer
+  zoo's SPMD modules and the dry run, imported and run alone;
 - the kernel dispatch goes by tensor device: CPU tensors take the plain
   versions and launch nothing, the kernel wrappers refuse CPU tensors;
 - a CUDA request on a machine without CUDA raises instead of falling back
@@ -105,6 +106,29 @@ def test_lm_slice_modules_import_neither_jax_nor_repro():
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, f'examples/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
+        "      n.startswith('jax.') or n == 'repro' or\n"
+        "      n.startswith('repro.')))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_spmd_lm_modules_import_neither_jax_nor_repro():
+    """The transformer zoo's SPMD half imported alone: the context, the
+    sharding rules, the dry run and its cost roll-up, the staged backend,
+    the production meshes, and the dry run's example twin; the dry run
+    runs once on a fake group without either."""
+    res = _run(
+        "import importlib.util, sys\n"
+        "import repro_torch.models.transformer.spmd\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.hlo_cost, repro_torch.launch.mesh\n"
+        "import repro_torch.dist.staged\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'multipod_dryrun_torch', 'examples/multipod_dryrun_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from repro_torch.launch.dryrun import run_one\n"
+        "run_one('qwen3-1.7b', 'decode_32k', device='cpu')\n"
         "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
         "      n.startswith('jax.') or n == 'repro' or\n"
         "      n.startswith('repro.')))\n")
