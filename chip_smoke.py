@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sweep | --spmd-nccl]
+    python3 chip_smoke.py [--sweep | --spmd-nccl | --spmd-nccl-pair]
 
 Phases, each printing one JSON line (``{"phase": ...}``); a phase that fails
 raises, and the script exits non-zero:
@@ -35,6 +35,18 @@ raises, and the script exits non-zero:
    its card-vs-CPU pass runs at scale ``SERVE_SAGE_CHECK_SCALE`` (the
    same flags and parameters; the served answers against the card's own
    tables).
+   ``serve_fresh`` - the serving slice with ``--update-frac 0.005`` (446
+   of 89,250 nodes' features updated, every query of a stale node
+   recomputed over its ``fresh_hops``-hop in-neighbourhood), traced: the
+   stale set and every count of the stream worked out from the ids, the
+   launches counted from zero, a fixed batch of stale nodes served on
+   the card against a CPU engine's recompute (``LOGITS_ATOL``), qps,
+   p50 / p99 and the ``fresh_recompute`` spans.
+   ``examples`` - ``examples/heterogeneous_rapa_torch.py`` and
+   ``serve_gnn_torch.py`` at their defaults on the card and, in a child
+   process beside it, on the CPU: the lambda table, the x8 run's bytes,
+   reduction, step kinds and spec, and the serving walkthrough's counts
+   equal; the card's losses finite and falling.
 5. ``train`` - the training slice through ``repro_torch.launch.train``'s
    own entry on ``cuda``: the same GCN over Flickr at scale 1.0, 4 METIS
    partitions weighted by the x4 device group, RAPA, JACA, hybrid backend,
@@ -57,6 +69,16 @@ raises, and the script exits non-zero:
    (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only; four
    ``coo_spmm`` heads a layer, plain torch): no ELL, tail or ``d_h``
    launch, the gathers 6 / 2.
+   ``train_vanilla``, ``train_jaca``, ``train_rapa``, ``train_jaca_rapa``,
+   ``train_adaptive`` and ``train_x8`` - the paper's ablation rows (Table
+   8: Vanilla is no JACA, no RAPA, no pipeline, a refresh every step),
+   ``--adaptive-staleness`` (traced: the kinds follow the measured
+   drifts) and the x8 group's 8 partitions on the card (:data:`ABLATION`),
+   with ``train``'s checks but the CPU pass, which ``train_vanilla`` and
+   ``train_x8`` run at ``TRAIN_SGD_SCALE``; the runs that share a
+   partition reuse its host plan.  ``train_ablation`` - the reduction
+   exactly 0.0 for the zero-capacity rows, the vanilla halo rows equal
+   on one partition, every row's bytes and step ms by kind.
    ``train_edges`` - the same flags with ``--backend edges`` (the CLI's
    default), on the same host plan: the same checks, no ELL, tail or
    ``d_h`` launch, the gathers 6 / 2.  ``coo_spmm`` - its aggregation at
@@ -183,7 +205,10 @@ raises, and the script exits non-zero:
    the start, beside the card's phases): per-device FLOPs, bytes,
    collectives and memory, and the roofline terms over the card's
    constants.  ``lm_spmd_nccl`` and ``lm_spmd_moe_nccl`` - the two over
-   NCCL, a card per rank, where 4 cards are visible.
+   NCCL, a card per rank, where 4 cards are visible.  ``spmd_vanilla_nccl``
+   - the Vanilla row through the SPMD runtime over NCCL (``p2p``; run by
+   ``--spmd-nccl`` and ``--spmd-nccl-pair``, which runs ``spmd_nccl``'s
+   ``p2p`` and it alone).
 6. ``kernel`` lines - the ELL forward at d = 500 and 256, the CSR kernel
    as ``d_h`` over the training slice's transposed pack (twice, bit for
    bit) and as the hybrid tail's forward on both slices' tails, the row
@@ -198,7 +223,8 @@ raises, and the script exits non-zero:
    one forward and backward, its ``d_vals`` and ``d_h`` launches counted
    and held against their plain versions.
 7. ``kernels`` - every ported kernel with its launches on each path
-   (``launches_by_path``: serve, serve_sage, train, train_sage,
+   (``launches_by_path``: serve, serve_sage, serve_fresh, the two
+   examples, train, the ablation rows, train_sage,
    train_gin, train_edges, train_gat, train_ell, the SPMD runs summed over
    ranks (spmd_models_<model> per model), train_host, train_host_cli,
    train_adaptive_lru, train_adaptive_drift, spmd_host, ell_spmm_at, and
@@ -1052,6 +1078,232 @@ def phase_main(name: str, argv: list[str], ctx, checks: CpuChecks,
     return launches
 
 
+# the serving slice's freshness path: 0.5% of the nodes' features updated
+# (446 of 89,250), stale queries recomputed over their fresh_hops-hop
+# in-neighbourhood (fresh_hops: the layer count)
+SERVE_FRESH_FLAGS = ["--update-frac", "0.005"]
+FRESH_CHECK_ROWS = 64     # stale nodes served on the card, recomputed on the CPU
+
+
+def stale_by_ids(graph, updated: np.ndarray, hops: int) -> np.ndarray:
+    """The nodes within ``hops`` forward hops of ``updated`` (along
+    src -> dst, the updates included), as products of a boolean vector
+    with the graph's sparse matrix: the stale set an update gives,
+    worked out apart from the engine's BFS."""
+    import scipy.sparse as sps
+    n = graph.num_nodes
+    a = sps.csr_matrix((np.ones(graph.indices.size, np.float32),
+                        graph.indices, graph.indptr), shape=(n, n))
+    seen = np.zeros(n, bool)
+    seen[updated] = True
+    frontier = seen.astype(np.float32)
+    for _ in range(hops):
+        frontier = (a.T @ frontier > 0) & ~seen
+        seen |= frontier
+        frontier = frontier.astype(np.float32)
+    return seen
+
+
+def phase_serve_fresh(ctx: dict, checks: CpuChecks) -> dict:
+    """The serving slice with :data:`SERVE_FRESH_FLAGS` through
+    ``launch.serve``'s entry, traced, its launches counted from zero: the
+    precompute's ELL and tail launches, and a gather for the precompute's
+    tier pulls, the warm-up and each micro-batch with a clean hot hit.
+    The update replayed from the seed gives the engine's stale set
+    (:func:`stale_by_ids`), and the ids give every count of the stream
+    (recomputes, hot and host hits, batches).  A fixed batch of
+    :data:`FRESH_CHECK_ROWS` stale nodes served on the card is held
+    within ``LOGITS_ATOL`` of a CPU engine's recompute on the same store,
+    parameters and updated features (through ``checks``).  Prints qps,
+    p50 / p99 and the ``fresh_recompute`` spans' count and total."""
+    from repro_torch.launch.serve import build_parser, serve_gnn, slice_stream
+    from repro_torch.serve import BatchConfig, GNNServeEngine, plan_batches
+
+    argv = SLICE_ARGV + SERVE_FRESH_FLAGS + [
+        "--trace", "--trace-dir", str(OUT_DIR / "serve_fresh")]
+    args = build_parser().parse_args(argv)
+    zero_counts()
+    t0 = time.perf_counter()
+    report, engine = serve_gnn(args)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    task, g, cfg = ctx["task"], engine.graph, engine.cfg
+    n = g.num_nodes
+    # the CLI's update, replayed from its seed
+    rng = np.random.default_rng(args.seed)
+    upd = rng.choice(n, max(1, int(args.update_frac * n)), replace=False)
+    new_feats = task.features[upd] + rng.normal(
+        scale=0.5, size=(upd.size, task.features.shape[1]))
+    stale = stale_by_ids(g, upd, cfg.num_layers)
+    if not np.array_equal(stale, engine.stale):
+        raise AssertionError(f"the engine marks {int(engine.stale.sum())} "
+                             f"nodes stale, the update gives "
+                             f"{int(stale.sum())}")
+    # every count of the stream, from the ids
+    stream = slice_stream(args, g)
+    batches = plan_batches(stream.t, BatchConfig(args.max_batch,
+                                                 args.deadline_ms))
+    q, hot = stream.node, engine.hot_slot >= 0
+    want = {"queries": int(q.size), "hot_hits": int((~stale[q] & hot[q]).sum()),
+            "host_hits": int((~stale[q] & ~hot[q]).sum()),
+            "fresh_recomputes": int(stale[q].sum()), "batches": len(batches)}
+    got = {k: engine.stats[k] for k in want}
+    if got != want or not report["fresh_rate"] > 0:
+        raise AssertionError(f"serve_fresh: counts {got}, the ids give "
+                             f"{want}; fresh_rate {report['fresh_rate']}")
+    # launches: the precompute's (one ELL and one tail launch a layer, its
+    # tier pulls), then a gather for the warm-up and each micro-batch
+    # with a clean hot hit
+    hot_batches_clean = sum(int((~stale[q[b.idx]] & hot[q[b.idx]]).any())
+                            for b in batches)
+    pulls = gather_launches(ctx["xplan"], cfg.num_layers - 1)[
+        "evaluation"]["gather_rows"]
+    want_l = {**{k: 0 for k in launches}, "ell_spmm": cfg.num_layers,
+              "csr_spmm_tail": cfg.num_layers,
+              "gather_rows": pulls + 1 + hot_batches_clean}
+    if launches != want_l:
+        raise AssertionError(f"serve_fresh: launches {launches}, want "
+                             f"{want_l}")
+    spans = [sp.dur for sp in engine.tracer.spans
+             if sp.name == "fresh_recompute"]
+    if len(spans) != sum(int(stale[q[b.idx]].any()) for b in batches):
+        raise AssertionError(f"{len(spans)} fresh_recompute spans")
+
+    # a fixed batch of stale nodes: served on the card, recomputed on the CPU
+    _, first = np.unique(q[stale[q]], return_index=True)
+    rows = q[stale[q]][np.sort(first)][:FRESH_CHECK_ROWS]
+    served = engine.query(rows)
+    cpu_params = [{k: v.cpu() for k, v in p.items()} for p in engine.params]
+    cpu_engine = GNNServeEngine(engine.store, cpu_params, g, engine.hot_ids,
+                                features=task.features, device="cpu")
+    cpu_engine.update_features(upd, new_feats)
+    if not (np.array_equal(cpu_engine.features, engine.features)
+            and np.array_equal(cpu_engine.stale, engine.stale)):
+        raise AssertionError("the CPU engine's update differs from the "
+                             "card's")
+
+    def compare(cpu_rows, cpu_s):
+        err = float(np.abs(served - cpu_rows).max())
+        if err > LOGITS_ATOL:
+            raise AssertionError(f"serve_fresh: recomputed rows differ from "
+                                 f"the CPU engine's by {err}")
+        return {"rows": int(rows.size), "rows_max_abs_err": err,
+                "cpu_recompute_s": cpu_s}
+    checks.submit("serve_fresh", lambda: cpu_engine.query(rows), compare)
+
+    fields = ("precompute_s", "qps", "p50_ms", "p99_ms", "fresh_rate",
+              "hot_hit_rate", "host_hit_rate", "batches", "mean_batch",
+              "busy_s", "stale_nodes")
+    emit("serve_fresh", argv=argv, nodes=n, updated=int(upd.size),
+         stale_frac=float(stale.mean()), counts=got, launches=launches,
+         **{k: report[k] for k in fields},
+         fresh_recompute={"spans": len(spans), "total_s": float(sum(spans)),
+                          "p50_ms": 1e3 * float(np.median(spans)),
+                          "max_ms": 1e3 * float(max(spans))},
+         wall_s=wall_s)
+    return launches
+
+
+# the two GNN example twins at their defaults, on the card and (in a child
+# process, beside the card) on the CPU
+EXAMPLES = ("heterogeneous_rapa_torch", "serve_gnn_torch")
+EXAMPLE_THREADS = 2
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_cpu_child() -> subprocess.Popen:
+    """Both example twins' ``main(device="cpu")`` in a child process with
+    :data:`EXAMPLE_THREADS` threads; its last line is their figures as
+    one JSON object."""
+    code = ("import json, sys, torch\n"
+            f"torch.set_num_threads({EXAMPLE_THREADS})\n"
+            "sys.path[:0] = ['src', '.']\n"
+            "import chip_smoke\n"
+            "out = {n: chip_smoke.load_example(n).main(device='cpu')\n"
+            "       for n in chip_smoke.EXAMPLES}\n"
+            "print(json.dumps(out, default=float))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+SERVE_EXAMPLE_FIELDS = ("queries", "batches", "mean_batch", "hot_hit_rate",
+                        "host_hit_rate", "fresh_rate")
+
+
+def phase_examples() -> dict:
+    """``examples/heterogeneous_rapa_torch.py`` and ``serve_gnn_torch.py``
+    at their defaults on the card, each with its launches counted from
+    zero and its printed lines kept, against the same twins on the CPU:
+    the lambda table (uniform and RAPA max-cost of x2 to x8, host numpy)
+    and the x8 run's bytes, reduction, step kinds and spec equal, its
+    losses finite and falling; the serving walkthrough's counts equal."""
+    import contextlib
+    import io
+    child = examples_cpu_child()
+    card, printed, by_path = {}, {}, {}
+    for name in EXAMPLES:
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = load_example(name).main(device="cuda")
+        torch.cuda.synchronize()
+        card[name] = json.loads(json.dumps(res, default=float))
+        card[name]["wall_s"] = time.perf_counter() - t0
+        printed[name] = buf.getvalue().splitlines()
+        by_path["example_" + name.removesuffix("_torch")] = read_counts()
+    out, err = child.communicate(timeout=600)
+    if child.returncode:
+        raise AssertionError(f"examples' CPU pass failed: {err[-2000:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+
+    het, het_cpu = card[EXAMPLES[0]], cpu[EXAMPLES[0]]
+    for k in ("groups", "comm_bytes", "comm_bytes_vanilla", "comm_reduction",
+              "step_kinds", "spec"):
+        if het[k] != het_cpu[k]:
+            raise AssertionError(f"heterogeneous_rapa: {k} {het[k]} on the "
+                                 f"card, {het_cpu[k]} on the CPU")
+    losses = het["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"heterogeneous_rapa: losses {losses}")
+    srv, srv_cpu = card[EXAMPLES[1]], cpu[EXAMPLES[1]]
+    for k in ("tables", "nodes", "updated", "stale"):
+        if srv[k] != srv_cpu[k]:
+            raise AssertionError(f"serve_gnn: {k} {srv[k]} on the card, "
+                                 f"{srv_cpu[k]} on the CPU")
+    for rep in ("report", "fresh_report"):
+        got = {k: srv[rep][k] for k in SERVE_EXAMPLE_FIELDS}
+        want = {k: srv_cpu[rep][k] for k in SERVE_EXAMPLE_FIELDS}
+        if got != want:
+            raise AssertionError(f"serve_gnn {rep}: {got} on the card, "
+                                 f"{want} on the CPU")
+    for path, counts in by_path.items():
+        if counts["gather_rows"] == 0 or counts["ell_spmm"] != 0:
+            raise AssertionError(f"{path}: launches {counts}")
+    emit("examples", printed=printed, launches=by_path,
+         heterogeneous_rapa={
+             "groups": het["groups"], "comm_reduction": het["comm_reduction"],
+             "losses": losses, "loss_max_abs_err_vs_cpu": float(np.abs(
+                 np.subtract(losses, het_cpu["losses"])).max()),
+             "test_acc": het["test_acc"], "test_acc_cpu": het_cpu["test_acc"],
+             "wall_s": het["wall_s"]},
+         serve_gnn={rep: {k: srv[rep][k] for k in
+                          SERVE_EXAMPLE_FIELDS + ("qps", "p50_ms", "p99_ms")}
+                    for rep in ("report", "fresh_report")}
+         | {"stale": srv["stale"], "wall_s": srv["wall_s"]})
+    return by_path
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the training slice
 # ---------------------------------------------------------------------------
@@ -1265,20 +1517,44 @@ def sgd_trajectories(args) -> dict:
             "sgd_traj_err": traj_err}
 
 
+def schedule_kinds(args, drifts: list | None = None) -> list[str]:
+    """The step kinds the training loop gives ``args``' flags: a refresh
+    every ``--refresh-every`` steps, pipelined after step 0 unless
+    ``--no-pipeline``, cached otherwise; under ``--adaptive-staleness``
+    the period follows ``drifts`` (each step's measured drift, None where
+    it measured none) as ``StalenessController`` sets it."""
+    from repro_torch.core import StalenessController
+    ctl = StalenessController(refresh_every=args.refresh_every,
+                              adaptive=args.adaptive_staleness)
+    kinds = []
+    for e in range(args.epochs):
+        refresh = ctl.should_refresh()
+        kinds.append("cached" if not refresh else
+                     "pipelined" if args.pipeline and e > 0 else "refresh")
+        ctl.observe(drifts[e] if drifts else None, refreshed=refresh)
+    return kinds
+
+
 def phase_train(name: str, argv: list[str], checks: CpuChecks,
                 ctx: dict | None = None, check_scale: str | None = None,
-                sgd_check: bool = False) -> tuple[dict, dict, dict]:
+                sgd_check: bool = False, cell_gathers: dict | None =
+                TRAIN_GATHERS, cpu_check: bool = True
+                ) -> tuple[dict, dict, dict | None]:
     """One training cell through launch.train's entry (``ctx``: the host
     plan of the same flags but the stacking, reused; built when None).
 
-    Checks: the step kinds, the launches of the backend (the counters
-    zeroed just before the run and read just after; the gathers worked
-    out from the plan's arrays), finite falling losses, the bytes equal
-    to the plan's; one refresh step's loss and gradients on the card
+    Checks: the step kinds (:func:`schedule_kinds`; under
+    ``--adaptive-staleness`` from the drifts the run's tracer measured),
+    the launches of the backend (the counters zeroed just before the run
+    and read just after; the gathers worked out from the plan's arrays,
+    at full scale also against ``cell_gathers``, the cell's stated
+    counts), finite falling losses, the bytes equal to the plan's; with
+    ``cpu_check``, one refresh step's loss and gradients on the card
     against the CPU (through ``checks``; at ``check_scale`` when given:
     the same flags at that scale), and with ``sgd_check`` an 8-step SGD
     trajectory at ``TRAIN_SGD_SCALE``.  Returns the launches, the run's
-    context and the card's refresh step (parameters, loss, gradients)."""
+    context and the card's refresh step (parameters, loss, gradients;
+    None without ``cpu_check``)."""
     from repro_torch.launch.train import build_parser, prepare_train, train_gnn
 
     args = build_parser().parse_args(argv)
@@ -1294,18 +1570,23 @@ def phase_train(name: str, argv: list[str], checks: CpuChecks,
     rt, sp = ctx["runtime"], ctx["sp"]
     epochs, layers = args.epochs, cfg.num_layers
     kinds = rep.step_kinds
-    if kinds != ["refresh", "cached", "cached", "cached", "pipelined",
-                 "cached", "cached", "cached"]:
-        raise AssertionError(f"{name}: step kinds {kinds}")
+    drifts = ([c.drift for c in ctx["tracer"].counters]
+              if ctx["tracer"] is not None else None)
+    if args.adaptive_staleness and drifts is None:
+        raise AssertionError(f"{name}: an adaptive run needs --trace for "
+                             "its drifts")
+    if kinds != schedule_kinds(args, drifts):
+        raise AssertionError(f"{name}: step kinds {kinds}, the schedule "
+                             f"gives {schedule_kinds(args, drifts)}")
     per_kind = gather_launches(xplan, layers - 1)
     want = train_launches(args.backend, layers, kinds, per_kind,
                           args.model)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
-    if args.scale == 1.0 and {k: want[k] for k in TRAIN_GATHERS} != \
-            TRAIN_GATHERS:
+    if cell_gathers is not None and args.scale == 1.0 and \
+            {k: want[k] for k in cell_gathers} != cell_gathers:
         raise AssertionError(f"the plan gives the gathers {want}, the cell "
-                             f"states {TRAIN_GATHERS}: tier rows "
+                             f"states {cell_gathers}: tier rows "
                              f"{xplan.uncached.n_rows} uncached, "
                              f"{xplan.local.n_rows} local, "
                              f"{xplan.glob.n_unique} global")
@@ -1324,27 +1605,29 @@ def phase_train(name: str, argv: list[str], checks: CpuChecks,
 
     # one refresh step, card vs CPU, same parameters; on the card its tier
     # pulls' gradients go through the gather backward
-    if check_scale is None:
-        check_cfg, check_sp, check_x, check_spec = cfg, sp, xplan, spec
-    else:
-        cargs = argparse.Namespace(**{**vars(args), "scale":
-                                      float(check_scale)})
-        cctx = prepare_train(cargs)
-        check_cfg, check_sp, check_x, check_spec = (
-            cctx["cfg"], cctx["sp"], cctx["xplan"], cctx["spec"])
-        rt = None
-    bwd0 = read_counts()["gather_rows_bwd"]
-    ref = card_vs_cpu(name, check_cfg, check_spec, check_sp, check_x,
-                      args.seed, args.lr, args.device, checks, rt)
+    ref = None
+    if cpu_check:
+        if check_scale is None:
+            check_cfg, check_sp, check_x, check_spec = cfg, sp, xplan, spec
+        else:
+            cargs = argparse.Namespace(**{**vars(args), "scale":
+                                          float(check_scale)})
+            cctx = prepare_train(cargs)
+            check_cfg, check_sp, check_x, check_spec = (
+                cctx["cfg"], cctx["sp"], cctx["xplan"], cctx["spec"])
+            rt = None
+        bwd0 = read_counts()["gather_rows_bwd"]
+        ref = card_vs_cpu(name, check_cfg, check_spec, check_sp, check_x,
+                          args.seed, args.lr, args.device, checks, rt)
+        refresh_bwd = read_counts()["gather_rows_bwd"] - bwd0
+        want_bwd = gather_launches(check_x, layers - 1)["refresh"][
+            "gather_rows_bwd"]
+        if refresh_bwd != want_bwd:
+            raise AssertionError(f"{name}: the refresh check launched the "
+                                 f"gather backward {refresh_bwd} times, "
+                                 f"want {want_bwd}")
     del ctx["runtime"], rt
     torch.cuda.empty_cache()
-    refresh_bwd = read_counts()["gather_rows_bwd"] - bwd0
-    want_bwd = gather_launches(check_x, layers - 1)["refresh"][
-        "gather_rows_bwd"]
-    if refresh_bwd != want_bwd:
-        raise AssertionError(f"{name}: the refresh check launched the "
-                             f"gather backward {refresh_bwd} times, want "
-                             f"{want_bwd}")
     extra = sgd_trajectories(args) if sgd_check else {}
 
     step_ms = {k: statistics.median(1e3 * t for t, kk in
@@ -1355,8 +1638,8 @@ def phase_train(name: str, argv: list[str], checks: CpuChecks,
         pack = {"ell_pack": list(sp.ell.cols.shape),
                 "ell_pack_bytes": int(sp.ell.cols.nbytes + sp.ell.vals.nbytes),
                 "tail_width": sp.ell.tail_width}
-    emit(name, argv=argv, model=args.model,
-         nodes=ctx["task"].graph.num_nodes, **pack,
+    emit(name, argv=argv, model=args.model, parts=args.parts,
+         group=ctx["group"], nodes=ctx["task"].graph.num_nodes, **pack,
          n_edges_stacked=list(sp.e_src.shape),
          n_inner_max=sp.n_inner_max, n_halo_max=sp.n_halo_max,
          total_halo=xplan.total_halo,
@@ -1367,13 +1650,15 @@ def phase_train(name: str, argv: list[str], checks: CpuChecks,
          comm_bytes=rep.comm_bytes, comm_bytes_vanilla=rep.comm_bytes_vanilla,
          comm_reduction=rep.comm_reduction,
          refresh_steps=rep.refresh_steps, cached_steps=rep.cached_steps,
-         step_kinds=kinds, compile_s=rep.compile_s,
+         step_kinds=kinds, drifts=drifts, compile_s=rep.compile_s,
+         stack_waste_frac=out["stack_waste_frac"],
          wall_time_s=rep.wall_time_s,
          wall_time_per_epoch_s=rep.wall_time_s / (epochs - 1),
          step_ms=[1e3 * t for t in rep.step_s], median_step_ms=step_ms,
          steady_step_ms=steady_ms, gather_launches_per_kind=per_kind,
          host_plan_s=ctx["host_plan_s"], launch_wall_s=wall_s,
-         launches=launches, checked_at_scale=float(check_scale or args.scale),
+         launches=launches, checked_at_scale=(
+             float(check_scale or args.scale) if cpu_check else None),
          **extra, peak_mem_gb=peak_gb)
     return launches, ctx, ref
 
@@ -1410,6 +1695,105 @@ def shared_context(ctx: dict, argv: list[str]) -> dict:
     return {**{k: ctx[k] for k in keep}, "cfg": cfg, "sp": sp,
             "spec": TrainSpec.from_cli_args(args),
             "host_plan_s": time.perf_counter() - t0}
+
+
+# The paper's ablation rows (Table 8, ``benchmarks/overall.py``: Vanilla
+# is zero cache capacity refreshed every step, no RAPA, no pipeline), the
+# adaptive staleness control and its most heterogeneous group (Fig. 21):
+# name -> (flags on top of TRAIN_ARGV, the run whose partition it
+# shares: None for the CLI's own host pipeline).  The CaPGNN row is the
+# ``train`` cell itself.
+ABLATION = {
+    "vanilla": (["--no-jaca", "--no-rapa", "--no-pipeline",
+                 "--refresh-every", "1"], None),
+    "jaca": (["--no-rapa", "--no-pipeline"], "vanilla"),
+    "rapa": (["--no-jaca", "--no-pipeline", "--refresh-every", "1"],
+             "train"),
+    "jaca_rapa": (["--no-pipeline"], "train"),
+    "adaptive": (["--adaptive-staleness", "--trace", "--trace-dir",
+                  str(ROOT / "build" / "chip_smoke" / "adaptive")],
+                 "train"),
+    "x8": (["--parts", "8", "--group", "x8"], None),
+}
+ABLATION_CPU_CHECKED = ("vanilla", "x8")   # a refresh step against the CPU
+ZERO_CAPACITY = ("vanilla", "rapa")         # every halo row uncached
+
+
+def ablation_context(base: dict, argv: list[str]) -> dict:
+    """The host plan of ``argv``'s flags on ``base``'s task, partition
+    (METIS, and RAPA's result when ``base`` ran it) and stacking: JACA's
+    capacity and exchange plan built anew for the flags
+    (``launch.train.plan_exchange``)."""
+    from repro_torch.dist import TrainSpec
+    from repro_torch.launch.train import build_parser, plan_exchange
+    t0 = time.perf_counter()
+    args = build_parser().parse_args(argv)
+    planner, xplan = plan_exchange(args, base["ps"], base["profiles"],
+                                   base["cfg"])
+    keep = ("task", "ps", "profiles", "group", "cfg", "sp")
+    return {**{k: base[k] for k in keep}, "planner": planner,
+            "xplan": xplan, "spec": TrainSpec.from_cli_args(args),
+            "host_plan_s": time.perf_counter() - t0}
+
+
+def phase_train_ablation(tctx: dict, checks: CpuChecks) -> dict:
+    """The configurations of :data:`ABLATION` at the train cell's width,
+    each through ``launch.train``'s entry and :func:`phase_train`'s
+    checks (its line ``train_<name>``): the step kinds of its schedule,
+    its launches counted from zero, falling losses, ``comm_bytes`` and
+    ``comm_bytes_vanilla`` equal to :func:`plan_bytes` of the run's own
+    kinds and plan; ``vanilla`` and ``x8`` also a refresh step against
+    the CPU at ``TRAIN_SGD_SCALE``.  Then the ``train_ablation`` line:
+    the reduction exactly 0.0 for the zero-capacity rows, the vanilla
+    halo rows (``comm_bytes_vanilla`` over the exchanged widths' bytes)
+    equal across the runs that share one partition, and the step ms by
+    kind of every row beside the CaPGNN cell's."""
+    ctxs, by_path, rows = {"train": tctx}, {}, {}
+    shared = {"train": ["capgnn"]}
+    for name, (flags, base) in ABLATION.items():
+        argv = TRAIN_ARGV + flags
+        ctx = None if base is None else ablation_context(ctxs[base], argv)
+        checked = name in ABLATION_CPU_CHECKED
+        by_path[f"train_{name}"], ctxs[name], _ = phase_train(
+            f"train_{name}", argv, checks, ctx,
+            check_scale=TRAIN_SGD_SCALE if checked else None,
+            cell_gathers=None, cpu_check=checked)
+        torch.cuda.empty_cache()
+        shared.setdefault(base or name, []).append(name)
+    reports = {"capgnn": tctx["report"],
+               **{name: ctxs[name]["report"] for name in ABLATION}}
+    for name in ZERO_CAPACITY:
+        if reports[name].comm_reduction != 0.0:
+            raise AssertionError(f"train_{name}: comm_reduction "
+                                 f"{reports[name].comm_reduction}, want 0.0")
+    # runs on one partition count the same vanilla halo rows: 8 steps of
+    # every halo row, over the widths each exchanges (layer 0's features
+    # too without JACA: nothing replicates them)
+    halo_rows = {}
+    for base, names in shared.items():
+        got = {}
+        for n in names:
+            c = ctxs["train" if n == "capgnn" else n]
+            dims = c["cfg"].feat_dims[:c["cfg"].num_layers]
+            dims = dims[0 if c["spec"].exchange_layer0 else 1:]
+            got[n] = reports[n].comm_bytes_vanilla / (4 * sum(dims))
+        if len(set(got.values())) != 1:
+            raise AssertionError(f"the vanilla halo rows differ on {base}'s "
+                                 f"partition: {got}")
+        halo_rows[base] = got
+    for name, rep in reports.items():
+        rows[name] = {
+            "comm_bytes": rep.comm_bytes,
+            "comm_bytes_vanilla": rep.comm_bytes_vanilla,
+            "comm_reduction": rep.comm_reduction,
+            "step_kinds": rep.step_kinds, "median_step_ms": {
+                k: statistics.median(1e3 * t for t, kk in
+                                     zip(rep.step_s, rep.step_kinds)
+                                     if kk == k)
+                for k in sorted(set(rep.step_kinds))},
+            "final_loss": rep.losses[-1]}
+    emit("train_ablation", vanilla_halo_rows=halo_rows, rows=rows)
+    return by_path
 
 
 def coo_old_route(src, dst, w, h, n_rows):
@@ -4882,6 +5266,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the training cell's flags, against the card's "
                         "single-process runtime, and the transformer zoo's "
                         "two sharded cases (lm_spmd_nccl, lm_spmd_moe_nccl)")
+    p.add_argument("--spmd-nccl-pair", action="store_true",
+                   help="run only the paper's CaPGNN and Vanilla rows "
+                        "through the SPMD runtime over NCCL (spmd_nccl and "
+                        "spmd_vanilla_nccl, p2p; needs 4 cards)")
     return p.parse_args(argv)
 
 
@@ -4913,31 +5301,47 @@ def spmd_host_nccl(tctx: dict, lr: float) -> None:
     phase_spmd_faults("spmd_faults_nccl", fctx, params0, lr, "nccl", "cuda")
 
 
-def main_spmd_nccl(device: dict) -> None:
-    """``--spmd-nccl``: the ``spmd_tiers_nccl`` and ``spmd_models_nccl``
-    phases; then the training
-    cell's host plan, the card's single-process refresh step from
-    ``init_gnn`` of its seed, the ``spmd_nccl`` phase under both
-    transports, the host-features and ``lru`` runs over NCCL
-    (:func:`spmd_host_nccl`), the 1.5D strategy's 4-rank GCN cases
-    (``spmm15d_nccl``), and the transformer zoo's ``lm_spmd_nccl`` and
-    ``lm_spmd_moe_nccl``."""
+def spmd_nccl_row(name: str, argv: list[str], transports) -> dict:
+    """:func:`phase_spmd` of ``argv``'s flags over NCCL, a card per rank,
+    against the card's single-process refresh step from ``init_gnn`` of
+    the seed; returns the flags' host plan."""
     from repro_torch.launch.train import build_parser, prepare_train
     from repro_torch.models.gnn import init_gnn
-    tiers = tiers_context()
-    phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
-    phase_spmd_models("spmd_models_nccl", models_context(tiers), "nccl",
-                      "cuda")
-    args = build_parser().parse_args(TRAIN_ARGV)
+    args = build_parser().parse_args(argv)
     ctx = prepare_train(args)
     params0 = init_gnn(ctx["cfg"], torch.Generator().manual_seed(args.seed),
                        "cpu")
     loss, grads, _ = refresh_grads(ctx["cfg"], ctx["spec"], ctx["sp"],
                                    ctx["xplan"], params0, args.lr, "cuda")
     ref = {"params0": params0, "loss": loss, "grads": grads}
-    phase_spmd("spmd_nccl", ctx, ref, ("p2p", "allgather"), "nccl", "cuda",
-               args.epochs, args.lr)
-    spmd_host_nccl(ctx, args.lr)
+    phase_spmd(name, ctx, ref, transports, "nccl", "cuda", args.epochs,
+               args.lr)
+    return ctx
+
+
+def main_spmd_nccl(device: dict, pair_only: bool = False) -> None:
+    """``--spmd-nccl``: the ``spmd_tiers_nccl`` and ``spmd_models_nccl``
+    phases; then the ``spmd_nccl`` phase at the training cell's flags
+    under both transports and ``spmd_vanilla_nccl`` at the Vanilla row's
+    (:data:`ABLATION`, ``p2p``), the host-features and ``lru`` runs over
+    NCCL (:func:`spmd_host_nccl`), the 1.5D strategy's 4-rank GCN cases
+    (``spmm15d_nccl``), and the transformer zoo's ``lm_spmd_nccl`` and
+    ``lm_spmd_moe_nccl``.  ``pair_only`` (``--spmd-nccl-pair``): the
+    CaPGNN and Vanilla rows alone, ``p2p``."""
+    if not pair_only:
+        tiers = tiers_context()
+        phase_spmd_tiers("spmd_tiers_nccl", tiers, "nccl", "cuda")
+        phase_spmd_models("spmd_models_nccl", models_context(tiers), "nccl",
+                          "cuda")
+    ctx = spmd_nccl_row("spmd_nccl", TRAIN_ARGV, ("p2p",) if pair_only
+                        else ("p2p", "allgather"))
+    spmd_nccl_row("spmd_vanilla_nccl", TRAIN_ARGV + ABLATION["vanilla"][0],
+                  ("p2p",))
+    if pair_only:
+        print(json.dumps({"ok": True, "device": device}), flush=True)
+        return
+    lr = float(TRAIN_ARGV[TRAIN_ARGV.index("--lr") + 1])
+    spmd_host_nccl(ctx, lr)
     phase_spmm15d("spmm15d_nccl", ctx, SPMM15D_NCCL_SHAPES, "nccl", "cuda",
                   models=("gcn",))
     # the transformer zoo's two sharded cases, a card per rank
@@ -4953,8 +5357,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    if opts.spmd_nccl:
-        return main_spmd_nccl(device)
+    if opts.spmd_nccl or opts.spmd_nccl_pair:
+        return main_spmd_nccl(device, pair_only=opts.spmd_nccl_pair)
     dryruns = start_lm_dryruns()     # CPU only: beside the card's phases
     if opts.sweep:
         ptxas_report()
@@ -4983,6 +5387,10 @@ def main(argv=None) -> None:
         "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx,
         checks, check_scale=SERVE_SAGE_CHECK_SCALE)
     torch.cuda.empty_cache()
+    by_path["serve_fresh"] = phase_serve_fresh(ctx, checks)
+    torch.cuda.empty_cache()
+    by_path.update(phase_examples())
+    torch.cuda.empty_cache()
     by_path["train"], tctx, tref = phase_train("train", TRAIN_ARGV, checks,
                                                sgd_check=True)
     tref["run_losses"] = tctx["report"].losses
@@ -5008,6 +5416,7 @@ def main(argv=None) -> None:
         "train_ell", with_backend(TRAIN_ARGV, "ell", TRAIN_ELL_SCALE),
         checks, check_scale=TRAIN_SGD_SCALE)
     torch.cuda.empty_cache()
+    by_path.update(phase_train_ablation(tctx, checks))
     epochs = len(tctx["report"].losses)
     lr = float(TRAIN_ARGV[TRAIN_ARGV.index("--lr") + 1])
     # the SPMD runtime: 4 ranks sharing card 0 over gloo, the spmd,
@@ -5089,7 +5498,8 @@ def main(argv=None) -> None:
         phase_lm_spmd_all(("lm_spmd_nccl", "lm_spmd_moe_nccl"),
                           list(LM_TRAIN_LOSSES), dryrun, "nccl", "cuda")
     else:
-        for name in ("spmd_nccl", "spmd_tiers_nccl", "spmd_models_nccl",
+        for name in ("spmd_nccl", "spmd_vanilla_nccl", "spmd_tiers_nccl",
+                     "spmd_models_nccl",
                      "spmd_host_nccl", "spmd_lru_nccl", "spmd_faults_nccl",
                      "spmm15d_nccl", "lm_spmd_nccl", "lm_spmd_moe_nccl"):
             emit(name, ran=False, cards=n_cards, ranks=SPMD_RANKS,

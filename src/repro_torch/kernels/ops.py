@@ -53,7 +53,8 @@ __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
            "csr_pack", "transpose_csr", "tail_csr", "pack_for_call",
            "gather_pack", "segment_ids", "segment_sum", "coo_spmm",
            "EllSpmmFn", "HybridSpmmFn", "GatherRowsFn", "ell_spmm",
-           "hybrid_spmm", "gather_rows", "pack_rows"]
+           "hybrid_spmm", "gather_rows", "pack_rows", "cache_combine",
+           "ell_stats"]
 
 # A CSR row with more entries than this is long: the kernel cuts it into
 # segments of at most this many entries, one block each (PERF.md: the
@@ -107,6 +108,17 @@ def ell_pack_hybrid(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     vals[dst_s[keep], pos_in_group[keep]] = w_s[keep]
     return (cols, vals, src_s[~keep].astype(np.int32),
             dst_s[~keep].astype(np.int32), w_s[~keep].astype(np.float32))
+
+
+def ell_stats(cols: np.ndarray, vals: np.ndarray) -> dict:
+    """Padding-waste report of an ELL pack (how ELL-friendly the
+    partition is): live slots (``vals != 0``), all slots, the share of
+    padding and the pack's width."""
+    nnz = int((np.asarray(vals) != 0).sum())
+    total = int(np.asarray(vals).size)
+    return {"nnz": nnz, "slots": total,
+            "pad_waste": 1.0 - nnz / max(1, total),
+            "max_deg": int(np.asarray(vals).shape[1])}
 
 
 def ell_row_end(vals: np.ndarray) -> np.ndarray:
@@ -594,3 +606,12 @@ def pack_rows(src: torch.Tensor, idx: torch.Tensor,
     dispatch goes by device."""
     out = gather_rows(src, idx.reshape(-1), pack)
     return out.reshape(*idx.shape, src.shape[-1])
+
+
+def cache_combine(local_rows, local_pos, global_rows, global_pos,
+                  recv_rows, recv_pos, n_halo: int) -> torch.Tensor:
+    """The three-way tier combine into the halo buffer: plain torch
+    indexing on either device, as the JAX package's is a jnp scatter (the
+    kernels are the gathers that feed it)."""
+    return _ref.cache_combine_ref(local_rows, local_pos, global_rows,
+                                  global_pos, recv_rows, recv_pos, n_halo)

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
-           "csr_spmm_ref", "gather_rows_ref"]
+           "csr_spmm_ref", "gather_rows_ref", "cache_combine_ref",
+           "masked_mean_ref"]
 
 _CSR_CHUNK = 1 << 16   # entries per index_add_ in csr_spmm_ref
 
@@ -164,3 +165,31 @@ def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not src.shape[0]:
         return src.new_zeros((idx.shape[0],) + tuple(src.shape[1:]))
     return torch.where(ok[:, None], src[safe], 0)
+
+
+def cache_combine_ref(local_rows: torch.Tensor, local_pos: torch.Tensor,
+                      global_rows: torch.Tensor, global_pos: torch.Tensor,
+                      recv_rows: torch.Tensor, recv_pos: torch.Tensor,
+                      n_halo: int) -> torch.Tensor:
+    """Scatter three row sources into one ``[n_halo, d]`` halo buffer.
+
+    Position arrays index into the halo buffer; each halo slot is covered
+    by exactly one source (a plan property).  Any source may be empty
+    (a size-0 leading dim); the buffer takes the width, dtype and device
+    of the first non-empty one, in the order local, global, received."""
+    first = next((r for r in (local_rows, global_rows) if r.numel()),
+                 recv_rows)
+    out = torch.zeros((n_halo, first.shape[-1]), dtype=first.dtype,
+                      device=first.device)
+    for rows, pos in ((local_rows, local_pos), (global_rows, global_pos),
+                      (recv_rows, recv_pos)):
+        if rows.shape[0]:
+            out[pos.long()] = rows.to(out.dtype)
+    return out
+
+
+def masked_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Row-masked column mean: the mean over the rows where ``mask`` is 1
+    (zeros when no row is)."""
+    m = mask.to(x.dtype)[:, None]
+    return (x * m).sum(0) / torch.clamp(m.sum(), min=1.0)

@@ -82,11 +82,10 @@ def prepare_train(args) -> dict:
     Under ``--strategy spmm_15d`` the partition has ``P / c`` block rows
     and the dict holds the 1.5D ``layout`` instead of a plan and a
     stacking."""
-    from ..core import (PROFILES, PAPER_GROUPS, make_group, cal_capacity,
-                        build_cache_plan, do_partition, RapaConfig,
-                        CacheCapacity, capability_weights, AdaptivePlanner)
+    from ..core import (PROFILES, PAPER_GROUPS, make_group, do_partition,
+                        RapaConfig, capability_weights)
     from ..data import make_task
-    from ..dist import build_exchange_plan, stack_partitions
+    from ..dist import stack_partitions
     from ..dist.spec import TrainSpec
     from ..dist.strategy import StrategyCapabilityError, get_strategy
     from ..graph import metis_partition, random_partition, build_partition
@@ -141,24 +140,35 @@ def prepare_train(args) -> dict:
         return {"task": task, "ps": ps, "profiles": profiles,
                 "group": group, "cfg": cfg, "spec": spec, "layout": layout,
                 "host_plan_s": time.perf_counter() - t0}
-    if args.jaca:
-        cap = cal_capacity(ps, cfg.feat_dims, profiles,
-                           m_cpu_gib=args.cpu_cache_gib)
-    else:
-        cap = CacheCapacity(c_gpu=[0] * p, c_cpu=0)
-    planner = None
-    if args.cache_policy != "static":
-        planner = AdaptivePlanner(ps, cap, refresh_every=args.refresh_every,
-                                  policy=args.cache_policy, seed=args.seed)
-        xplan = planner.exchange_plan()
-    else:
-        plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
-        xplan = build_exchange_plan(ps, plan)
+    planner, xplan = plan_exchange(args, ps, profiles, cfg)
     sp = stack_partitions(ps, task, backend=args.backend)
     return {"task": task, "ps": ps, "profiles": profiles, "group": group,
             "cfg": cfg, "spec": spec, "planner": planner,
             "xplan": xplan, "sp": sp,
             "host_plan_s": time.perf_counter() - t0}
+
+
+def plan_exchange(args, ps, profiles, cfg) -> tuple:
+    """JACA's capacity for ``ps`` (none with ``--no-jaca``: every halo
+    row is then uncached, pulled fresh every step) and its cache plan
+    compiled to the exchange plan: ``(planner, xplan)``, ``planner`` the
+    :class:`~repro_torch.core.jaca.AdaptivePlanner` that owns the plan
+    under a ``--cache-policy`` other than ``static``, else None."""
+    from ..core import (AdaptivePlanner, CacheCapacity, build_cache_plan,
+                        cal_capacity)
+    from ..dist import build_exchange_plan
+
+    if args.jaca:
+        cap = cal_capacity(ps, cfg.feat_dims, profiles,
+                           m_cpu_gib=args.cpu_cache_gib)
+    else:
+        cap = CacheCapacity(c_gpu=[0] * ps.num_parts, c_cpu=0)
+    if args.cache_policy != "static":
+        planner = AdaptivePlanner(ps, cap, refresh_every=args.refresh_every,
+                                  policy=args.cache_policy, seed=args.seed)
+        return planner, planner.exchange_plan()
+    plan = build_cache_plan(ps, cap, refresh_every=args.refresh_every)
+    return None, build_exchange_plan(ps, plan)
 
 
 def fault_options(args) -> tuple:

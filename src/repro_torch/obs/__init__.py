@@ -16,8 +16,9 @@ the host store and the serve engine compute:
 - :mod:`repro_torch.obs.export` — per-step JSONL metrics stream and a
   Chrome ``trace_event`` JSON (loads in Perfetto: spans as duration
   events, counters as counter tracks, one track per worker).
-- device-side visibility: :func:`device_scope` and :func:`host_annotation`
-  (``torch.profiler.record_function`` ranges) and :func:`device_trace`
+- device-side visibility: :func:`device_scope`, :func:`host_annotation`
+  and :func:`annotate_function` (``torch.profiler.record_function``
+  ranges) and :func:`device_trace`
   (opt-in ``torch.profiler`` capture dir).
 
 ``python -m repro_torch.obs.check trace.json`` validates an exported
@@ -25,14 +26,15 @@ timeline.
 """
 from .tracer import (NULL_TRACER, SPAN_KINDS, STEP_KINDS, Span,
                      StepCounters, Tracer, device_peak_bytes)
-from .annotations import device_scope, device_trace, host_annotation
+from .annotations import (annotate_function, device_scope, device_trace,
+                          host_annotation)
 from .export import (chrome_trace_events, validate_chrome_trace,
                      write_chrome_trace, write_metrics_jsonl)
 
 __all__ = [
     "Tracer", "Span", "StepCounters", "NULL_TRACER",
     "STEP_KINDS", "SPAN_KINDS", "device_peak_bytes",
-    "device_scope", "host_annotation", "device_trace",
+    "device_scope", "host_annotation", "annotate_function", "device_trace",
     "chrome_trace_events", "write_chrome_trace", "write_metrics_jsonl",
     "validate_chrome_trace",
 ]

@@ -19,13 +19,14 @@ the names of JAX's transposed ops carry their forward's ``named_scope``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import threading
 
 import torch
 
-__all__ = ["device_scope", "host_annotation", "device_trace",
-           "current_scope", "transpose_scope"]
+__all__ = ["device_scope", "host_annotation", "annotate_function",
+           "device_trace", "current_scope", "transpose_scope"]
 
 _open = threading.local()
 
@@ -82,6 +83,19 @@ def host_annotation(name: str):
     """Annotate a host-side dispatch site (step call, h2d staging) so an
     active capture shows it on the host track."""
     return torch.profiler.record_function(name)
+
+
+def annotate_function(fn, name: str | None = None):
+    """``fn`` with every call inside a ``record_function`` range named
+    ``name`` (``fn.__qualname__`` when None): the JAX package's
+    ``jax.profiler.annotate_function``."""
+    label = name if name is not None else fn.__qualname__
+
+    @functools.wraps(fn)
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return annotated
 
 
 @contextlib.contextmanager

@@ -223,8 +223,9 @@ class GNNServeEngine:
         self.host_store = (host_store if host_store is not None
                            else HostFeatureStore(store.logits,
                                                  device=self.device))
-        # staleness
+        # staleness; the fresh recompute's device-resident inputs
         self.stale = np.zeros(n, dtype=bool)
+        self._dev: dict = {}
         self.stats = {"queries": 0, "hot_hits": 0, "host_hits": 0,
                       "fresh_recomputes": 0, "batches": 0,
                       "rejected_queries": 0, "host_fetch_s": 0.0}
@@ -270,9 +271,28 @@ class GNNServeEngine:
         (every node within ``num_layers`` forward hops of an update)."""
         nodes = np.asarray(nodes, np.int64)
         self.features[nodes] = np.asarray(new_feats, np.float32)
+        self._dev.pop("features", None)      # the recompute re-uploads them
         affected = _bfs_mask(self._src, self._dst, nodes,
                              self.cfg.num_layers, self.graph.num_nodes)
         self.stale |= affected
+
+    def _resident(self) -> dict:
+        """The recompute's inputs on the device, uploaded at its first
+        call: the edge list, the current features (uploaded again after
+        an update) and the precomputed tables of layers 1 and up."""
+        dev, res = self.device, self._dev
+        if "src" not in res:
+            res["src"] = torch.as_tensor(self._src, dtype=torch.int64,
+                                         device=dev)
+            res["dst"] = torch.as_tensor(self._dst, dtype=torch.int64,
+                                         device=dev)
+            res["w"] = torch.as_tensor(self._w, dtype=torch.float32,
+                                       device=dev)
+            res["tables"] = [torch.as_tensor(t, device=dev)
+                             for t in self.store.tables[1:self.cfg.num_layers]]
+        if "features" not in res:
+            res["features"] = torch.as_tensor(self.features, device=dev)
+        return res
 
     @torch.inference_mode()
     def _recompute(self, nodes: np.ndarray) -> np.ndarray:
@@ -280,31 +300,45 @@ class GNNServeEngine:
         ``fresh_hops``-hop in-neighbourhood subgraph, all layers over it
         with current features, frontier neighbours fed from the
         precomputed layer tables (layer 0: current features).  Runs the
-        edge-list backend whatever the precompute backend was."""
+        edge-list backend whatever the precompute backend was.
+
+        The reverse BFS, the subgraph's edges (every edge into it, in the
+        edge list's order) and its halo (sorted ids) are found on the
+        engine's device, over the inputs :meth:`_resident` keeps there;
+        three reads of a count reach the host."""
         n = self.graph.num_nodes
-        src, dst, w = self._src, self._dst, self._w
-        seen = _bfs_mask(dst, src, nodes, self.fresh_hops, n)  # reverse BFS
-        inner = np.where(seen)[0]
-        keep = seen[dst]                      # every edge into the subgraph
-        hsrc = src[keep]
-        halo = np.unique(hsrc[~seen[hsrc]])
-        loc = np.full(n, -1, np.int64)
-        loc[inner] = np.arange(inner.size)
-        loc[halo] = inner.size + np.arange(halo.size)
+        res = self._resident()
+        src, dst = res["src"], res["dst"]
         dev = self.device
-        adj = EdgeListAdj(torch.as_tensor(loc[src[keep]], device=dev),
-                          torch.as_tensor(loc[dst[keep]], device=dev),
-                          torch.as_tensor(w[keep], dtype=torch.float32,
-                                          device=dev),
-                          inner.size, inner.size + halo.size)
-        halo_embeds = [torch.as_tensor(self.features[halo], device=dev)]
-        for l in range(1, self.cfg.num_layers):
-            halo_embeds.append(torch.as_tensor(self.store.tables[l][halo],
-                                               device=dev))
+        nodes_t = torch.as_tensor(nodes, device=dev)
+        # a mark per node and a spare slot n that takes the writes of the
+        # edges that mark nothing: every write stores True, so edges that
+        # share a node need no order
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        seen[nodes_t] = True
+        frontier = seen
+        for _ in range(self.fresh_hops):      # reverse BFS: dst -> src
+            reach = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+            reach[torch.where(frontier[dst], src, n)] = True
+            frontier = reach[:n] & ~seen
+            seen = seen | frontier
+        inner = torch.nonzero(seen).squeeze(1)
+        keep = torch.nonzero(seen[dst]).squeeze(1)   # edges into the subgraph
+        hsrc, hdst = src[keep], dst[keep]
+        in_halo = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        in_halo[torch.where(seen[hsrc], n, hsrc)] = True
+        halo = torch.nonzero(in_halo[:n]).squeeze(1)
+        n_inner, n_halo = inner.numel(), halo.numel()
+        loc = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        loc[inner] = torch.arange(n_inner, device=dev)
+        loc[halo] = n_inner + torch.arange(n_halo, device=dev)
+        adj = EdgeListAdj(loc[hsrc], loc[hdst], res["w"][keep], n_inner,
+                          n_inner + n_halo)
+        halo_embeds = [res["features"][halo]] + [t[halo]
+                                                 for t in res["tables"]]
         logits = gnn_forward(self.cfg, self.params, adj,
-                             torch.as_tensor(self.features[inner],
-                                             device=dev), halo_embeds)
-        return logits.cpu().numpy()[np.searchsorted(inner, nodes)]
+                             res["features"][inner], halo_embeds)
+        return logits[torch.searchsorted(inner, nodes_t)].cpu().numpy()
 
     # -- query paths -------------------------------------------------------
 

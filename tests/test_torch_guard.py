@@ -3,7 +3,9 @@
 - ``repro_torch`` (every module), ``chip_smoke.py`` and
   ``examples/quickstart_torch.py`` import neither ``jax`` nor anything of
   ``repro``, at import time or in their sources; nor do the transformer
-  zoo's SPMD modules and the dry run, imported and run alone;
+  zoo's SPMD modules and the dry run, imported and run alone, nor the
+  GNN example twins (``serve_gnn_torch.py``, ``heterogeneous_rapa_torch.py``),
+  which default to the card;
 - the kernel dispatch goes by tensor device: CPU tensors take the plain
   versions and launch nothing, the kernel wrappers refuse CPU tensors;
 - a CUDA request on a machine without CUDA raises instead of falling back
@@ -69,7 +71,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
         sorted((ROOT / "examples").glob("*_torch.py"))
-    assert len(list((ROOT / "examples").glob("*_torch.py"))) >= 3
+    assert len(list((ROOT / "examples").glob("*_torch.py"))) >= 6
     assert len(files) > 30
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -85,6 +87,33 @@ def test_spmd_slice_modules_import_neither_jax_nor_repro():
         "spec = importlib.util.spec_from_file_location(\n"
         "    'quickstart_torch', 'examples/quickstart_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
+        "      n.startswith('jax.') or n == 'repro' or\n"
+        "      n.startswith('repro.')))\n")
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_gnn_example_twins_import_neither_jax_nor_repro():
+    """The serving walkthrough's and the heterogeneous-group demo's twins
+    imported alone, and their ``main`` refusing the card it defaults to
+    when there is none."""
+    res = _run(
+        "import importlib.util, inspect, sys, torch\n"
+        "for name in ('serve_gnn_torch', 'heterogeneous_rapa_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    dev = inspect.signature(mod.main).parameters['device'].default\n"
+        "    assert dev == 'cuda', (name, dev)\n"
+        "    if not torch.cuda.is_available():\n"
+        "        try:\n"
+        "            mod.main()\n"
+        "        except RuntimeError:\n"
+        "            pass\n"
+        "        else:\n"
+        "            raise AssertionError(name + ' ran without CUDA')\n"
         "print('BAD', sorted(n for n in sys.modules if n == 'jax' or\n"
         "      n.startswith('jax.') or n == 'repro' or\n"
         "      n.startswith('repro.')))\n")

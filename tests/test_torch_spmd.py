@@ -38,7 +38,10 @@ counts summed over the ranks equal the single-process store's and the
 plan's) and ``allgather-lru`` (an ``AdaptivePlanner`` on every rank, the
 ``train_capgnn`` run re-planned by pipelined transitions: the same
 re-plans, hit rate and losses as the single-process run, each step's
-counted rows those of its read and emit plans).
+counted rows those of its read and emit plans).  ``p2p-vanilla`` is the
+paper's Vanilla row (Table 8): the zero-capacity plan (the local and
+global tiers empty, every halo row in the uncached tier), a refresh
+every step and no pipeline; its JAX reference runs the same plan.
 
 The bf16 wire runs the same casts in all three runtimes.  Against the
 port's runtime it stays at 1e-5.  Against JAX ``capgnn_sim`` the logits
@@ -90,8 +93,13 @@ CASES = {   # id: (transport, backend, halo dtype, features, cache policy)
     "p2p-bf16": ("p2p", "hybrid", "bf16", "device", "static"),
     "p2p-host": ("p2p", "hybrid", "f32", "host", "static"),
     "allgather-lru": ("allgather", "edges", "f32", "device", "lru"),
+    "p2p-vanilla": ("p2p", "hybrid", "f32", "device", "static"),
 }
 CAP = dict(c_gpu=[10] * P, c_cpu=25)
+# the configurations of the zero-capacity plan, refreshed every step with
+# no pipeline (the paper's Vanilla)
+VANILLA = ("p2p-vanilla",)
+ZERO_CAP = dict(c_gpu=[0] * P, c_cpu=0)
 _CACHE: dict = {}
 
 
@@ -156,10 +164,24 @@ def _planner(case_id):
 
 
 def _plan(case_id):
-    """The configuration's plan: the forced plan, or the planner's padded
-    initial plan."""
+    """The configuration's plan: the forced plan, the zero-capacity plan,
+    or the planner's padded initial plan."""
+    if case_id in VANILLA:
+        return _zero_plans()[1]
     planner = _planner(case_id)
     return _base()["tx"] if planner is None else planner.exchange_plan()
+
+
+def _zero_plans():
+    """The zero-capacity exchange plans of both packages."""
+    if "zero" not in _CACHE:
+        b = _base()
+        _CACHE["zero"] = (
+            jdist.build_exchange_plan(b["jps"], jcore.build_cache_plan(
+                b["jps"], jcore.CacheCapacity(**ZERO_CAP), refresh_every=1)),
+            build_exchange_plan(b["tps"], tcore.build_cache_plan(
+                b["tps"], tcore.CacheCapacity(**ZERO_CAP), refresh_every=1)))
+    return _CACHE["zero"]
 
 
 def _train_plans(case_id, kinds):
@@ -186,8 +208,10 @@ def _train_plans(case_id, kinds):
 
 def _spec_kw(case_id) -> dict:
     transport, backend, halo_dtype, features, _ = CASES[case_id]
+    vanilla = case_id in VANILLA
     return dict(backend=backend, transport=transport, halo_dtype=halo_dtype,
-                pipeline=True, refresh_every=2, features=features)
+                pipeline=not vanilla, refresh_every=1 if vanilla else 2,
+                features=features)
 
 
 def _stacked(backend):
@@ -253,29 +277,30 @@ def _case(case_id):
     ref["train"] = {**torch_spmd_ranks.train_fields(rep), "params": _np(p8),
                     "test": sim.evaluate(p8, "test")}
 
-    _CACHE[case_id] = (ranks, ref, _jax_ref(backend, halo_dtype))
+    _CACHE[case_id] = (ranks, ref, _jax_ref(backend, halo_dtype,
+                                            case_id in VANILLA))
     return _CACHE[case_id]
 
 
-def _jax_ref(backend, halo_dtype):
+def _jax_ref(backend, halo_dtype, vanilla=False):
     """JAX ``capgnn_sim``'s fresh logits and one ``sgd(1.0)`` refresh step
     (the transport, the feature residency and the cache policy leave its
     numerics as they are, so configurations that differ in those only
-    share it)."""
-    key = ("jax", backend, halo_dtype)
+    share it); ``vanilla``: on the zero-capacity plan, refreshed every
+    step."""
+    key = ("jax", backend, halo_dtype, vanilla)
     if key in _CACHE:
         return _CACHE[key]
     b = _base()
+    jx = _zero_plans()[0] if vanilla else b["jx"]
     jsp = jdist.stack_partitions(b["jps"], b["jtask"], backend=backend)
     jspec = JSpec(backend=backend, halo_dtype=halo_dtype, donate=False,
-                  refresh_every=2, pipeline=True)
-    jrt = jdist.make_sim_runtime(b["jcfg"], jsp, b["jx"], jsgd(1.0),
-                                 spec=jspec)
+                  refresh_every=1 if vanilla else 2, pipeline=not vanilla)
+    jrt = jdist.make_sim_runtime(b["jcfg"], jsp, jx, jsgd(1.0), spec=jspec)
     jparams = jax.tree.map(jax.numpy.asarray, b["params_np"])
     jl = np.asarray(jrt.forward_fresh(jparams))
     jp1, _, _, jm1 = jrt.step_refresh(jparams, jsgd(1.0).init(jparams),
-                                      jdist.init_caches(b["jcfg"], b["jx"],
-                                                        P))
+                                      jdist.init_caches(b["jcfg"], jx, P))
     _CACHE[key] = {"logits": jl, "loss": float(jm1["loss"]),
                    "params": [{k: np.asarray(v) for k, v in layer.items()}
                               for layer in jp1]}
@@ -430,8 +455,12 @@ def test_spmd_wire_counts_equal_the_plan(case_id):
     ranks, _, _ = _case(case_id)
     transport, _, halo_dtype = CASES[case_id][:3]
     x = _plan(case_id)
-    assert x.uncached.n_rows and x.local.n_rows and x.glob.n_unique, \
-        "the forced plan fills every tier"
+    if case_id in VANILLA:
+        assert x.uncached.n_rows == x.total_halo > 0, "every row uncached"
+        assert x.local.n_rows == 0 and x.glob.n_unique == 0
+    else:
+        assert x.uncached.n_rows and x.local.n_rows and x.glob.n_unique, \
+            "the forced plan fills every tier"
     _check_wire([[r["sgd"]["wire"]] for r in ranks], ["refresh"],
                 transport, halo_dtype, [(x, x)])
     _check_wire([[s["wire"] for s in r["steps"]] for r in ranks],
@@ -447,8 +476,11 @@ def test_spmd_train_matches_sim(case_id):
     ranks, ref, _ = _case(case_id)
     want = ref["train"]
     refresh = "transition" if CASES[case_id][4] != "static" else "pipelined"
-    assert want["step_kinds"] == ["refresh", "cached"] + \
-        [refresh, "cached"] * 3
+    assert want["step_kinds"] == (
+        ["refresh"] * EPOCHS if case_id in VANILLA else
+        ["refresh", "cached"] + [refresh, "cached"] * 3)
+    if case_id in VANILLA:
+        assert want["comm_bytes"] == want["comm_bytes_vanilla"]
     for r in ranks:
         got = r["train"]
         _close(got["losses"], want["losses"], what="losses")
