@@ -66,9 +66,10 @@ raises, and the script exits non-zero:
    / ``gin`` on the same host plan (every model has the same widths):
    the same checks, SAGE with two ELL forward and tail launches a layer.
    ``train_gat`` - ``--model gat --backend edges --lr 0.001``
-   (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only; four
-   ``coo_spmm`` heads a layer, plain torch): no ELL, tail or ``d_h``
-   launch, the gathers 6 / 2.
+   (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only): four
+   heads a layer, each an ``edge_spmm`` forward and, every step, an
+   ``edge_spmm_dh`` and an ``edge_dvals`` launch from layer 0 on; no ELL,
+   tail or ELL ``d_h`` launch, the gathers 6 / 2.
    ``train_vanilla``, ``train_jaca``, ``train_rapa``, ``train_jaca_rapa``,
    ``train_adaptive`` and ``train_x8`` - the paper's ablation rows (Table
    8: Vanilla is no JACA, no RAPA, no pipeline, a refresh every step),
@@ -80,11 +81,16 @@ raises, and the script exits non-zero:
    exactly 0.0 for the zero-capacity rows, the vanilla halo rows equal
    on one partition, every row's bytes and step ms by kind.
    ``train_edges`` - the same flags with ``--backend edges`` (the CLI's
-   default), on the same host plan: the same checks, no ELL, tail or
+   default), on the same host plan: the same checks, the edge list's CSR
+   kernel once a layer a pass (``edge_spmm``: 27) and over the transposed
+   pack from layer 1 a step (``edge_spmm_dh``: 16), no ELL, tail or ELL
    ``d_h`` launch, the gathers 6 / 2.  ``coo_spmm`` - its aggregation at
-   that edge list, d = 256: the ``index_select`` route's forward (bit-equal
-   to the old two-index route's) and backward beside the old route's
-   (``old_route_ms``) and ``torch.sparse.mm``.
+   that edge list's packs, d = 256: the forward and ``d_h`` against the
+   plain version ``ops.coo_spmm`` (and its autograd backward), twice bit
+   for bit, timed beside it and ``torch.sparse.mm``; ``edge_dvals`` (a
+   ``kernel`` line) at d = 64 on the same pack against its plain version
+   and ``coo_spmm``'s autograd in its weights, beside
+   ``torch.sparse.sampled_addmm``.
    ``train_ell`` - ``--backend ell`` at scale 0.3 (the pure ELL pack's
    shape and bytes printed: 0.73 GB there, ~7 GB at scale 1.0), its
    refresh step held against the CPU at scale 0.1.
@@ -118,10 +124,15 @@ raises, and the script exits non-zero:
    ranks sharing the card over gloo (all cases in one spawn; the 8-rank
    ``c=2, pr=4`` case runs in the CPU tests): the losses against the card's
    ``capgnn_sim`` at ``refresh_every=1`` on the same block rows, every
-   rank's counted forward bytes equal to the byte model, no launch of the
-   port's kernels; steady step and host-staging ms per rank, peak memory
+   rank's counted forward bytes equal to the byte model, every rank's
+   launches those of its chunk (``edge_spmm`` once a layer a pass,
+   ``edge_spmm_dh`` from layer 1 a step, nothing else); steady step and
+   host-staging ms per rank, peak memory
    (``spmm15d_nccl``: the two 4-rank shapes with GCN over NCCL on four
-   cards).
+   cards).  ``coo_spmm_15d`` - rank 0's chunk aggregation of ``c=2,
+   pr=2`` through the runtime's own ``chunk_adj`` (the CSR kernel over
+   its packs) at d = 500 and 256 (forward and backward) against
+   ``ops.coo_spmm``, timed beside it, ``torch.sparse.mm`` and the bound.
    JACA's CPU tier and online adaptation, on the train cell's host plan
    under a forced capacity (``forced_capacity``: half the widest worker's
    halo rows on the host) that fills every tier: ``train_host`` - a
@@ -226,12 +237,12 @@ raises, and the script exits non-zero:
    (``launches_by_path``: serve, serve_sage, serve_fresh, the two
    examples, train, the ablation rows, train_sage,
    train_gin, train_edges, train_gat, train_ell, the SPMD runs summed over
-   ranks (spmd_models_<model> per model), train_host, train_host_cli,
-   train_adaptive_lru, train_adaptive_drift, spmd_host, ell_spmm_at, and
-   0 on lm_reduced, lm_serve, lm_train), its
-   largest
-   error against the plain
-   version and its times.
+   ranks (spmd_models_<model> per model, spmm15d), train_host,
+   train_host_cli, train_adaptive_lru, train_adaptive_drift, spmd_host,
+   ell_spmm_at, and 0 on lm_reduced, lm_serve, lm_train), its largest
+   error against the plain version and its times; the edge list's route
+   (``edge_spmm``, ``edge_spmm_dh``, ``edge_dvals``) from the
+   ``coo_spmm`` phase.
 
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
 (and the chosen one without ``row_end``) checked against the plain version
@@ -333,6 +344,12 @@ GATHER_REPLACES = "src/repro/kernels/cache_gather.py:38"
 # the gather's VJP: XLA's transpose of the jnp.take route of pack_rows (the
 # Pallas route has none: jax.grad does not linearise through it)
 GATHER_BWD_REPLACES = "src/repro/kernels/ops.py:128"
+# the edges backend's aggregation, EdgeListAdj.spmm (segment_sum, no
+# pallas_call; also the 1.5D chunk's, src/repro/dist/strategy_15d.py:327),
+# and the autodiff of its spmm_at in the per-edge values (GAT)
+EDGE_REPLACES = "src/repro/models/gnn.py:99"
+EDGE_DVALS_REPLACES = "src/repro/models/gnn.py:103"
+EDGE_DVALS_SOURCE = "src/repro_torch/kernels/csrc/edge_dvals.cu"
 
 
 _T0 = time.perf_counter()
@@ -1154,21 +1171,24 @@ def phase_serve_fresh(ctx: dict, checks: CpuChecks) -> dict:
                              f"{want}; fresh_rate {report['fresh_rate']}")
     # launches: the precompute's (one ELL and one tail launch a layer, its
     # tier pulls), then a gather for the warm-up and each micro-batch
-    # with a clean hot hit
+    # with a clean hot hit ...
     hot_batches_clean = sum(int((~stale[q[b.idx]] & hot[q[b.idx]]).any())
                             for b in batches)
     pulls = gather_launches(ctx["xplan"], cfg.num_layers - 1)[
         "evaluation"]["gather_rows"]
-    want_l = {**{k: 0 for k in launches}, "ell_spmm": cfg.num_layers,
-              "csr_spmm_tail": cfg.num_layers,
-              "gather_rows": pulls + 1 + hot_batches_clean}
-    if launches != want_l:
-        raise AssertionError(f"serve_fresh: launches {launches}, want "
-                             f"{want_l}")
     spans = [sp.dur for sp in engine.tracer.spans
              if sp.name == "fresh_recompute"]
     if len(spans) != sum(int(stale[q[b.idx]].any()) for b in batches):
         raise AssertionError(f"{len(spans)} fresh_recompute spans")
+    # and each recompute's layers over its subgraph's pack, built on the
+    # card: one edge-list CSR launch a layer
+    want_l = {**{k: 0 for k in launches}, "ell_spmm": cfg.num_layers,
+              "csr_spmm_tail": cfg.num_layers,
+              "gather_rows": pulls + 1 + hot_batches_clean,
+              "edge_spmm": cfg.num_layers * len(spans)}
+    if launches != want_l:
+        raise AssertionError(f"serve_fresh: launches {launches}, want "
+                             f"{want_l}")
 
     # a fixed batch of stale nodes: served on the card, recomputed on the CPU
     _, first = np.unique(q[stale[q]], return_index=True)
@@ -1287,8 +1307,10 @@ def phase_examples() -> dict:
         if got != want:
             raise AssertionError(f"serve_gnn {rep}: {got} on the card, "
                                  f"{want} on the CPU")
+    # both twins run the edges backend: the edge list's CSR kernel
     for path, counts in by_path.items():
-        if counts["gather_rows"] == 0 or counts["ell_spmm"] != 0:
+        if counts["gather_rows"] == 0 or counts["ell_spmm"] != 0 or \
+                counts["edge_spmm"] == 0:
             raise AssertionError(f"{path}: launches {counts}")
     emit("examples", printed=printed, launches=by_path,
          heterogeneous_rapa={
@@ -1392,14 +1414,18 @@ def steady_step_ms(rt, params, opt_state, steps: int = 3) -> dict:
 
 def train_counters() -> dict:
     from repro_torch.kernels import cache_gather as kgather
-    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell
+    from repro_torch.kernels import csr_spmm as kcsr, edge_spmm as kedge
+    from repro_torch.kernels import ell_spmm as kell
     return {"ell_spmm": kell.ell_spmm,
             "ell_spmm_chunked": kell.ell_spmm_chunked,
             "csr_spmm_tail": kcsr.csr_spmm_accumulate,
             "csr_spmm_dh": kcsr.csr_spmm,
             "ell_spmm_dvals": kell.ell_spmm_dvals,
             "gather_rows": kgather.gather_rows,
-            "gather_rows_bwd": kgather.gather_rows_bwd}
+            "gather_rows_bwd": kgather.gather_rows_bwd,
+            "edge_spmm": kedge.edge_spmm,
+            "edge_spmm_dh": kedge.edge_spmm_dh,
+            "edge_dvals": kedge.edge_dvals}
 
 
 def zero_counts() -> None:
@@ -1420,25 +1446,34 @@ def train_launches(backend: str, layers: int, kinds: list[str],
                    gathers: dict, model: str = "gcn") -> dict:
     """The launches a training run gives: each step and the closing
     evaluation run every layer's forward once (the ELL kernel under
-    ``ell`` and ``hybrid``, the tail's CSR kernel under ``hybrid``; a
-    SAGE layer twice, its ``degree()`` being the same product of a ones
-    column, recomputed per call); the backward needs ``d_h`` from layer 1
-    on (layer 0's input is constant, and the ones column has no
-    gradient) under ``ell`` and ``hybrid``, and ``d_vals`` never (the ELL
-    values are constants of the graph); ``edges`` (GAT's only backend) is
-    plain torch; the gathers as each step kind gives them (``gathers``,
-    per kind); every pack comes from ``make_adj_builder`` or the exchange
-    maps."""
-    passes = len(kinds) + 1
+    ``ell`` and ``hybrid``, the tail's CSR kernel under ``hybrid``, the
+    edge list's CSR kernel under ``edges``; a SAGE layer twice under
+    ``ell`` and ``hybrid``, its ``degree()`` being the same product of a
+    ones column, recomputed per call, and once under ``edges``, whose
+    ``degree()`` is a segment sum; a GAT layer once per head); the
+    backward needs ``d_h`` from layer 1 on (layer 0's input is constant,
+    and the ones column has no gradient), but from layer 0 on for GAT,
+    whose heads' inputs are ``h @ w``, once per head, with the heads'
+    ``edge_dvals`` (their attention's gradient); the ELL ``d_vals``
+    never (the ELL values are constants of the graph); the gathers as
+    each step kind gives them (``gathers``, per kind); every pack comes
+    from ``make_adj_builder`` or the exchange maps."""
+    from repro_torch.models.gnn import GNNConfig
+    passes, steps = len(kinds) + 1, len(kinds)
     ell = backend != "edges"
-    fwd = layers * passes * (2 if model == "sage" else 1)
+    heads = GNNConfig().num_heads if model == "gat" else 1
+    fwd = layers * passes * (2 if model == "sage" and ell else heads)
+    dh = (layers * heads if model == "gat" else layers - 1) * steps
     return {"ell_spmm": fwd if ell else 0,
             "ell_spmm_chunked": 0,
             "csr_spmm_tail": fwd if backend == "hybrid" else 0,
-            "csr_spmm_dh": (layers - 1) * len(kinds) if ell else 0,
+            "csr_spmm_dh": dh if ell else 0,
             "ell_spmm_dvals": 0,
             **{k: sum(gathers[kind][k] for kind in kinds + ["evaluation"])
                for k in ("gather_rows", "gather_rows_bwd")},
+            "edge_spmm": 0 if ell else fwd,
+            "edge_spmm_dh": 0 if ell else dh,
+            "edge_dvals": dh if model == "gat" else 0,
             "packs_built_for_a_call": 0}
 
 
@@ -1796,138 +1831,211 @@ def phase_train_ablation(tctx: dict, checks: CpuChecks) -> dict:
     return by_path
 
 
-def coo_old_route(src, dst, w, h, n_rows):
-    """``ops.coo_spmm`` as it was before this slice: the messages by
-    two-index advanced indexing ``h[pidx, src]``, whose backward is
-    PyTorch's sort-based indexing backward.  Kept here only to time it
-    beside the ``index_select`` route."""
-    n_parts, d = h.shape[0], h.shape[-1]
-    pidx = torch.arange(n_parts, device=h.device)[:, None]
-    msgs = h[pidx, src.long()] * w[..., None].to(h.dtype)
-    flat = (pidx * (n_rows + 1) + dst.long()).reshape(-1)
-    out = torch.zeros((n_parts * (n_rows + 1), d), dtype=h.dtype,
-                      device=h.device)
-    out.index_add_(0, flat, msgs.reshape(-1, d))
-    return out.view(n_parts, n_rows + 1, d)[:, :n_rows]
+EDGE_D = 256          # the train cell's hidden width: layers 1-2's aggregation
+EDGE_DVALS_D = 64     # a GAT head's width at the paper's hidden 256, 4 heads
 
 
-def phase_coo_spmm(sp, gen, dev="cuda") -> dict:
+def pack_matrix(pack):
+    """A CSR pack's entries as a coalesced torch CSR tensor (repeated
+    entries summed), for the library yardsticks ``torch.sparse.mm`` and
+    ``torch.sparse.sampled_addmm``."""
+    rows = torch.repeat_interleave(
+        torch.arange(pack.n_rows, device=pack.col.device),
+        (pack.rowptr[1:] - pack.rowptr[:-1]).long())
+    return torch.sparse_coo_tensor(
+        torch.stack([rows, pack.col.long()]), pack.w,
+        (pack.n_rows, pack.n_cols)).coalesce().to_sparse_csr()
+
+
+def dvals_bytes(pack, d: int, n_edges: int) -> float:
+    """Bytes ``edge_dvals`` needs on these inputs: each entry's col and
+    perm once, the g row of each row with entries and each named h row
+    once (f32), each edge's value written once."""
+    g_rows = int((pack.rowptr[1:] > pack.rowptr[:-1]).sum())
+    h_rows = torch.unique(pack.col).numel()
+    return float(pack.nnz * 8 + (g_rows + h_rows) * d * 4 + n_edges * 4)
+
+
+def edge_entry(name: str, source: str, replaces: str, t: dict, err: float,
+               b: float, by: str, prefix: str = "", **extra) -> dict:
+    """A kernels-line entry of the edge list's route from its timings
+    ``t`` (``<prefix>kernel_ms`` / ``plain_ms`` / ``library_ms``)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err,
+            "ms": t[prefix + "kernel_ms"], "plain_ms": t[prefix + "plain_ms"],
+            "bound_ms": b, "bound_by": by,
+            "library_ms": t[prefix + "library_ms"], **extra}
+
+
+def phase_coo_spmm(sp, gen, dev="cuda") -> list[dict]:
     """The ``edges`` backend's aggregation at the train cell's stacked edge
-    list, d = 256 (layers 1 and 2 differentiate it): forward and backward
-    by the ``index_select`` route of ``ops.coo_spmm`` beside the old
-    two-index route, and ``torch.sparse.mm`` of the same matrix (the
-    library call).  The two routes' messages are bit-equal; their sums
-    (``index_add_``, atomics on the card) and gradients agree within the
-    CSR tolerance.  Plain torch on both routes: the JAX package's
-    ``segment_sum`` has no ``pallas_call``."""
-    from repro_torch.kernels import ops
+    list, over the CSR packs ``make_adj_builder`` builds for it, d = 256
+    (layers 1 and 2 differentiate it): the forward (the CSR kernel over
+    ``A``, counted as ``edge_spmm``) and ``d_h`` (over ``A^T``,
+    ``edge_spmm_dh``) against the plain version, ``ops.coo_spmm`` and its
+    autograd backward, each twice bit for bit, timed beside it, beside
+    ``torch.sparse.mm`` of the same matrix and its transpose (the library
+    calls) and the bound; then ``edge_dvals`` at a GAT head's width (d =
+    64) on the same packs, against its plain version
+    (``ref.edge_dvals_ref``) and the autograd of ``coo_spmm`` in its
+    weights (0 at the padding edges), twice bit for bit, beside
+    ``torch.sparse.sampled_addmm`` at the edges' pattern.  Returns the
+    three kernels-line entries."""
+    from repro_torch.kernels import edge_spmm as kedge, ops, ref
     src, dst, w = (torch.as_tensor(a, device=dev)
                    for a in (sp.e_src, sp.e_dst, sp.e_w))
     n_parts, ni = sp.num_parts, sp.n_inner_max
-    n_cols, d = ni + sp.n_halo_max, 256
+    n_cols, d = ni + sp.n_halo_max, EDGE_D
+    t0 = time.perf_counter()
+    packs = ops.edge_packs(src, dst, w, ni, n_cols)
+    pack_s = time.perf_counter() - t0
+    fwd, bwd = packs.fwd, packs.bwd
     h = torch.randn((n_parts, n_cols, d), generator=gen, device=dev,
                     requires_grad=True)
     g = torch.randn((n_parts, ni, d), generator=gen, device=dev)
-    offs = torch.arange(n_parts, device=dev)[:, None]
-    with torch.no_grad():
-        msgs = h.reshape(-1, d).index_select(0, (offs * n_cols
-                                                 + src).reshape(-1))
-        if not torch.equal(msgs, h[offs, src].reshape(-1, d)):
-            raise AssertionError("coo_spmm: the index_select route's "
-                                 "messages differ from the two-index "
-                                 "route's")
-    del msgs
-    new = ops.coo_spmm(src, dst, w, h, ni)
-    old = coo_old_route(src, dst, w, h, ni)
-    fwd_err = check_close("coo_spmm forward (the two-index route)", new,
-                          old, **csr_tol(old))
-    d_new = torch.autograd.grad(new, h, g, retain_graph=True)[0]
-    d_old = torch.autograd.grad(old, h, g, retain_graph=True)[0]
-    err = check_close("coo_spmm backward (the two-index route)", d_new,
-                      d_old, **csr_tol(d_old))
-    live = dst < ni
-    rows, cols = (dst + offs * ni)[live], (src + offs * n_cols)[live]
-    mat = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[live],
-                                  (n_parts * ni, n_parts * n_cols)
-                                  ).coalesce().to_sparse_csr()
-    mat_t = torch.sparse_coo_tensor(torch.stack([cols, rows]), w[live],
-                                    (n_parts * n_cols, n_parts * ni)
-                                    ).coalesce().to_sparse_csr()
     hf, gf = h.detach().view(-1, d), g.view(-1, d)
+    plain = ops.coo_spmm(src, dst, w, h, ni)
+    want_dh = torch.autograd.grad(plain, h, g, retain_graph=True)[0]
+    err, bits = {}, {}
+    for key, fn, want in (
+            ("forward", lambda: kedge.edge_spmm(fwd, hf),
+             plain.detach().reshape(-1, d)),
+            ("d_h", lambda: kedge.edge_spmm_dh(bwd, gf),
+             want_dh.reshape(-1, d))):
+        got, again = fn(), fn()
+        err[key] = check_close(f"edge_spmm {key}", got, want,
+                               **csr_tol(want))
+        bits[key] = torch.equal(got.view(torch.int32),
+                                again.view(torch.int32))
+        if not bits[key]:
+            raise AssertionError(f"edge_spmm {key}: two launches differ")
+    del want_dh, got, again
+    mat, mat_t = pack_matrix(fwd), pack_matrix(bwd)
     t = time_calls({
-        "backward_ms": lambda: torch.autograd.grad(new, h, g,
+        "kernel_ms": lambda: kedge.edge_spmm(fwd, hf),
+        "plain_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(), ni),
+        "library_ms": lambda: torch.sparse.mm(mat, hf),
+        "dh_kernel_ms": lambda: kedge.edge_spmm_dh(bwd, gf),
+        "dh_plain_ms": lambda: torch.autograd.grad(plain, h, g,
                                                    retain_graph=True),
-        "old_route_ms": lambda: torch.autograd.grad(old, h, g,
-                                                    retain_graph=True),
-        "forward_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(), ni),
-        "old_forward_ms": lambda: coo_old_route(src, dst, w, h.detach(), ni),
-        "library_forward_ms": lambda: torch.sparse.mm(mat, hf),
-        "library_backward_ms": lambda: torch.sparse.mm(mat_t, gf),
+        "dh_library_ms": lambda: torch.sparse.mm(mat_t, gf),
     }, reps=3, rounds=2)
-    nnz = int(live.sum())
-    # backward: each live message's gradient row read once (from g), d_h
-    # written once; the forward reads each named h row once instead
-    nbytes = nnz * 4 * 2 + g.numel() * 4 + h.numel() * 4
-    b, by = bound_ms(nbytes, 2.0 * nnz * d)
-    rec = dict(shape=[n_parts, ni, n_cols, d], edges=list(src.shape),
-               live_edges=nnz, max_abs_err=err, forward_max_abs_err=fwd_err,
-               messages_bit_equal=True, bound_ms=b, bound_by=by, **t)
-    emit("coo_spmm", **rec)
-    del new, old, d_new, d_old, h, mat, mat_t
-    return rec
+    del plain, h
+    b_f, by_f = bound_ms(csr_bytes(fwd, d, 4, False), 2.0 * fwd.nnz * d)
+    b_b, by_b = bound_ms(csr_bytes(bwd, d, 4, False), 2.0 * bwd.nnz * d)
+    shape = dict(shape=[n_parts, ni, n_cols, d], edges=list(src.shape),
+                 live_edges=fwd.nnz, max_row=max_row(fwd),
+                 max_row_t=max_row(bwd), segments=[fwd.seg.shape[0],
+                                                   bwd.seg.shape[0]],
+                 packs_build_s=pack_s)
+    emit("coo_spmm", **shape, max_abs_err=err, bit_reproducible=bits,
+         bound_ms=b_f, bound_by=by_f, dh_bound_ms=b_b, dh_bound_by=by_b,
+         **t)
+    over = "one launch at d=256 over the train cell's edge packs"
+    entries = [edge_entry("edge_spmm", CSR_SOURCE, EDGE_REPLACES, t,
+                          err["forward"], b_f, by_f, timed_over=over,
+                          plain="ops.coo_spmm (index_select, index_add_)"),
+               edge_entry("edge_spmm_dh", CSR_SOURCE, EDGE_REPLACES, t,
+                          err["d_h"], b_b, by_b, prefix="dh_",
+                          timed_over=over + " (transposed)",
+                          plain="the autograd backward of ops.coo_spmm")]
+
+    # the per-edge values' cotangent at a GAT head's width
+    d = EDGE_DVALS_D
+    n_edges = src.numel()
+    h = torch.randn((n_parts * n_cols, d), generator=gen, device=dev)
+    g = torch.randn((n_parts * ni, d), generator=gen, device=dev)
+    got, again = (kedge.edge_dvals(fwd, g, h, n_edges) for _ in range(2))
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("edge_dvals: two launches differ")
+    dv_err = check_close("edge_dvals", got, ref.edge_dvals_ref(fwd, g, h,
+                                                               n_edges))
+    ev = w.clone().requires_grad_(True)
+    h3, g3 = h.view(n_parts, n_cols, d), g.view(n_parts, ni, d)
+    by_coo = ops.coo_spmm(src, dst, ev, h3, ni)
+    old = torch.autograd.grad(by_coo, ev, g3, retain_graph=True)[0]
+    coo_err = check_close("edge_dvals (coo_spmm's autograd)",
+                          got.view(n_parts, -1), old)
+    if got.view(n_parts, -1)[dst == ni].any():
+        raise AssertionError("edge_dvals: a padding edge has a value")
+    h_t = h.t()
+    lib = torch.sparse.sampled_addmm(mat, g, h_t, beta=0.0)
+    del lib, old, again
+    t = time_calls({
+        "kernel_ms": lambda: kedge.edge_dvals(fwd, g, h, n_edges),
+        "plain_ms": lambda: ref.edge_dvals_ref(fwd, g, h, n_edges),
+        "old_route_ms": lambda: torch.autograd.grad(by_coo, ev, g3,
+                                                    retain_graph=True),
+        "library_ms": lambda: torch.sparse.sampled_addmm(mat, g, h_t,
+                                                         beta=0.0),
+    }, reps=5, rounds=2)
+    nbytes = dvals_bytes(fwd, d, n_edges)
+    b, by = bound_ms(nbytes, 2.0 * fwd.nnz * d)
+    emit("kernel", name="edge_dvals", shape=[n_parts, ni, n_cols, d],
+         edges=n_edges, live_edges=fwd.nnz, max_abs_err=dv_err,
+         coo_autograd_max_abs_err=coo_err, bit_reproducible=True,
+         bytes=nbytes, bound_ms=b, bound_by=by, **t)
+    entries.append(edge_entry(
+        "edge_dvals", EDGE_DVALS_SOURCE, EDGE_DVALS_REPLACES, t, dv_err, b,
+        by, old_route_ms=t["old_route_ms"],
+        timed_over="one launch at d=64 (a GAT head) over the train cell's "
+                   "forward edge pack",
+        library="torch.sparse.sampled_addmm at the coalesced edge pattern"))
+    del by_coo, ev, mat, mat_t, packs, fwd, bwd
+    return entries
 
 
 def phase_coo_spmm_15d(layout, rank: int, seed: int = 0,
                        dev="cuda") -> None:
-    """``ops.coo_spmm`` at the 1.5D chunk's shapes: rank ``rank``'s edge
+    """The 1.5D chunk's aggregation at its shapes: rank ``rank``'s edge
     chunk over its gathered group buffer ``[g*ni, d]`` into ``[ni, d]``,
-    at d = 500 (layer 0, whose input needs no gradient) and 256 (forward
-    and backward), each against ``torch.sparse.mm`` of the same matrix
-    (and of its transpose for the backward: the library calls), timed
-    beside the least time the card could take (each input read once,
-    each output written once)."""
+    through ``strategy_15d.chunk_adj`` (the runtime's own adjacency: the
+    CSR kernel over the chunk's packs, built once), at d = 500 (layer 0,
+    whose input needs no gradient) and 256 (forward and backward), each
+    against the plain version ``ops.coo_spmm`` (and its autograd
+    backward), timed beside it, ``torch.sparse.mm`` of the same matrix
+    (and of its transpose for the backward: the library calls) and the
+    least time the card could take."""
+    from repro_torch.dist.strategy_15d import chunk_adj
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(seed)
-    m = int(layout.n_edges_dev[rank])
-    src, dst, w = (torch.as_tensor(a[rank, :m], device=dev) for a in (
-        layout.chunk_src, layout.chunk_dst, layout.chunk_w))
+    adj = chunk_adj(layout, rank, dev)
+    src, dst, w = adj.src, adj.dst, adj.weight
+    fwd, bwd = adj.packs.fwd, adj.packs.bwd
     ni, n_cols = layout.ni, layout.g * layout.ni
-    idx = torch.stack([dst.long(), src.long()])
-    mat = torch.sparse_coo_tensor(idx, w, (ni, n_cols)).coalesce() \
-        .to_sparse_csr()
-    mat_t = torch.sparse_coo_tensor(idx.flip(0), w, (n_cols, ni)) \
-        .coalesce().to_sparse_csr()
+    mat, mat_t = pack_matrix(fwd), pack_matrix(bwd)
     rec = {}
     for d in (500, 256):
         h = torch.randn((n_cols, d), generator=gen, device=dev,
                         requires_grad=d == 256)
         g = torch.randn((ni, d), generator=gen, device=dev)
-        y = ops.coo_spmm(src, dst, w, h, ni)
-        want = torch.sparse.mm(mat, h.detach())
-        err = check_close(f"coo_spmm_15d forward d={d}", y, want,
-                          **csr_tol(want))
-        fns = {"forward_ms": lambda: ops.coo_spmm(src, dst, w, h.detach(),
-                                                  ni),
+        y = adj.spmm(h)
+        plain = ops.coo_spmm(src, dst, w, h, ni)
+        err = check_close(f"edge_spmm 1.5D forward d={d}", y,
+                          plain.detach(), **csr_tol(plain.detach()))
+        fns = {"forward_ms": lambda: adj.spmm(h.detach()),
+               "plain_forward_ms": lambda: ops.coo_spmm(src, dst, w,
+                                                        h.detach(), ni),
                "library_forward_ms": lambda: torch.sparse.mm(
                    mat, h.detach())}
-        fwd_bytes = h.numel() * 4 + m * 12 + ni * d * 4
-        b, by = bound_ms(fwd_bytes, 2.0 * m * d)
+        b, by = bound_ms(csr_bytes(fwd, d, 4, False), 2.0 * fwd.nnz * d)
         rec[f"d{d}"] = {"max_abs_err": err, "bound_ms": b, "bound_by": by}
         if d == 256:
             d_h = torch.autograd.grad(y, h, g, retain_graph=True)[0]
-            want = torch.sparse.mm(mat_t, g)
+            want = torch.autograd.grad(plain, h, g, retain_graph=True)[0]
             rec["d256"]["backward_max_abs_err"] = check_close(
-                "coo_spmm_15d backward d=256", d_h, want, **csr_tol(want))
+                "edge_spmm 1.5D backward d=256", d_h, want, **csr_tol(want))
             fns["backward_ms"] = lambda: torch.autograd.grad(
                 y, h, g, retain_graph=True)
+            fns["plain_backward_ms"] = lambda: torch.autograd.grad(
+                plain, h, g, retain_graph=True)
             fns["library_backward_ms"] = lambda: torch.sparse.mm(mat_t, g)
-            bwd_bytes = g.numel() * 4 + m * 12 + h.numel() * 4
-            rec["d256"]["backward_bound_ms"] = bound_ms(bwd_bytes,
-                                                        2.0 * m * d)[0]
+            rec["d256"]["backward_bound_ms"] = bound_ms(
+                csr_bytes(bwd, d, 4, False), 2.0 * bwd.nnz * d)[0]
         rec[f"d{d}"].update(time_calls(fns, reps=5, rounds=2))
-        del h, g, y
+        del h, g, y, plain
     emit("coo_spmm_15d", case=f"c{layout.c}pr{layout.pr}", rank=rank,
-         edges=m, ni=ni, n_cols=n_cols, **rec)
+         edges=fwd.nnz, ni=ni, n_cols=n_cols, max_row=max_row(fwd), **rec)
 
 
 def rank_jobs(rank, world_size, device, jobs):
@@ -3628,7 +3736,7 @@ def spmm15d_jobs(ctxs: dict, shapes, models=SPMM15D_MODELS) -> list[dict]:
 def spmm15d_rank(rank, world_size, device, jobs):
     """One rank of the 1.5D phases: the CLI's rank program
     (``launch.train.train_15d_rank``) over ``jobs``, its launches counted
-    from zero (the 1.5D path launches none of the port's kernels)."""
+    from zero (the chunk's aggregation: the edge list's CSR kernel)."""
     from repro_torch.launch.train import train_15d_rank
     zero_counts()
     res = train_15d_rank(rank, world_size, device, jobs)
@@ -3666,7 +3774,7 @@ def spmm15d_sim(job: dict, ps, device="cuda") -> list[float]:
 
 
 def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
-                  models=SPMM15D_MODELS) -> None:
+                  models=SPMM15D_MODELS) -> dict:
     """The 1.5D strategy (``--strategy spmm_15d``) at the train cell's
     width through the CLI's rank program, ``c * pr`` ranks over
     ``backend`` (``devices``: ``"cuda"`` for a card per rank, or ranks
@@ -3679,8 +3787,12 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
     twice: its own spread is printed); every rank's counted forward bytes, every step,
     equal to ``forward_collective_bytes_per_device``, and their sum over
     the ranks to ``step_bytes_total``; the report's bytes; finite losses;
-    no launch of the port's kernels.  Prints per case the steady step ms
-    and host-staging ms of every rank and its peak device memory."""
+    every rank's launches: the chunk's CSR kernel once a layer a forward
+    (each step and the closing test evaluation) and its ``d_h`` once a
+    layer from layer 1 a step (layer 0's gathered block is constant), no
+    other kernel of the port.  Prints per case the steady step ms and
+    host-staging ms of every rank and its peak device memory.  Returns
+    the launches summed over the ranks."""
     from repro_torch.dist.strategy_15d import (
         forward_collective_bytes_per_device, step_bytes_total)
     from repro_torch.launch.mesh import spawn
@@ -3691,6 +3803,7 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
         # the chunk aggregation of the first shape's rank 0, timed alone
         phase_coo_spmm_15d(ctxs[shapes[0]]["layout"], 0)
     by_size: dict = {}
+    summed: dict = {}
     for c, pr in shapes:
         by_size.setdefault(c * pr, []).append((c, pr))
     for size, group in sorted(by_size.items()):
@@ -3701,10 +3814,17 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
         ranks = spawn(spmm15d_rank, size, backend=backend, devices=devs,
                       args=(jobs,))
         spawn_wall_s = time.perf_counter() - t0
+        want = {**{k: 0 for k in ranks[0]["launches"]},
+                "edge_spmm": sum(j["cfg"].num_layers * (SPMM15D_EPOCHS + 1)
+                                 for j in jobs),
+                "edge_spmm_dh": sum((j["cfg"].num_layers - 1)
+                                    * SPMM15D_EPOCHS for j in jobs)}
         for r in ranks:
-            if any(r["launches"].values()):
+            if r["launches"] != want:
                 raise AssertionError(f"{name}: rank launches "
-                                     f"{r['launches']}")
+                                     f"{r['launches']}, want {want}")
+            for k, v in r["launches"].items():
+                summed[k] = summed.get(k, 0) + v
         for ji, job in enumerate(jobs):
             per = [r["jobs"][ji] for r in ranks]
             layout, cfg, spec = job["layout"], job["cfg"], job["spec"]
@@ -3762,6 +3882,7 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
                  host_plan_s=plan_s)
         del ranks, jobs
         torch.cuda.empty_cache()
+    return summed
 
 
 # ---------------------------------------------------------------------------
@@ -5405,7 +5526,7 @@ def main(argv=None) -> None:
     edges_argv = with_backend(TRAIN_ARGV, "edges")
     by_path["train_edges"], ectx, _ = phase_train(
         "train_edges", edges_argv, checks, shared_context(tctx, edges_argv))
-    phase_coo_spmm(ectx["sp"], gen)
+    edge_entries = phase_coo_spmm(ectx["sp"], gen)
     gat_argv = with_backend(TRAIN_ARGV, "edges", model="gat")
     gat_argv[gat_argv.index("--lr") + 1] = GAT_LR
     by_path["train_gat"], _, _ = phase_train(
@@ -5438,7 +5559,8 @@ def main(argv=None) -> None:
     del res
     torch.cuda.empty_cache()
     # the 1.5D strategy: its ranks share card 0 over gloo
-    phase_spmm15d("spmm15d", tctx, SPMM15D_SHAPES, "gloo", ["cuda:0"])
+    by_path["spmm15d"] = phase_spmm15d("spmm15d", tctx, SPMM15D_SHAPES,
+                                       "gloo", ["cuda:0"])
     torch.cuda.empty_cache()
     # JACA's CPU tier and online adaptation on the train cell's host plan
     fctx = forced_context(tctx)
@@ -5493,8 +5615,9 @@ def main(argv=None) -> None:
         by_path.update(phase_spmd_models(
             "spmd_models_nccl", models_context(tiers), "nccl", "cuda"))
         spmd_host_nccl(tctx, lr)
-        phase_spmm15d("spmm15d_nccl", tctx, SPMM15D_NCCL_SHAPES, "nccl",
-                      "cuda", models=("gcn",))
+        by_path["spmm15d_nccl"] = phase_spmm15d(
+            "spmm15d_nccl", tctx, SPMM15D_NCCL_SHAPES, "nccl", "cuda",
+            models=("gcn",))
         phase_lm_spmd_all(("lm_spmd_nccl", "lm_spmd_moe_nccl"),
                           list(LM_TRAIN_LOSSES), dryrun, "nccl", "cuda")
     else:
@@ -5525,7 +5648,8 @@ def main(argv=None) -> None:
     entries = [weighted_entry("ell_spmm", ELL_SOURCE, ELL_REPLACES,
                               ell_cases), gather, gather_bwd, dh,
                weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,
-                              tails)] + phase_backward(tctx["sp"], gen)
+                              tails)] + phase_backward(tctx["sp"], gen) \
+        + edge_entries
     # launches: every path's, each counted from zero over its own run
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()

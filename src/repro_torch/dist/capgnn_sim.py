@@ -74,8 +74,8 @@ import torch
 from ..core.staleness import StalenessController
 from ..faults.guard import GuardConfig, TrainGuard
 from ..faults.plan import NULL_FAULTS
-from ..kernels.ops import (ell_row_end, gather_pack, pack_rows, tail_csr,
-                           transpose_csr)
+from ..kernels.ops import (edge_packs, ell_row_end, gather_pack, pack_rows,
+                           tail_csr, transpose_csr)
 from ..models.gnn import (EdgeListAdj, EllAdj, GNNConfig, HybridAdj,
                           _layer_apply, init_gnn)
 from ..obs.annotations import device_scope, host_annotation
@@ -253,7 +253,9 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cuda",
 
     The packs are built here once, never per step: ``row_end``, the
     hybrid tail's CSR (``tail_pack``) and, when ``grad`` asks for the
-    backward, the transposed CSR of the whole adjacency (``dh_pack``).
+    backward, the transposed CSR of the whole adjacency (``dh_pack``);
+    for ``edges``, the edge list's CSR and, with ``grad``, its transpose
+    (``edge_packs``).
     Every backend aggregates over the identical edge set (the packs are
     built from the same remapped edge lists at stack time), so the backend
     changes the kernel only, not the logits.
@@ -268,9 +270,12 @@ def make_adj_builder(sp: StackedParts, backend: str, device="cuda",
         leaves = {"src": put(sp.e_src, torch.int64),
                   "dst": put(sp.e_dst, torch.int64),
                   "w": put(sp.e_w, torch.float32)}
+        leaves["packs"] = edge_packs(leaves["src"], leaves["dst"],
+                                     leaves["w"], ni, ni + nh, grad=grad)
 
         def build(lv):
-            return EdgeListAdj(lv["src"], lv["dst"], lv["w"], ni, ni + nh)
+            return EdgeListAdj(lv["src"], lv["dst"], lv["w"], ni, ni + nh,
+                               lv["packs"])
         return leaves, build
 
     ell = sp.ell

@@ -32,8 +32,10 @@ Per layer, each rank (:class:`Spmm15dRuntime`):
 3. all-gathers over ``"sub"`` (:class:`~.collectives.AllGatherFn`): now it
    holds all ``g`` blocks of group ``j``, exactly the rows its edge chunk
    reads (skipped when ``g == 1``), and casts back;
-4. aggregates its chunk (``ops.coo_spmm``, plain torch as the reference's
-   ``segment_sum``; padding rows dropped);
+4. aggregates its chunk (:func:`chunk_adj`: an ``EdgeListAdj`` whose CSR
+   packs, and their transpose for the backward, are built once with the
+   runtime; the CSR kernel on the card, ``ops.coo_spmm`` on the CPU, for
+   the reference's ``segment_sum``; padding rows dropped);
 5. all-reduces over ``"repl"`` (:class:`~.collectives.AllReduceFn`), which
    sums the ``c`` partial aggregations into the exact neighbourhood sum of
    block row ``i`` (skipped when ``c == 1``), after which the (replicated)
@@ -80,7 +82,7 @@ from ..obs.annotations import device_scope
 from .strategy import StrategyCapabilityError, StrategyCaps
 
 __all__ = ["Spmm15dLayout", "Spmm15dRuntime", "Spmm15DStrategy",
-           "build_spmm15d_layout", "make_spmm15d_mesh",
+           "build_spmm15d_layout", "make_spmm15d_mesh", "chunk_adj",
            "make_spmm15d_runtime", "train_spmm15d",
            "forward_collective_bytes_per_device", "step_bytes_total",
            "vanilla_bytes_total", "counted_forward_bytes", "check_model",
@@ -300,6 +302,26 @@ def _merge_takes(wires) -> dict:
     return {"counts": counts, "host_stage_s": stage}
 
 
+def chunk_adj(layout: Spmm15dLayout, rank: int, device="cuda",
+              grad: bool = True):
+    """Rank ``rank``'s edge chunk as an :class:`~repro_torch.models.gnn.
+    EdgeListAdj` ``[ni, g * ni]`` over its gathered group buffer, on
+    ``device``, with the chunk's CSR packs (and, with ``grad``, their
+    transpose) built here once: the aggregation of every step."""
+    from ..kernels import ops
+    from ..models.gnn import EdgeListAdj
+    m = int(layout.n_edges_dev[rank])       # the chunk's real edges
+    src, dst, w = (torch.as_tensor(np.ascontiguousarray(a[rank, :m]),
+                                   dtype=dt, device=device)
+                   for a, dt in ((layout.chunk_src, torch.int64),
+                                 (layout.chunk_dst, torch.int64),
+                                 (layout.chunk_w, torch.float32)))
+    n_cols = layout.g * layout.ni
+    return EdgeListAdj(src, dst, w, layout.ni, n_cols,
+                       ops.edge_packs(src, dst, w, layout.ni, n_cols,
+                                      grad=grad))
+
+
 def make_spmm15d_runtime(cfg, layout: Spmm15dLayout, opt, spec, mesh=None,
                          device="cuda") -> Spmm15dRuntime:
     """Build this rank's 1.5D runtime over ``mesh`` (a :class:`~repro_torch.
@@ -310,7 +332,6 @@ def make_spmm15d_runtime(cfg, layout: Spmm15dLayout, opt, spec, mesh=None,
     chunk and (``exchange_layer0=False``) its group's layer-0 block."""
     import torch.distributed as dist
 
-    from ..kernels import ops
     from ..optim import tree_leaves, tree_map
     from .collectives import AllGatherFn, AllReduceFn, PermuteFn, Wire
     from .host_store import halo_dtype_info
@@ -353,10 +374,7 @@ def make_spmm15d_runtime(cfg, layout: Spmm15dLayout, opt, spec, mesh=None,
     masks = {k: put(m[i]) for k, m in (("train", sp.train_mask),
                                        ("val", sp.val_mask),
                                        ("test", sp.test_mask))}
-    m = int(layout.n_edges_dev[rank])       # the chunk's real edges
-    src = put(layout.chunk_src[rank, :m])
-    dst = put(layout.chunk_dst[rank, :m])
-    w = put(layout.chunk_w[rank, :m])
+    adj = chunk_adj(layout, rank, device)
     hg0 = None
     if not spec.exchange_layer0:
         # pre-replicated inputs: this rank ships with its group's
@@ -383,7 +401,7 @@ def make_spmm15d_runtime(cfg, layout: Spmm15dLayout, opt, spec, mesh=None,
                 hg = hg0 if li == 0 and hg0 is not None else \
                     gather_group(h, li)
             with device_scope(f"layer{li}/spmm"):
-                agg = ops.coo_spmm(src, dst, w, hg, ni)
+                agg = adj.spmm(hg)
                 if c > 1:
                     agg = AllReduceFn.apply(agg, repl, (li, "all_reduce"))
                 if cfg.model == "gcn":

@@ -53,7 +53,9 @@ class CsrPack:
     segments of at most ``long_row`` entries (``seg``), one block each; the
     others are short rows, one warp each, listed longest first.  With
     ``every_row`` the list holds every row, empty ones included (write
-    mode); otherwise only rows with entries.
+    mode); otherwise only rows with entries.  ``perm``, where the builder
+    was given ids, is each entry's id (an edge list's edge index), so that
+    values given at call time are put in the pack's order with one gather.
     """
     rowptr: torch.Tensor        # int32 [n_rows + 1]
     col: torch.Tensor           # int32 [nnz], in [0, n_cols)
@@ -66,14 +68,17 @@ class CsrPack:
     n_cols: int
     long_row: int
     every_row: bool
+    perm: torch.Tensor | None = None   # int32 [nnz], each entry's id
 
     @property
     def nnz(self) -> int:
         return int(self.col.shape[0])
 
     def to(self, device) -> "CsrPack":
+        fields = _INT_FIELDS + ("w",) + (() if self.perm is None
+                                         else ("perm",))
         return dataclasses.replace(self, **{
-            f: getattr(self, f).to(device) for f in _INT_FIELDS + ("w",)})
+            f: getattr(self, f).to(device) for f in fields})
 
 
 def _run(kernel: str, pack: CsrPack, x: torch.Tensor, out: torch.Tensor,

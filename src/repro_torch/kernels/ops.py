@@ -15,9 +15,16 @@ COO tail), and the hybrid tail's forward is the same kernel over the
 tail's own CSR (:func:`tail_csr`), added into the ELL kernel's output.
 Both packs are built once where the stacked layout goes to the device
 (``dist.capgnn_sim.make_adj_builder``); a caller that passes none gets
-them built for its call (:func:`pack_for_call`).  The ``edges`` backend's
-:func:`coo_spmm` stays plain torch, as the JAX package's ``segment_sum``
-backend.
+them built for its call (:func:`pack_for_call`).
+
+The ``edges`` backend's aggregation (the JAX package's ``segment_sum``
+backend) is :func:`coo_spmm` on CPU tensors and, on CUDA tensors,
+:class:`EdgeSpmmFn` over the edge list's CSR packs (:func:`edge_packs`,
+built on the device once where the edge list goes there, and per call
+for the serving engine's subgraphs): the CSR kernel in write mode over
+``A`` forward and over ``A^T`` for ``d_h``, and
+``csrc/edge_dvals.cu`` for the per-edge values' cotangent (GAT).  An edge
+list on the card without its packs raises.
 
 The row gather (:func:`gather_rows`, and :func:`pack_rows` over any index
 shape) is differentiable in ``src`` through :class:`GatherRowsFn` whenever
@@ -40,21 +47,25 @@ either package carries such an id.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..obs.annotations import current_scope, transpose_scope
 from . import cache_gather as _gather_mod
+from . import edge_spmm as _edge
 from . import ell_spmm as _ell
 from . import ref as _ref
 from .csr_spmm import ID_LIMIT, CsrPack, csr_spmm, csr_spmm_accumulate
 
 __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
-           "csr_pack", "transpose_csr", "tail_csr", "pack_for_call",
-           "gather_pack", "segment_ids", "segment_sum", "coo_spmm",
-           "EllSpmmFn", "HybridSpmmFn", "GatherRowsFn", "ell_spmm",
-           "hybrid_spmm", "gather_rows", "pack_rows", "cache_combine",
-           "ell_stats"]
+           "csr_pack", "csr_pack_torch", "transpose_csr", "tail_csr",
+           "pack_for_call", "gather_pack", "EdgePacks", "edge_packs",
+           "segment_ids", "segment_sum", "coo_spmm",
+           "EllSpmmFn", "HybridSpmmFn", "EdgeSpmmFn", "GatherRowsFn",
+           "ell_spmm", "hybrid_spmm", "edge_spmm", "gather_rows",
+           "pack_rows", "cache_combine", "ell_stats"]
 
 # A CSR row with more entries than this is long: the kernel cuts it into
 # segments of at most this many entries, one block each (PERF.md: the
@@ -135,24 +146,32 @@ def _np(a) -> np.ndarray:
         else np.asarray(a)
 
 
+def _check_csr(name: str, n_rows: int, n_cols: int, nnz: int,
+               long_row: int) -> None:
+    if max(n_rows + 1, n_cols, nnz) > ID_LIMIT:
+        raise ValueError(f"{name}: ids are int32: {n_rows} rows, {n_cols} "
+                         f"columns and {nnz} entries must stay under "
+                         f"{ID_LIMIT}")
+    if long_row < 1:
+        raise ValueError(f"{name}: long_row must be >= 1, got {long_row}")
+
+
 def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
              n_rows: int, n_cols: int, every_row: bool,
-             long_row: int = LONG_ROW, device="cpu") -> CsrPack:
+             long_row: int = LONG_ROW, device="cpu",
+             ids: np.ndarray | None = None) -> CsrPack:
     """The entries ``(rows[e], cols[e], w[e])`` of an ``[n_rows, n_cols]``
     matrix as a :class:`~.csr_spmm.CsrPack` on ``device``: sorted by row,
     then column; rows of more than ``long_row`` entries cut into equal
     segments of at most ``long_row``; the other rows listed longest first,
-    empty ones too when ``every_row``.  Ids are int32: raises past
-    :data:`~.csr_spmm.ID_LIMIT`."""
+    empty ones too when ``every_row``; with ``ids``, each entry's id in the
+    pack's order as ``perm``.  Ids are int32: raises past
+    :data:`~.csr_spmm.ID_LIMIT`.  :func:`csr_pack_torch` builds the same
+    fields with torch ops."""
     rows = np.asarray(rows, np.int64).ravel()
     cols = np.asarray(cols, np.int64).ravel()
     w = np.asarray(w, np.float32).ravel()
-    if max(n_rows + 1, n_cols, rows.size) > ID_LIMIT:
-        raise ValueError(f"csr_pack: ids are int32: {n_rows} rows, {n_cols} "
-                         f"columns and {rows.size} entries must stay under "
-                         f"{ID_LIMIT}")
-    if long_row < 1:
-        raise ValueError(f"csr_pack: long_row must be >= 1, got {long_row}")
+    _check_csr("csr_pack", n_rows, n_cols, rows.size, long_row)
     if rows.size and (rows.min() < 0 or rows.max() >= n_rows
                       or cols.min() < 0 or cols.max() >= n_cols):
         raise ValueError(f"csr_pack: entries outside [{n_rows}, {n_cols}]")
@@ -178,12 +197,59 @@ def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
     def put(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), device=device
                                ).to(dtype)
+    perm = None if ids is None else put(np.asarray(ids).ravel()[order])
     return CsrPack(rowptr=put(rowptr), col=put(cols),
                    w=put(w, torch.float32), short_rows=put(short),
                    seg=put(seg.reshape(-1, 2)), long_rows=put(long_rows),
                    long_seg_ptr=put(long_seg_ptr), n_rows=int(n_rows),
                    n_cols=int(n_cols), long_row=int(long_row),
-                   every_row=bool(every_row))
+                   every_row=bool(every_row), perm=perm)
+
+
+def csr_pack_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+                   n_rows: int, n_cols: int, every_row: bool,
+                   long_row: int = LONG_ROW,
+                   ids: torch.Tensor | None = None) -> CsrPack:
+    """:func:`csr_pack` with torch ops, on the device of ``rows``: the same
+    fields, bit for bit (a stable sort by ``row * n_cols + col`` is
+    ``np.lexsort``'s order).  For entries already on the device (the edge
+    lists, :func:`edge_packs`): nothing goes through the host but the
+    checks' one read and the sizes of the row classes."""
+    dev = rows.device
+    rows, cols = rows.reshape(-1).long(), cols.reshape(-1).long()
+    _check_csr("csr_pack_torch", n_rows, n_cols, rows.numel(), long_row)
+    if rows.numel() and bool((rows.min() < 0) | (rows.max() >= n_rows)
+                             | (cols.min() < 0) | (cols.max() >= n_cols)):
+        raise ValueError(f"csr_pack_torch: entries outside "
+                         f"[{n_rows}, {n_cols}]")
+    order = torch.sort(rows * n_cols + cols, stable=True).indices
+    counts = torch.bincount(rows, minlength=n_rows)
+    rowptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=rowptr[1:])
+    is_long = counts > long_row
+    long_rows = torch.nonzero(is_long).squeeze(1)
+    n_seg = -(-counts[long_rows] // long_row)
+    long_seg_ptr = torch.zeros(long_rows.numel() + 1, dtype=torch.int64,
+                               device=dev)
+    torch.cumsum(n_seg, 0, out=long_seg_ptr[1:])
+    seg_row = torch.repeat_interleave(long_rows, n_seg)
+    j = torch.arange(seg_row.numel(), device=dev) - torch.repeat_interleave(
+        long_seg_ptr[:-1], n_seg)
+    s = torch.repeat_interleave(n_seg, n_seg)
+    n, start = counts[seg_row], rowptr[seg_row]
+    seg = torch.stack([start + j * n // s, start + (j + 1) * n // s], dim=1)
+    short = torch.nonzero(~is_long & ((counts > 0) | every_row)).squeeze(1)
+    short = short[torch.sort(-counts[short], stable=True).indices]
+
+    def i32(a):
+        return a.to(torch.int32).contiguous()
+    return CsrPack(rowptr=i32(rowptr), col=i32(cols[order]),
+                   w=w.reshape(-1).float()[order].contiguous(),
+                   short_rows=i32(short), seg=i32(seg.reshape(-1, 2)),
+                   long_rows=i32(long_rows), long_seg_ptr=i32(long_seg_ptr),
+                   n_rows=int(n_rows), n_cols=int(n_cols),
+                   long_row=int(long_row), every_row=bool(every_row),
+                   perm=None if ids is None else i32(ids.reshape(-1)[order]))
 
 
 def _stacked_tail(tail_src, tail_dst, tail_w, n_parts: int):
@@ -258,6 +324,50 @@ def pack_for_call(build, *args, **kwargs) -> CsrPack:
 
 
 pack_for_call.builds = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgePacks:
+    """An edge list's CSR packs over its flattened partitions: ``fwd`` is
+    ``A [P * n_rows, P * n_cols]`` with the entry ``(p * n_rows + dst, p *
+    n_cols + src, w)`` for each live edge (padding edges, ``dst ==
+    n_rows``, dropped), every row listed; ``bwd`` its transpose, for
+    ``d_h`` (None where no gradient is taken).  Each keeps ``perm``, the
+    flat edge index ``p * n_edges + e`` of each entry, so that per-edge
+    values given at call time (GAT's attention) are put in pack order with
+    one gather rather than baked into a pack that would go stale."""
+    fwd: CsrPack
+    bwd: CsrPack | None
+    n_parts: int
+    n_rows: int
+    n_cols: int
+    n_edges: int      # edges a partition, padding included
+
+
+def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+               n_rows: int, n_cols: int, grad: bool = True,
+               long_row: int = LONG_ROW) -> EdgePacks:
+    """:class:`EdgePacks` of an edge list ``[(P,) m]`` (``src`` in ``[0,
+    n_cols)``, ``dst`` in ``[0, n_rows]``, ``n_rows`` marking padding),
+    built with torch ops (:func:`csr_pack_torch`) on the edge list's
+    device, once where the edge list goes there (or, for the serving
+    engine's subgraphs, once per call); ``grad`` adds ``A^T``."""
+    if src.dim() == 1:
+        src, dst, w = src[None], dst[None], w[None]
+    n_parts, m = src.shape
+    if n_parts * max(m, 1) > ID_LIMIT:
+        raise ValueError(f"edge_packs: edge ids are int32: {n_parts} x {m} "
+                         f"edges must stay under {ID_LIMIT}")
+    p, e = torch.nonzero(dst < n_rows, as_tuple=True)
+    rows = p * n_rows + dst[p, e].long()
+    cols = p * n_cols + src[p, e].long()
+    ids, ws = p * m + e, w[p, e]
+    shape = (n_parts * n_rows, n_parts * n_cols)
+    fwd = csr_pack_torch(rows, cols, ws, *shape, every_row=True,
+                         long_row=long_row, ids=ids)
+    bwd = (csr_pack_torch(cols, rows, ws, *shape[::-1], every_row=True,
+                          long_row=long_row, ids=ids) if grad else None)
+    return EdgePacks(fwd, bwd, n_parts, int(n_rows), int(n_cols), m)
 
 
 def segment_ids(dst: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -482,6 +592,102 @@ class HybridSpmmFn(torch.autograd.Function):
                 d_h = d_h.view(h_shape).to(h_dtype)
         return None, d_vals, None, None, d_tw, d_h, None, None, None
 
+
+def _valued(pack: CsrPack, e_vals: torch.Tensor) -> CsrPack:
+    """``pack`` with the per-edge values ``e_vals`` in its order (one
+    gather through ``perm``)."""
+    return dataclasses.replace(pack, w=e_vals.reshape(-1).float()
+                               .index_select(0, pack.perm))
+
+
+def _edge_product(kernel, pack: CsrPack, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` over an edge pack: ``kernel`` (a write-mode wrapper of
+    :mod:`.edge_spmm`) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return _ref.csr_spmm_ref(pack, x)
+    return kernel(pack, x)
+
+
+class EdgeSpmmFn(torch.autograd.Function):
+    """The edge-list aggregation over :class:`EdgePacks`,
+    ``EdgeSpmmFn.apply(e_vals, h, packs)``: ``out[..., dst[e], :] +=
+    v[e] * h[..., src[e], :]`` for ``h [(P,) n_cols, d]``, with ``v`` the
+    forward pack's own weights when ``e_vals`` is None (``spmm``) or the
+    per-edge values ``e_vals [(P,) n_edges]`` (``spmm_at``), which are
+    differentiable.
+
+    Forward: the CSR kernel in write mode over ``packs.fwd``
+    (:func:`~.edge_spmm.edge_spmm`); backward: ``d_h`` by the same kernel
+    over ``packs.bwd`` (:func:`~.edge_spmm.edge_spmm_dh`) and ``d_e_vals``
+    by :func:`~.edge_spmm.edge_dvals`, each only where asked for, with f32
+    sums, cast to the input's dtype (0 at padding edges).  On CPU tensors
+    the plain versions of :mod:`.ref` over the same packs.  Raises
+    ``ValueError`` when ``h`` does not fit the packs or a gradient of ``h``
+    is asked for and ``packs.bwd`` is None."""
+
+    @staticmethod
+    def forward(ctx, e_vals, h, packs):
+        d = h.shape[-1]
+        stack = tuple(h.shape[:-2]) or (1,)
+        if stack != (packs.n_parts,) or h.shape[-2] != packs.n_cols or (
+                e_vals is not None and e_vals.numel()
+                != packs.n_parts * packs.n_edges):
+            raise ValueError(
+                f"edge packs of {packs.n_parts} x [{packs.n_rows}, "
+                f"{packs.n_cols}] over {packs.n_edges} edges do not fit h "
+                f"{tuple(h.shape)} and e_vals "
+                f"{None if e_vals is None else tuple(e_vals.shape)}")
+        if ctx.needs_input_grad[1] and packs.bwd is None:
+            raise ValueError("d_h needs the transposed pack: build the "
+                             "edge packs with grad=True")
+        fwd = packs.fwd if e_vals is None else _valued(packs.fwd, e_vals)
+        out = _edge_product(_edge.edge_spmm, fwd, h.reshape(-1, d))
+        ctx.save_for_backward(e_vals, h if ctx.needs_input_grad[0] else None)
+        ctx.packs = packs
+        ctx.h_meta = (h.shape, h.dtype)
+        ctx.scope = current_scope("edge_spmm")
+        return out.view(*h.shape[:-2], packs.n_rows, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        e_vals, h = ctx.saved_tensors
+        packs = ctx.packs
+        h_shape, h_dtype = ctx.h_meta
+        d = g.shape[-1]
+        d_e = d_h = None
+        with transpose_scope(ctx.scope):
+            g32 = g.float().contiguous().view(-1, d)
+            if ctx.needs_input_grad[0]:
+                h32 = h.float().contiguous().view(-1, d)
+                if g32.device.type == "cpu":
+                    d_e = _ref.edge_dvals_ref(packs.fwd, g32, h32,
+                                              e_vals.numel())
+                else:
+                    d_e = _edge.edge_dvals(packs.fwd, g32, h32,
+                                           e_vals.numel())
+                d_e = d_e.view(e_vals.shape).to(e_vals.dtype)
+            if ctx.needs_input_grad[1]:
+                bwd = packs.bwd if e_vals is None else _valued(packs.bwd,
+                                                               e_vals)
+                d_h = _edge_product(_edge.edge_spmm_dh, bwd, g32)
+                d_h = d_h.view(h_shape).to(h_dtype)
+        return d_e, d_h, None
+
+
+def edge_spmm(h: torch.Tensor, packs: EdgePacks | None,
+              e_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """The edge-list aggregation ``[(P,) n_rows, d]`` of ``h [(P,) n_cols,
+    d]`` over ``packs`` (:func:`edge_packs`): :class:`EdgeSpmmFn`, the
+    hand-written kernels on the card.  ``e_vals`` (``[(P,) n_edges]``)
+    replaces the packs' weights.  Raises ``ValueError`` without packs: the
+    card has no edge-list route but the packs' (``coo_spmm`` is the plain
+    version, for CPU tensors)."""
+    if packs is None:
+        raise ValueError(f"the edge-list aggregation on {h.device} needs its "
+                         "CSR packs (ops.edge_packs, built once with the "
+                         "edge list); this edge list has none")
+    return EdgeSpmmFn.apply(e_vals, h, packs)
 
 
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, h: torch.Tensor,

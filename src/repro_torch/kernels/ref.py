@@ -19,8 +19,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
-           "csr_spmm_ref", "gather_rows_ref", "cache_combine_ref",
-           "masked_mean_ref"]
+           "csr_spmm_ref", "edge_dvals_ref", "gather_rows_ref",
+           "cache_combine_ref", "masked_mean_ref"]
 
 _CSR_CHUNK = 1 << 16   # entries per index_add_ in csr_spmm_ref
 
@@ -156,6 +156,25 @@ def csr_spmm_ref(pack, x: torch.Tensor,
     if out is not None:
         acc = out.float() + acc
     return acc.to(x.dtype)
+
+
+def edge_dvals_ref(pack, g: torch.Tensor, h: torch.Tensor,
+                   n_edges: int) -> torch.Tensor:
+    """``d_vals [n_edges]`` f32 for an edge list's forward pack: ``<g[r],
+    h[c]>`` at ``pack.perm[k]`` for each entry ``k = (r, c)``, 0 at the
+    edges the pack does not hold (padding); what ``csrc/edge_dvals.cu``
+    computes.  Over chunks of entries, so ``[nnz, d]`` is never built
+    whole."""
+    rows = torch.repeat_interleave(
+        torch.arange(pack.n_rows, device=g.device),
+        (pack.rowptr[1:] - pack.rowptr[:-1]).long())
+    col, perm = pack.col.long(), pack.perm.long()
+    g32, h32 = g.float(), h.float()
+    out = torch.zeros(n_edges, dtype=torch.float32, device=g.device)
+    for lo in range(0, pack.nnz, _CSR_CHUNK):
+        hi = lo + _CSR_CHUNK
+        out[perm[lo:hi]] = (g32[rows[lo:hi]] * h32[col[lo:hi]]).sum(-1)
+    return out
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

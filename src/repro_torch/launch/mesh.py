@@ -202,19 +202,21 @@ def mesh_sizes(mesh) -> dict:
 
 
 def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str],
-                     device_type: str | None = None):
+                     device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` over the default group, ranks laid out
-    row-major (every rank calls it).  ``device_type`` defaults to
-    ``"cuda"`` where CUDA is available, else ``"cpu"``."""
+    row-major (every rank calls it), on the card unless the caller asks
+    for ``device_type="cpu"``: a ``"cuda"`` mesh without CUDA raises."""
     from torch.distributed.device_mesh import init_device_mesh
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_device_mesh: device_type 'cuda' but CUDA is "
+                           "not available; pass device_type='cpu' for a "
+                           "CPU mesh")
     return init_device_mesh(device_type, tuple(int(n) for n in shape),
                             mesh_dim_names=tuple(axis_names))
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str | None = None):
+                         device_type: str = "cuda"):
     """The reference's production mesh over the process group that is up:
     ``(16, 16)`` as ``("data", "model")``, or ``(2, 16, 16)`` as ``("pod",
     "data", "model")`` with ``multi_pod`` (the ``pod`` axis extends data

@@ -105,13 +105,21 @@ class DenseAdj(Adjacency):
 
 @dataclasses.dataclass(frozen=True)
 class EdgeListAdj(Adjacency):
-    """COO edge list + ``index_add_`` aggregation (the reference backend).
-    Padding edges carry ``dst == n_rows`` and weight 0."""
+    """COO edge list aggregation (the reference backend).  Padding edges
+    carry ``dst == n_rows`` and weight 0.
+
+    On CPU tensors the plain version, :func:`~repro_torch.kernels.ops.
+    coo_spmm` (``index_add_``); on the card the hand-written CSR kernels
+    over ``packs`` (:func:`~repro_torch.kernels.ops.edge_packs` of the same
+    edges, built once with them; :func:`~repro_torch.kernels.ops.
+    edge_spmm`), which an edge list on the card must carry: without them
+    it raises."""
     src: torch.Tensor      # [(P,) m] local col ids
     dst: torch.Tensor      # [(P,) m] inner row ids
     weight: torch.Tensor   # [(P,) m]
     n_rows_: int
     n_cols_: int
+    packs: ops.EdgePacks | None = None
 
     @property
     def n_rows(self):
@@ -122,12 +130,18 @@ class EdgeListAdj(Adjacency):
         return self.n_cols_
 
     def spmm(self, h):
-        return ops.coo_spmm(self.src, self.dst, self.weight, h, self.n_rows_)
+        if h.device.type == "cpu":
+            return ops.coo_spmm(self.src, self.dst, self.weight, h,
+                                self.n_rows_)
+        return ops.edge_spmm(h, self.packs)
 
     def spmm_at(self, e_vals, h):
-        """:func:`~repro_torch.kernels.ops.coo_spmm` with ``e_vals [(P,)
-        m]`` as the edge weights; differentiable in them."""
-        return ops.coo_spmm(self.src, self.dst, e_vals, h, self.n_rows_)
+        """The aggregation with ``e_vals [(P,) m]`` as the edge weights;
+        differentiable in them (on the card, ``d_e_vals`` is the
+        ``edge_dvals`` kernel)."""
+        if h.device.type == "cpu":
+            return ops.coo_spmm(self.src, self.dst, e_vals, h, self.n_rows_)
+        return ops.edge_spmm(h, self.packs, e_vals)
 
     def degree(self):
         """The weights summed per ``dst`` (weighted in-degree, the
@@ -215,8 +229,9 @@ def make_local_adj(local_graph, n_inner: int, backend: str = "edges",
     """An :class:`Adjacency` on ``device`` (the card unless the caller asks
     for the CPU) for a partition-local graph (rows = its first
     ``n_inner`` vertices).  The ``ell`` and ``hybrid`` packs come with
-    ``row_end``, the tail's CSR and the transposed CSR for ``d_h``, built
-    here once, as ``dist.capgnn_sim.make_adj_builder`` builds them."""
+    ``row_end``, the tail's CSR and the transposed CSR for ``d_h``, and
+    the edge list with its CSR packs, built here once, as
+    ``dist.capgnn_sim.make_adj_builder`` builds them."""
     src, dst = local_graph.edges()
     keep = dst < n_inner
     src, dst = src[keep], dst[keep]
@@ -233,8 +248,10 @@ def make_local_adj(local_graph, n_inner: int, backend: str = "edges",
         mat[dst, src] = w
         return DenseAdj(put(mat, torch.float32))
     if backend == "edges":
-        return EdgeListAdj(put(src, torch.int64), put(dst, torch.int64),
-                           put(w, torch.float32), n_inner, n_cols)
+        src, dst, w = (put(src, torch.int64), put(dst, torch.int64),
+                       put(w, torch.float32))
+        return EdgeListAdj(src, dst, w, n_inner, n_cols,
+                           ops.edge_packs(src, dst, w, n_inner, n_cols))
     if backend == "ell":
         cols, vals = ops.ell_pack(src, dst, w, n_inner)
         return EllAdj(put(cols, torch.int32), put(vals, torch.float32),

@@ -39,7 +39,7 @@ import torch
 from ..dist.host_store import HostFeatureStore
 from ..graph.graph import Graph
 from ..graph.partition import PartitionSet
-from ..kernels.ops import gather_rows
+from ..kernels.ops import edge_packs, gather_rows
 from ..models.gnn import EdgeListAdj, gnn_forward
 from ..obs.tracer import NULL_TRACER, StepCounters, device_peak_bytes
 
@@ -304,8 +304,10 @@ class GNNServeEngine:
 
         The reverse BFS, the subgraph's edges (every edge into it, in the
         edge list's order) and its halo (sorted ids) are found on the
-        engine's device, over the inputs :meth:`_resident` keeps there;
-        three reads of a count reach the host."""
+        engine's device, over the inputs :meth:`_resident` keeps there,
+        and so is the subgraph's CSR pack (``kernels.ops.edge_packs``: the
+        edge list's kernel on the card); a few reads of a count reach the
+        host."""
         n = self.graph.num_nodes
         res = self._resident()
         src, dst = res["src"], res["dst"]
@@ -332,8 +334,10 @@ class GNNServeEngine:
         loc = torch.full((n,), -1, dtype=torch.int64, device=dev)
         loc[inner] = torch.arange(n_inner, device=dev)
         loc[halo] = n_inner + torch.arange(n_halo, device=dev)
-        adj = EdgeListAdj(loc[hsrc], loc[hdst], res["w"][keep], n_inner,
-                          n_inner + n_halo)
+        lsrc, ldst, lw = loc[hsrc], loc[hdst], res["w"][keep]
+        adj = EdgeListAdj(lsrc, ldst, lw, n_inner, n_inner + n_halo,
+                          edge_packs(lsrc, ldst, lw, n_inner,
+                                     n_inner + n_halo, grad=False))
         halo_embeds = [res["features"][halo]] + [t[halo]
                                                  for t in res["tables"]]
         logits = gnn_forward(self.cfg, self.params, adj,

@@ -20,7 +20,12 @@ launches bit-equal.  The row gather's backward (the CSR kernel over the
 transposed index map) is bit-reproducible and within the CSR tolerance of
 the CPU's; one refresh step of the training slice per backend (``hybrid``,
 ``ell``, ``edges``), and for SAGE, GIN and GAT, matches the CPU within the
-train slice's tolerances.  ``EllAdj.spmm_at`` (trained ELL values) runs
+train slice's tolerances.  The edge list's route: its forward and ``d_h``
+(the CSR kernel over its packs) and the ``edge_dvals`` kernel against
+their plain versions at every lane and stripe configuration (``d_vals``
+twice bit for bit), ``EdgeListAdj.spmm`` / ``spmm_at`` against the CPU's
+``coo_spmm`` with their gradients, an edge list on the card without packs
+refused, and the packs built on the card equal to the CPU's.  ``EllAdj.spmm_at`` (trained ELL values) runs
 the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
 stacked gradients stay finite over padding edges.  The host store drops
 an injected fetch before it takes a pinned ring slot; the tracer's
@@ -906,8 +911,9 @@ def test_ell_spmm_at_on_card_matches_cpu(card):
 def test_gat_padded_edge_grads_finite_on_card(card):
     """One GAT layer over the stacked edge list of 4 uneven partitions
     (padding edges with ``dst == n_inner_max`` in every partition with
-    fewer inner rows): gradients finite on the card and within 1e-5 of
-    their largest magnitude of the CPU's."""
+    fewer inner rows), with its CSR packs: gradients finite on the card
+    (through the edge kernels) and within 1e-5 of their largest magnitude
+    of the CPU's."""
     from repro_torch.data.gnn_data import FullBatchTask, split_masks
     from repro_torch.dist import stack_partitions
     from repro_torch.graph import (build_partition, metis_partition, rmat,
@@ -934,7 +940,8 @@ def test_gat_padded_edge_grads_finite_on_card(card):
     for dev in ("cpu", card):
         adj = EdgeListAdj(*(torch.as_tensor(a).to(dev) for a in (
             sp.e_src.astype(np.int64), sp.e_dst.astype(np.int64), sp.e_w)),
-            ni, nl)
+            ni, nl, ops.edge_packs(*(torch.as_tensor(a).to(dev) for a in (
+                sp.e_src, sp.e_dst, sp.e_w)), ni, nl))
         p = {k: v.detach().to(dev).requires_grad_(True)
              for k, v in p0.items()}
         out = _layer_apply(cfg, p, adj, h.to(dev), ni, False)
@@ -945,6 +952,112 @@ def test_gat_padded_edge_grads_finite_on_card(card):
         assert torch.isfinite(got).all(), k
         torch.testing.assert_close(
             got, want, rtol=0.0, atol=1e-5 * float(want.abs().max()))
+
+
+def _edge_case(seed, n_parts=3, n_rows=300, n_cols=500, m=6000):
+    """A stacked edge list with power-law in-degrees (long rows at
+    ``long_row=16``), padding edges and an empty row."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_cols, (n_parts, m)).astype(np.int32)
+    dst = np.minimum(rng.zipf(1.3, (n_parts, m)) - 1, n_rows).astype(
+        np.int32)
+    dst[dst == 3] = 4
+    w = rng.normal(size=(n_parts, m)).astype(np.float32)
+    w[dst == n_rows] = 0
+    return src, dst, w
+
+
+@pytest.mark.parametrize("d", [1, 7, 64, 256, 500, 1100])
+def test_edge_kernels_match_plain(card, d):
+    """The edge list's forward and ``d_h`` (the CSR kernel over its packs,
+    counted as ``edge_spmm`` / ``edge_spmm_dh``) and ``edge_dvals`` against
+    their plain versions over the same packs, at every lanes-per-entry
+    and stripe count; ``edge_dvals`` twice bit for bit, 0 at padding."""
+    from repro_torch.kernels import edge_spmm as kedge
+    src, dst, w = _edge_case(d)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=16)
+    assert packs.fwd.long_rows.numel() and packs.fwd.short_rows.numel()
+    rng = np.random.default_rng(d)
+    h = torch.from_numpy(rng.normal(size=(3 * 500, d)).astype(
+        np.float32)).to(card)
+    g = torch.from_numpy(rng.normal(size=(3 * 300, d)).astype(
+        np.float32)).to(card)
+    n = [kedge.edge_spmm.launches, kedge.edge_spmm_dh.launches,
+         kedge.edge_dvals.launches]
+    fwd = kedge.edge_spmm(packs.fwd, h)
+    dh = kedge.edge_spmm_dh(packs.bwd, g)
+    dv = [kedge.edge_dvals(packs.fwd, g, h, 3 * 6000) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [kedge.edge_spmm.launches - n[0],
+            kedge.edge_spmm_dh.launches - n[1],
+            kedge.edge_dvals.launches - n[2]] == [1, 1, 2]
+    want = ref.csr_spmm_ref(packs.fwd, h)
+    torch.testing.assert_close(fwd, want, **_csr_tol(want))
+    want = ref.csr_spmm_ref(packs.bwd, g)
+    torch.testing.assert_close(dh, want, **_csr_tol(want))
+    assert torch.equal(dv[0].view(torch.int32), dv[1].view(torch.int32))
+    want = ref.edge_dvals_ref(packs.fwd, g, h, 3 * 6000)
+    torch.testing.assert_close(dv[0], want, **ELL_TOL)
+    assert not dv[0][torch.from_numpy(dst == 300).reshape(-1)].any()
+
+
+@pytest.mark.parametrize("at", [False, True], ids=["spmm", "spmm_at"])
+def test_edge_list_adj_on_card_matches_cpu(card, at):
+    """``EdgeListAdj.spmm`` / ``spmm_at`` on the card (the kernels over
+    its packs) against the CPU's ``coo_spmm``: the output, ``d_h`` and
+    ``d_e_vals``; no launch of ``coo_spmm``'s route is possible (the card
+    has none), and an edge list on the card without packs raises."""
+    from repro_torch.kernels import edge_spmm as kedge
+    from repro_torch.models.gnn import EdgeListAdj
+    src, dst, w = _edge_case(11)
+    rng = np.random.default_rng(11)
+    h0 = rng.normal(size=(3, 500, 64)).astype(np.float32)
+    g0 = rng.normal(size=(3, 300, 64)).astype(np.float32)
+    e0 = rng.normal(size=(3, 6000)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        s_, d_, w_ = (torch.as_tensor(a).to(dev) for a in (
+            src.astype(np.int64), dst.astype(np.int64), w))
+        adj = EdgeListAdj(s_, d_, w_, 300, 500,
+                          ops.edge_packs(s_, d_, w_, 300, 500))
+        h = torch.from_numpy(h0).to(dev).requires_grad_(True)
+        e = torch.from_numpy(e0).to(dev).requires_grad_(True)
+        n = kedge.edge_dvals.launches
+        out = adj.spmm_at(e, h) if at else adj.spmm(h)
+        out.backward(torch.from_numpy(g0).to(dev))
+        if dev == card:
+            assert kedge.edge_dvals.launches - n == int(at)
+        res[str(dev)] = (out.detach().cpu(), h.grad.cpu(),
+                         None if e.grad is None else e.grad.cpu())
+    (oc, hc, ec), (og, hg, eg) = res["cpu"], res[str(card)]
+    torch.testing.assert_close(og, oc, **_csr_tol(oc))
+    torch.testing.assert_close(hg, hc, **_csr_tol(hc))
+    if at:
+        torch.testing.assert_close(eg, ec, **ELL_TOL)
+    bare = EdgeListAdj(*(torch.as_tensor(a).to(card) for a in (
+        src.astype(np.int64), dst.astype(np.int64), w)), 300, 500)
+    with pytest.raises(ValueError, match="needs its CSR packs"):
+        bare.spmm(torch.from_numpy(h0).to(card))
+
+
+def test_csr_pack_torch_on_card_equals_host(card):
+    """The edge packs built on the card (``csr_pack_torch``'s sort, counts
+    and row classes on the device) give the CPU's fields bit for bit,
+    long rows and empty rows included."""
+    src, dst, w = _edge_case(12)
+    want = ops.edge_packs(*(torch.as_tensor(a) for a in (src, dst, w)),
+                          300, 500, long_row=16)
+    got = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=16)
+    for name in ("fwd", "bwd"):
+        a, b = getattr(got, name), getattr(want, name)
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(y, torch.Tensor):
+                assert x.is_cuda and torch.equal(x.cpu(), y), (name, f.name)
+            else:
+                assert x == y, (name, f.name)
 
 
 # ---------------------------------------------------- faults and the tracer
