@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sweep | --spmd-nccl | --spmd-nccl-pair]
+    python3 chip_smoke.py [--sweep | --kernels-only | --spmd-nccl |
+                           --spmd-nccl-pair]
 
 Phases, each printing one JSON line (``{"phase": ...}``); a phase that fails
 raises, and the script exits non-zero:
@@ -67,8 +68,8 @@ raises, and the script exits non-zero:
    the same checks, SAGE with two ELL forward and tail launches a layer.
    ``train_gat`` - ``--model gat --backend edges --lr 0.001``
    (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only): four
-   heads a layer, each an ``edge_spmm`` forward and, every step, an
-   ``edge_spmm_dh`` and an ``edge_dvals`` launch from layer 0 on; no ELL,
+   heads a layer in one ``edge_spmm`` forward and, every step, one
+   ``edge_spmm_dh`` and one ``edge_dvals`` launch from layer 0 on; no ELL,
    tail or ELL ``d_h`` launch, the gathers 6 / 2.
    ``train_vanilla``, ``train_jaca``, ``train_rapa``, ``train_jaca_rapa``,
    ``train_adaptive`` and ``train_x8`` - the paper's ablation rows (Table
@@ -244,6 +245,23 @@ raises, and the script exits non-zero:
    (``edge_spmm``, ``edge_spmm_dh``, ``edge_dvals``) from the
    ``coo_spmm`` phase.
 
+``--kernels-only`` runs only the edge route's kernels at the train cell:
+``csr_variants`` lines (the CSR kernel on each route it serves, the 1.5D
+chunk's too, in every row order, stripe and load mode, beside
+``l2_fit_default``: the same launch over an x folded into 8,192 rows,
+which the L2 holds: the floor probe; the ring and four register steps
+over x folded into 8k and 48k rows; medians and spread over 8 rounds;
+the default under each timing protocol), ``dvals_variants``
+(``edge_dvals`` with GAT's 4 heads: one pass, head by head, one launch a
+head, the floor probe) and the ``coo_spmm``, ``csr_spmm_tail``,
+``csr_spmm_dh`` and ``gather_rows_bwd`` lines.
+
+Every kernel time is CUDA events around a run of calls queued behind a
+~1 ms spin of the card (``time_calls``), so it holds no host time: it
+equals a CUDA graph's device time within 1% (``--kernels-only``'s
+``protocols``), where events that start on an idle card add the first
+call's host time.
+
 ``--sweep`` adds ``sweep`` lines: every feature stripe of the ELL forward
 (and the chosen one without ``row_end``) checked against the plain version
 and timed in turns on both slices' packs; the CSR kernel's long-row
@@ -370,10 +388,21 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_calls(fns: dict, reps: int, rounds: int = 4) -> dict:
-    """Median over ``rounds`` of the mean CUDA-event time of ``reps``
-    back-to-back calls, the callables taken in turns within each round, in
-    reverse order every other round (a, b, b, a, ...)."""
+# the card's idle spin before each timed run of calls (~1 ms): the host
+# enqueues the calls meanwhile, so no host time between the events
+FILL_CYCLES = 2_000_000
+
+
+def time_runs(fns: dict, reps: int, rounds: int = 4,
+              spin: bool = True) -> dict:
+    """Each round's mean CUDA-event time of ``reps`` back-to-back calls,
+    the callables taken in turns within each round, in reverse order
+    every other round (a, b, b, a, ...).  With ``spin`` each run of calls
+    is queued behind a spin of :data:`FILL_CYCLES` (``torch.cuda._sleep``)
+    so that the events time the device's work, not the host's launches
+    (else a wrapper's host time lands between the start event and its
+    first kernel); without it, the events start on an idle card (the
+    earlier protocol, kept to compare the two)."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -383,13 +412,22 @@ def time_calls(fns: dict, reps: int, rounds: int = 4) -> dict:
         for name, fn in (order if r % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if spin:
+                torch.cuda._sleep(FILL_CYCLES)
             start.record()
             for _ in range(reps):
                 fn()
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / reps)
-    return {k: statistics.median(v) for k, v in times.items()}
+    return times
+
+
+def time_calls(fns: dict, reps: int, rounds: int = 4,
+               spin: bool = True) -> dict:
+    """The median over the rounds of :func:`time_runs`."""
+    return {k: statistics.median(v)
+            for k, v in time_runs(fns, reps, rounds, spin).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -674,6 +712,21 @@ def host_us(fn, calls: int = 1000) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def enqueue_us(fn, calls: int = 20) -> float:
+    """Host microseconds a call takes to enqueue its work, while the card
+    is kept busy (so no call waits for it): ``perf_counter`` over
+    ``calls`` calls behind a spin of 4 x :data:`FILL_CYCLES`."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * FILL_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def device_us(fn, calls: int = 1000) -> float:
     """Device microseconds per call: CUDA events around one replay of a
     CUDA graph of ``calls`` calls, which takes the host out."""
@@ -890,11 +943,11 @@ def sweep_dvals(sp, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def ptxas_report() -> None:
+def ptxas_report(names=None) -> None:
     """Each kernel's registers, shared memory and spills as ``nvcc -Xptxas
     -v`` reports them, and the occupancy its registers allow (4-warp
     blocks for the ELL forward and the CSR long rows' sums, 8 for the
-    others)."""
+    others), for the sources ``names`` (all by default)."""
     from repro_torch.kernels import build
     nvcc = build._nvcc()
     cuda_filt = Path(nvcc).with_name("cu++filt")
@@ -906,7 +959,7 @@ def ptxas_report() -> None:
                        r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
                        r"loads\n[^\n]*Used (\d+) registers([^\n]*)")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in build.SOURCES:
+    for name in names or build.SOURCES:
         proc = subprocess.run(
             [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
              str(build.BUILD_DIR / f"{name}.ptxas.cubin"),
@@ -1450,20 +1503,19 @@ def train_launches(backend: str, layers: int, kinds: list[str],
     edge list's CSR kernel under ``edges``; a SAGE layer twice under
     ``ell`` and ``hybrid``, its ``degree()`` being the same product of a
     ones column, recomputed per call, and once under ``edges``, whose
-    ``degree()`` is a segment sum; a GAT layer once per head); the
-    backward needs ``d_h`` from layer 1 on (layer 0's input is constant,
-    and the ones column has no gradient), but from layer 0 on for GAT,
-    whose heads' inputs are ``h @ w``, once per head, with the heads'
-    ``edge_dvals`` (their attention's gradient); the ELL ``d_vals``
+    ``degree()`` is a segment sum; a GAT layer once, its heads in one
+    launch); the backward needs ``d_h`` from layer 1 on (layer 0's input
+    is constant, and the ones column has no gradient), but from layer 0
+    on for GAT, whose heads' inputs are ``h @ w``, with one
+    ``edge_dvals`` for all the heads (their attention's gradient); the
+    ELL ``d_vals``
     never (the ELL values are constants of the graph); the gathers as
     each step kind gives them (``gathers``, per kind); every pack comes
     from ``make_adj_builder`` or the exchange maps."""
-    from repro_torch.models.gnn import GNNConfig
     passes, steps = len(kinds) + 1, len(kinds)
     ell = backend != "edges"
-    heads = GNNConfig().num_heads if model == "gat" else 1
-    fwd = layers * passes * (2 if model == "sage" and ell else heads)
-    dh = (layers * heads if model == "gat" else layers - 1) * steps
+    fwd = layers * passes * (2 if model == "sage" and ell else 1)
+    dh = (layers if model == "gat" else layers - 1) * steps
     return {"ell_spmm": fwd if ell else 0,
             "ell_spmm_chunked": 0,
             "csr_spmm_tail": fwd if backend == "hybrid" else 0,
@@ -1833,6 +1885,7 @@ def phase_train_ablation(tctx: dict, checks: CpuChecks) -> dict:
 
 EDGE_D = 256          # the train cell's hidden width: layers 1-2's aggregation
 EDGE_DVALS_D = 64     # a GAT head's width at the paper's hidden 256, 4 heads
+GAT_HEADS = 4         # GNNConfig().num_heads
 
 
 def pack_matrix(pack):
@@ -1875,12 +1928,13 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> list[dict]:
     ``edge_spmm_dh``) against the plain version, ``ops.coo_spmm`` and its
     autograd backward, each twice bit for bit, timed beside it, beside
     ``torch.sparse.mm`` of the same matrix and its transpose (the library
-    calls) and the bound; then ``edge_dvals`` at a GAT head's width (d =
-    64) on the same packs, against its plain version
-    (``ref.edge_dvals_ref``) and the autograd of ``coo_spmm`` in its
-    weights (0 at the padding edges), twice bit for bit, beside
-    ``torch.sparse.sampled_addmm`` at the edges' pattern.  Returns the
-    three kernels-line entries."""
+    calls) and the bound; then ``edge_dvals`` with GAT's 4 heads of 64 in
+    one launch on the same packs, against its plain version
+    (``ref.edge_dvals_ref``), the autograd of ``coo_spmm`` in each head's
+    weights (the reference's loop over the heads; 0 at the padding edges)
+    and four one-head launches, twice bit for bit, beside
+    ``torch.sparse.sampled_addmm`` at the edges' pattern once a head.
+    Returns the three kernels-line entries."""
     from repro_torch.kernels import edge_spmm as kedge, ops, ref
     src, dst, w = (torch.as_tensor(a, device=dev)
                    for a in (sp.e_src, sp.e_dst, sp.e_w))
@@ -1928,9 +1982,15 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> list[dict]:
                  max_row_t=max_row(bwd), segments=[fwd.seg.shape[0],
                                                    bwd.seg.shape[0]],
                  packs_build_s=pack_s)
+    # the wrapper's host time a call (checks, config, ctypes), which the
+    # device time above no longer holds
+    host = {"kernel_enqueue_us": enqueue_us(
+                lambda: kedge.edge_spmm(fwd, hf)),
+            "dh_kernel_enqueue_us": enqueue_us(
+                lambda: kedge.edge_spmm_dh(bwd, gf))}
     emit("coo_spmm", **shape, max_abs_err=err, bit_reproducible=bits,
          bound_ms=b_f, bound_by=by_f, dh_bound_ms=b_b, dh_bound_by=by_b,
-         **t)
+         **t, **host)
     over = "one launch at d=256 over the train cell's edge packs"
     entries = [edge_entry("edge_spmm", CSR_SOURCE, EDGE_REPLACES, t,
                           err["forward"], b_f, by_f, timed_over=over,
@@ -1940,47 +2000,62 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> list[dict]:
                           timed_over=over + " (transposed)",
                           plain="the autograd backward of ops.coo_spmm")]
 
-    # the per-edge values' cotangent at a GAT head's width
-    d = EDGE_DVALS_D
+    # GAT's attention gradient: its 4 heads of 64 in one launch
+    heads, d = GAT_HEADS, EDGE_DVALS_D
     n_edges = src.numel()
-    h = torch.randn((n_parts * n_cols, d), generator=gen, device=dev)
-    g = torch.randn((n_parts * ni, d), generator=gen, device=dev)
+    h = torch.randn((n_parts * n_cols, heads, d), generator=gen, device=dev)
+    g = torch.randn((n_parts * ni, heads, d), generator=gen, device=dev)
     got, again = (kedge.edge_dvals(fwd, g, h, n_edges) for _ in range(2))
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
         raise AssertionError("edge_dvals: two launches differ")
     dv_err = check_close("edge_dvals", got, ref.edge_dvals_ref(fwd, g, h,
                                                                n_edges))
-    ev = w.clone().requires_grad_(True)
-    h3, g3 = h.view(n_parts, n_cols, d), g.view(n_parts, ni, d)
-    by_coo = ops.coo_spmm(src, dst, ev, h3, ni)
+    # the reference's loop over the heads: coo_spmm's autograd in each
+    # head's weights
+    ev = w[..., None].repeat(1, 1, heads).requires_grad_(True)
+    h3, g3 = h.view(n_parts, n_cols, heads, d), g.view(n_parts, ni, heads, d)
+    by_coo = torch.stack([ops.coo_spmm(src, dst, ev[..., z], h3[..., z, :],
+                                       ni) for z in range(heads)], dim=-2)
     old = torch.autograd.grad(by_coo, ev, g3, retain_graph=True)[0]
-    coo_err = check_close("edge_dvals (coo_spmm's autograd)",
-                          got.view(n_parts, -1), old)
-    if got.view(n_parts, -1)[dst == ni].any():
+    coo_err = check_close("edge_dvals (coo_spmm's autograd, per head)",
+                          got.view(n_parts, -1, heads), old)
+    if got.view(n_parts, -1, heads)[dst == ni].any():
         raise AssertionError("edge_dvals: a padding edge has a value")
-    h_t = h.t()
-    lib = torch.sparse.sampled_addmm(mat, g, h_t, beta=0.0)
-    del lib, old, again
+    gz = [g[:, z].contiguous() for z in range(heads)]
+    hz = [h[:, z].contiguous() for z in range(heads)]
+    hz_t = [x.t() for x in hz]
+    per_head = torch.stack([kedge.edge_dvals(fwd, gz[z], hz[z], n_edges)
+                            for z in range(heads)], -1)
+    per_head_err = check_close("edge_dvals (one launch a head)", per_head,
+                               got)
+    del old, again, per_head
     t = time_calls({
         "kernel_ms": lambda: kedge.edge_dvals(fwd, g, h, n_edges),
+        "per_head_launches_ms": lambda: [kedge.edge_dvals(
+            fwd, gz[z], hz[z], n_edges) for z in range(heads)],
         "plain_ms": lambda: ref.edge_dvals_ref(fwd, g, h, n_edges),
         "old_route_ms": lambda: torch.autograd.grad(by_coo, ev, g3,
                                                     retain_graph=True),
-        "library_ms": lambda: torch.sparse.sampled_addmm(mat, g, h_t,
-                                                         beta=0.0),
+        "library_ms": lambda: [torch.sparse.sampled_addmm(
+            mat, gz[z], hz_t[z], beta=0.0) for z in range(heads)],
     }, reps=5, rounds=2)
-    nbytes = dvals_bytes(fwd, d, n_edges)
-    b, by = bound_ms(nbytes, 2.0 * fwd.nnz * d)
-    emit("kernel", name="edge_dvals", shape=[n_parts, ni, n_cols, d],
+    nbytes = dvals_bytes(fwd, heads * d, n_edges * heads)
+    b, by = bound_ms(nbytes, 2.0 * fwd.nnz * heads * d)
+    one_head_b = bound_ms(dvals_bytes(fwd, d, n_edges), 2.0 * fwd.nnz * d)[0]
+    emit("kernel", name="edge_dvals", shape=[n_parts, ni, n_cols, heads, d],
          edges=n_edges, live_edges=fwd.nnz, max_abs_err=dv_err,
-         coo_autograd_max_abs_err=coo_err, bit_reproducible=True,
-         bytes=nbytes, bound_ms=b, bound_by=by, **t)
+         coo_autograd_max_abs_err=coo_err,
+         per_head_max_abs_err=per_head_err, bit_reproducible=True,
+         bytes=nbytes, bound_ms=b, bound_by=by,
+         four_one_head_bounds_ms=heads * one_head_b, **t)
     entries.append(edge_entry(
         "edge_dvals", EDGE_DVALS_SOURCE, EDGE_DVALS_REPLACES, t, dv_err, b,
         by, old_route_ms=t["old_route_ms"],
-        timed_over="one launch at d=64 (a GAT head) over the train cell's "
-                   "forward edge pack",
-        library="torch.sparse.sampled_addmm at the coalesced edge pattern"))
+        per_head_launches_ms=t["per_head_launches_ms"],
+        timed_over="one launch for GAT's 4 heads of 64 over the train "
+                   "cell's forward edge pack",
+        library="torch.sparse.sampled_addmm at the coalesced edge pattern, "
+                "once a head"))
     del by_coo, ev, mat, mat_t, packs, fwd, bwd
     return entries
 
@@ -1995,9 +2070,11 @@ def phase_coo_spmm_15d(layout, rank: int, seed: int = 0,
     against the plain version ``ops.coo_spmm`` (and its autograd
     backward), timed beside it, ``torch.sparse.mm`` of the same matrix
     (and of its transpose for the backward: the library calls) and the
-    least time the card could take."""
+    least time the card could take; the backward also as its kernel
+    alone (``backward_kernel_ms``) and the host's time to enqueue either
+    (``backward_enqueue_us``, ``backward_kernel_enqueue_us``)."""
     from repro_torch.dist.strategy_15d import chunk_adj
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import edge_spmm as kedge, ops
     gen = torch.Generator(device=dev).manual_seed(seed)
     adj = chunk_adj(layout, rank, dev)
     src, dst, w = adj.src, adj.dst, adj.weight
@@ -2027,11 +2104,18 @@ def phase_coo_spmm_15d(layout, rank: int, seed: int = 0,
                 "edge_spmm 1.5D backward d=256", d_h, want, **csr_tol(want))
             fns["backward_ms"] = lambda: torch.autograd.grad(
                 y, h, g, retain_graph=True)
+            fns["backward_kernel_ms"] = lambda: kedge.edge_spmm_dh(bwd, g)
             fns["plain_backward_ms"] = lambda: torch.autograd.grad(
                 plain, h, g, retain_graph=True)
             fns["library_backward_ms"] = lambda: torch.sparse.mm(mat_t, g)
             rec["d256"]["backward_bound_ms"] = bound_ms(
                 csr_bytes(bwd, d, 4, False), 2.0 * bwd.nnz * d)[0]
+            # the host's time a backward call takes to enqueue (autograd,
+            # the Function's casts and views, the wrapper)
+            rec["d256"]["backward_enqueue_us"] = enqueue_us(
+                fns["backward_ms"])
+            rec["d256"]["backward_kernel_enqueue_us"] = enqueue_us(
+                fns["backward_kernel_ms"])
         rec[f"d{d}"].update(time_calls(fns, reps=5, rounds=2))
         del h, g, y, plain
     emit("coo_spmm_15d", case=f"c{layout.c}pr{layout.pr}", rank=rank,
@@ -3773,8 +3857,23 @@ def spmm15d_sim(job: dict, ps, device="cuda") -> list[float]:
     return losses
 
 
+def spmm15d_prepare(tctx: dict, shapes, models=SPMM15D_MODELS) -> dict:
+    """The 1.5D phases' host plans (:func:`spmm15d_contexts`) and their
+    rank jobs by world size, for :func:`phase_spmm15d` or for a spawn
+    that other phases share (``spawn_jobs``)."""
+    t0 = time.perf_counter()
+    ctxs = spmm15d_contexts(tctx, shapes)
+    by_size: dict = {}
+    for c, pr in shapes:
+        by_size.setdefault(c * pr, []).append((c, pr))
+    return {"ctxs": ctxs, "plan_s": time.perf_counter() - t0,
+            "jobs": {size: spmm15d_jobs(ctxs, group, models)
+                     for size, group in sorted(by_size.items())}}
+
+
 def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
-                  models=SPMM15D_MODELS) -> dict:
+                  models=SPMM15D_MODELS, prep: dict | None = None,
+                  spawned: dict | None = None) -> dict:
     """The 1.5D strategy (``--strategy spmm_15d``) at the train cell's
     width through the CLI's rank program, ``c * pr`` ranks over
     ``backend`` (``devices``: ``"cuda"`` for a card per rank, or ranks
@@ -3792,28 +3891,29 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
     layer from layer 1 a step (layer 0's gathered block is constant), no
     other kernel of the port.  Prints per case the steady step ms and
     host-staging ms of every rank and its peak device memory.  Returns
-    the launches summed over the ranks."""
+    the launches summed over the ranks.  ``prep`` (:func:`spmm15d_prepare`
+    of the same shapes and models) and ``spawned`` (world size ->
+    ``(ranks' results, spawn wall seconds)`` of its jobs, run in a spawn
+    shared with other phases) spare this phase its own."""
     from repro_torch.dist.strategy_15d import (
         forward_collective_bytes_per_device, step_bytes_total)
     from repro_torch.launch.mesh import spawn
-    t0 = time.perf_counter()
-    ctxs = spmm15d_contexts(tctx, shapes)
-    plan_s = time.perf_counter() - t0
+    prep = prep or spmm15d_prepare(tctx, shapes, models)
+    ctxs, plan_s = prep["ctxs"], prep["plan_s"]
     if backend == "gloo":
         # the chunk aggregation of the first shape's rank 0, timed alone
         phase_coo_spmm_15d(ctxs[shapes[0]]["layout"], 0)
-    by_size: dict = {}
     summed: dict = {}
-    for c, pr in shapes:
-        by_size.setdefault(c * pr, []).append((c, pr))
-    for size, group in sorted(by_size.items()):
-        jobs = spmm15d_jobs(ctxs, group, models)
+    for size, jobs in prep["jobs"].items():
         devs = (devices if isinstance(devices, str)
                 else [devices[0]] * size)
-        t0 = time.perf_counter()
-        ranks = spawn(spmm15d_rank, size, backend=backend, devices=devs,
-                      args=(jobs,))
-        spawn_wall_s = time.perf_counter() - t0
+        if spawned is not None and size in spawned:
+            ranks, spawn_wall_s = spawned[size]
+        else:
+            t0 = time.perf_counter()
+            ranks = spawn(spmm15d_rank, size, backend=backend, devices=devs,
+                          args=(jobs,))
+            spawn_wall_s = time.perf_counter() - t0
         want = {**{k: 0 for k in ranks[0]["launches"]},
                 "edge_spmm": sum(j["cfg"].num_layers * (SPMM15D_EPOCHS + 1)
                                  for j in jobs),
@@ -4651,6 +4751,252 @@ def sweep_csr(slices: dict, gen) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the CSR kernel's design variants (--kernels-only): row order x stripe x
+# mode on every route it serves, beside the floor probe
+# ---------------------------------------------------------------------------
+
+VARIANT_STRIPE_BYTES = (256, 512, 1024)
+VARIANT_ROUNDS = 8   # rounds of each variant: their median and spread
+L2_FIT_ROWS = 8192   # the floor probe's x: 8 MB of f32 rows at d = 256
+GRAPH_CALLS = 20     # calls in the CUDA graph of a device-only time
+# x folded into this many rows (48 MB of 1 KB rows, the 1.5D chunk's x):
+# the ring against four register steps as x outgrows the L2
+FOLD_ROWS = (L2_FIT_ROWS, 49152)
+
+
+def flat_order(pack):
+    """``pack`` with its short rows longest first over the whole stack
+    (a forward pack's own order): the same rows, another walk."""
+    import dataclasses as dc
+    counts = (pack.rowptr[1:] - pack.rowptr[:-1])[pack.short_rows.long()]
+    order = torch.sort(-counts, stable=True).indices
+    return dc.replace(pack, short_rows=pack.short_rows[order].contiguous())
+
+
+def blocked_order(pack, col_block: int):
+    """``pack`` with its short rows listed block by block of ``col_block``
+    columns (a row's block that of its first column, empty rows last),
+    longest first within a block (a transposed pack's own order, from
+    :func:`flat_order`): the warps in flight read one partition's x
+    rows.  The same rows, another walk."""
+    import dataclasses as dc
+    pack = flat_order(pack)
+    rowptr, short = pack.rowptr.long(), pack.short_rows.long()
+    counts = (rowptr[1:] - rowptr[:-1])[short]
+    col = torch.cat([pack.col, pack.col.new_zeros(1)]).long()
+    n_blocks = -(-pack.n_cols // col_block)
+    block = torch.where(counts > 0, col[rowptr[:-1][short]] // col_block,
+                        n_blocks)
+    order = torch.sort(block, stable=True).indices
+    return dc.replace(pack, short_rows=pack.short_rows[order].contiguous())
+
+
+def index_order(pack):
+    """``pack`` with its short rows in row order: neighbouring rows (close
+    ids, which a generated graph's communities share) in flight
+    together, whatever their lengths."""
+    import dataclasses as dc
+    return dc.replace(pack, short_rows=torch.sort(pack.short_rows).values)
+
+
+def l2_fit(pack, x, rows: int = L2_FIT_ROWS):
+    """The floor probe: ``pack`` with every column folded into the first
+    ``rows`` rows of ``x`` (by default :data:`L2_FIT_ROWS`, so the x rows
+    it reads fit in the L2); the same entries, rows and row order."""
+    import dataclasses as dc
+    k = min(rows, pack.n_cols)
+    return (dc.replace(pack, col=(pack.col % k).contiguous(), n_cols=k),
+            x[:k].contiguous())
+
+
+def csr_variant_cases(tctx: dict, esp, layout, gen) -> dict:
+    """The CSR kernel's routes at the train cell's shapes: name -> (pack,
+    x, out to accumulate into or None, the columns of one partition for
+    :func:`blocked_order` or None): the edge list's A and A^T at d = 256,
+    the hybrid A^T (``d_h``), the hybrid tail at d = 500 (accumulate),
+    the row gather's transposed map (``gather_rows_bwd``), GAT's A with 4
+    heads of 64, and the 1.5D chunk's A and A^T at d = 256 (rank 0 of
+    ``layout``, through ``strategy_15d.chunk_adj``)."""
+    from repro_torch.dist.capgnn_sim import exchange_arrays
+    from repro_torch.dist.strategy_15d import chunk_adj
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    src, dst, w = (torch.as_tensor(a, device=dev)
+                   for a in (esp.e_src, esp.e_dst, esp.e_w))
+    n_parts, ni = esp.num_parts, esp.n_inner_max
+    n_cols = ni + esp.n_halo_max
+    edge = ops.edge_packs(src, dst, w, ni, n_cols)
+    sp = tctx["sp"]
+    hyb = slice_packs(sp)
+    gpack = exchange_arrays(tctx["xplan"], sp.n_inner_max,
+                            dev)["loc"]["pull"]["pull"]["pack"]
+    chunk = chunk_adj(layout, 0, dev).packs
+
+    def x(rows, *feat):
+        return torch.randn((rows, *feat), generator=gen, device=dev)
+    heads = ops._valued(edge.fwd, torch.rand(
+        (n_parts, src.shape[1], GAT_HEADS), generator=gen, device=dev),
+        GAT_HEADS)
+    hyb_cols = sp.n_inner_max + sp.n_halo_max
+    return {
+        "edge_fwd_256": (edge.fwd, x(edge.fwd.n_cols, 256), None, n_cols),
+        "edge_dh_256": (edge.bwd, x(edge.bwd.n_cols, 256), None, ni),
+        "hybrid_dh_256": (hyb["dh"], x(hyb["dh"].n_cols, 256), None,
+                          sp.n_inner_max),
+        "hybrid_tail_500": (hyb["tail"], x(hyb["tail"].n_cols, 500),
+                            x(hyb["tail"].n_rows, 500), hyb_cols),
+        "gather_bwd_256": (gpack, x(gpack.n_cols, 256), None, None),
+        "gat_heads_4x64": (heads, x(heads.n_cols, GAT_HEADS, 64), None,
+                           n_cols),
+        "chunk15d_fwd_256": (chunk.fwd, x(chunk.fwd.n_cols, 256), None,
+                             None),
+        "chunk15d_dh_256": (chunk.bwd, x(chunk.bwd.n_cols, 256), None,
+                            None)}
+
+
+def protocol_times(fns: dict) -> dict:
+    """``fns`` under each timing protocol: queued behind the spin
+    (``spin_ms``, ``time_calls``'s default) and from an idle card
+    (``idle_ms``), 3 and 5 calls a run; the device time of a CUDA graph
+    of :data:`GRAPH_CALLS` calls (``graph_ms``: no host time at all);
+    and the host's time to enqueue a call (``enqueue_us``)."""
+    out = {}
+    for reps in (3, 5):
+        out[f"spin_ms_{reps}"] = time_calls(fns, reps, VARIANT_ROUNDS)
+        out[f"idle_ms_{reps}"] = time_calls(fns, reps, VARIANT_ROUNDS,
+                                            spin=False)
+    out["graph_ms"] = {k: device_us(f, GRAPH_CALLS) / 1e3
+                       for k, f in fns.items()}
+    out["enqueue_us"] = {k: enqueue_us(f) for k, f in fns.items()}
+    return out
+
+
+def phase_csr_variants(cases: dict) -> dict:
+    """Each case through every row order (``flat``: :func:`flat_order`;
+    ``blocked``: :func:`blocked_order`, where the case has partitions;
+    ``index``: :func:`index_order`), stripe and mode the kernel builds,
+    each checked against the plain version, and timed in turns over
+    :data:`VARIANT_ROUNDS` rounds (median and the rounds' least and most)
+    with the pack's own order and configuration (``default``), the floor
+    probe (:func:`l2_fit`, the default configuration), the ring and four
+    register steps over x folded into each of :data:`FOLD_ROWS` rows;
+    then the default under every protocol (:func:`protocol_times`).  One
+    ``csr_variants`` line per case.
+    Returns each case's median times."""
+    from repro_torch.kernels import csr_spmm as kcsr, ref
+    out = {}
+    for name, (pack, x, acc, col_block) in cases.items():
+        want = ref.csr_spmm_ref(pack, x, acc)
+        tol = csr_tol(want)
+        heads = pack.w.shape[0] if pack.w.dim() == 2 else 1
+
+        work = None if acc is None else acc.clone()
+
+        def run(p, config=(), x_=x, into=None):
+            if acc is None:
+                return kcsr.write_mode("csr_spmm", p, x_, config)[0]
+            into = work if into is None else into
+            kcsr._run("csr_spmm_accumulate", p, x_, into, True, config)
+            return into
+
+        def fresh(p, config=()):
+            """One result to check: accumulate mode into a new copy."""
+            return run(p, config, into=None if acc is None else acc.clone())
+        fns, errs = {}, {}
+        vec = kcsr.csr_launch_config(x.shape[-1], 4, 0,
+                                     kcsr.mean_row(pack))[0]
+        modes = list(kcsr.MODES) if vec * 4 == 16 else ["regs2"]
+        orders = [("flat", flat_order(pack)), ("index", index_order(pack))]
+        if col_block:
+            orders.insert(1, ("blocked", blocked_order(pack, col_block)))
+        for order, p in orders:
+            for sb in VARIANT_STRIPE_BYTES:
+                for mode in modes:
+                    key = f"{order}_{sb}B_{mode}"
+                    fns[key] = (lambda p=p, c=(sb, mode): run(p, c))
+                    errs[key] = check_close(f"csr variant {name} {key}",
+                                            fresh(p, (sb, mode)), want,
+                                            **tol)
+        probe, x_fit = l2_fit(pack, x)
+        fns["l2_fit_default"] = lambda: run(probe, (), x_fit)
+        if "ring" in modes:
+            for rows in FOLD_ROWS:
+                folded, x_f = l2_fit(pack, x, rows)
+                for c in ((1024, "ring"), (512, "regs4")):
+                    fns[f"fold{rows}_{c[0]}B_{c[1]}"] = (
+                        lambda p=folded, x_=x_f, c=c: run(p, c, x_))
+        fns["default"] = lambda: run(pack)
+        errs["default"] = check_close(f"csr variant {name} default",
+                                      fresh(pack), want, **tol)
+        del want
+        runs = time_runs(fns, reps=5, rounds=VARIANT_ROUNDS)
+        t = {k: statistics.median(v) for k, v in runs.items()}
+        spread = {k: [min(v), max(v)] for k, v in runs.items()}
+        b, by = bound_ms(csr_bytes(pack, x.shape[-1] * heads, 4,
+                                   acc is not None),
+                         2.0 * pack.nnz * x.shape[-1] * heads)
+        best = min((k for k in t if k != "l2_fit_default"
+                    and not k.startswith("fold")), key=t.get)
+        _, stripe, mode = kcsr.csr_launch_config(x.shape[-1], 4, 0,
+                                                 kcsr.mean_row(pack))
+        mode = {v: k for k, v in kcsr.MODES.items()}[mode]
+        emit("csr_variants", case=name, nnz=pack.nnz, n_rows=pack.n_rows,
+             n_cols=pack.n_cols, heads=heads, d=x.shape[-1],
+             col_block=col_block,
+             default=f"{min(stripe * vec * 4, 1024)}B_{mode}",
+             best=best, bound_ms=b, bound_by=by, ms=t, spread_ms=spread,
+             max_abs_err=errs,
+             protocols=protocol_times({"default": fns["default"]}))
+        out[name] = t
+        del fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dvals_variants(esp, gen) -> None:
+    """``edge_dvals`` at GAT's shape (4 heads of 64 on the train cell's
+    forward edge pack): one launch for the heads in the pack's own and
+    the blocked row order, in one pass and head by head, four one-head
+    launches, each against the plain version, and the floor probe
+    (:func:`l2_fit`), over :data:`VARIANT_ROUNDS` rounds (median and
+    spread), and the one-pass launch under every protocol; one
+    ``dvals_variants`` line."""
+    from repro_torch.kernels import edge_spmm as kedge, ops, ref
+    dev = torch.device("cuda")
+    src, dst, w = (torch.as_tensor(a, device=dev)
+                   for a in (esp.e_src, esp.e_dst, esp.e_w))
+    ni, n_cols = esp.n_inner_max, esp.n_inner_max + esp.n_halo_max
+    fwd = ops.edge_packs(src, dst, w, ni, n_cols, grad=False).fwd
+    blocked = blocked_order(fwd, n_cols)
+    n_edges = src.numel()
+    g = torch.randn((fwd.n_rows, GAT_HEADS, 64), generator=gen, device=dev)
+    h = torch.randn((fwd.n_cols, GAT_HEADS, 64), generator=gen, device=dev)
+    gz = [g[:, z].contiguous() for z in range(GAT_HEADS)]
+    hz = [h[:, z].contiguous() for z in range(GAT_HEADS)]
+    want = ref.edge_dvals_ref(fwd, g, h, n_edges)
+    probe, h_fit = l2_fit(fwd, h)
+    fns = {"heads_own": lambda: kedge.edge_dvals(fwd, g, h, n_edges),
+           "heads_blocked": lambda: kedge.edge_dvals(blocked, g, h,
+                                                     n_edges),
+           "heads_by_head_own": lambda: kedge._dvals(
+               fwd, g, h, n_edges, one_pass=False)[0],
+           "l2_fit": lambda: kedge.edge_dvals(probe, g, h_fit, n_edges),
+           "per_head": lambda: torch.stack([kedge.edge_dvals(
+               fwd, gz[z], hz[z], n_edges) for z in range(GAT_HEADS)], -1)}
+    errs = {k: check_close(f"edge_dvals {k}", f(), want)
+            for k, f in fns.items() if k != "l2_fit"}
+    runs = time_runs(fns, reps=5, rounds=VARIANT_ROUNDS)
+    nbytes = dvals_bytes(fwd, GAT_HEADS * 64, n_edges * GAT_HEADS)
+    b, by = bound_ms(nbytes, 2.0 * fwd.nnz * GAT_HEADS * 64)
+    emit("dvals_variants", heads=GAT_HEADS, d=64, nnz=fwd.nnz,
+         edges=n_edges, bound_ms=b, bound_by=by, bytes=nbytes,
+         ms={k: statistics.median(v) for k, v in runs.items()},
+         spread_ms={k: [min(v), max(v)] for k, v in runs.items()},
+         max_abs_err=errs,
+         protocols=protocol_times({"heads_own": fns["heads_own"]}))
+
+
 SPMM_AT_D = 64     # a GAT head's width at the paper's hidden 256, 4 heads
 
 
@@ -5387,6 +5733,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the training cell's flags, against the card's "
                         "single-process runtime, and the transformer zoo's "
                         "two sharded cases (lm_spmd_nccl, lm_spmd_moe_nccl)")
+    p.add_argument("--kernels-only", action="store_true",
+                   help="run only the edge route's kernel phases at the "
+                        "train cell's shapes: the CSR kernel's row orders, "
+                        "stripes and modes on every route it serves, "
+                        "edge_dvals with GAT's heads, and the kernels "
+                        "lines of coo_spmm, csr_spmm_dh, csr_spmm_tail and "
+                        "gather_rows_bwd")
     p.add_argument("--spmd-nccl-pair", action="store_true",
                    help="run only the paper's CaPGNN and Vanilla rows "
                         "through the SPMD runtime over NCCL (spmd_nccl and "
@@ -5471,6 +5824,36 @@ def main_spmd_nccl(device: dict, pair_only: bool = False) -> None:
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
+def main_kernels(device: dict) -> None:
+    """``--kernels-only``: the train cell's host plan (hybrid, and its
+    edge list stacked anew) and the 1.5D layout at ``c=2, pr=2``, then
+    :func:`phase_csr_variants`, :func:`phase_dvals_variants`,
+    ``coo_spmm`` (with ``edge_dvals``),
+    the training tail's ``csr_spmm_tail`` lines, ``csr_spmm_dh`` and
+    ``gather_rows_bwd``; the kernels line carries no launches (no path
+    runs here)."""
+    from repro_torch.dist import stack_partitions
+    from repro_torch.launch.train import build_parser, prepare_train
+    ptxas_report(("csr_spmm", "edge_dvals"))
+    tctx = prepare_train(build_parser().parse_args(TRAIN_ARGV))
+    esp = stack_partitions(tctx["ps"], tctx["task"], backend="edges")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layout = spmm15d_contexts(tctx, [(2, 2)])[(2, 2)]["layout"]
+    phase_csr_variants(csr_variant_cases(tctx, esp, layout, gen))
+    phase_dvals_variants(esp, gen)
+    entries = phase_coo_spmm(esp, gen)
+    packs = slice_packs(tctx["sp"])
+    tail_cases("train", packs["tail"], tctx["sp"], gen)
+    entries.append(phase_dh(packs, tctx["sp"], gen))
+    del packs
+    entries.append(phase_gather_bwd(tctx["xplan"], tctx["sp"], gen)[0])
+    keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in entries]}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+
+
 def main(argv=None) -> None:
     opts = parse_args(argv)
     device = phase_device()
@@ -5480,6 +5863,8 @@ def main(argv=None) -> None:
     phase_build()
     if opts.spmd_nccl or opts.spmd_nccl_pair:
         return main_spmd_nccl(device, pair_only=opts.spmd_nccl_pair)
+    if opts.kernels_only:
+        return main_kernels(device)
     dryruns = start_lm_dryruns()     # CPU only: beside the card's phases
     if opts.sweep:
         ptxas_report()
@@ -5546,21 +5931,25 @@ def main(argv=None) -> None:
     transports = ("p2p", "allgather")
     tiers = tiers_context()
     cases = models_context(tiers)
+    # the 1.5D strategy's 4-rank shapes share the spawn
+    prep15 = spmm15d_prepare(tctx, SPMM15D_SHAPES)
     res, wall_s = spawn_jobs(
         spmd_jobs(tctx, tref, transports, epochs, lr) + tier_jobs(tiers)
-        + [(spmd_models_rank, (cases,))], SPMD_RANKS, "gloo", shared)
+        + [(spmd_models_rank, (cases,)),
+           (spmm15d_rank, (prep15["jobs"][SPMD_RANKS],))],
+        SPMD_RANKS, "gloo", shared)
     n = len(transports)
     by_path.update(phase_spmd("spmd", tctx, tref, transports, "gloo", shared,
                               epochs, lr, spawned=(res[:n], wall_s)))
     phase_spmd_tiers("spmd_tiers", tiers, "gloo", shared,
                      spawned=(res[n:n + 1], wall_s))
     by_path.update(phase_spmd_models("spmd_models", cases, "gloo", shared,
-                                     spawned=(res[n + 1:], wall_s)))
-    del res
-    torch.cuda.empty_cache()
+                                     spawned=(res[n + 1:n + 2], wall_s)))
     # the 1.5D strategy: its ranks share card 0 over gloo
-    by_path["spmm15d"] = phase_spmm15d("spmm15d", tctx, SPMM15D_SHAPES,
-                                       "gloo", ["cuda:0"])
+    by_path["spmm15d"] = phase_spmm15d(
+        "spmm15d", tctx, SPMM15D_SHAPES, "gloo", shared, prep=prep15,
+        spawned={SPMD_RANKS: (res[n + 2], wall_s)})
+    del res
     torch.cuda.empty_cache()
     # JACA's CPU tier and online adaptation on the train cell's host plan
     fctx = forced_context(tctx)

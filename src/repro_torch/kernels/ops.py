@@ -62,7 +62,7 @@ from .csr_spmm import ID_LIMIT, CsrPack, csr_spmm, csr_spmm_accumulate
 __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
            "csr_pack", "csr_pack_torch", "transpose_csr", "tail_csr",
            "pack_for_call", "gather_pack", "EdgePacks", "edge_packs",
-           "segment_ids", "segment_sum", "coo_spmm",
+           "segment_ids", "segment_sum", "coo_spmm", "value_heads",
            "EllSpmmFn", "HybridSpmmFn", "EdgeSpmmFn", "GatherRowsFn",
            "ell_spmm", "hybrid_spmm", "edge_spmm", "gather_rows",
            "pack_rows", "cache_combine", "ell_stats"]
@@ -156,22 +156,57 @@ def _check_csr(name: str, n_rows: int, n_cols: int, nnz: int,
         raise ValueError(f"{name}: long_row must be >= 1, got {long_row}")
 
 
+def _short_order_key(first_col, counts, short, col_block: int | None,
+                     long_row: int, n_blocks: int):
+    """The sort key of the short rows ``short``: their block (that of
+    their first column; empty rows after every block), then longest
+    first.  Works on numpy arrays and torch tensors alike."""
+    longest_first = long_row - counts[short]
+    if col_block is None:
+        return longest_first
+    block = first_col[short] // col_block
+    block = block * (counts[short] > 0) + n_blocks * (counts[short] == 0)
+    return block * (long_row + 1) + longest_first
+
+
+def _check_block(name: str, n_cols: int, col_block: int | None) -> int:
+    """The number of column blocks (1 without ``col_block``)."""
+    if col_block is None:
+        return 1
+    if col_block < 1:
+        raise ValueError(f"{name}: col_block must be >= 1, got {col_block}")
+    return -(-n_cols // col_block)
+
+
 def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
              n_rows: int, n_cols: int, every_row: bool,
              long_row: int = LONG_ROW, device="cpu",
-             ids: np.ndarray | None = None) -> CsrPack:
+             ids: np.ndarray | None = None,
+             col_block: int | None = None) -> CsrPack:
     """The entries ``(rows[e], cols[e], w[e])`` of an ``[n_rows, n_cols]``
     matrix as a :class:`~.csr_spmm.CsrPack` on ``device``: sorted by row,
     then column; rows of more than ``long_row`` entries cut into equal
     segments of at most ``long_row``; the other rows listed longest first,
     empty ones too when ``every_row``; with ``ids``, each entry's id in the
-    pack's order as ``perm``.  Ids are int32: raises past
+    pack's order as ``perm``.
+
+    ``col_block`` (the columns of one partition of a stacked layout) lists
+    the short rows block by block, a row's block being that of its first
+    column, and longest first within a block (empty rows last): the warps
+    in flight then read the x rows of one partition.  The transposed
+    packs take it (:func:`transpose_csr`, :func:`edge_packs`' ``bwd``),
+    whose x is the gradient, a partition of which the L2 holds (24k rows,
+    25 MB at the train cell's d = 256); a forward pack's partition of x
+    (49k rows, 50 MB) does not fit, and there the order measured slower
+    than longest first over the whole stack (PERF.md §6).  Ids are
+    int32: raises past
     :data:`~.csr_spmm.ID_LIMIT`.  :func:`csr_pack_torch` builds the same
     fields with torch ops."""
     rows = np.asarray(rows, np.int64).ravel()
     cols = np.asarray(cols, np.int64).ravel()
     w = np.asarray(w, np.float32).ravel()
     _check_csr("csr_pack", n_rows, n_cols, rows.size, long_row)
+    n_blocks = _check_block("csr_pack", n_cols, col_block)
     if rows.size and (rows.min() < 0 or rows.max() >= n_rows
                       or cols.min() < 0 or cols.max() >= n_cols):
         raise ValueError(f"csr_pack: entries outside [{n_rows}, {n_cols}]")
@@ -192,7 +227,10 @@ def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
     s, n, start = np.repeat(n_seg, n_seg), counts[seg_row], rowptr[seg_row]
     seg = np.stack([start + j * n // s, start + (j + 1) * n // s], axis=1)
     short = np.flatnonzero(~is_long & ((counts > 0) | every_row))
-    short = short[np.argsort(-counts[short], kind="stable")]
+    first_col = np.append(cols, 0)[rowptr[:-1]]
+    short = short[np.argsort(_short_order_key(
+        first_col, counts, short, col_block, long_row, n_blocks),
+        kind="stable")]
 
     def put(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), device=device
@@ -209,20 +247,24 @@ def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
 def csr_pack_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
                    n_rows: int, n_cols: int, every_row: bool,
                    long_row: int = LONG_ROW,
-                   ids: torch.Tensor | None = None) -> CsrPack:
+                   ids: torch.Tensor | None = None,
+                   col_block: int | None = None) -> CsrPack:
     """:func:`csr_pack` with torch ops, on the device of ``rows``: the same
     fields, bit for bit (a stable sort by ``row * n_cols + col`` is
-    ``np.lexsort``'s order).  For entries already on the device (the edge
-    lists, :func:`edge_packs`): nothing goes through the host but the
-    checks' one read and the sizes of the row classes."""
+    ``np.lexsort``'s order, and one stable sort by the same key orders
+    the short rows).  For entries already on the device (the edge lists,
+    :func:`edge_packs`): nothing goes through the host but the checks'
+    one read and the sizes of the row classes."""
     dev = rows.device
     rows, cols = rows.reshape(-1).long(), cols.reshape(-1).long()
     _check_csr("csr_pack_torch", n_rows, n_cols, rows.numel(), long_row)
+    n_blocks = _check_block("csr_pack_torch", n_cols, col_block)
     if rows.numel() and bool((rows.min() < 0) | (rows.max() >= n_rows)
                              | (cols.min() < 0) | (cols.max() >= n_cols)):
         raise ValueError(f"csr_pack_torch: entries outside "
                          f"[{n_rows}, {n_cols}]")
     order = torch.sort(rows * n_cols + cols, stable=True).indices
+    cols = cols[order]
     counts = torch.bincount(rows, minlength=n_rows)
     rowptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=rowptr[1:])
@@ -239,11 +281,14 @@ def csr_pack_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
     n, start = counts[seg_row], rowptr[seg_row]
     seg = torch.stack([start + j * n // s, start + (j + 1) * n // s], dim=1)
     short = torch.nonzero(~is_long & ((counts > 0) | every_row)).squeeze(1)
-    short = short[torch.sort(-counts[short], stable=True).indices]
+    first_col = torch.cat([cols, cols.new_zeros(1)])[rowptr[:-1]]
+    short = short[torch.sort(_short_order_key(
+        first_col, counts, short, col_block, long_row, n_blocks),
+        stable=True).indices]
 
     def i32(a):
         return a.to(torch.int32).contiguous()
-    return CsrPack(rowptr=i32(rowptr), col=i32(cols[order]),
+    return CsrPack(rowptr=i32(rowptr), col=i32(cols),
                    w=w.reshape(-1).float()[order].contiguous(),
                    short_rows=i32(short), seg=i32(seg.reshape(-1, 2)),
                    long_rows=i32(long_rows), long_seg_ptr=i32(long_seg_ptr),
@@ -264,8 +309,9 @@ def transpose_csr(cols, vals, n_cols: int, tail_src=None, tail_dst=None,
     slot ``(p, i, k)`` (``vals != 0``, column in ``[0, n_cols)``) and every
     tail entry with ``tail_dst < n_rows`` becomes the entry ``(p * n_cols
     + column, p * n_rows + i, w)``.  ``[P * n_cols, P * n_rows]``, every
-    row listed: :func:`~.csr_spmm.csr_spmm` of it and ``g`` (``[P * n_rows,
-    d]``) is ``d_h``."""
+    row listed, its short rows partition by partition (``col_block``):
+    :func:`~.csr_spmm.csr_spmm` of it and ``g`` (``[P * n_rows, d]``) is
+    ``d_h``."""
     cols, vals = _np(cols), _np(vals)
     if cols.ndim == 2:
         cols, vals = cols[None], vals[None]
@@ -282,7 +328,8 @@ def transpose_csr(cols, vals, n_cols: int, tail_src=None, tail_dst=None,
         ws.append(tw[q, m])
     return csr_pack(np.concatenate(rows), np.concatenate(tcols),
                     np.concatenate(ws), n_parts * n_cols, n_parts * n_rows,
-                    every_row=True, long_row=long_row, device=device)
+                    every_row=True, long_row=long_row, device=device,
+                    col_block=n_rows)
 
 
 def tail_csr(tail_src, tail_dst, tail_w, n_rows: int, n_cols: int,
@@ -351,7 +398,8 @@ def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     n_cols)``, ``dst`` in ``[0, n_rows]``, ``n_rows`` marking padding),
     built with torch ops (:func:`csr_pack_torch`) on the edge list's
     device, once where the edge list goes there (or, for the serving
-    engine's subgraphs, once per call); ``grad`` adds ``A^T``."""
+    engine's subgraphs, once per call); ``grad`` adds ``A^T``, its short
+    rows partition by partition (``col_block``)."""
     if src.dim() == 1:
         src, dst, w = src[None], dst[None], w[None]
     n_parts, m = src.shape
@@ -366,7 +414,8 @@ def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     fwd = csr_pack_torch(rows, cols, ws, *shape, every_row=True,
                          long_row=long_row, ids=ids)
     bwd = (csr_pack_torch(cols, rows, ws, *shape[::-1], every_row=True,
-                          long_row=long_row, ids=ids) if grad else None)
+                          long_row=long_row, ids=ids, col_block=n_rows)
+           if grad else None)
     return EdgePacks(fwd, bwd, n_parts, int(n_rows), int(n_cols), m)
 
 
@@ -593,11 +642,23 @@ class HybridSpmmFn(torch.autograd.Function):
         return None, d_vals, None, None, d_tw, d_h, None, None, None
 
 
-def _valued(pack: CsrPack, e_vals: torch.Tensor) -> CsrPack:
+def value_heads(e_vals: torch.Tensor, n_edges: int) -> int:
+    """0 for per-edge values of one product, ``e_vals [(P,) n_edges]``;
+    ``H`` for GAT's heads, ``e_vals [(P,) n_edges, H]``."""
+    if e_vals.shape[-1] == n_edges or e_vals.dim() < 2:
+        return 0
+    return int(e_vals.shape[-1])
+
+
+def _valued(pack: CsrPack, e_vals: torch.Tensor,
+            heads: int = 0) -> CsrPack:
     """``pack`` with the per-edge values ``e_vals`` in its order (one
-    gather through ``perm``)."""
-    return dataclasses.replace(pack, w=e_vals.reshape(-1).float()
-                               .index_select(0, pack.perm))
+    gather through ``perm``): ``w [nnz]``, or ``[H, nnz]`` per head."""
+    if not heads:
+        return dataclasses.replace(pack, w=e_vals.reshape(-1).float()
+                                   .index_select(0, pack.perm))
+    return dataclasses.replace(pack, w=e_vals.reshape(-1, heads).float()
+                               .index_select(0, pack.perm).t().contiguous())
 
 
 def _edge_product(kernel, pack: CsrPack, x: torch.Tensor) -> torch.Tensor:
@@ -615,24 +676,30 @@ class EdgeSpmmFn(torch.autograd.Function):
     v[e] * h[..., src[e], :]`` for ``h [(P,) n_cols, d]``, with ``v`` the
     forward pack's own weights when ``e_vals`` is None (``spmm``) or the
     per-edge values ``e_vals [(P,) n_edges]`` (``spmm_at``), which are
-    differentiable.
+    differentiable.  GAT's heads go as one call: ``e_vals [(P,) n_edges,
+    H]`` and ``h [(P,) n_cols, H, dh]`` give ``[(P,) n_rows, H, dh]``, head
+    ``z`` weighted by ``e_vals[..., z]`` (:func:`value_heads`).
 
     Forward: the CSR kernel in write mode over ``packs.fwd``
     (:func:`~.edge_spmm.edge_spmm`); backward: ``d_h`` by the same kernel
     over ``packs.bwd`` (:func:`~.edge_spmm.edge_spmm_dh`) and ``d_e_vals``
     by :func:`~.edge_spmm.edge_dvals`, each only where asked for, with f32
-    sums, cast to the input's dtype (0 at padding edges).  On CPU tensors
-    the plain versions of :mod:`.ref` over the same packs.  Raises
-    ``ValueError`` when ``h`` does not fit the packs or a gradient of ``h``
-    is asked for and ``packs.bwd`` is None."""
+    sums, cast to the input's dtype (0 at padding edges).  Each is one
+    launch whatever the number of heads.  On CPU tensors the plain
+    versions of :mod:`.ref` over the same packs.  Raises ``ValueError``
+    when ``h`` does not fit the packs or a gradient of ``h`` is asked for
+    and ``packs.bwd`` is None."""
 
     @staticmethod
     def forward(ctx, e_vals, h, packs):
-        d = h.shape[-1]
-        stack = tuple(h.shape[:-2]) or (1,)
-        if stack != (packs.n_parts,) or h.shape[-2] != packs.n_cols or (
-                e_vals is not None and e_vals.numel()
-                != packs.n_parts * packs.n_edges):
+        heads = 0 if e_vals is None else value_heads(e_vals, packs.n_edges)
+        feat = tuple(h.shape[-2:] if heads else h.shape[-1:])
+        lead = tuple(h.shape[:h.dim() - len(feat) - 1])
+        if (lead or (1,)) != (packs.n_parts,) or \
+                h.shape[len(lead)] != packs.n_cols or \
+                (heads and feat[0] != heads) or (
+                    e_vals is not None and e_vals.numel() != packs.n_parts
+                    * packs.n_edges * max(heads, 1)):
             raise ValueError(
                 f"edge packs of {packs.n_parts} x [{packs.n_rows}, "
                 f"{packs.n_cols}] over {packs.n_edges} edges do not fit h "
@@ -641,35 +708,34 @@ class EdgeSpmmFn(torch.autograd.Function):
         if ctx.needs_input_grad[1] and packs.bwd is None:
             raise ValueError("d_h needs the transposed pack: build the "
                              "edge packs with grad=True")
-        fwd = packs.fwd if e_vals is None else _valued(packs.fwd, e_vals)
-        out = _edge_product(_edge.edge_spmm, fwd, h.reshape(-1, d))
+        fwd = packs.fwd if e_vals is None else _valued(packs.fwd, e_vals,
+                                                       heads)
+        out = _edge_product(_edge.edge_spmm, fwd, h.reshape((-1,) + feat))
         ctx.save_for_backward(e_vals, h if ctx.needs_input_grad[0] else None)
-        ctx.packs = packs
+        ctx.packs, ctx.heads, ctx.feat = packs, heads, feat
         ctx.h_meta = (h.shape, h.dtype)
         ctx.scope = current_scope("edge_spmm")
-        return out.view(*h.shape[:-2], packs.n_rows, d)
+        return out.view(*lead, packs.n_rows, *feat)
 
     @staticmethod
     def backward(ctx, g):
         e_vals, h = ctx.saved_tensors
-        packs = ctx.packs
+        packs, heads, feat = ctx.packs, ctx.heads, ctx.feat
         h_shape, h_dtype = ctx.h_meta
-        d = g.shape[-1]
         d_e = d_h = None
         with transpose_scope(ctx.scope):
-            g32 = g.float().contiguous().view(-1, d)
+            g32 = g.float().contiguous().view((-1,) + feat)
             if ctx.needs_input_grad[0]:
-                h32 = h.float().contiguous().view(-1, d)
+                h32 = h.float().contiguous().view((-1,) + feat)
+                n_edges = packs.n_parts * packs.n_edges
                 if g32.device.type == "cpu":
-                    d_e = _ref.edge_dvals_ref(packs.fwd, g32, h32,
-                                              e_vals.numel())
+                    d_e = _ref.edge_dvals_ref(packs.fwd, g32, h32, n_edges)
                 else:
-                    d_e = _edge.edge_dvals(packs.fwd, g32, h32,
-                                           e_vals.numel())
+                    d_e = _edge.edge_dvals(packs.fwd, g32, h32, n_edges)
                 d_e = d_e.view(e_vals.shape).to(e_vals.dtype)
             if ctx.needs_input_grad[1]:
                 bwd = packs.bwd if e_vals is None else _valued(packs.bwd,
-                                                               e_vals)
+                                                               e_vals, heads)
                 d_h = _edge_product(_edge.edge_spmm_dh, bwd, g32)
                 d_h = d_h.view(h_shape).to(h_dtype)
         return d_e, d_h, None
@@ -680,9 +746,11 @@ def edge_spmm(h: torch.Tensor, packs: EdgePacks | None,
     """The edge-list aggregation ``[(P,) n_rows, d]`` of ``h [(P,) n_cols,
     d]`` over ``packs`` (:func:`edge_packs`): :class:`EdgeSpmmFn`, the
     hand-written kernels on the card.  ``e_vals`` (``[(P,) n_edges]``)
-    replaces the packs' weights.  Raises ``ValueError`` without packs: the
-    card has no edge-list route but the packs' (``coo_spmm`` is the plain
-    version, for CPU tensors)."""
+    replaces the packs' weights; ``e_vals [(P,) n_edges, H]`` with ``h
+    [(P,) n_cols, H, dh]`` computes GAT's H heads in one call, ``[(P,)
+    n_rows, H, dh]``.  Raises ``ValueError`` without packs: the card has no
+    edge-list route but the packs' (``coo_spmm`` is the plain version, for
+    CPU tensors)."""
     if packs is None:
         raise ValueError(f"the edge-list aggregation on {h.device} needs its "
                          "CSR packs (ops.edge_packs, built once with the "

@@ -140,19 +140,23 @@ def csr_spmm_ref(pack, x: torch.Tensor,
     """``A x`` for a :class:`~.csr_spmm.CsrPack` ``A`` and ``x``
     ``[pack.n_cols, d]``, or ``out + A x`` when ``out`` is given (a new
     tensor), with f32 sums and one rounding to ``x``'s dtype: what the
-    kernel's write and accumulate modes compute.  ``index_add_`` over
-    chunks of entries, so ``[nnz, d]`` is never built whole (1.3 GB on the
-    serving slice's tail at d = 500)."""
+    kernel's write and accumulate modes compute.  A pack valued per head
+    (``w [H, nnz]``) takes ``x [pack.n_cols, H, dh]``: head ``z`` sums
+    ``w[z, e] * x[col[e], z]``.  ``index_add_`` over chunks of entries,
+    so ``[nnz, d]`` is never built whole (1.3 GB on the serving slice's
+    tail at d = 500)."""
     rows = torch.repeat_interleave(
         torch.arange(pack.n_rows, device=x.device),
         (pack.rowptr[1:] - pack.rowptr[:-1]).long())
     col = pack.col.long()
     x32 = x.float()
-    acc = torch.zeros((pack.n_rows, x.shape[-1]), dtype=torch.float32,
-                      device=x.device)
+    # each entry's value(s), broadcast over the features of x's row
+    w = pack.w.t()[..., None] if pack.w.dim() == 2 else pack.w[:, None]
+    acc = torch.zeros((pack.n_rows,) + tuple(x.shape[1:]),
+                      dtype=torch.float32, device=x.device)
     for lo in range(0, pack.nnz, _CSR_CHUNK):
         hi = lo + _CSR_CHUNK
-        acc.index_add_(0, rows[lo:hi], pack.w[lo:hi, None] * x32[col[lo:hi]])
+        acc.index_add_(0, rows[lo:hi], w[lo:hi] * x32[col[lo:hi]])
     if out is not None:
         acc = out.float() + acc
     return acc.to(x.dtype)
@@ -162,15 +166,17 @@ def edge_dvals_ref(pack, g: torch.Tensor, h: torch.Tensor,
                    n_edges: int) -> torch.Tensor:
     """``d_vals [n_edges]`` f32 for an edge list's forward pack: ``<g[r],
     h[c]>`` at ``pack.perm[k]`` for each entry ``k = (r, c)``, 0 at the
-    edges the pack does not hold (padding); what ``csrc/edge_dvals.cu``
-    computes.  Over chunks of entries, so ``[nnz, d]`` is never built
-    whole."""
+    edges the pack does not hold (padding); per head, ``[n_edges, H]``,
+    for ``g [n_rows, H, dh]`` and ``h [n_cols, H, dh]``: what
+    ``csrc/edge_dvals.cu`` computes.  Over chunks of entries, so ``[nnz,
+    d]`` is never built whole."""
     rows = torch.repeat_interleave(
         torch.arange(pack.n_rows, device=g.device),
         (pack.rowptr[1:] - pack.rowptr[:-1]).long())
     col, perm = pack.col.long(), pack.perm.long()
     g32, h32 = g.float(), h.float()
-    out = torch.zeros(n_edges, dtype=torch.float32, device=g.device)
+    out = torch.zeros((n_edges,) + tuple(g.shape[1:-1]), dtype=torch.float32,
+                      device=g.device)
     for lo in range(0, pack.nnz, _CSR_CHUNK):
         hi = lo + _CSR_CHUNK
         out[perm[lo:hi]] = (g32[rows[lo:hi]] * h32[col[lo:hi]]).sum(-1)

@@ -12,10 +12,13 @@ Runs the slice once through :func:`repro_torch.launch.serve.serve_gnn`
    query stream again, warm-up included.
 
 For each it prints one JSON line: the wall seconds of the profiled window,
-the device-busy seconds (the sum of every kernel's and copy's device time;
-the slice runs on one stream, so they do not overlap), the idle share
-``1 - busy / wall``, and the operations with the most device time and the
-most host time.  The profiler's own cost is inside the wall time, so the
+the device-busy seconds (the sum of the device time of every kernel, copy
+and memset; the slice runs on one stream, so they do not overlap), the
+idle share ``1 - busy / wall``, and the operations with the most device
+time and the most host time.  The device side of the port's
+``record_function`` ranges (``obs.annotations.device_scope``) spans the
+kernels inside it: it is listed apart (``device_ranges``), never added to
+the busy time.  The profiler's own cost is inside the wall time, so the
 idle share is an upper bound for the unprofiled run.
 """
 from __future__ import annotations
@@ -41,26 +44,56 @@ def _profiled(fn):
     return prof, wall
 
 
+# the device activities that occupy the card; a user annotation's device
+# side (a ``record_function`` range) only spans them
+_BUSY_KINDS = ("kernel", "memcpy", "memset")
+
+
+def device_kind(evt) -> str | None:
+    """What a profiler event is on the card: ``"kernel"``, ``"memcpy"``,
+    ``"memset"`` or ``"range"`` (a user annotation's device side), or
+    None for a host event.  Reads the event's activity type where the
+    installed profiler records one, else its annotation flag and name."""
+    if evt.device_type != torch.autograd.DeviceType.CUDA:
+        return None
+    activity = (getattr(evt, "activity_type", None) or "").lower()
+    if getattr(evt, "is_user_annotation", False) or "annotation" in activity:
+        return "range"
+    name = evt.name.lower()
+    for kind in ("memcpy", "memset"):
+        if kind in activity or name.startswith(kind):
+            return kind
+    return "kernel"
+
+
 def _summary(name: str, prof, wall: float, top: int = 12) -> dict:
-    """One JSON-able record of a profiled window (times in ms)."""
-    device_rows, host_rows = [], []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device_rows.append((e.key, e.self_device_time_total / 1e3,
-                                e.count))
-        elif e.self_cpu_time_total > 0:
-            host_rows.append((e.key, e.self_cpu_time_total / 1e3, e.count))
-    if not device_rows:
+    """One JSON-able record of a profiled window (times in ms): the busy
+    time sums kernels, copies and memsets only."""
+    busy, ranges = {}, {}
+    for e in prof.events():
+        kind = device_kind(e)
+        if kind is None:
+            continue
+        rows = ranges if kind == "range" else busy
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    if not busy:
         raise RuntimeError(f"{name}: the profiler recorded no device "
                            "activity; time the window with CUDA events")
-    busy_ms = sum(ms for _, ms, _ in device_rows)
-    device_rows.sort(key=lambda r: -r[1])
+    host_rows = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type != torch.autograd.DeviceType.CUDA
+                 and e.self_cpu_time_total > 0]
+    busy_ms = sum(ms for ms, _ in busy.values())
     host_rows.sort(key=lambda r: -r[1])
+
+    def top_rows(rows):
+        return [{"op": k[:120], "ms": ms, "calls": n} for k, (ms, n) in
+                sorted(rows.items(), key=lambda r: -r[1][0])[:top]]
     return {
         "window": name, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (wall * 1e3),
-        "device_top": [{"op": k[:120], "ms": ms, "calls": n}
-                       for k, ms, n in device_rows[:top]],
+        "device_top": top_rows(busy), "device_ranges": top_rows(ranges),
         "host_top": [{"op": k[:120], "self_ms": ms, "calls": n}
                      for k, ms, n in host_rows[:top]],
     }

@@ -138,10 +138,18 @@ class EdgeListAdj(Adjacency):
     def spmm_at(self, e_vals, h):
         """The aggregation with ``e_vals [(P,) m]`` as the edge weights;
         differentiable in them (on the card, ``d_e_vals`` is the
-        ``edge_dvals`` kernel)."""
-        if h.device.type == "cpu":
+        ``edge_dvals`` kernel).  GAT's heads in one call: ``e_vals [(P,)
+        m, H]`` with ``h [(P,) n_cols, H, dh]`` gives ``[(P,) n_rows, H,
+        dh]``, head ``z`` weighted by ``e_vals[..., z]`` (on the card one
+        launch of each kernel for all the heads; on the CPU the
+        reference's loop over the heads)."""
+        if h.device.type != "cpu":
+            return ops.edge_spmm(h, self.packs, e_vals)
+        if not ops.value_heads(e_vals, self.src.shape[-1]):
             return ops.coo_spmm(self.src, self.dst, e_vals, h, self.n_rows_)
-        return ops.edge_spmm(h, self.packs, e_vals)
+        return torch.stack([ops.coo_spmm(self.src, self.dst, e_vals[..., z],
+                                         h[..., z, :], self.n_rows_)
+                            for z in range(e_vals.shape[-1])], dim=-2)
 
     def degree(self):
         """The weights summed per ``dst`` (weighted in-degree, the
@@ -387,8 +395,9 @@ def _edge_softmax(logits: torch.Tensor, dst: torch.Tensor,
 
 def _gat(p: dict, adj: Adjacency, h_local: torch.Tensor) -> torch.Tensor:
     """GAT's layer before its activation: per-head scores, the edge
-    softmax over each row's incoming edges, then per head one
-    ``spmm_at`` of the attention, the heads concatenated and projected."""
+    softmax over each row's incoming edges, then one ``spmm_at`` of the
+    attention for all the heads (the reference's loop over the heads in
+    one call), the heads concatenated and projected."""
     if not isinstance(adj, EdgeListAdj):
         raise NotImplementedError(
             f"GAT's edge softmax needs flat edge ids, which the "
@@ -403,9 +412,7 @@ def _gat(p: dict, adj: Adjacency, h_local: torch.Tensor) -> torch.Tensor:
         _edge_rows(e_src, adj.src)
         + _edge_rows(e_dst, torch.where(live, adj.dst, 0)), 0.2)
     att = _edge_softmax(logits, adj.dst, adj.n_rows)
-    outs = [adj.spmm_at(att[..., hh], h_heads[..., hh, :])
-            for hh in range(n_heads)]
-    return torch.cat(outs, dim=-1) @ p["proj"]
+    return adj.spmm_at(att, h_heads).flatten(-2) @ p["proj"]
 
 
 def _layer_apply(cfg: GNNConfig, p: dict, adj: Adjacency,

@@ -25,7 +25,16 @@ train slice's tolerances.  The edge list's route: its forward and ``d_h``
 their plain versions at every lane and stripe configuration (``d_vals``
 twice bit for bit), ``EdgeListAdj.spmm`` / ``spmm_at`` against the CPU's
 ``coo_spmm`` with their gradients, an edge list on the card without packs
-refused, and the packs built on the card equal to the CPU's.  ``EllAdj.spmm_at`` (trained ELL values) runs
+refused, and the packs built on the card equal to the CPU's.  The CSR
+kernel's load modes (two or four register steps, the cp.async ring) at
+every stripe over a pack in its own and a shuffled row order (long
+rows, empty rows, ragged widths, bf16, accumulate mode, two launches bit
+for bit); GAT's heads (4, and 1) in one launch of the CSR kernel and of
+``edge_dvals`` (against the plain versions and one launch a head, bit
+for bit twice, 0 at padding), and ``EdgeListAdj.spmm_at`` of ``[P, m,
+H]`` values
+against the CPU's head loop; the profiler's busy time within the wall
+time with ``device_scope`` ranges open.  ``EllAdj.spmm_at`` (trained ELL values) runs
 the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
 stacked gradients stay finite over padding edges.  The host store drops
 an injected fetch before it takes a pinned ring slot; the tracer's
@@ -1194,3 +1203,188 @@ def test_counter_on_cuda_tensors(card):
     assert cost.flops == 2 * 64 * 32 * 16
     assert cost.bytes_accessed == 4 * (64 * 32 + 32 * 16 + 64 * 16)
 
+
+
+# the CSR kernel's modes and stripes, GAT's heads in one launch (the
+# kernel's grid z), edge_dvals over heads, and the profiler's busy sum
+
+CSR_MODE_CASES = [(torch.float32, 500, False), (torch.float32, 7, True),
+                  (torch.bfloat16, 256, True), (torch.bfloat16, 500, False)]
+
+
+@pytest.mark.parametrize("mode", list(csr_spmm.MODES))
+@pytest.mark.parametrize("stripe_bytes", [256, 512, 1024])
+@pytest.mark.parametrize("dtype,d,accumulate", CSR_MODE_CASES,
+                         ids=["f32-500-write", "f32-7-acc", "bf16-256-acc",
+                              "bf16-500-write"])
+def test_csr_modes_and_stripes_match_plain(card, mode, stripe_bytes, dtype,
+                                           d, accumulate):
+    """Every load mode (registers two or four steps deep, the cp.async
+    ring; 16-byte words take all three, narrower ones fall to two steps
+    in registers) at every stripe, over a pack with long rows (segments),
+    empty rows and ragged widths, its short rows in the pack's order and
+    shuffled, in both modes and both types: against the plain version,
+    and two write-mode launches bit for bit."""
+    config = (stripe_bytes, mode)
+    rng = np.random.default_rng(d + stripe_bytes)
+    n_rows, n_cols = 400, 500
+    lens = rng.integers(0, 40, n_rows)
+    lens[[5, 77, 300]] = (3000, 700, 90)
+    lens[[7, 8, 350]] = 0
+    rows = np.repeat(np.arange(n_rows), lens)
+    pack = ops.csr_pack(rows, rng.integers(0, n_cols, rows.size),
+                        rng.normal(size=rows.size), n_rows, n_cols,
+                        every_row=not accumulate, long_row=64,
+                        device=card)
+    assert pack.long_rows.numel() and pack.short_rows.numel()
+    x = torch.from_numpy(rng.normal(size=(n_cols, d)).astype(
+        np.float32)).to(card, dtype)
+    out0 = torch.from_numpy(rng.normal(size=(n_rows, d)).astype(
+        np.float32)).to(card, dtype)
+    shuffled = dataclasses.replace(pack, short_rows=pack.short_rows[
+        torch.randperm(pack.short_rows.numel(), device=card)])
+    want = ref.csr_spmm_ref(pack, x, out0 if accumulate else None)
+    for p in (pack, shuffled):
+        if accumulate:
+            got = out0.clone()
+            assert csr_spmm._run("csr_spmm_accumulate", p, x, got, True,
+                                 config)
+        else:
+            got = csr_spmm.write_mode("csr_spmm", p, x, config)[0]
+            again = csr_spmm.write_mode("csr_spmm", p, x, config)[0]
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.view(bits), again.view(bits))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_csr_tol(want))
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("mode", list(csr_spmm.MODES))
+@pytest.mark.parametrize("dh", [6, 64, 100])
+def test_csr_heads_in_one_launch(card, mode, dh, heads):
+    """A pack valued per head (``w [H, nnz]``, H = 1 too) and ``x [n, H,
+    dh]``: one launch (the kernel's grid z) gives each head's product,
+    equal to the plain version and to one launch a head over that head's
+    columns, in the same bits twice."""
+    src, dst, w = _edge_case(dh)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=16)
+    rng = np.random.default_rng(dh)
+    e = torch.from_numpy(rng.normal(size=(3, 6000, heads)).astype(
+        np.float32)).to(card)
+    x = torch.from_numpy(rng.normal(size=(3 * 500, heads, dh)).astype(
+        np.float32)).to(card)
+    valued = ops._valued(packs.fwd, e, heads)
+    assert valued.w.shape == (heads, packs.fwd.nnz)
+    got, launched = csr_spmm.write_mode("csr_spmm", valued, x,
+                                        (None, mode))
+    again, launched_again = csr_spmm.write_mode("csr_spmm", valued, x,
+                                                (None, mode))
+    assert launched and launched_again
+    torch.cuda.synchronize()
+    assert got.shape == (packs.fwd.n_rows, heads, dh)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = ref.csr_spmm_ref(valued, x)
+    torch.testing.assert_close(got, want, **_csr_tol(want))
+    for z in range(heads):
+        one = csr_spmm.csr_spmm(ops._valued(packs.fwd, e[..., z]),
+                                x[:, z].contiguous())
+        torch.testing.assert_close(got[:, z], one, **_csr_tol(one))
+
+
+@pytest.mark.parametrize("dh", [1, 6, 64, 100, 300])
+def test_edge_dvals_heads_match_plain(card, dh):
+    """``edge_dvals`` of ``g [n, 4, dh]`` and ``h [n, 4, dh]``: one launch
+    for the 4 heads (in one pass where the row allows it, and head by
+    head) against the plain version and against one launch a head, twice
+    bit for bit, 0 at the padding edges."""
+    from repro_torch.kernels import edge_spmm as kedge
+    heads = 4
+    src, dst, w = _edge_case(dh + 1)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=16, grad=False)
+    rng = np.random.default_rng(dh)
+    h = torch.from_numpy(rng.normal(size=(3 * 500, heads, dh)).astype(
+        np.float32)).to(card)
+    g = torch.from_numpy(rng.normal(size=(3 * 300, heads, dh)).astype(
+        np.float32)).to(card)
+    n = kedge.edge_dvals.launches
+    dv = [kedge.edge_dvals(packs.fwd, g, h, 3 * 6000) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kedge.edge_dvals.launches - n == 2
+    assert dv[0].shape == (3 * 6000, heads)
+    assert torch.equal(dv[0].view(torch.int32), dv[1].view(torch.int32))
+    want = ref.edge_dvals_ref(packs.fwd, g, h, 3 * 6000)
+    torch.testing.assert_close(dv[0], want, **ELL_TOL)
+    assert not dv[0][torch.from_numpy(dst == 300).reshape(-1)].any()
+    by_head = kedge._dvals(packs.fwd, g, h, 3 * 6000, one_pass=False)[0]
+    torch.testing.assert_close(by_head, want, **ELL_TOL)
+    for z in range(heads):
+        one = kedge.edge_dvals(packs.fwd, g[:, z].contiguous(),
+                               h[:, z].contiguous(), 3 * 6000)
+        torch.testing.assert_close(dv[0][:, z], one, **ELL_TOL)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_edge_spmm_at_heads_on_card_matches_cpu(card, heads):
+    """``EdgeListAdj.spmm_at`` with ``e_vals [P, m, H]`` and ``h [P, n, H,
+    64]`` (H = 4, and 1: GAT's ``num_heads=1``) on the card (one
+    ``edge_spmm``, one ``edge_spmm_dh`` and one ``edge_dvals`` launch for
+    the heads) against the CPU's loop over the heads: the output, ``d_h``
+    and ``d_vals``."""
+    from repro_torch.kernels import edge_spmm as kedge
+    from repro_torch.models.gnn import EdgeListAdj
+    src, dst, w = _edge_case(13)
+    rng = np.random.default_rng(13)
+    h0 = rng.normal(size=(3, 500, heads, 64)).astype(np.float32)
+    g0 = rng.normal(size=(3, 300, heads, 64)).astype(np.float32)
+    e0 = rng.normal(size=(3, 6000, heads)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        s_, d_, w_ = (torch.as_tensor(a).to(dev) for a in (
+            src.astype(np.int64), dst.astype(np.int64), w))
+        adj = EdgeListAdj(s_, d_, w_, 300, 500,
+                          ops.edge_packs(s_, d_, w_, 300, 500))
+        h = torch.from_numpy(h0).to(dev).requires_grad_(True)
+        e = torch.from_numpy(e0).to(dev).requires_grad_(True)
+        n = [f.launches for f in (kedge.edge_spmm, kedge.edge_spmm_dh,
+                                  kedge.edge_dvals)]
+        out = adj.spmm_at(e, h)
+        out.backward(torch.from_numpy(g0).to(dev))
+        if dev == card:
+            assert [f.launches - k for f, k in zip(
+                (kedge.edge_spmm, kedge.edge_spmm_dh, kedge.edge_dvals),
+                n)] == [1, 1, 1]
+        res[str(dev)] = (out.detach().cpu(), h.grad.cpu(), e.grad.cpu())
+    (oc, hc, ec), (og, hg, eg) = res["cpu"], res[str(card)]
+    assert og.shape == (3, 300, heads, 64)
+    torch.testing.assert_close(og, oc, **_csr_tol(oc))
+    torch.testing.assert_close(hg, hc, **_csr_tol(hc))
+    torch.testing.assert_close(eg, ec, **ELL_TOL)
+
+
+def test_profiler_busy_is_kernels_with_ranges_open(card):
+    """``launch.profile_serve``'s summary of a window whose kernels run
+    inside nested ``device_scope`` ranges (and a copy): the busy time
+    sums kernels, copies and memsets, so it stays within the wall time
+    and the idle share is not negative; the ranges are listed apart."""
+    from repro_torch.launch.profile_serve import _profiled, _summary
+    from repro_torch.obs.annotations import device_scope
+    a = torch.randn(2048, 2048, device=card)
+    host = torch.randn(1 << 20)
+
+    def window():
+        with device_scope("outer"):
+            for i in range(4):
+                with device_scope(f"layer{i}/spmm"):
+                    b = a @ a
+                    b.add_(1.0)
+            host.to(card)
+    window()
+    prof, wall = _profiled(window)
+    rec = _summary("window", prof, wall)
+    assert 0 < rec["device_busy_ms"] <= rec["wall_ms"]
+    assert 0 <= rec["idle_share"] < 1
+    assert {"outer", "layer0/spmm"} <= {r["op"] for r in rec["device_ranges"]}
+    assert not {"outer", "layer0/spmm"} & {r["op"] for r in rec["device_top"]}

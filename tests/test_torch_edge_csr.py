@@ -92,7 +92,8 @@ def _host_packs(src, dst, w, long_row=ops.LONG_ROW):
     shape = (N_PARTS * N_ROWS, N_PARTS * N_COLS)
     kw = dict(every_row=True, long_row=long_row, ids=p * M + e)
     return (ops.csr_pack(rows, cols, w[p, e], *shape, **kw),
-            ops.csr_pack(cols, rows, w[p, e], *shape[::-1], **kw))
+            ops.csr_pack(cols, rows, w[p, e], *shape[::-1],
+                         col_block=N_ROWS, **kw))
 
 
 def _close(got, want, what=""):
@@ -318,7 +319,7 @@ def test_stacked_and_local_edge_lists_carry_their_packs(grad):
     if grad:
         _same_pack(adj.packs.bwd, ops.csr_pack(
             cols, rows, sp.e_w[p, e], sp.num_parts * nc, sp.num_parts * ni,
-            **kw))
+            col_block=ni, **kw))
     h = torch.from_numpy(np.random.default_rng(9).normal(
         size=(sp.num_parts, nc, 5)).astype(np.float32))
     _close(ops.EdgeSpmmFn.apply(None, h, adj.packs), adj.spmm(h))
