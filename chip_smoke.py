@@ -35,7 +35,11 @@ raises, and the script exits non-zero:
    one tail launch a layer (recomputed per call, as the reference does);
    its card-vs-CPU pass runs at scale ``SERVE_SAGE_CHECK_SCALE`` (the
    same flags and parameters; the served answers against the card's own
-   tables).
+   tables).  ``serve_gat`` - the same with ``--model gat --backend
+   edges`` (GAT's edge softmax runs on the edge list only): one
+   ``edge_spmm`` and one ``edge_softmax_fwd`` launch a layer, no other
+   kernel but the gathers, no per-call gather of the attention; held
+   against the CPU at the same scale as ``serve_sage``.
    ``serve_fresh`` - the serving slice with ``--update-frac 0.005`` (446
    of 89,250 nodes' features updated, every query of a stale node
    recomputed over its ``fresh_hops``-hop in-neighbourhood), traced: the
@@ -68,9 +72,11 @@ raises, and the script exits non-zero:
    the same checks, SAGE with two ELL forward and tail launches a layer.
    ``train_gat`` - ``--model gat --backend edges --lr 0.001``
    (:data:`GAT_LR`; GAT's edge softmax runs on the edge list only): four
-   heads a layer in one ``edge_spmm`` forward and, every step, one
-   ``edge_spmm_dh`` and one ``edge_dvals`` launch from layer 0 on; no ELL,
-   tail or ELL ``d_h`` launch, the gathers 6 / 2.
+   heads a layer in one ``edge_softmax_fwd`` and one ``edge_spmm``
+   forward and, every step, one ``edge_dvals``, one ``edge_softmax_bwd``
+   and one ``edge_spmm_dh`` launch from layer 0 on (``valued_gathers``
+   0: the attention is written in the pack's order); no ELL, tail or ELL
+   ``d_h`` launch, the gathers 6 / 2.
    ``train_vanilla``, ``train_jaca``, ``train_rapa``, ``train_jaca_rapa``,
    ``train_adaptive`` and ``train_x8`` - the paper's ablation rows (Table
    8: Vanilla is no JACA, no RAPA, no pipeline, a refresh every step),
@@ -91,7 +97,13 @@ raises, and the script exits non-zero:
    for bit, timed beside it and ``torch.sparse.mm``; ``edge_dvals`` (a
    ``kernel`` line) at d = 64 on the same pack against its plain version
    and ``coo_spmm``'s autograd in its weights, beside
-   ``torch.sparse.sampled_addmm``.
+   ``torch.sparse.sampled_addmm``.  ``edge_softmax`` - GAT's edge softmax
+   (``csrc/edge_softmax.cu``) with 4 heads on the same packs: both entry
+   points against their plain versions and against the plain route they
+   replace (``_edge_rows`` / ``_edge_softmax`` and their autograd), twice
+   bit for bit, timed beside the bound and ``torch.sparse.softmax`` (and
+   its backward), ``edge_dvals`` into the backward, and one layer's
+   ``ops.edge_attention`` against the old route.
    ``train_ell`` - ``--backend ell`` at scale 0.3 (the pure ELL pack's
    shape and bytes printed: 0.73 GB there, ~7 GB at scale 1.0), its
    refresh step held against the CPU at scale 0.1.
@@ -235,15 +247,15 @@ raises, and the script exits non-zero:
    one forward and backward, its ``d_vals`` and ``d_h`` launches counted
    and held against their plain versions.
 7. ``kernels`` - every ported kernel with its launches on each path
-   (``launches_by_path``: serve, serve_sage, serve_fresh, the two
+   (``launches_by_path``: serve, serve_sage, serve_gat, serve_fresh, the two
    examples, train, the ablation rows, train_sage,
    train_gin, train_edges, train_gat, train_ell, the SPMD runs summed over
    ranks (spmd_models_<model> per model, spmm15d), train_host,
    train_host_cli, train_adaptive_lru, train_adaptive_drift, spmd_host,
    ell_spmm_at, and 0 on lm_reduced, lm_serve, lm_train), its largest
    error against the plain version and its times; the edge list's route
-   (``edge_spmm``, ``edge_spmm_dh``, ``edge_dvals``) from the
-   ``coo_spmm`` phase.
+   (``edge_spmm``, ``edge_spmm_dh``, ``edge_dvals``, ``edge_softmax_fwd``,
+   ``edge_softmax_bwd``) from the ``coo_spmm`` phase.
 
 ``--kernels-only`` runs only the edge route's kernels at the train cell:
 ``csr_variants`` lines (the CSR kernel on each route it serves, the 1.5D
@@ -253,8 +265,9 @@ which the L2 holds: the floor probe; the ring and four register steps
 over x folded into 8k and 48k rows; medians and spread over 8 rounds;
 the default under each timing protocol), ``dvals_variants``
 (``edge_dvals`` with GAT's 4 heads: one pass, head by head, one launch a
-head, the floor probe) and the ``coo_spmm``, ``csr_spmm_tail``,
-``csr_spmm_dh`` and ``gather_rows_bwd`` lines.
+head, the floor probe) and the ``coo_spmm`` (with ``edge_dvals`` and
+``edge_softmax``), ``csr_spmm_tail``, ``csr_spmm_dh`` and
+``gather_rows_bwd`` lines.
 
 Every kernel time is CUDA events around a run of calls queued behind a
 ~1 ms spin of the card (``time_calls``), so it holds no host time: it
@@ -368,6 +381,10 @@ GATHER_BWD_REPLACES = "src/repro/kernels/ops.py:128"
 EDGE_REPLACES = "src/repro/models/gnn.py:99"
 EDGE_DVALS_REPLACES = "src/repro/models/gnn.py:103"
 EDGE_DVALS_SOURCE = "src/repro_torch/kernels/csrc/edge_dvals.cu"
+# GAT's edge softmax, segment_max / exp / segment_sum and their autodiff
+# (src/repro/models/gnn.py:278-283, no pallas_call)
+EDGE_SOFTMAX_REPLACES = "src/repro/models/gnn.py:278"
+EDGE_SOFTMAX_SOURCE = "src/repro_torch/kernels/csrc/edge_softmax.cu"
 
 
 _T0 = time.perf_counter()
@@ -1037,33 +1054,26 @@ def phase_main(name: str, argv: list[str], ctx, checks: CpuChecks,
     """The serving slice of ``argv`` through ``launch.serve``'s own entry
     (``ctx``: the host plan of its flags, for the CPU pass), its launches
     counted from zero: per layer one ELL forward and one CSR tail launch
-    (SAGE two of each: its ``degree()``), no backward, no pack built for
-    a call, a gather per micro-batch with hot hits; its tables against
+    (SAGE two of each: its ``degree()``), or under ``--backend edges``
+    one edge-list CSR launch a layer (GAT's also one ``edge_softmax_fwd``
+    a layer), no backward, no pack built for a call, no other kernel, a
+    gather per micro-batch with hot hits; its tables against
     the same pass on the CPU, and served answers against the CPU's
     logits (the CPU pass and both comparisons through ``checks``).  With
     ``check_scale``, the card's and the CPU's passes run the same flags
     and parameters at that scale (their own host plan), and the served
     answers are held against the card's own tables."""
-    from repro_torch.kernels import cache_gather as kgather
-    from repro_torch.kernels import csr_spmm as kcsr, ell_spmm as kell, ops
     from repro_torch.launch.serve import (build_parser, plan_and_stack,
                                           prepare_gnn, serve_gnn)
     from repro_torch.serve import precompute_embeddings
 
     args = build_parser().parse_args(argv)
 
-    counters = {"ell_spmm": kell.ell_spmm,
-                "csr_spmm_tail": kcsr.csr_spmm_accumulate,
-                "csr_spmm_dh": kcsr.csr_spmm,
-                "gather_rows": kgather.gather_rows}
-    for fn in counters.values():
-        fn.launches = 0
-    ops.pack_for_call.builds = 0
+    zero_counts()
     t0 = time.perf_counter()
     report, engine = serve_gnn(args)
     wall_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["packs_built_for_a_call"] = ops.pack_for_call.builds
+    launches = read_counts()
 
     cfg, store = engine.cfg, engine.store
     task, ps, xplan, sp = ctx["task"], ctx["ps"], ctx["xplan"], ctx["sp"]
@@ -1078,13 +1088,20 @@ def phase_main(name: str, argv: list[str], ctx, checks: CpuChecks,
     if report["queries"] != args.queries:
         raise AssertionError(f"served {report['queries']} of {args.queries}")
     # one precompute pass: per layer one ELL forward and one CSR launch over
-    # the COO tail (SAGE: and its degree's); no backward, and every pack
-    # built in make_adj_builder
-    per_pass = cfg.num_layers * (2 if cfg.model == "sage" else 1)
-    want = {"ell_spmm": per_pass, "csr_spmm_tail": per_pass,
-            "csr_spmm_dh": 0, "packs_built_for_a_call": 0}
+    # the COO tail (SAGE: and its degree's), or one edge-list CSR launch
+    # (GAT: and its edge softmax); no backward, and every pack built in
+    # make_adj_builder
+    layers = cfg.num_layers
+    want = {k: 0 for k in launches if k != "gather_rows"}
+    if args.backend == "edges":
+        want["edge_spmm"] = layers
+        want["edge_softmax_fwd"] = layers if cfg.model == "gat" else 0
+    else:
+        per_pass = layers * (2 if cfg.model == "sage" else 1)
+        want.update(ell_spmm=per_pass, csr_spmm_tail=per_pass)
     if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"serving launches {launches}, want {want}")
+        raise AssertionError(f"{name}: serving launches {launches}, want "
+                             f"{want}")
     n_hot_batches = hot_batches(engine, args)
     if n_hot_batches == 0 or launches["gather_rows"] < n_hot_batches:
         raise AssertionError(f"gather_rows launched "
@@ -1139,9 +1156,11 @@ def phase_main(name: str, argv: list[str], ctx, checks: CpuChecks,
     fields = ("precompute_s", "qps", "p50_ms", "p99_ms", "hot_hit_rate",
               "host_hit_rate", "host_fetch_ms", "batches", "mean_batch",
               "busy_s")
+    pack = ({} if args.backend == "edges" else
+            {"hybrid_pack": list(sp.ell.cols.shape),
+             "tail_width": sp.ell.tail_width})
     emit(name, argv=argv, model=cfg.model, nodes=n, parts=sp.num_parts,
-         hybrid_pack=list(sp.ell.cols.shape), tail_width=sp.ell.tail_width,
-         launches=launches, hot_batches=n_hot_batches,
+         **pack, launches=launches, hot_batches=n_hot_batches,
          **{k: report[k] for k in fields},
          wall_s=wall_s, host_plan_s=ctx["host_plan_s"],
          device_pass_s=device_pass_s)
@@ -1478,7 +1497,9 @@ def train_counters() -> dict:
             "gather_rows_bwd": kgather.gather_rows_bwd,
             "edge_spmm": kedge.edge_spmm,
             "edge_spmm_dh": kedge.edge_spmm_dh,
-            "edge_dvals": kedge.edge_dvals}
+            "edge_dvals": kedge.edge_dvals,
+            "edge_softmax_fwd": kedge.edge_softmax_fwd,
+            "edge_softmax_bwd": kedge.edge_softmax_bwd}
 
 
 def zero_counts() -> None:
@@ -1486,12 +1507,17 @@ def zero_counts() -> None:
     for fn in train_counters().values():
         fn.launches = 0
     ops.pack_for_call.builds = 0
+    ops._valued.gathers = 0
 
 
 def read_counts() -> dict:
+    """Every counter: the kernels' launches, the packs built for a call
+    and the per-call gathers of an edge list's values into pack order
+    (``valued_gathers``: GAT's route takes none)."""
     from repro_torch.kernels import ops
     out = {k: fn.launches for k, fn in train_counters().items()}
     out["packs_built_for_a_call"] = ops.pack_for_call.builds
+    out["valued_gathers"] = ops._valued.gathers
     return out
 
 
@@ -1507,11 +1533,13 @@ def train_launches(backend: str, layers: int, kinds: list[str],
     launch); the backward needs ``d_h`` from layer 1 on (layer 0's input
     is constant, and the ones column has no gradient), but from layer 0
     on for GAT, whose heads' inputs are ``h @ w``, with one
-    ``edge_dvals`` for all the heads (their attention's gradient); the
-    ELL ``d_vals``
-    never (the ELL values are constants of the graph); the gathers as
-    each step kind gives them (``gathers``, per kind); every pack comes
-    from ``make_adj_builder`` or the exchange maps."""
+    ``edge_dvals`` for all the heads (their attention's gradient); GAT's
+    edge softmax once a layer a pass (``edge_softmax_fwd``) and its
+    backward once a layer a step from layer 0 on (``edge_softmax_bwd``),
+    with no per-call gather of the attention into pack order; the ELL
+    ``d_vals`` never (the ELL values are constants of the graph); the
+    gathers as each step kind gives them (``gathers``, per kind); every
+    pack comes from ``make_adj_builder`` or the exchange maps."""
     passes, steps = len(kinds) + 1, len(kinds)
     ell = backend != "edges"
     fwd = layers * passes * (2 if model == "sage" and ell else 1)
@@ -1526,7 +1554,9 @@ def train_launches(backend: str, layers: int, kinds: list[str],
             "edge_spmm": 0 if ell else fwd,
             "edge_spmm_dh": 0 if ell else dh,
             "edge_dvals": dh if model == "gat" else 0,
-            "packs_built_for_a_call": 0}
+            "edge_softmax_fwd": fwd if model == "gat" else 0,
+            "edge_softmax_bwd": dh if model == "gat" else 0,
+            "packs_built_for_a_call": 0, "valued_gathers": 0}
 
 
 def refresh_grads(cfg, spec, sp, xplan, params0, lr: float, device,
@@ -2056,7 +2086,202 @@ def phase_coo_spmm(sp, gen, dev="cuda") -> list[dict]:
                    "cell's forward edge pack",
         library="torch.sparse.sampled_addmm at the coalesced edge pattern, "
                 "once a head"))
-    del by_coo, ev, mat, mat_t, packs, fwd, bwd
+    del by_coo, ev, mat, mat_t
+    entries += phase_edge_softmax(src, dst, packs, gen)
+    del packs, fwd, bwd
+    return entries
+
+
+def softmax_bytes(packs, heads: int) -> tuple[float, float]:
+    """Bytes GAT's edge softmax needs on these packs, forward and backward:
+    each input read once (``A``'s row pointers, columns and row list, the
+    e_src row of each column named and the e_dst row of each row with
+    entries; the backward also ``att``, ``d_att``, ``A^T``'s row pointers
+    and row list and the entry map), each output written once (``att``;
+    ``d_e_src``, ``d_e_dst`` and ``att`` in ``A^T``'s order), f32 and
+    int32.  The backward's ``dx`` between its two walks is not counted."""
+    fwd, bwd = packs.fwd, packs.bwd
+    nnz, f32 = fwd.nnz, 4 * heads
+    a_index = 4 * ((fwd.n_rows + 1) + nnz + fwd.short_rows.numel()
+                   + fwd.long_rows.numel())
+    scores = f32 * (torch.unique(fwd.col).numel()
+                    + int((fwd.rowptr[1:] > fwd.rowptr[:-1]).sum()))
+    t_index = 4 * ((bwd.n_rows + 1) + nnz + bwd.short_rows.numel()
+                   + bwd.long_rows.numel())
+    n_nodes = packs.n_parts * packs.n_cols
+    return (float(a_index + scores + nnz * f32),
+            float(a_index + scores + 2 * nnz * f32 + t_index
+                  + 2 * n_nodes * f32 + nnz * f32))
+
+
+def phase_edge_softmax(src, dst, packs, gen, dev="cuda") -> list[dict]:
+    """GAT's edge softmax at the train cell's edge packs, 4 heads: both
+    entry points of ``csrc/edge_softmax.cu`` against their plain versions
+    (``ref.edge_softmax_ref`` / ``edge_softmax_bwd_ref``) and against the
+    plain route they replace on the card (``_edge_rows`` and
+    ``_edge_softmax`` of ``models/gnn.py``, and their autograd), each
+    twice bit for bit; timed beside the bound, the plain route and
+    ``torch.sparse.softmax(dim=1)`` over a hybrid COO ``[P * n_rows, P *
+    n_cols, 4]`` of the logits (and its backward); ``edge_dvals`` (``d_att``
+    in the pack's order) into the backward; and one GAT layer's attention
+    route at 4 heads of 64,
+    ``ops.edge_attention`` forward and backward, beside the plain softmax
+    and ``ops.edge_spmm`` it replaces.  Returns the two kernels-line
+    entries."""
+    from repro_torch.kernels import edge_spmm as kedge, ops, ref
+    from repro_torch.models import gnn as tgnn
+    heads, dh = GAT_HEADS, EDGE_DVALS_D
+    n_parts, ni, n_cols = packs.n_parts, packs.n_rows, packs.n_cols
+    fwd, nnz = packs.fwd, packs.fwd.nnz
+    n_edges = n_parts * packs.n_edges
+    es, ed = (torch.randn((n_parts * n_cols, heads), generator=gen,
+                          device=dev) for _ in range(2))
+    att, again = (kedge.edge_softmax_fwd(packs, es, ed) for _ in range(2))
+    if not torch.equal(att.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("edge_softmax_fwd: two launches differ")
+    want = ref.edge_softmax_ref(fwd, es, ed, ni, n_cols)
+    err = {"forward": check_close("edge_softmax_fwd", att, want,
+                                  **csr_tol(want))}
+    d_att = torch.randn((heads, nnz), generator=gen, device=dev)
+    perm = fwd.perm.long()
+    d_edge = torch.zeros((n_edges, heads), device=dev)
+    d_edge[perm] = d_att.t()
+    got = [kedge.edge_softmax_bwd(packs, att, es, ed, d_att)
+           for _ in range(2)]
+    wants = ref.edge_softmax_bwd_ref(fwd, packs.bwd, packs.amap, att, d_att,
+                                     es, ed, ni, n_cols)
+    for name, a, b, w_ in zip(("d_e_src", "d_e_dst", "att_t"), got[0],
+                              got[1], wants):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"edge_softmax_bwd {name}: two launches "
+                                 "differ")
+        err[name] = check_close(f"edge_softmax_bwd {name}", a, w_,
+                                **csr_tol(w_))
+    del wants, again
+
+    # the plain route the kernels replace on the card: the edge list [P, m]
+    es3, ed3 = (x.view(n_parts, n_cols, heads).clone().requires_grad_(True)
+                for x in (es, ed))
+    live = dst < ni
+
+    def plain_fwd():
+        logits = torch.nn.functional.leaky_relu(
+            tgnn._edge_rows(es3, src)
+            + tgnn._edge_rows(ed3, torch.where(live, dst, 0)), 0.2)
+        return tgnn._edge_softmax(logits, dst, ni)
+    att_plain = plain_fwd()
+    d_plain = d_edge.view(n_parts, -1, heads)
+    plain_grads = torch.autograd.grad(att_plain, [es3, ed3], d_plain,
+                                      retain_graph=True)
+    err["plain_route_forward"] = check_close(
+        "edge_softmax_fwd against the plain route",
+        att, att_plain.detach().reshape(-1, heads)[perm].t().contiguous(),
+        **csr_tol(att))
+    for name, a, w_ in zip(("plain_route_d_e_src", "plain_route_d_e_dst"),
+                           got[0][:2], plain_grads):
+        w_ = w_.reshape(-1, heads)
+        err[name] = check_close(f"edge_softmax_bwd {name}", a, w_,
+                                **csr_tol(w_))
+    del got, plain_grads
+
+    # the library: one sparse softmax of the logits, all heads a call
+    rows = torch.repeat_interleave(
+        torch.arange(fwd.n_rows, device=dev),
+        (fwd.rowptr[1:] - fwd.rowptr[:-1]).long())
+    node = rows // ni * n_cols + rows % ni
+    logits = torch.nn.functional.leaky_relu(es[fwd.col.long()] + ed[node],
+                                            0.2)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, fwd.col.long()]),
+                                  logits, (fwd.n_rows, fwd.n_cols, heads),
+                                  check_invariants=False).coalesce()
+    lib_vals = coo.values().detach().requires_grad_(True)
+    lib_in = torch.sparse_coo_tensor(coo.indices(), lib_vals, coo.shape,
+                                     is_coalesced=True,
+                                     check_invariants=False)
+    lib_out = torch.sparse.softmax(lib_in, dim=1)
+    lib_grad = torch.randn_like(lib_vals)
+    if coo.values().shape[0] == nnz:
+        err["library"] = check_close("torch.sparse.softmax", lib_out.values(
+            ).t().contiguous(), att, **csr_tol(att))
+    del coo, logits, rows, node
+
+    # edge_dvals into the backward, d_att in the pack's order
+    h = torch.randn((n_parts * n_cols, heads, dh), generator=gen, device=dev)
+    g = torch.randn((n_parts * ni, heads, dh), generator=gen, device=dev)
+
+    def route_pack_order():
+        return kedge.edge_softmax_bwd(packs, att, es, ed, kedge.edge_dvals(
+            fwd, g, h, n_edges, a_order=True))
+
+    # one GAT layer's attention route (4 heads of 64), forward and backward
+    es_l, ed_l = (x.view(n_parts, n_cols, heads).clone().requires_grad_(True)
+                  for x in (es, ed))
+    h_l = h.view(n_parts, n_cols, heads, dh).clone().requires_grad_(True)
+    g_l = g.view(n_parts, ni, heads, dh)
+
+    def layer_route():
+        out = ops.edge_attention(es_l, ed_l, h_l, packs)
+        return torch.autograd.grad(out, [es_l, ed_l, h_l], g_l)
+
+    def old_layer_route():
+        logits_ = torch.nn.functional.leaky_relu(
+            tgnn._edge_rows(es_l, src)
+            + tgnn._edge_rows(ed_l, torch.where(live, dst, 0)), 0.2)
+        out = ops.edge_spmm(h_l, packs, tgnn._edge_softmax(logits_, dst, ni))
+        return torch.autograd.grad(out, [es_l, ed_l, h_l], g_l)
+    new_l, old_l = layer_route(), old_layer_route()
+    for name, a, b in zip(("d_e_src", "d_e_dst", "d_h"), new_l, old_l):
+        err[f"layer_{name}_against_old_route"] = check_close(
+            f"edge_attention {name} against the old route", a, b,
+            **csr_tol(b))
+    del new_l, old_l
+    t = time_calls({
+        "kernel_ms": lambda: kedge.edge_softmax_fwd(packs, es, ed),
+        "plain_ms": plain_fwd,
+        "library_ms": lambda: torch.sparse.softmax(lib_in, dim=1),
+        "bwd_kernel_ms": lambda: kedge.edge_softmax_bwd(packs, att, es, ed,
+                                                        d_att),
+        "bwd_plain_ms": lambda: torch.autograd.grad(
+            att_plain, [es3, ed3], d_plain, retain_graph=True),
+        "bwd_library_ms": lambda: torch.autograd.grad(
+            lib_out.values(), lib_vals, lib_grad, retain_graph=True),
+        "dvals_pack_order_ms": lambda: kedge.edge_dvals(fwd, g, h, n_edges,
+                                                        a_order=True),
+        "dvals_bwd_pack_order_ms": route_pack_order,
+        "layer_route_ms": layer_route,
+        "old_layer_route_ms": old_layer_route,
+    }, reps=3, rounds=2)
+    host = {"fwd_enqueue_us": enqueue_us(
+                lambda: kedge.edge_softmax_fwd(packs, es, ed)),
+            "bwd_enqueue_us": enqueue_us(
+                lambda: kedge.edge_softmax_bwd(packs, att, es, ed, d_att))}
+    b_fwd, b_bwd = softmax_bytes(packs, heads)
+    bf, byf = bound_ms(b_fwd, 8.0 * nnz * heads)
+    bb, byb = bound_ms(b_bwd, 10.0 * nnz * heads)
+    emit("edge_softmax", shape=[n_parts, ni, n_cols, heads], edges=n_edges,
+         live_edges=nnz, long_rows=[fwd.long_rows.numel(),
+                                    packs.bwd.long_rows.numel()],
+         max_row=max_row(fwd), max_row_t=max_row(packs.bwd),
+         max_abs_err=err, bit_reproducible=True, bytes=[b_fwd, b_bwd],
+         bound_ms=bf, bound_by=byf, bwd_bound_ms=bb, bwd_bound_by=byb,
+         **t, **host)
+    over = ("one launch for GAT's 4 heads over the train cell's forward "
+            "edge pack")
+    lib = ("torch.sparse.softmax(dim=1) of a hybrid COO [P * n_rows, P * "
+           "n_cols, 4] of the logits")
+    entries = [
+        edge_entry("edge_softmax_fwd", EDGE_SOFTMAX_SOURCE,
+                   EDGE_SOFTMAX_REPLACES, t, err["forward"], bf, byf,
+                   timed_over=over, library=lib,
+                   plain="_edge_rows + _edge_softmax (models/gnn.py)"),
+        edge_entry("edge_softmax_bwd", EDGE_SOFTMAX_SOURCE,
+                   EDGE_SOFTMAX_REPLACES, t,
+                   max(err["d_e_src"], err["d_e_dst"], err["att_t"]), bb,
+                   byb, prefix="bwd_",
+                   timed_over=over + " and its transpose (d_att given)",
+                   library=lib + ", its backward",
+                   plain="the autograd of _edge_rows + _edge_softmax")]
+    del es3, ed3, att_plain, lib_in, lib_out, lib_vals, h, g, es_l, ed_l
     return entries
 
 
@@ -5737,9 +5962,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run only the edge route's kernel phases at the "
                         "train cell's shapes: the CSR kernel's row orders, "
                         "stripes and modes on every route it serves, "
-                        "edge_dvals with GAT's heads, and the kernels "
-                        "lines of coo_spmm, csr_spmm_dh, csr_spmm_tail and "
-                        "gather_rows_bwd")
+                        "edge_dvals with GAT's heads, GAT's edge softmax, "
+                        "and the kernels lines of coo_spmm, csr_spmm_dh, "
+                        "csr_spmm_tail and gather_rows_bwd")
     p.add_argument("--spmd-nccl-pair", action="store_true",
                    help="run only the paper's CaPGNN and Vanilla rows "
                         "through the SPMD runtime over NCCL (spmd_nccl and "
@@ -5828,7 +6053,7 @@ def main_kernels(device: dict) -> None:
     """``--kernels-only``: the train cell's host plan (hybrid, and its
     edge list stacked anew) and the 1.5D layout at ``c=2, pr=2``, then
     :func:`phase_csr_variants`, :func:`phase_dvals_variants`,
-    ``coo_spmm`` (with ``edge_dvals``),
+    ``coo_spmm`` (with ``edge_dvals`` and ``edge_softmax``),
     the training tail's ``csr_spmm_tail`` lines, ``csr_spmm_dh`` and
     ``gather_rows_bwd``; the kernels line carries no launches (no path
     runs here)."""
@@ -5891,6 +6116,11 @@ def main(argv=None) -> None:
     by_path = {"serve": serve_launches}
     by_path["serve_sage"] = phase_main(
         "serve_sage", with_backend(SLICE_ARGV, "hybrid", model="sage"), ctx,
+        checks, check_scale=SERVE_SAGE_CHECK_SCALE)
+    torch.cuda.empty_cache()
+    # GAT over the edge list (its softmax runs there only), the same cut
+    by_path["serve_gat"] = phase_main(
+        "serve_gat", with_backend(SLICE_ARGV, "edges", model="gat"), ctx,
         checks, check_scale=SERVE_SAGE_CHECK_SCALE)
     torch.cuda.empty_cache()
     by_path["serve_fresh"] = phase_serve_fresh(ctx, checks)

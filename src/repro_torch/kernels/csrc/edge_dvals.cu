@@ -9,7 +9,9 @@
 //   d_vals[perm[k], z] = <g[row(k), z, :], h[col[k], z, :]>
 //
 // for every entry k of A and head z, written through `perm` back to edge
-// order (the wrapper zero-fills the edges A does not hold: the padding).
+// order (the wrapper zero-fills the edges A does not hold: the padding),
+// or, without perm, in A's own order as [H, nnz] (d_vals[z, k]: the input
+// of edge_softmax.cu's backward, read there with no gather).
 // This is GAT's attention gradient, the autodiff of the reference's
 // `EdgeListAdj.spmm_at` per head (src/repro/models/gnn.py:103-105: `h[src]
 // * e_vals[:, None]`, then `jax.ops.segment_sum`; the head loop at
@@ -110,7 +112,8 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
                   const int32_t* __restrict__ long_rows,
                   const int32_t* __restrict__ long_seg_ptr, int n_long,
                   const float* __restrict__ g, const float* __restrict__ h,
-                  float* __restrict__ dvals, int d, int heads) {
+                  float* __restrict__ dvals, int d, int heads,
+                  int64_t es, int64_t zs) {
   using W = word_t<float, VEC>;
   constexpr int G = 32 / LPS;   // entries a warp takes at a time
   constexpr int kStripe = LPS * NV * VEC;
@@ -142,7 +145,7 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
     int c = 0, id = 0;
     if (lo < hi && lane < min(32, hi - lo)) {
       c = __ldg(col + lo + lane);
-      id = __ldg(perm + lo + lane);
+      id = perm != nullptr ? __ldg(perm + lo + lane) : lo + lane;
     }
     for (int k0 = lo; k0 < hi; k0 += 32) {
       const int n = min(32, hi - k0);
@@ -151,7 +154,7 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
       int cn = 0, idn = 0;
       if (k1 < hi && lane < min(32, hi - k1)) {
         cn = __ldg(col + k1 + lane);
-        idn = __ldg(perm + k1 + lane);
+        idn = perm != nullptr ? __ldg(perm + k1 + lane) : k1 + lane;
       }
       for (int t0 = 0; t0 < n; t0 += kUnroll * G) {
         int ts[kUnroll];
@@ -179,7 +182,7 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
             for (int i = 0; i < VEC; ++i) s = fmaf(gv[j][i], e[i], s);
             s = group_sum<Q>(s);
             if (sl % Q == 0 && ts[u] < n)
-              dvals[static_cast<int64_t>(et) * heads + hd[j]] = s;
+              dvals[et * es + hd[j] * zs] = s;
           }
         }
       }
@@ -210,7 +213,7 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
           int c = 0, id = 0;
           if (lane < n) {
             c = __ldg(col + k0 + lane);
-            id = __ldg(perm + k0 + lane);
+            id = perm != nullptr ? __ldg(perm + k0 + lane) : k0 + lane;
           }
           for (int t0 = 0; t0 < n; t0 += kUnroll * G) {
             int ts[kUnroll];
@@ -240,7 +243,7 @@ edge_dvals_kernel(const int32_t* __restrict__ rowptr,
               s = group_sum<LPS>(s);
               const int et = __shfl_sync(kFull, id, ts[u] & 31);
               if (sl == 0 && ts[u] < n) {
-                float* o = dvals + static_cast<int64_t>(et) * heads + z;
+                float* o = dvals + et * es + z * zs;
                 *o = f0 == 0 ? s : *o + s;
               }
             }
@@ -267,6 +270,8 @@ struct Args {
   void* dvals;
   int d;
   int heads;
+  int64_t es;
+  int64_t zs;
   cudaStream_t stream;
 };
 
@@ -287,7 +292,7 @@ int launch(const Args& a) {
             static_cast<const int32_t*>(a.long_rows),
             static_cast<const int32_t*>(a.long_seg_ptr), a.n_long,
             static_cast<const float*>(a.g), static_cast<const float*>(a.h),
-            static_cast<float*>(a.dvals), a.d, a.heads);
+            static_cast<float*>(a.dvals), a.d, a.heads, a.es, a.zs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -338,7 +343,9 @@ int by_lanes(const Args& a, int lanes, int nv, int q) {
 // [nnz]) and row list (short_rows int32 [n_short]; seg int32 [n_seg, 2];
 // long_rows int32 [n_long], long_seg_ptr int32 [n_long + 1]); g f32
 // [n_rows, heads, d], h f32 [., heads, d]; dvals f32 [n_edges, heads] with
-// every perm value in range; all contiguous.  vec (floats a load: 1, 2 or
+// every perm value in range, or, when perm is null, [heads, nnz] in A's
+// order (the value of entry k, head z at dvals[k * es + z * zs]: es = 1,
+// zs = nnz; through perm es = heads, zs = 1); all contiguous.  vec (floats a load: 1, 2 or
 // 4) must divide d and keep g and h aligned; q > 0 (lanes a head) walks
 // all heads in one pass and needs heads * d == 32 * nv * vec.  Launches
 // on `device` and `stream`; returns cudaGetLastError() after the launch,
@@ -349,11 +356,12 @@ extern "C" int edge_dvals_f32(const void* rowptr, const void* col,
                               const void* long_rows,
                               const void* long_seg_ptr, int n_long,
                               const void* g, const void* h, void* dvals,
-                              int d, int heads, int vec, int lanes, int nv,
-                              int q, int device, void* stream) {
+                              int d, int heads, long long es, long long zs,
+                              int vec, int lanes, int nv, int q, int device,
+                              void* stream) {
   const Args a{rowptr, col, perm, short_rows, n_short, seg, n_seg,
                long_rows, long_seg_ptr, n_long, g, h, dvals, d, heads,
-               static_cast<cudaStream_t>(stream)};
+               es, zs, static_cast<cudaStream_t>(stream)};
   return on_device(device, [&] {
     switch (vec) {
       case 4: return by_lanes<4>(a, lanes, nv, q);

@@ -23,8 +23,13 @@ backend) is :func:`coo_spmm` on CPU tensors and, on CUDA tensors,
 built on the device once where the edge list goes there, and per call
 for the serving engine's subgraphs): the CSR kernel in write mode over
 ``A`` forward and over ``A^T`` for ``d_h``, and
-``csrc/edge_dvals.cu`` for the per-edge values' cotangent (GAT).  An edge
-list on the card without its packs raises.
+``csrc/edge_dvals.cu`` for the per-edge values' cotangent.  GAT's layer
+is :class:`EdgeAttentionFn` over the same packs: its edge softmax
+(``csrc/edge_softmax.cu``) writes the attention in ``A``'s order, the
+values of the CSR kernel's forward, and its backward walks ``A`` and
+``A^T`` (through the packs' entry map) for the scores' cotangents and the
+attention in ``A^T``'s order for ``d_h``.  An edge list on the card
+without its packs raises.
 
 The row gather (:func:`gather_rows`, and :func:`pack_rows` over any index
 shape) is differentiable in ``src`` through :class:`GatherRowsFn` whenever
@@ -32,7 +37,7 @@ autograd records: its backward is the CSR kernel in write mode over the
 transposed index map (:func:`gather_pack`), so no path meets PyTorch's
 sort-based indexing backward.  Outside autograd it is the raw kernel call.
 
-Each of the three Functions keeps the name of the device scope its forward
+Each of the Functions keeps the name of the device scope its forward
 ran under (:func:`~repro_torch.obs.annotations.current_scope`) and runs
 its backward inside ``transpose(<that name>)``: the backward's kernels,
 launched by autograd's thread, land in a profiler range too.
@@ -63,9 +68,10 @@ __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
            "csr_pack", "csr_pack_torch", "transpose_csr", "tail_csr",
            "pack_for_call", "gather_pack", "EdgePacks", "edge_packs",
            "segment_ids", "segment_sum", "coo_spmm", "value_heads",
-           "EllSpmmFn", "HybridSpmmFn", "EdgeSpmmFn", "GatherRowsFn",
-           "ell_spmm", "hybrid_spmm", "edge_spmm", "gather_rows",
-           "pack_rows", "cache_combine", "ell_stats"]
+           "EllSpmmFn", "HybridSpmmFn", "EdgeSpmmFn", "EdgeAttentionFn",
+           "GatherRowsFn", "ell_spmm", "hybrid_spmm", "edge_spmm",
+           "edge_attention", "gather_rows", "pack_rows", "cache_combine",
+           "ell_stats"]
 
 # A CSR row with more entries than this is long: the kernel cuts it into
 # segments of at most this many entries, one block each (PERF.md: the
@@ -382,13 +388,17 @@ class EdgePacks:
     ``d_h`` (None where no gradient is taken).  Each keeps ``perm``, the
     flat edge index ``p * n_edges + e`` of each entry, so that per-edge
     values given at call time (GAT's attention) are put in pack order with
-    one gather rather than baked into a pack that would go stale."""
+    one gather rather than baked into a pack that would go stale.  With
+    ``bwd``, ``amap`` is each ``bwd`` entry's ``fwd`` entry (int32, the
+    inverse of ``fwd.perm`` at ``bwd.perm``): GAT's backward reads the
+    values of ``A`` in ``A^T``'s order through it."""
     fwd: CsrPack
     bwd: CsrPack | None
     n_parts: int
     n_rows: int
     n_cols: int
     n_edges: int      # edges a partition, padding included
+    amap: torch.Tensor | None = None
 
 
 def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
@@ -399,7 +409,8 @@ def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     built with torch ops (:func:`csr_pack_torch`) on the edge list's
     device, once where the edge list goes there (or, for the serving
     engine's subgraphs, once per call); ``grad`` adds ``A^T``, its short
-    rows partition by partition (``col_block``)."""
+    rows partition by partition (``col_block``), and the entry map
+    ``amap``."""
     if src.dim() == 1:
         src, dst, w = src[None], dst[None], w[None]
     n_parts, m = src.shape
@@ -413,10 +424,16 @@ def edge_packs(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     shape = (n_parts * n_rows, n_parts * n_cols)
     fwd = csr_pack_torch(rows, cols, ws, *shape, every_row=True,
                          long_row=long_row, ids=ids)
-    bwd = (csr_pack_torch(cols, rows, ws, *shape[::-1], every_row=True,
-                          long_row=long_row, ids=ids, col_block=n_rows)
-           if grad else None)
-    return EdgePacks(fwd, bwd, n_parts, int(n_rows), int(n_cols), m)
+    bwd = amap = None
+    if grad:
+        bwd = csr_pack_torch(cols, rows, ws, *shape[::-1], every_row=True,
+                             long_row=long_row, ids=ids, col_block=n_rows)
+        # edge id -> A entry (only live edges' slots are read), at A^T's ids
+        entry = torch.empty(n_parts * m, dtype=torch.int32, device=dst.device)
+        entry[fwd.perm.long()] = torch.arange(fwd.nnz, dtype=torch.int32,
+                                              device=dst.device)
+        amap = entry[bwd.perm.long()].contiguous()
+    return EdgePacks(fwd, bwd, n_parts, int(n_rows), int(n_cols), m, amap)
 
 
 def segment_ids(dst: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -653,12 +670,18 @@ def value_heads(e_vals: torch.Tensor, n_edges: int) -> int:
 def _valued(pack: CsrPack, e_vals: torch.Tensor,
             heads: int = 0) -> CsrPack:
     """``pack`` with the per-edge values ``e_vals`` in its order (one
-    gather through ``perm``): ``w [nnz]``, or ``[H, nnz]`` per head."""
+    gather through ``perm``, counted in ``_valued.gathers``): ``w [nnz]``,
+    or ``[H, nnz]`` per head.  GAT's layer takes none
+    (:class:`EdgeAttentionFn`)."""
+    _valued.gathers += 1
     if not heads:
         return dataclasses.replace(pack, w=e_vals.reshape(-1).float()
                                    .index_select(0, pack.perm))
     return dataclasses.replace(pack, w=e_vals.reshape(-1, heads).float()
                                .index_select(0, pack.perm).t().contiguous())
+
+
+_valued.gathers = 0
 
 
 def _edge_product(kernel, pack: CsrPack, x: torch.Tensor) -> torch.Tensor:
@@ -739,6 +762,115 @@ class EdgeSpmmFn(torch.autograd.Function):
                 d_h = _edge_product(_edge.edge_spmm_dh, bwd, g32)
                 d_h = d_h.view(h_shape).to(h_dtype)
         return d_e, d_h, None
+
+
+def _need_bwd(packs: EdgePacks) -> None:
+    if packs.bwd is None or packs.amap is None:
+        raise ValueError("GAT's backward needs the transposed pack and the "
+                         "entry map: build the edge packs with grad=True")
+
+
+class EdgeAttentionFn(torch.autograd.Function):
+    """GAT's edge softmax and its aggregation over :class:`EdgePacks`,
+    ``EdgeAttentionFn.apply(e_src, e_dst, h, packs)``: for the per-node
+    scores ``e_src`` / ``e_dst`` ``[(P,) n_cols, H]`` and heads ``h [(P,)
+    n_cols, H, dh]``, ``out[..., i, z, :] = sum over the live edges e into
+    i of att[e, z] * h[..., src[e], z, :]`` with ``att`` the softmax over
+    i's edges of ``leaky_relu(e_src[src] + e_dst[i], 0.2)``: ``[(P,)
+    n_rows, H, dh]``.  A row with no live edge gives zero; padding edges
+    are not in the packs.
+
+    On CUDA tensors the forward is two launches, ``edge_softmax_fwd``
+    (``att [H, nnz]`` in ``A``'s order) and the CSR kernel over ``A``
+    valued by it (``edge_spmm``); the backward ``edge_dvals`` (``d_att``
+    in ``A``'s order), ``edge_softmax_bwd`` (``d_e_src``, ``d_e_dst`` and
+    ``att`` in ``A^T``'s order, through ``packs.amap``) and the CSR kernel
+    over ``A^T`` (``edge_spmm_dh``), each only where
+    ``ctx.needs_input_grad`` asks for it.  No per-call gather of the
+    values.  On CPU tensors the plain versions of :mod:`.ref` over the
+    same packs.  Raises ``ValueError`` when the operands do not fit the
+    packs or a gradient is asked for and ``packs.bwd`` is None."""
+
+    @staticmethod
+    def forward(ctx, e_src, e_dst, h, packs):
+        heads = e_src.shape[-1]
+        lead = tuple(h.shape[:-3])
+        if (lead or (1,)) != (packs.n_parts,) or h.dim() < 3 or \
+                h.shape[-3:-1] != (packs.n_cols, heads) or \
+                e_src.shape != h.shape[:-1] or e_dst.shape != e_src.shape:
+            raise ValueError(
+                f"edge packs of {packs.n_parts} x [{packs.n_rows}, "
+                f"{packs.n_cols}] do not fit e_src {tuple(e_src.shape)}, "
+                f"e_dst {tuple(e_dst.shape)} and h {tuple(h.shape)}")
+        es = e_src.reshape(-1, heads).float().contiguous()
+        ed = e_dst.reshape(-1, heads).float().contiguous()
+        if h.device.type == "cpu":
+            att = _ref.edge_softmax_ref(packs.fwd, es, ed, packs.n_rows,
+                                        packs.n_cols)
+        else:
+            att = _edge.edge_softmax_fwd(packs, es, ed)
+        fwd = dataclasses.replace(packs.fwd, w=att)
+        dh = h.shape[-1]
+        out = _edge_product(_edge.edge_spmm, fwd, h.reshape(-1, heads, dh))
+        ctx.save_for_backward(es, ed, h, att)
+        ctx.packs = packs
+        ctx.meta = (e_src.shape, e_src.dtype, h.dtype)
+        ctx.scope = current_scope("edge_attention")
+        return out.view(*lead, packs.n_rows, heads, dh)
+
+    @staticmethod
+    def backward(ctx, g):
+        es, ed, h, att = ctx.saved_tensors
+        packs = ctx.packs
+        _need_bwd(packs)
+        e_shape, e_dtype, h_dtype = ctx.meta
+        need_e = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        need_h = ctx.needs_input_grad[2]
+        d_src = d_dst = d_h = None
+        heads, dh = h.shape[-2:]
+        with transpose_scope(ctx.scope):
+            g32 = g.float().contiguous().view(-1, heads, dh)
+            cpu = g32.device.type == "cpu"
+            d_att = None
+            if need_e:
+                h32 = h.float().contiguous().view(-1, heads, dh)
+                n_edges = packs.n_parts * packs.n_edges
+                d_att = (_ref.edge_dvals_ref if cpu else _edge.edge_dvals)(
+                    packs.fwd, g32, h32, n_edges, a_order=True)
+            if cpu:
+                d_src, d_dst, att_t = _ref.edge_softmax_bwd_ref(
+                    packs.fwd, packs.bwd, packs.amap, att, d_att, es, ed,
+                    packs.n_rows, packs.n_cols, att_t=need_h)
+            else:
+                d_src, d_dst, att_t = _edge.edge_softmax_bwd(
+                    packs, att, es, ed, d_att, att_t=need_h)
+            if need_h:
+                bwd = dataclasses.replace(packs.bwd, w=att_t)
+                d_h = _edge_product(_edge.edge_spmm_dh, bwd, g32)
+                d_h = d_h.view(h.shape).to(h_dtype)
+            if need_e:
+                d_src = d_src.view(e_shape).to(e_dtype)
+                d_dst = d_dst.view(e_shape).to(e_dtype)
+        return (d_src if ctx.needs_input_grad[0] else None,
+                d_dst if ctx.needs_input_grad[1] else None, d_h, None)
+
+
+def edge_attention(e_src: torch.Tensor, e_dst: torch.Tensor,
+                   h: torch.Tensor, packs: EdgePacks | None) -> torch.Tensor:
+    """GAT's edge softmax and aggregation ``[(P,) n_rows, H, dh]`` over
+    ``packs`` (:func:`edge_packs`): :class:`EdgeAttentionFn`, the
+    hand-written kernels on the card (``csrc/edge_softmax.cu`` and the CSR
+    kernel), the plain versions on the CPU.  ``e_src`` / ``e_dst``
+    ``[(P,) n_cols, H]`` are the per-node scores, ``h [(P,) n_cols, H,
+    dh]`` the heads.  Raises ``ValueError`` without packs."""
+    if packs is None:
+        raise ValueError(f"GAT's edge softmax on {h.device} needs the edge "
+                         "list's CSR packs (ops.edge_packs, built once with "
+                         "the edge list); this edge list has none")
+    if torch.is_grad_enabled() and (e_src.requires_grad or e_dst.requires_grad
+                                    or h.requires_grad):
+        _need_bwd(packs)
+    return EdgeAttentionFn.apply(e_src, e_dst, h, packs)
 
 
 def edge_spmm(h: torch.Tensor, packs: EdgePacks | None,

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
-           "csr_spmm_ref", "edge_dvals_ref", "gather_rows_ref",
-           "cache_combine_ref", "masked_mean_ref"]
+           "csr_spmm_ref", "edge_dvals_ref", "edge_softmax_ref",
+           "edge_softmax_bwd_ref", "gather_rows_ref", "cache_combine_ref",
+           "masked_mean_ref"]
 
 _CSR_CHUNK = 1 << 16   # entries per index_add_ in csr_spmm_ref
 
@@ -162,25 +163,96 @@ def csr_spmm_ref(pack, x: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def _pack_rows(pack, device) -> torch.Tensor:
+    """Each entry's row of a CSR pack, int64 ``[nnz]``."""
+    return torch.repeat_interleave(
+        torch.arange(pack.n_rows, device=device),
+        (pack.rowptr[1:] - pack.rowptr[:-1]).long())
+
+
 def edge_dvals_ref(pack, g: torch.Tensor, h: torch.Tensor,
-                   n_edges: int) -> torch.Tensor:
+                   n_edges: int, a_order: bool = False) -> torch.Tensor:
     """``d_vals [n_edges]`` f32 for an edge list's forward pack: ``<g[r],
     h[c]>`` at ``pack.perm[k]`` for each entry ``k = (r, c)``, 0 at the
     edges the pack does not hold (padding); per head, ``[n_edges, H]``,
-    for ``g [n_rows, H, dh]`` and ``h [n_cols, H, dh]``: what
+    for ``g [n_rows, H, dh]`` and ``h [n_cols, H, dh]``; with ``a_order``,
+    in the pack's order, ``[nnz]`` or ``[H, nnz]``: what
     ``csrc/edge_dvals.cu`` computes.  Over chunks of entries, so ``[nnz,
     d]`` is never built whole."""
-    rows = torch.repeat_interleave(
-        torch.arange(pack.n_rows, device=g.device),
-        (pack.rowptr[1:] - pack.rowptr[:-1]).long())
-    col, perm = pack.col.long(), pack.perm.long()
+    rows = _pack_rows(pack, g.device)
+    col = pack.col.long()
+    perm = (torch.arange(pack.nnz, device=g.device) if a_order
+            else pack.perm.long())
     g32, h32 = g.float(), h.float()
-    out = torch.zeros((n_edges,) + tuple(g.shape[1:-1]), dtype=torch.float32,
+    out = torch.zeros((pack.nnz if a_order else n_edges,)
+                      + tuple(g.shape[1:-1]), dtype=torch.float32,
                       device=g.device)
     for lo in range(0, pack.nnz, _CSR_CHUNK):
         hi = lo + _CSR_CHUNK
         out[perm[lo:hi]] = (g32[rows[lo:hi]] * h32[col[lo:hi]]).sum(-1)
-    return out
+    return out.t().contiguous() if a_order else out
+
+
+def _edge_logits(pack, e_src: torch.Tensor, e_dst: torch.Tensor,
+                 n_rows: int, n_cols: int):
+    """``(rows, x)``: each entry's row of an edge list's forward pack and
+    ``x = e_src[col] + e_dst[node(row)]`` ``[nnz, H]``, ``node(r) = (r //
+    n_rows) * n_cols + r % n_rows`` (the destination's local id)."""
+    rows = _pack_rows(pack, e_src.device)
+    node = rows // n_rows * n_cols + rows % n_rows
+    return rows, e_src[pack.col.long()] + e_dst[node]
+
+
+def edge_softmax_ref(pack, e_src: torch.Tensor, e_dst: torch.Tensor,
+                     n_rows: int, n_cols: int) -> torch.Tensor:
+    """GAT's attention over an edge list's forward pack, ``[H, nnz]`` in the
+    pack's order: ``softmax(leaky_relu(e_src[col] + e_dst[node(row)],
+    0.2))`` over each row's entries (the row's max taken outside
+    autograd, its sum clamped at 1e-9), for ``e_src`` / ``e_dst`` ``[P *
+    n_cols, H]`` and ``n_rows`` / ``n_cols`` a partition's: what
+    ``edge_softmax_fwd`` in ``csrc/edge_softmax.cu`` computes.
+    Differentiable in the scores."""
+    rows, x = _edge_logits(pack, e_src, e_dst, n_rows, n_cols)
+    logits = torch.nn.functional.leaky_relu(x, 0.2)
+    heads = logits.shape[1]
+    with torch.no_grad():
+        seg_max = logits.new_full((pack.n_rows, heads), -torch.inf)
+        seg_max.scatter_reduce_(0, rows[:, None].expand(-1, heads), logits,
+                                "amax")
+    ex = torch.exp(logits - seg_max[rows])
+    denom = ex.new_zeros((pack.n_rows, heads)).index_add(0, rows, ex)
+    return (ex / torch.clamp(denom[rows], min=1e-9)).t().contiguous()
+
+
+def edge_softmax_bwd_ref(fwd, bwd, amap: torch.Tensor, att: torch.Tensor,
+                         d_att: torch.Tensor | None, e_src: torch.Tensor,
+                         e_dst: torch.Tensor, n_rows: int, n_cols: int,
+                         att_t: bool = True):
+    """The backward of :func:`edge_softmax_ref`, ``(d_e_src, d_e_dst,
+    att_t)``, as ``csrc/edge_softmax.cu`` computes it: for ``att`` and
+    ``d_att`` ``[H, nnz]`` in the forward pack's order, ``dx = att *
+    (d_att - sum_row att * d_att) * (x > 0 ? 1 : 0.2)``, summed per row
+    of ``fwd`` into ``d_e_dst`` (less its part at slope 1, which sums to 0
+    over a row whose att sums to 1: the sum keeps no rounding noise of
+    that cancellation) and, through the entry map ``amap`` (each ``bwd``
+    entry's ``fwd`` entry), per row of ``bwd`` into ``d_e_src`` (``[P *
+    n_cols, H]``); ``att`` in ``bwd``'s order (``att[:, amap]``)
+    with ``att_t``.  Without ``d_att`` the scores' cotangents are None;
+    without ``att_t`` so is ``att_t``."""
+    out_t = att[:, amap.long()] if att_t else None
+    if d_att is None:
+        return None, None, out_t
+    rows, x = _edge_logits(fwd, e_src, e_dst, n_rows, n_cols)
+    a, da = att.t(), d_att.t()
+    dot = a.new_zeros((fwd.n_rows, a.shape[1])).index_add(0, rows, a * da)
+    u = a * (da - dot[rows])
+    dx = u * torch.where(x > 0, 1.0, 0.2)
+    node = rows // n_rows * n_cols + rows % n_rows
+    d_e_dst = dx.new_zeros(e_dst.shape).index_add(
+        0, node, u * torch.where(x > 0, 0.0, 0.2 - 1.0))
+    d_e_src = dx.new_zeros(e_src.shape).index_add(
+        0, _pack_rows(bwd, dx.device), dx[amap.long()])
+    return d_e_src, d_e_dst, out_t
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

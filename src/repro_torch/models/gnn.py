@@ -11,9 +11,13 @@ package's ``vmap``).  On a single worker with no partitioning, n_halo = 0
 and this reduces to the textbook model.
 
 GAT's edge softmax gives padding edges (``dst == n_rows``, the stacked
-layout's) zero attention and a finite gradient (:func:`_edge_softmax`);
-the JAX package's gives them NaN gradients in a partition with fewer
-inner rows than the stack's width.
+layout's) zero attention and a finite gradient; the JAX package's gives
+them NaN gradients in a partition with fewer inner rows than the stack's
+width.  An edge list with CSR packs (every edge list the runtimes, the
+serving engine and :func:`make_local_adj` build) runs the softmax and the
+aggregation as one :func:`~repro_torch.kernels.ops.edge_attention` call,
+the hand-written kernels on the card; one without packs, on the CPU only,
+:func:`_edge_rows` and :func:`_edge_softmax`.
 """
 from __future__ import annotations
 
@@ -395,9 +399,12 @@ def _edge_softmax(logits: torch.Tensor, dst: torch.Tensor,
 
 def _gat(p: dict, adj: Adjacency, h_local: torch.Tensor) -> torch.Tensor:
     """GAT's layer before its activation: per-head scores, the edge
-    softmax over each row's incoming edges, then one ``spmm_at`` of the
-    attention for all the heads (the reference's loop over the heads in
-    one call), the heads concatenated and projected."""
+    softmax over each row's incoming edges and the aggregation of the
+    heads by their attention (the reference's loop over the heads in one
+    call), the heads concatenated and projected.  Over the edge list's
+    packs (and on the card, where an edge list without them raises) one
+    :func:`~repro_torch.kernels.ops.edge_attention` call; without packs,
+    on the CPU, the plain softmax and one ``spmm_at``."""
     if not isinstance(adj, EdgeListAdj):
         raise NotImplementedError(
             f"GAT's edge softmax needs flat edge ids, which the "
@@ -407,6 +414,9 @@ def _gat(p: dict, adj: Adjacency, h_local: torch.Tensor) -> torch.Tensor:
     h_heads = (h_local @ p["w"]).unflatten(-1, (n_heads, -1))  # [.., n, H, dh]
     e_src = torch.einsum("...hd,hd->...h", h_heads, p["a_src"])
     e_dst = torch.einsum("...hd,hd->...h", h_heads, p["a_dst"])
+    if adj.packs is not None or h_local.device.type != "cpu":
+        out = ops.edge_attention(e_src, e_dst, h_heads, adj.packs)
+        return out.flatten(-2) @ p["proj"]
     live = adj.dst < adj.n_rows
     logits = torch.nn.functional.leaky_relu(
         _edge_rows(e_src, adj.src)

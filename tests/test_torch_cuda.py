@@ -29,7 +29,12 @@ refused, and the packs built on the card equal to the CPU's.  The CSR
 kernel's load modes (two or four register steps, the cp.async ring) at
 every stripe over a pack in its own and a shuffled row order (long
 rows, empty rows, ragged widths, bf16, accumulate mode, two launches bit
-for bit); GAT's heads (4, and 1) in one launch of the CSR kernel and of
+for bit); GAT's edge softmax (``csrc/edge_softmax.cu``: both entry points
+against their plain versions at 1, 3, 4 and 8 heads with long and empty
+rows, twice bit for bit, ``d_att`` in either order; ``ops.edge_attention``
+against the CPU's at 4 heads of 64 and head width 1, one launch of each
+kernel; GAT on the card without packs refused); GAT's heads (4, and 1) in
+one launch of the CSR kernel and of
 ``edge_dvals`` (against the plain versions and one launch a head, bit
 for bit twice, 0 at padding), and ``EdgeListAdj.spmm_at`` of ``[P, m,
 H]`` values
@@ -1388,3 +1393,132 @@ def test_profiler_busy_is_kernels_with_ranges_open(card):
     assert 0 <= rec["idle_share"] < 1
     assert {"outer", "layer0/spmm"} <= {r["op"] for r in rec["device_ranges"]}
     assert not {"outer", "layer0/spmm"} & {r["op"] for r in rec["device_top"]}
+
+
+# GAT's edge softmax (csrc/edge_softmax.cu): both entry points against
+# their plain versions, the autograd route against the CPU's
+
+
+def _softmax_case(card, heads, long_row, seed=21):
+    """The ``_edge_case`` packs on the card (long rows at ``long_row=16``,
+    an empty row, padding edges) and per-node scores ``[P * n_cols, H]``."""
+    src, dst, w = _edge_case(seed)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=long_row)
+    rng = np.random.default_rng(seed)
+    es, ed = (torch.from_numpy(rng.normal(size=(3 * 500, heads)).astype(
+        np.float32)).to(card) for _ in range(2))
+    return packs, es, ed, rng
+
+
+@pytest.mark.parametrize("long_row", [16, ops.LONG_ROW])
+@pytest.mark.parametrize("heads", [1, 3, 4, 8])
+def test_edge_softmax_kernels_match_plain(card, heads, long_row):
+    """``edge_softmax_fwd`` and ``edge_softmax_bwd`` (GAT's 4 heads, 1, and
+    the masked widths 3 and 8) against ``ref.edge_softmax_ref`` /
+    ``ref.edge_softmax_bwd_ref`` over packs with long rows (a block each)
+    and an empty row: within 1e-5 of the largest magnitude, two launches
+    of each bit for bit, the attention alone in ``A^T``'s order, and one
+    count a call."""
+    from repro_torch.kernels import edge_spmm as kedge
+    packs, es, ed, rng = _softmax_case(card, heads, long_row)
+    assert packs.fwd.long_rows.numel()
+    assert packs.bwd.long_rows.numel() or long_row > 16
+    nnz = packs.fwd.nnz
+    n = [kedge.edge_softmax_fwd.launches, kedge.edge_softmax_bwd.launches]
+    att = [kedge.edge_softmax_fwd(packs, es, ed) for _ in range(2)]
+    d_att = torch.from_numpy(rng.normal(size=(heads, nnz)).astype(
+        np.float32)).to(card)
+    bwd = [kedge.edge_softmax_bwd(packs, att[0], es, ed, d_att)
+           for _ in range(2)]
+    only_t = kedge.edge_softmax_bwd(packs, att[0], es, ed)
+    torch.cuda.synchronize()
+    assert [kedge.edge_softmax_fwd.launches - n[0],
+            kedge.edge_softmax_bwd.launches - n[1]] == [2, 3]
+    assert att[0].shape == (heads, nnz)
+    assert torch.equal(att[0].view(torch.int32), att[1].view(torch.int32))
+    want = ref.edge_softmax_ref(packs.fwd, es, ed, 300, 500)
+    torch.testing.assert_close(att[0], want, **_csr_tol(want))
+    wants = ref.edge_softmax_bwd_ref(packs.fwd, packs.bwd, packs.amap,
+                                     att[0], d_att, es, ed, 300, 500)
+    for got, again, w_ in zip(bwd[0], bwd[1], wants):
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        torch.testing.assert_close(got, w_, **_csr_tol(w_))
+    assert only_t[0] is None and only_t[1] is None
+    assert torch.equal(only_t[2], att[0][:, packs.amap.long()])
+
+
+@pytest.mark.parametrize("heads,dh", [(4, 64), (1, 64), (4, 1), (1, 1)])
+def test_edge_attention_on_card_matches_cpu(card, heads, dh):
+    """``ops.edge_attention`` (GAT's softmax and aggregation) on the card
+    at the train cell's 4 heads of 64, at 1 head, and at head width 1
+    (GAT's last layer): the output and the gradients of ``e_src``,
+    ``e_dst`` and ``h`` against the CPU's plain route over the same packs;
+    one launch of each kernel (``edge_softmax_fwd``, ``edge_spmm``,
+    ``edge_dvals``, ``edge_softmax_bwd``, ``edge_spmm_dh``), and no
+    per-call gather of the values."""
+    from repro_torch.kernels import edge_spmm as kedge
+    src, dst, w = _edge_case(22)
+    rng = np.random.default_rng(22)
+    es0, ed0 = (rng.normal(size=(3, 500, heads)).astype(np.float32)
+                for _ in range(2))
+    h0 = rng.normal(size=(3, 500, heads, dh)).astype(np.float32)
+    g0 = rng.normal(size=(3, 300, heads, dh)).astype(np.float32)
+    kernels = (kedge.edge_softmax_fwd, kedge.edge_spmm, kedge.edge_dvals,
+               kedge.edge_softmax_bwd, kedge.edge_spmm_dh)
+    res = {}
+    for dev in ("cpu", card):
+        packs = ops.edge_packs(*(torch.as_tensor(a).to(dev) for a in (
+            src, dst, w)), 300, 500)
+        ins = [torch.from_numpy(a).to(dev).requires_grad_(True)
+               for a in (es0, ed0, h0)]
+        n = [f.launches for f in kernels]
+        gathers = ops._valued.gathers
+        out = ops.edge_attention(*ins, packs)
+        out.backward(torch.from_numpy(g0).to(dev))
+        if dev == card:
+            torch.cuda.synchronize()
+            assert [f.launches - k for f, k in zip(kernels, n)] == [1] * 5
+        assert ops._valued.gathers == gathers
+        res[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in ins]
+    for name, got, want in zip(("out", "d_e_src", "d_e_dst", "d_h"),
+                               res[str(card)], res["cpu"]):
+        assert got.shape == want.shape, name
+        torch.testing.assert_close(got, want, **_csr_tol(want), msg=name)
+
+
+def test_gat_layer_on_card_without_packs_raises(card):
+    """GAT's layer over an edge list on the card without packs raises
+    before any plain op runs there: the card has no softmax route but
+    the packs'."""
+    from repro_torch.models.gnn import EdgeListAdj, GNNConfig, _layer_apply
+    from repro_torch.models.gnn import init_gnn
+    src, dst, w = _edge_case(23)
+    adj = EdgeListAdj(*(torch.as_tensor(a).to(card) for a in (
+        src.astype(np.int64), dst.astype(np.int64), w)), 300, 500)
+    cfg = GNNConfig(model="gat", in_dim=12, hidden_dim=16, out_dim=5)
+    p = init_gnn(cfg, torch.Generator().manual_seed(0), card)[0]
+    with pytest.raises(ValueError, match="needs the edge list's CSR packs"):
+        _layer_apply(cfg, p, adj, torch.zeros(3, 500, 12, device=card), 300,
+                     False)
+
+
+def test_edge_dvals_in_pack_order(card):
+    """``edge_dvals(..., a_order=True)`` (GAT's backward input, no perm
+    read) is the edge-order result at ``perm``, head-major, bit for bit,
+    for 4 heads of 64 (one pass) and of 6 (head by head)."""
+    from repro_torch.kernels import edge_spmm as kedge
+    src, dst, w = _edge_case(24)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), 300, 500, long_row=16, grad=False)
+    rng = np.random.default_rng(24)
+    for dh in (64, 6):
+        h = torch.from_numpy(rng.normal(size=(3 * 500, 4, dh)).astype(
+            np.float32)).to(card)
+        g = torch.from_numpy(rng.normal(size=(3 * 300, 4, dh)).astype(
+            np.float32)).to(card)
+        by_edge = kedge.edge_dvals(packs.fwd, g, h, 3 * 6000)
+        in_order = kedge.edge_dvals(packs.fwd, g, h, 3 * 6000, a_order=True)
+        torch.cuda.synchronize()
+        assert in_order.shape == (4, packs.fwd.nnz)
+        assert torch.equal(in_order, by_edge[packs.fwd.perm.long()].t())

@@ -12,8 +12,9 @@ the JAX package; and the profilers' device-busy sum.
   reference's loop over the heads (``src/repro/models/gnn.py:284-286``),
   through the packs' route (``ops.edge_spmm``, the card's, here on its
   plain versions) and the CPU's ``coo_spmm`` loop;
-- the port's GAT layer, which makes one ``spmm_at`` call for all its
-  heads, against the JAX GAT layer where the JAX package is finite
+- the port's GAT layer, which makes one ``ops.edge_attention`` call for
+  all its heads over the packs (one ``spmm_at`` without them), against
+  the JAX GAT layer where the JAX package is finite
   (ROADMAP queue 3 item 2: each partition's edges trimmed to
   ``dst < n_inner_max``);
 - ``launch.profile_serve._summary`` adds the device time of kernels,
@@ -245,11 +246,17 @@ def _jgat_layer(cfg, jadj, h, g, p0):
 
 @pytest.mark.parametrize("heads", [1, H])
 @pytest.mark.parametrize("route", ["packs", "coo"])
-def test_gat_layer_one_call_matches_reference_where_finite(route, heads):
-    """The port's GAT layer (one ``spmm_at`` for its heads, 4 or 1) on
-    each partition's edges trimmed to the live ones, where the JAX
-    package's gradients are finite: output and parameter gradients within
-    1e-5 of the JAX layer's, one ``spmm_at`` call a layer."""
+def test_gat_layer_one_call_matches_reference_where_finite(route, heads,
+                                                           monkeypatch):
+    """The port's GAT layer (its heads, 4 or 1, in one call) on each
+    partition's edges trimmed to the live ones, where the JAX package's
+    gradients are finite: output and parameter gradients within 1e-5 of
+    the JAX layer's; over the packs one ``ops.edge_attention`` call a
+    layer and no ``spmm_at``."""
+    attention_calls = []
+    edge_attention = ops.edge_attention
+    monkeypatch.setattr(ops, "edge_attention", lambda *a: (
+        attention_calls.append(1), edge_attention(*a))[1])
     rng = np.random.default_rng(9)
     src, dst, w, _, _, _ = _edges(4)
     jcfg = jgnn.GNNConfig(model="gat", in_dim=12, hidden_dim=16, out_dim=5,
@@ -278,12 +285,13 @@ def test_gat_layer_one_call_matches_reference_where_finite(route, heads):
             adj = tgnn.EdgeListAdj(*edges, N_ROWS, N_COLS)
         params = {k: torch.from_numpy(v.copy()).requires_grad_(True)
                   for k, v in p0.items()}
-        before = _PackRouteAdj.calls
+        before, calls = _PackRouteAdj.calls, len(attention_calls)
         out = tgnn._layer_apply(tcfg, params, adj, torch.from_numpy(h),
                                 N_ROWS, False)
         (out * torch.from_numpy(g)).sum().backward()
         if route == "packs":
-            assert _PackRouteAdj.calls - before == 1
+            assert len(attention_calls) - calls == 1
+            assert _PackRouteAdj.calls == before
         _close(out, jout, f"partition {p} output")
         for k, v in params.items():
             _close(v.grad, jg[k], f"partition {p} d{k}")
