@@ -103,7 +103,9 @@ raises, and the script exits non-zero:
    replace (``_edge_rows`` / ``_edge_softmax`` and their autograd), twice
    bit for bit, timed beside the bound and ``torch.sparse.softmax`` (and
    its backward), ``edge_dvals`` into the backward, and one layer's
-   ``ops.edge_attention`` against the old route.
+   ``ops.edge_attention`` against the old route; ``pieces``: the kernels
+   apart (short rows, long rows, the walks of ``A`` and ``A^T``), each
+   pack's warps and the lanes its short rows use.
    ``train_ell`` - ``--backend ell`` at scale 0.3 (the pure ELL pack's
    shape and bytes printed: 0.73 GB there, ~7 GB at scale 1.0), its
    refresh step held against the CPU at scale 0.1.
@@ -2114,15 +2116,113 @@ def softmax_bytes(packs, heads: int) -> tuple[float, float]:
                   + 2 * n_nodes * f32 + nnz * f32))
 
 
+def rows_only(pack, part: str):
+    """``pack`` with its row list cut to one class, so that a launch over
+    it times that class alone: ``"short"`` keeps the short rows,
+    ``"long"`` the long rows and their segments, ``"none"`` neither.
+    Every field that indexes a class is emptied with it."""
+    import dataclasses as dc
+    f = {}
+    if part not in ("short", "all"):
+        f["short_rows"] = pack.short_rows[:0]
+        if getattr(pack, "runs", None) is not None:
+            f.update(runs=pack.runs[-1:].clone().zero_(), run_warps=0,
+                     short_span=pack.short_span[:0])
+    if part not in ("long", "all"):
+        f.update(long_rows=pack.long_rows[:0], seg=pack.seg[:0],
+                 long_seg_ptr=pack.long_seg_ptr[:1])
+        if getattr(pack, "seg_long", None) is not None:
+            f["seg_long"] = pack.seg_long[:0]
+    return dc.replace(pack, **f)
+
+
+def row_lengths(pack) -> torch.Tensor:
+    """Entries of each listed short row with entries (int64)."""
+    n = (pack.rowptr[1:] - pack.rowptr[:-1]).long()[pack.short_rows.long()]
+    return n[n > 0]
+
+
+def lane_use(pack, lanes) -> float:
+    """Share of the lanes that hold an entry over the short rows with
+    entries, when a row of ``n`` entries gets ``lanes(n)`` lanes and they
+    walk it ``lanes(n)`` entries at a time."""
+    n = row_lengths(pack)
+    g = lanes(n)
+    return float(n.sum()) / max(1.0, float((g * -(-n // g)).sum()))
+
+
+def pow2_lanes(lo: int):
+    """Lanes a row: the least power of two >= its entries, in [lo, 32]."""
+    def lanes(n):
+        g = torch.full_like(n, 32)
+        for w in (16, 8, 4, 2, 1):
+            g = torch.where(n <= w, w, g)
+        return g.clamp(min=lo)
+    return lanes
+
+
+def softmax_pieces(packs, es, ed, att, d_att) -> dict:
+    """GAT's edge softmax apart, each piece timed (behind the spin) over
+    the packs with the other pieces' row lists emptied
+    (:func:`rows_only`): the forward's short rows and long rows; the
+    backward's walk of ``A`` (``A^T``'s lists empty) and of ``A^T``
+    (``A``'s lists empty), and each walk's short and long rows; beside
+    both whole calls.  Then each pack's warps over its short rows' runs
+    and its segments, the short rows' lengths (rows of 1-4, 5-8, 9-16,
+    17-32, 33-256 entries) and the lanes holding an entry at a warp a row
+    (the earlier design), at a power of two a row (the pack's runs) and
+    at one of at least 4.  Works over any tree's packs: a field the kernels
+    do not have is not emptied."""
+    import dataclasses as dc
+    from repro_torch.kernels import edge_spmm as kedge
+    fwd, bwd = packs.fwd, packs.bwd
+
+    def cut(a_part, t_part):
+        return dc.replace(packs, fwd=rows_only(fwd, a_part),
+                          bwd=rows_only(bwd, t_part))
+    cuts = {"fwd_short": cut("short", "all"), "fwd_long": cut("long", "all"),
+            "bwd_a": cut("all", "none"), "bwd_at": cut("none", "all"),
+            "bwd_a_short": cut("short", "none"),
+            "bwd_a_long": cut("long", "none"),
+            "bwd_at_short": cut("none", "short"),
+            "bwd_at_long": cut("none", "long")}
+    fns = {"fwd_ms": lambda: kedge.edge_softmax_fwd(packs, es, ed),
+           "bwd_ms": lambda: kedge.edge_softmax_bwd(packs, att, es, ed,
+                                                    d_att)}
+    for name, p in cuts.items():
+        if name.startswith("fwd"):
+            fns[name + "_ms"] = (lambda p=p: kedge.edge_softmax_fwd(p, es,
+                                                                     ed))
+        else:
+            fns[name + "_ms"] = (lambda p=p: kedge.edge_softmax_bwd(
+                p, att, es, ed, d_att))
+    t = time_calls(fns, reps=5, rounds=4)
+    t["run_warps"] = [getattr(p, "run_warps", None) for p in (fwd, bwd)]
+    t["segments"] = [fwd.seg.shape[0], bwd.seg.shape[0]]
+    bounds = (0, 4, 8, 16, 32, 256)
+    hist = {}
+    for key, pack in (("a", fwd), ("at", bwd)):
+        n = row_lengths(pack)
+        hist[key] = [int(((n > lo) & (n <= hi)).sum())
+                     for lo, hi in zip(bounds, bounds[1:])]
+        hist[key + "_lane_use"] = {
+            "warp": lane_use(pack, lambda n: torch.full_like(n, 32)),
+            "pow2": lane_use(pack, pow2_lanes(1)),
+            "pow2_min4": lane_use(pack, pow2_lanes(4))}
+    return {**t, "short_rows_by_length": hist}
+
+
 def phase_edge_softmax(src, dst, packs, gen, dev="cuda") -> list[dict]:
     """GAT's edge softmax at the train cell's edge packs, 4 heads: both
     entry points of ``csrc/edge_softmax.cu`` against their plain versions
     (``ref.edge_softmax_ref`` / ``edge_softmax_bwd_ref``) and against the
     plain route they replace on the card (``_edge_rows`` and
     ``_edge_softmax`` of ``models/gnn.py``, and their autograd), each
-    twice bit for bit; timed beside the bound, the plain route and
-    ``torch.sparse.softmax(dim=1)`` over a hybrid COO ``[P * n_rows, P *
-    n_cols, 4]`` of the logits (and its backward); ``edge_dvals`` (``d_att``
+    twice bit for bit; timed apart (:func:`softmax_pieces`: the short and
+    long rows, the walks of ``A`` and ``A^T``) and beside the bound, the
+    plain route and ``torch.sparse.softmax(dim=1)`` over a hybrid COO ``[P
+    * n_rows, P * n_cols, 4]`` of the logits (and its backward);
+    ``edge_dvals`` (``d_att``
     in the pack's order) into the backward; and one GAT layer's attention
     route at 4 heads of 64,
     ``ops.edge_attention`` forward and backward, beside the plain softmax
@@ -2255,6 +2355,7 @@ def phase_edge_softmax(src, dst, packs, gen, dev="cuda") -> list[dict]:
                 lambda: kedge.edge_softmax_fwd(packs, es, ed)),
             "bwd_enqueue_us": enqueue_us(
                 lambda: kedge.edge_softmax_bwd(packs, att, es, ed, d_att))}
+    pieces = softmax_pieces(packs, es, ed, att, d_att)
     b_fwd, b_bwd = softmax_bytes(packs, heads)
     bf, byf = bound_ms(b_fwd, 8.0 * nnz * heads)
     bb, byb = bound_ms(b_bwd, 10.0 * nnz * heads)
@@ -2264,7 +2365,7 @@ def phase_edge_softmax(src, dst, packs, gen, dev="cuda") -> list[dict]:
          max_row=max_row(fwd), max_row_t=max_row(packs.bwd),
          max_abs_err=err, bit_reproducible=True, bytes=[b_fwd, b_bwd],
          bound_ms=bf, bound_by=byf, bwd_bound_ms=bb, bwd_bound_by=byb,
-         **t, **host)
+         pieces=pieces, **t, **host)
     over = ("one launch for GAT's 4 heads over the train cell's forward "
             "edge pack")
     lib = ("torch.sparse.softmax(dim=1) of a hybrid COO [P * n_rows, P * "

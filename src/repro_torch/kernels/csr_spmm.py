@@ -45,7 +45,7 @@ _ARGTYPES = ([_PTR] * 3 + [_I64, _PTR, _INT, _PTR, _INT] + [_PTR] * 2
              + [_INT] + [_PTR] * 3 + [_INT, _I64] + [_INT] * 6 + [_PTR])
 _FLOAT_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT_FIELDS = ("rowptr", "col", "short_rows", "seg", "long_rows",
-               "long_seg_ptr")
+               "long_seg_ptr", "runs", "short_span", "seg_long")
 # The kernel's ids and entry offsets are int32: a chunk of 32 entries per
 # warp, 8 warps per segment, may run 256 entries past the last one.
 ID_LIMIT = 2 ** 31 - 1 - 256
@@ -105,9 +105,19 @@ class CsrPack:
     segments of at most ``long_row`` entries (``seg``), one block each; the
     others are short rows, one warp each, listed longest first.  With
     ``every_row`` the list holds every row, empty ones included (write
-    mode); otherwise only rows with entries.  ``perm``, where the builder
-    was given ids, is each entry's id (an edge list's edge index), so that
-    values given at call time are put in the pack's order with one gather.
+    mode); otherwise only rows with entries.  GAT's edge softmax
+    (``csrc/edge_softmax.cu``) walks the short rows in groups of lanes:
+    ``runs`` cuts the list into runs of rows that take the same number of
+    lanes (the least power of two at or above a row's entries, at most
+    32; none for an empty row), each run ``(first row in short_rows, first
+    warp, log2 of its lanes)`` and a last line ``(n_short, run_warps,
+    0)``; ``short_span`` is each listed short row's entry range
+    ``[rowptr[r], rowptr[r + 1])``, read with the row itself (one
+    dependent load fewer than through ``rowptr``); ``seg_long`` is each
+    segment's long row (its index into ``long_rows``).  ``perm``, where
+    the pack was built with ids, is each entry's id (an edge list's edge
+    index), so that values given at call time are put in the pack's order
+    with one gather.
     """
     rowptr: torch.Tensor        # int32 [n_rows + 1]
     col: torch.Tensor           # int32 [nnz], in [0, n_cols)
@@ -116,10 +126,14 @@ class CsrPack:
     seg: torch.Tensor           # int32 [n_seg, 2], entry range [lo, hi)
     long_rows: torch.Tensor     # int32 [n_long]
     long_seg_ptr: torch.Tensor  # int32 [n_long + 1], into seg
+    runs: torch.Tensor          # int32 [n_runs + 1, 3], the short rows' runs
+    short_span: torch.Tensor    # int32 [n_short, 2], their entry ranges
+    seg_long: torch.Tensor      # int32 [n_seg], each segment's long row
     n_rows: int
     n_cols: int
     long_row: int
     every_row: bool
+    run_warps: int              # warps over the runs (their last line)
     perm: torch.Tensor | None = None   # int32 [nnz], each entry's id
 
     @property

@@ -53,18 +53,20 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #  device, stream)
 _ARGTYPES = ([_PTR] * 4 + [_INT, _PTR, _INT] + [_PTR] * 2 + [_INT]
              + [_PTR] * 3 + [_INT] * 2 + [_I64] * 2 + [_INT] * 5 + [_PTR])
-# edge_softmax.cu: (rowptr, col, short_rows, n_short, long_rows, n_long,
-#  e_src, e_dst, att, nnz, heads, n_rows, n_cols, vec, device, stream)
-_SOFTMAX_FWD_ARGTYPES = ([_PTR] * 3 + [_INT, _PTR, _INT] + [_PTR] * 3
-                         + [_I64] + [_INT] * 5 + [_PTR])
-# (rowptr, col, short_rows, n_short, long_rows, n_long, e_src, e_dst, att,
-#  d_att, dx, d_e_dst, nnz, heads, n_rows, n_cols, vec, device, stream)
-_SOFTMAX_BWD_ARGTYPES = ([_PTR] * 3 + [_INT, _PTR, _INT] + [_PTR] * 6
-                         + [_I64] + [_INT] * 5 + [_PTR])
-# (rowptr, short_rows, n_short, long_rows, n_long, amap, dx, att, d_e_src,
-#  att_t, nnz, heads, vec, device, stream)
-_SOFTMAX_TR_ARGTYPES = ([_PTR] * 2 + [_INT, _PTR, _INT] + [_PTR] * 5
-                        + [_I64] + [_INT] * 3 + [_PTR])
+# edge_softmax.cu: a pack's row lists (rowptr, col, short_rows,
+# short_span, runs, n_runs, run_warps, seg, seg_long, n_seg, long_rows,
+# long_seg_ptr, n_long)
+_ROWS_ARGTYPES = ([_PTR] * 5 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2
+                  + [_INT])
+# (A's row lists, e_src, e_dst, att, part, nnz, heads, n_rows, n_cols,
+#  vec, device, stream)
+_SOFTMAX_FWD_ARGTYPES = (_ROWS_ARGTYPES + [_PTR] * 4 + [_I64] + [_INT] * 5
+                         + [_PTR])
+# (A's row lists, A^T's, amap, e_src, e_dst, att, d_att, dxatt, part,
+#  d_e_src, d_e_dst, att_t, nnz, heads, n_rows, n_cols, vec, device,
+#  stream)
+_SOFTMAX_BWD_ARGTYPES = (_ROWS_ARGTYPES * 2 + [_PTR] * 10 + [_I64]
+                         + [_INT] * 5 + [_PTR])
 # the most heads edge_softmax.cu is built for
 MAX_SOFTMAX_HEADS = 16
 # a lane holds at most this many vectors of a stripe (csrc/edge_dvals.cu
@@ -216,6 +218,18 @@ def _scores(kernel: str, packs, e_src: torch.Tensor,
     return heads
 
 
+def _rows_args(pack: CsrPack) -> tuple:
+    """A pack's row lists as ``edge_softmax.cu`` takes them: the CSR, the
+    short rows with their entry ranges and runs, the long rows with their
+    segments."""
+    return (pack.rowptr.data_ptr(), pack.col.data_ptr(),
+            pack.short_rows.data_ptr(), pack.short_span.data_ptr(),
+            pack.runs.data_ptr(), pack.runs.shape[0] - 1, pack.run_warps,
+            pack.seg.data_ptr(), pack.seg_long.data_ptr(), pack.seg.shape[0],
+            pack.long_rows.data_ptr(), pack.long_seg_ptr.data_ptr(),
+            pack.long_rows.shape[0])
+
+
 def _vec(heads: int, *ts) -> int:
     """1 where a row of ``heads`` floats is 16-byte words (4, 8 or 16
     heads) and every base address is 16-byte aligned."""
@@ -239,13 +253,13 @@ def edge_softmax_fwd(packs, e_src: torch.Tensor,
                       device=e_src.device)
     if not pack.nnz:
         return att
+    # each long row segment's (max, sum) per head
+    part = torch.empty((pack.seg.shape[0], 2, heads), dtype=torch.float32,
+                       device=e_src.device)
     fn = _entry("edge_softmax", "edge_softmax_fwd_f32", _SOFTMAX_FWD_ARGTYPES)
-    _launch(fn, e_src.get_device(), pack.rowptr.data_ptr(),
-            pack.col.data_ptr(), pack.short_rows.data_ptr(),
-            pack.short_rows.shape[0], pack.long_rows.data_ptr(),
-            pack.long_rows.shape[0], e_src.data_ptr(), e_dst.data_ptr(),
-            att.data_ptr(), pack.nnz, heads, packs.n_rows, packs.n_cols,
-            _vec(heads, e_src, e_dst))
+    _launch(fn, e_src.get_device(), *_rows_args(pack), e_src.data_ptr(),
+            e_dst.data_ptr(), att.data_ptr(), part.data_ptr(), pack.nnz,
+            heads, packs.n_rows, packs.n_cols, _vec(heads, e_src, e_dst))
     edge_softmax_fwd.launches += 1
     return att
 
@@ -289,36 +303,29 @@ def edge_softmax_bwd(packs, att: torch.Tensor, e_src: torch.Tensor,
         raise TypeError("edge_softmax_bwd kernel: the entry map must be "
                         f"int32 [{nnz}]")
     n_nodes = packs.n_parts * packs.n_cols
-    d_e_src = d_e_dst = out_t = dx = None
+    d_e_src = d_e_dst = out_t = dxatt = part = None
     if d_att is not None:
-        d_e_dst = torch.zeros((n_nodes, heads), dtype=torch.float32,
-                              device=dev)
-        d_e_src = torch.zeros_like(d_e_dst) if not nnz else \
-            torch.empty_like(d_e_dst)
+        # rows with no entry keep the zeros: no warp walks an empty row
+        d_e_src, d_e_dst = torch.zeros((2, n_nodes, heads),
+                                       dtype=torch.float32, device=dev)
     if att_t:
         out_t = torch.empty((heads, nnz), dtype=torch.float32, device=dev)
     if not nnz or (d_att is None and not att_t):
         return d_e_src, d_e_dst, out_t
-    device = e_src.get_device()
     if d_att is not None:
-        dx = torch.empty((nnz, heads), dtype=torch.float32, device=dev)
-        fn = _entry("edge_softmax", "edge_softmax_bwd_f32",
-                    _SOFTMAX_BWD_ARGTYPES)
-        _launch(fn, device, fwd.rowptr.data_ptr(), fwd.col.data_ptr(),
-                fwd.short_rows.data_ptr(), fwd.short_rows.shape[0],
-                fwd.long_rows.data_ptr(), fwd.long_rows.shape[0],
-                e_src.data_ptr(), e_dst.data_ptr(), att.data_ptr(),
-                d_att.data_ptr(), dx.data_ptr(), d_e_dst.data_ptr(), nnz,
-                heads, packs.n_rows, packs.n_cols, _vec(heads, e_src, e_dst))
-    fn = _entry("edge_softmax", "edge_softmax_tr_f32", _SOFTMAX_TR_ARGTYPES)
-    _launch(fn, device, bwd.rowptr.data_ptr(), bwd.short_rows.data_ptr(),
-            bwd.short_rows.shape[0], bwd.long_rows.data_ptr(),
-            bwd.long_rows.shape[0], amap.data_ptr(),
-            None if dx is None else dx.data_ptr(),
-            att.data_ptr() if att_t else None,
-            None if dx is None else d_e_src.data_ptr(),
-            None if out_t is None else out_t.data_ptr(), nnz, heads,
-            _vec(heads, *([dx] if dx is not None else [])))
+        # dx and att entry-major (one gather an entry for the walk of
+        # A^T); each long row segment's dot and d_e_dst partial per head
+        dxatt = torch.empty((nnz, 2 * heads), dtype=torch.float32,
+                            device=dev)
+        part = torch.empty((fwd.seg.shape[0], 2, heads), dtype=torch.float32,
+                           device=dev)
+    fn = _entry("edge_softmax", "edge_softmax_bwd_f32", _SOFTMAX_BWD_ARGTYPES)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _launch(fn, e_src.get_device(), *_rows_args(fwd), *_rows_args(bwd),
+            amap.data_ptr(), e_src.data_ptr(),
+            e_dst.data_ptr(), att.data_ptr(), ptr(d_att), ptr(dxatt),
+            ptr(part), ptr(d_e_src), ptr(d_e_dst), ptr(out_t), nnz, heads,
+            packs.n_rows, packs.n_cols, _vec(heads, e_src, e_dst))
     edge_softmax_bwd.launches += 1
     return d_e_src, d_e_dst, out_t
 

@@ -77,6 +77,10 @@ __all__ = ["ell_pack", "ell_pack_hybrid", "ell_row_end", "LONG_ROW",
 # segments of at most this many entries, one block each (PERF.md: the
 # `--sweep` of chip_smoke.py over 64-1024).
 LONG_ROW = 256
+# GAT's edge softmax gives a short row of n entries the least power of two
+# >= n lanes, at most a warp (CsrPack.runs); a run of empty rows has this
+# log2 of lanes and no warps
+_EMPTY_RUN = 6
 
 
 def ell_pack(src: np.ndarray, dst: np.ndarray, w: np.ndarray, n_rows: int,
@@ -175,6 +179,47 @@ def _short_order_key(first_col, counts, short, col_block: int | None,
     return block * (long_row + 1) + longest_first
 
 
+def _lanes_log2(n):
+    """log2 of the lanes a short row of ``n`` entries takes (numpy or
+    torch integers): the least power of two >= n, at most 32;
+    :data:`_EMPTY_RUN` for an empty row."""
+    lg = 5 - sum((n <= 2 ** i) * 1 for i in range(5))
+    return lg * (n > 0) + _EMPTY_RUN * (n == 0)
+
+
+def _runs_np(lg: np.ndarray) -> tuple[np.ndarray, int]:
+    """``(runs, run_warps)`` of a short list whose rows take ``2 ** lg``
+    lanes (:func:`_lanes_log2`): one line a run of equal ``lg``, ``(first
+    row, first warp, lg)``, and the last line ``(rows, warps, 0)``."""
+    starts = np.flatnonzero(np.diff(lg, prepend=-1))
+    lgs = lg[starts]
+    live = lgs < _EMPTY_RUN
+    per = 2 ** (5 - np.where(live, lgs, 5))          # rows a warp
+    warps = np.where(live, -(-np.diff(np.append(starts, lg.size)) // per),
+                     0)
+    first = np.concatenate([[0], np.cumsum(warps)])
+    runs = np.stack([np.append(starts, lg.size), first, np.append(lgs, 0)],
+                    axis=1)
+    return runs, int(first[-1])
+
+
+def _runs_torch(lg: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """:func:`_runs_np` with torch ops, on the device of ``lg``."""
+    new = torch.ones_like(lg, dtype=torch.bool)
+    new[1:] = lg[1:] != lg[:-1]
+    starts = torch.nonzero(new).squeeze(1)
+    lgs = lg[starts]
+    live = lgs < _EMPTY_RUN
+    per = 2 ** (5 - torch.where(live, lgs, 5))
+    end = starts.new_full((1,), lg.numel())
+    warps = torch.where(live, -(-torch.diff(torch.cat([starts, end]))
+                                // per), 0)
+    first = torch.cat([warps.new_zeros(1), torch.cumsum(warps, 0)])
+    runs = torch.stack([torch.cat([starts, end]), first,
+                        torch.cat([lgs, lgs.new_zeros(1)])], dim=1)
+    return runs, int(first[-1])
+
+
 def _check_block(name: str, n_cols: int, col_block: int | None) -> int:
     """The number of column blocks (1 without ``col_block``)."""
     if col_block is None:
@@ -238,6 +283,8 @@ def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
         first_col, counts, short, col_block, long_row, n_blocks),
         kind="stable")]
 
+    runs, run_warps = _runs_np(_lanes_log2(counts[short]))
+
     def put(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), device=device
                                ).to(dtype)
@@ -245,9 +292,13 @@ def csr_pack(rows: np.ndarray, cols: np.ndarray, w: np.ndarray,
     return CsrPack(rowptr=put(rowptr), col=put(cols),
                    w=put(w, torch.float32), short_rows=put(short),
                    seg=put(seg.reshape(-1, 2)), long_rows=put(long_rows),
-                   long_seg_ptr=put(long_seg_ptr), n_rows=int(n_rows),
-                   n_cols=int(n_cols), long_row=int(long_row),
-                   every_row=bool(every_row), perm=perm)
+                   long_seg_ptr=put(long_seg_ptr), runs=put(runs),
+                   short_span=put(np.stack([rowptr[short], rowptr[short + 1]],
+                                           axis=1)),
+                   seg_long=put(np.repeat(np.arange(long_rows.size), n_seg)),
+                   n_rows=int(n_rows), n_cols=int(n_cols),
+                   long_row=int(long_row), every_row=bool(every_row),
+                   run_warps=run_warps, perm=perm)
 
 
 def csr_pack_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
@@ -292,14 +343,22 @@ def csr_pack_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
         first_col, counts, short, col_block, long_row, n_blocks),
         stable=True).indices]
 
+    runs, run_warps = _runs_torch(_lanes_log2(counts[short]))
+
     def i32(a):
         return a.to(torch.int32).contiguous()
     return CsrPack(rowptr=i32(rowptr), col=i32(cols),
                    w=w.reshape(-1).float()[order].contiguous(),
                    short_rows=i32(short), seg=i32(seg.reshape(-1, 2)),
                    long_rows=i32(long_rows), long_seg_ptr=i32(long_seg_ptr),
+                   runs=i32(runs),
+                   short_span=i32(torch.stack([rowptr[short],
+                                               rowptr[short + 1]], dim=1)),
+                   seg_long=i32(torch.repeat_interleave(
+                       torch.arange(long_rows.numel(), device=dev), n_seg)),
                    n_rows=int(n_rows), n_cols=int(n_cols),
                    long_row=int(long_row), every_row=bool(every_row),
+                   run_warps=run_warps,
                    perm=None if ids is None else i32(ids.reshape(-1)[order]))
 
 

@@ -30,10 +30,12 @@ kernel's load modes (two or four register steps, the cp.async ring) at
 every stripe over a pack in its own and a shuffled row order (long
 rows, empty rows, ragged widths, bf16, accumulate mode, two launches bit
 for bit); GAT's edge softmax (``csrc/edge_softmax.cu``: both entry points
-against their plain versions at 1, 3, 4 and 8 heads with long and empty
-rows, twice bit for bit, ``d_att`` in either order; ``ops.edge_attention``
-against the CPU's at 4 heads of 64 and head width 1, one launch of each
-kernel; GAT on the card without packs refused); GAT's heads (4, and 1) in
+against their plain versions at 1, 2, 3, 4, 8 and 16 heads with long
+and empty rows and at every class of the lanes a row (0-257 entries, 2
+to 40 segments), twice bit for bit, ``d_att`` in the pack's order;
+``ops.edge_attention`` against the CPU's at 4 heads of 64 and head width
+1, one launch of each kernel; GAT on the card without packs refused);
+GAT's heads (4, and 1) in
 one launch of the CSR kernel and of
 ``edge_dvals`` (against the plain versions and one launch a head, bit
 for bit twice, 0 at padding), and ``EdgeListAdj.spmm_at`` of ``[P, m,
@@ -1412,14 +1414,14 @@ def _softmax_case(card, heads, long_row, seed=21):
 
 
 @pytest.mark.parametrize("long_row", [16, ops.LONG_ROW])
-@pytest.mark.parametrize("heads", [1, 3, 4, 8])
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8, 16])
 def test_edge_softmax_kernels_match_plain(card, heads, long_row):
-    """``edge_softmax_fwd`` and ``edge_softmax_bwd`` (GAT's 4 heads, 1, and
-    the masked widths 3 and 8) against ``ref.edge_softmax_ref`` /
-    ``ref.edge_softmax_bwd_ref`` over packs with long rows (a block each)
-    and an empty row: within 1e-5 of the largest magnitude, two launches
-    of each bit for bit, the attention alone in ``A^T``'s order, and one
-    count a call."""
+    """``edge_softmax_fwd`` and ``edge_softmax_bwd`` (GAT's 4 heads, every
+    width the kernels are built for, and the masked width 3) against
+    ``ref.edge_softmax_ref`` / ``ref.edge_softmax_bwd_ref`` over packs
+    with long rows (over their segments) and an empty row: within 1e-5 of
+    the largest magnitude, two launches of each bit for bit, the attention
+    alone in ``A^T``'s order, and one count a call."""
     from repro_torch.kernels import edge_spmm as kedge
     packs, es, ed, rng = _softmax_case(card, heads, long_row)
     assert packs.fwd.long_rows.numel()
@@ -1446,6 +1448,66 @@ def test_edge_softmax_kernels_match_plain(card, heads, long_row):
         torch.testing.assert_close(got, w_, **_csr_tol(w_))
     assert only_t[0] is None and only_t[1] is None
     assert torch.equal(only_t[2], att[0][:, packs.amap.long()])
+
+
+# a row of each class of the grouping (CsrPack.runs: the least power of
+# two >= its entries of lanes), and long rows over 2 and 40 segments
+_CLASS_LENS = [0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 256, 257]
+
+
+def _class_case(card, long_row, heads, seed=25):
+    """Packs on the card whose 2 partitions each hold one row of every
+    length of :data:`_CLASS_LENS` and one of ``40 * long_row`` entries
+    (rows shuffled, random columns, padding edges), and per-node scores
+    ``[P * n_cols, H]``."""
+    rng = np.random.default_rng(seed)
+    lens = _CLASS_LENS + [40 * long_row]
+    n_rows, n_cols, n_parts = len(lens), 700, 2
+    m = sum(lens) + 9
+    src = rng.integers(0, n_cols, (n_parts, m)).astype(np.int32)
+    dst = np.full((n_parts, m), n_rows, np.int32)
+    for p in range(n_parts):
+        rows = rng.permutation(n_rows)
+        dst[p, :m - 9] = np.repeat(rows, [lens[r] for r in rows])
+    w = np.where(dst < n_rows, 1.0, 0.0).astype(np.float32)
+    packs = ops.edge_packs(*(torch.as_tensor(a).to(card) for a in (
+        src, dst, w)), n_rows, n_cols, long_row=long_row)
+    es, ed = (torch.from_numpy(rng.normal(size=(n_parts * n_cols, heads))
+                               .astype(np.float32)).to(card)
+              for _ in range(2))
+    return packs, es, ed, rng
+
+
+@pytest.mark.parametrize("long_row", [16, ops.LONG_ROW])
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8, 16])
+def test_edge_softmax_row_classes(card, heads, long_row):
+    """Both softmax kernels over rows of 0, 1, 2, 3, 4, 5, 8, 9, 16, 17,
+    32, 33, 256 and 257 entries (every boundary of the lanes a row) and a
+    long row over 40 segments (at long_row 16 the rows past 16 are long
+    too: 2 to 17 segments), against their plain versions within 1e-5 of
+    the largest magnitude, each twice bit for bit."""
+    from repro_torch.kernels import edge_spmm as kedge
+    packs, es, ed, rng = _class_case(card, long_row, heads)
+    n_seg = packs.fwd.long_seg_ptr[1:] - packs.fwd.long_seg_ptr[:-1]
+    assert int(n_seg.max()) == 40 and int(n_seg.min()) == 2
+    nnz = packs.fwd.nnz
+    att = [kedge.edge_softmax_fwd(packs, es, ed) for _ in range(2)]
+    d_att = torch.from_numpy(rng.normal(size=(heads, nnz)).astype(
+        np.float32)).to(card)
+    bwd = [kedge.edge_softmax_bwd(packs, att[0], es, ed, d_att)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(att[0].view(torch.int32), att[1].view(torch.int32))
+    want = ref.edge_softmax_ref(packs.fwd, es, ed, packs.n_rows,
+                                packs.n_cols)
+    torch.testing.assert_close(att[0], want, **_csr_tol(want))
+    wants = ref.edge_softmax_bwd_ref(packs.fwd, packs.bwd, packs.amap,
+                                     att[0], d_att, es, ed, packs.n_rows,
+                                     packs.n_cols)
+    for name, got, again, w_ in zip(("d_e_src", "d_e_dst", "att_t"), bwd[0],
+                                    bwd[1], wants):
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        torch.testing.assert_close(got, w_, **_csr_tol(w_), msg=name)
 
 
 @pytest.mark.parametrize("heads,dh", [(4, 64), (1, 64), (4, 1), (1, 1)])

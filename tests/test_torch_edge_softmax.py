@@ -16,6 +16,11 @@ GAT layer's ``segment_max``, ``exp``, ``segment_sum`` and head loop
 - the attention itself and the plain backward's pieces (``d_e_src``,
   ``d_e_dst`` and the attention in ``A^T``'s order) against JAX's segment
   softmax and ``jax.vjp`` of it, at every long-row cut;
+- the plain versions over rows of every group width of the card's
+  kernels (0 to 257 entries, and a long row of 40 segments) against JAX,
+  and those kernels' host-side fields (``CsrPack.runs`` / ``run_warps``
+  / ``short_span`` / ``seg_long``), ``csr_pack`` against
+  ``csr_pack_torch`` field for field, walked as the kernels walk them;
 - the packs' entry map against an explicit inverse of ``perm``;
 - ``_gat`` with packs makes exactly one ``ops.edge_attention`` call a
   layer and never the plain route (``_edge_rows`` / ``_edge_softmax``);
@@ -310,3 +315,149 @@ def test_edge_attention_refusals():
     with torch.no_grad():
         out = ops.edge_attention(es, es, hh, fwd_only)
     assert out.shape == (N_PARTS, N_ROWS, 4, 2)
+
+
+# the row classes of the card's grouping (CsrPack.runs): a row of n
+# entries takes the least power of two >= n lanes; rows past the long-row
+# cut go over segments (40 of them at long_row 16)
+CLASS_LENS = [0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 256, 257, 640]
+CLASS_COLS = 300
+
+
+def _class_edges(seed, n_parts=2):
+    """A stacked edge list whose partitions each hold one row of every
+    length of :data:`CLASS_LENS` (rows in shuffled order, random
+    columns), 7 padding edges a partition."""
+    rng = np.random.default_rng(seed)
+    n_rows = len(CLASS_LENS)
+    m = sum(CLASS_LENS) + 7
+    src = rng.integers(0, CLASS_COLS, (n_parts, m))
+    dst = np.full((n_parts, m), n_rows)
+    for p in range(n_parts):
+        rows = rng.permutation(n_rows)
+        dst[p, :m - 7] = np.repeat(rows, [CLASS_LENS[r] for r in rows])
+    w = np.where(dst < n_rows, 1.0, 0.0).astype(np.float32)
+    return src, dst, w, n_rows
+
+
+def _slots(pack):
+    """Each (row, lanes) group the kernel's warps take over ``pack.runs``,
+    found as ``find_slot`` in ``csrc/edge_softmax.cu`` finds it: a warp's
+    run is the last whose first warp is at most its own."""
+    runs = pack.runs.numpy()
+    short = pack.short_rows.numpy()
+    groups = []
+    for w in range(pack.run_warps):
+        run = int(np.flatnonzero(runs[:-1, 1] <= w)[-1])
+        first, w0, lg = runs[run]
+        end = runs[run + 1, 0]
+        for slot in range(32 >> lg):
+            item = first + ((w - w0) << (5 - lg)) + slot
+            if item < end:
+                groups.append((int(short[item]), 1 << int(lg)))
+    return groups
+
+
+@pytest.mark.parametrize("long_row", [16, ops.LONG_ROW])
+def test_runs_and_segments_cover_the_row_lists(long_row):
+    """The host-side fields of the card's edge softmax, for both packs of
+    :func:`ops.edge_packs` and for :func:`ops.csr_pack` (numpy) against
+    :func:`ops.csr_pack_torch`, field for field: ``runs`` / ``run_warps``
+    give every short row with entries exactly one group of the least
+    power of two >= its entries of lanes (at most 32), and no group to an
+    empty or long row; rows
+    of one run share their lanes; ``short_span`` is each short row's
+    entry range; the long rows are the rows past ``long_row`` entries,
+    and ``seg_long`` names each segment's long row, whose entries the
+    row's segments cover in order."""
+    src, dst, w, n_rows = _class_edges(11)
+    packs = ops.edge_packs(*(torch.from_numpy(a) for a in (src, dst, w)),
+                           n_rows, CLASS_COLS, long_row=long_row)
+    p, e = np.nonzero(dst < n_rows)
+    rows, cols = p * n_rows + dst[p, e], p * CLASS_COLS + src[p, e]
+    shape = (2 * n_rows, 2 * CLASS_COLS)
+    for pack, args, kw in (
+            (packs.fwd, (rows, cols), {}),
+            (packs.bwd, (cols, rows), {"col_block": n_rows})):
+        by_np = ops.csr_pack(*args, w[p, e], *(shape if not kw else
+                                               shape[::-1]),
+                             every_row=True, long_row=long_row, **kw)
+        for f in ("runs", "short_span", "seg_long", "run_warps",
+                  "short_rows", "long_rows", "seg"):
+            a, b = getattr(by_np, f), getattr(pack, f)
+            assert (torch.equal(a, b) and a.dtype == b.dtype
+                    if isinstance(a, torch.Tensor) else a == b), f
+        counts = (pack.rowptr[1:] - pack.rowptr[:-1]).numpy()
+        groups = _slots(pack)
+        got = sorted(r for r, _ in groups)
+        want = sorted(int(r) for r in pack.short_rows.numpy()
+                      if counts[r] > 0)
+        assert got == want
+        for r, g in groups:
+            n = counts[r]
+            assert g == min(32, 1 << int(n - 1).bit_length()), (r, n, g)
+        short = pack.short_rows.long()
+        assert torch.equal(pack.short_span, torch.stack(
+            [pack.rowptr[short], pack.rowptr[short + 1]], dim=1))
+        runs = pack.runs.numpy()
+        assert runs[-1].tolist() == [pack.short_rows.numel(),
+                                     pack.run_warps, 0]
+        assert (np.diff(runs[:, 0]) > 0).all()
+        assert (np.diff(runs[:, 1]) >= 0).all()
+        np.testing.assert_array_equal(pack.long_rows.numpy(),
+                                      np.flatnonzero(counts > long_row))
+        seg, seg_long = pack.seg.numpy(), pack.seg_long.numpy()
+        ptr = pack.long_seg_ptr.numpy()
+        assert seg_long.shape == (seg.shape[0],)
+        for i, r in enumerate(pack.long_rows.numpy()):
+            assert (seg_long[ptr[i]:ptr[i + 1]] == i).all()
+            s = seg[ptr[i]:ptr[i + 1]]
+            assert s[0, 0] == pack.rowptr[r] and s[-1, 1] == pack.rowptr[r + 1]
+            assert (s[1:, 0] == s[:-1, 1]).all()
+            assert (s[:, 1] - s[:, 0] <= long_row).all()
+    if long_row == 16:
+        assert (packs.fwd.long_seg_ptr[1:] - packs.fwd.long_seg_ptr[:-1]
+                ).max() == 40
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("long_row", [16, ops.LONG_ROW])
+def test_plain_kernels_match_jax_at_row_classes(heads, long_row):
+    """The plain versions against JAX's segment softmax and its vjp over
+    rows of every class of the card's grouping (0 to 257 entries, and 640:
+    40 segments at long_row 16), each partition on its own."""
+    src, dst, w, n_rows = _class_edges(12)
+    rng = np.random.default_rng(13)
+    n_parts, m = src.shape
+    es, ed = (rng.normal(size=(n_parts, CLASS_COLS, heads)).astype(
+        np.float32) for _ in range(2))
+    d_att = rng.normal(size=(n_parts, m, heads)).astype(np.float32)
+    packs = ops.edge_packs(*(torch.from_numpy(a) for a in (src, dst, w)),
+                           n_rows, CLASS_COLS, long_row=long_row)
+    es_t, ed_t = (torch.from_numpy(a).reshape(-1, heads) for a in (es, ed))
+    att = ref.edge_softmax_ref(packs.fwd, es_t, ed_t, n_rows, CLASS_COLS)
+    perm = packs.fwd.perm.long()
+    d_att_a = torch.from_numpy(d_att).reshape(-1, heads)[perm].t()
+    d_src, d_dst, _ = ref.edge_softmax_bwd_ref(
+        packs.fwd, packs.bwd, packs.amap, att, d_att_a.contiguous(), es_t,
+        ed_t, n_rows, CLASS_COLS)
+    want_att = np.zeros((n_parts * m, heads), np.float32)
+    want_ds = np.zeros((n_parts, CLASS_COLS, heads), np.float32)
+    want_dd = np.zeros_like(want_ds)
+    for p in range(n_parts):
+        live = dst[p] < n_rows
+        s_p, d_p = src[p][live], dst[p][live]
+
+        def f(a, b, s_p=s_p, d_p=d_p):
+            logits = jax.nn.leaky_relu(a[s_p] + b[d_p], 0.2)
+            mx = jax.ops.segment_max(logits, d_p, num_segments=n_rows)
+            ex = jnp.exp(logits - mx[d_p])
+            den = jax.ops.segment_sum(ex, d_p, num_segments=n_rows)
+            return ex / jnp.maximum(den[d_p], 1e-9)
+        a_p, vjp = jax.vjp(f, jnp.asarray(es[p]), jnp.asarray(ed[p]))
+        want_att[p * m + np.flatnonzero(live)] = np.asarray(a_p)
+        want_ds[p], want_dd[p] = (np.asarray(x) for x in vjp(
+            jnp.asarray(d_att[p][live])))
+    _close_of_max(att.t(), want_att[perm.numpy()], "attention")
+    _close_of_max(d_src.view(n_parts, CLASS_COLS, heads), want_ds, "d_e_src")
+    _close_of_max(d_dst.view(n_parts, CLASS_COLS, heads), want_dd, "d_e_dst")
