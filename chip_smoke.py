@@ -190,10 +190,20 @@ raises, and the script exits non-zero:
    cell's width, then ``launch.serve`` with ``--ckpt-dir`` and
    ``--store-dir`` and with ``--load-store`` (the tables equal bit for
    bit).
-   The transformer zoo (plain torch: the reference's attention, MoE
-   dispatch and scans are jnp, so no kernel of the port runs there; the
-   counters are zeroed before each phase and must read 0 after it):
-   ``lm_reduced`` - every architecture's reduced config, card against
+   The transformer zoo (its attention on the port's flash and decode
+   kernels, ``csrc/flash_attn.cu`` and ``csrc/decode_attn.cu``; its MoE
+   dispatch and scans plain torch; the counters are zeroed before each
+   path and must read the attention kernels' counts, one launch a layer a
+   pass, and no GNN kernel, after it): ``attention_kernels`` - each
+   attention kernel against its plain version at qwen3-1.7b's 4,096-token
+   prefill (bf16, 16 / 8 heads of 128), ``lm_train``'s step and
+   ``lm_spmd``'s local shard of it, deepseek-v3's MLA widths (192 / 128),
+   hymba's window 1,024 (25 / 5 heads of 64), non-causal, f32, and the
+   decode kernel at ``serve lm``'s step and hymba's ring, twice bit for
+   bit, bf16 within one ulp by element and 2^-13 on the mean
+   (``attn_stats``), then faults planted in a dense plain computation at
+   the prefill's inputs, each refused by the same rule
+   (``planted_faults``); ``lm_reduced`` - every architecture's reduced config, card against
    CPU from one CPU generator's parameters, in f32 (prefill logits and
    ``aux``, one step's loss and gradients at 520 tokens, 8 decode steps
    and their caches, within 1e-4 of the largest magnitude) and in bf16
@@ -202,15 +212,17 @@ raises, and the script exits non-zero:
    qwen3-1.7b's published width in bf16, batch 4, cache 256, 32 greedy
    steps: tokens/s, the steady step beside its bound (the weights read
    once), peak memory, a profiled window (device-busy ms, idle share,
-   kernels a step), ``blocked_attention`` at a 4,096-token prefill and the
-   ring decode attention beside their bounds and
+   kernels a step), the flash forward and backward kernels at a
+   4,096-token prefill and the decode kernel at the loop's step, each
+   beside its plain version, its bound and
    ``scaled_dot_product_attention``; then f32 decode against the card's
    own prefill; ``lm_train`` - ``launch.train lm --arch qwen3-1.7b --full
    --steps 8 --batch 4 --seq-len 128`` through the CLI's parser and loop
    (``train_lm``): falling finite losses, step ms, tokens/s, peak memory
    and one profiled step.
    The transformer zoo sharded (DTensor on a ``("data", "model")``
-   DeviceMesh; plain torch, the counters read 0): ``lm_spmd`` -
+   DeviceMesh; the attention kernels on each rank's local shards, the
+   sharded decode plain torch): ``lm_spmd`` -
    qwen3-1.7b at its published CONFIG, full depth, on 4 ranks sharing the
    card as a 2 x 2 mesh over the ``staged`` backend (gloo, CUDA tensors
    through pinned host buffers): one f32 forward and backward against
@@ -387,6 +399,30 @@ EDGE_DVALS_SOURCE = "src/repro_torch/kernels/csrc/edge_dvals.cu"
 # (src/repro/models/gnn.py:278-283, no pallas_call)
 EDGE_SOFTMAX_REPLACES = "src/repro/models/gnn.py:278"
 EDGE_SOFTMAX_SOURCE = "src/repro_torch/kernels/csrc/edge_softmax.cu"
+# the transformer zoo's attention: the reference's chunked loops and their
+# autodiff (blocked_attention; banded_attention at :127), and its ring
+# decode (no pallas_call)
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+FLASH_REPLACES = "src/repro/models/transformer/attention.py:59"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attn.cu"
+DECODE_REPLACES = "src/repro/models/transformer/blocks.py:150"
+ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkdv", "decode_attention")
+# kernel vs plain version on the card (attn_stats).  f32: true f32 on
+# both sides, sums in another order: within 1e-5 of the largest |result|.
+# bf16: the plain versions keep every step in f32 and round each result to
+# bf16 once; the kernels' f32 results differ from theirs before that
+# rounding by far less than an ulp (P and dS as two bf16 parts, 2^-17 a
+# term; sums in another order), so an element may round one ulp apart:
+# each within 2^-7 of the larger of the two (one ulp) plus 2^-8 of the
+# result's rms (elements near 0).  Such elements are few, so the mean
+# |error| stays within 2^-13 of the mean |result|, which a fault below
+# one ulp spread over many elements breaks (P without its lo part,
+# planted_faults).  lse is f32 in both and takes the f32 rule.
+ATTN_F32_TOL_OF_MAX = 1e-5
+ATTN_BF16_ULP = 2.0 ** -7
+ATTN_BF16_FLOOR_OF_RMS = 2.0 ** -8
+ATTN_BF16_MEAN_TOL = 2.0 ** -13
 
 
 _T0 = time.perf_counter()
@@ -1489,7 +1525,7 @@ def steady_step_ms(rt, params, opt_state, steps: int = 3) -> dict:
 def train_counters() -> dict:
     from repro_torch.kernels import cache_gather as kgather
     from repro_torch.kernels import csr_spmm as kcsr, edge_spmm as kedge
-    from repro_torch.kernels import ell_spmm as kell
+    from repro_torch.kernels import ell_spmm as kell, flash_attn as kattn
     return {"ell_spmm": kell.ell_spmm,
             "ell_spmm_chunked": kell.ell_spmm_chunked,
             "csr_spmm_tail": kcsr.csr_spmm_accumulate,
@@ -1501,7 +1537,8 @@ def train_counters() -> dict:
             "edge_spmm_dh": kedge.edge_spmm_dh,
             "edge_dvals": kedge.edge_dvals,
             "edge_softmax_fwd": kedge.edge_softmax_fwd,
-            "edge_softmax_bwd": kedge.edge_softmax_bwd}
+            "edge_softmax_bwd": kedge.edge_softmax_bwd,
+            **{k: getattr(kattn, k) for k in ATTN_KERNELS}}
 
 
 def zero_counts() -> None:
@@ -1558,6 +1595,7 @@ def train_launches(backend: str, layers: int, kinds: list[str],
             "edge_dvals": dh if model == "gat" else 0,
             "edge_softmax_fwd": fwd if model == "gat" else 0,
             "edge_softmax_bwd": dh if model == "gat" else 0,
+            **{k: 0 for k in ATTN_KERNELS},
             "packs_built_for_a_call": 0, "valued_gathers": 0}
 
 
@@ -4312,7 +4350,8 @@ def phase_spmm15d(name: str, tctx: dict, shapes, backend: str, devices,
 
 
 # ---------------------------------------------------------------------------
-# the transformer zoo: plain torch on every path (no kernel of the port)
+# the transformer zoo: its attention on the flash and decode kernels, the
+# rest plain torch
 # ---------------------------------------------------------------------------
 
 LM_SEQ = 520              # > blocked attention's 512-row chunks, every
@@ -4332,6 +4371,40 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 LM_PREFILL_S = 4096       # blocked_attention timed at qwen3-1.7b prefill
 LM_PROFILE_STEPS = 4      # decode steps under torch.profiler
 LM_TRAIN_LOSSES: list = []   # lm_train's, for lm_spmd
+LM_ATTENTION: dict = {}      # time_attention's, for the kernels line
+
+
+def attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that run attention (hymba's hybrid blocks
+    too; the xLSTM's none)."""
+    return sum(k in ("attn_dense", "attn_moe", "hybrid")
+               for k in cfg.block_kinds())
+
+
+def lm_launches(cfg, forwards: int = 0, backwards: int = 0,
+                decode_steps: int = 0) -> dict:
+    """The attention kernels' launches of ``forwards`` forward passes,
+    ``backwards`` backward passes (each with a forward: its layers
+    recomputed once more under ``cfg.remat``) and ``decode_steps`` decode
+    steps of ``cfg`` on one card: one launch a layer a pass of each
+    kernel; MLA decodes in its absorbed form (plain torch)."""
+    n = attn_layers(cfg)
+    return {"flash_attention_fwd": n * (forwards + backwards * (
+                2 if cfg.remat else 1)),
+            "flash_attention_bwd_dq": n * backwards,
+            "flash_attention_bwd_dkdv": n * backwards,
+            "decode_attention": 0 if cfg.use_mla else n * decode_steps}
+
+
+def add_launches(*ds: dict) -> dict:
+    return {k: sum(d[k] for d in ds) for k in ds[0]}
+
+
+def check_lm_launches(name: str, launches: dict, want: dict) -> None:
+    """Every GNN kernel 0 and each attention kernel ``want``'s count."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"{name}: launches {launches}, want {full}")
 
 
 def tree_err(got, want) -> tuple[float, float]:
@@ -4377,15 +4450,18 @@ def phase_lm_reduced(seed: int = 0) -> dict:
     ``LM_SEQ`` tokens, and ``LM_DECODE_STEPS`` decode steps with their
     caches, all within ``LM_TOL_OF_MAX`` of the largest magnitude; in
     bf16 every output finite and the card's decode against its own
-    prefill at the reference's bar (phi-3-vision: prefill only).  No
-    launch of the port's kernels."""
+    prefill at the reference's bar (phi-3-vision: prefill only).  The
+    card's passes of each architecture launch the attention kernels once
+    a layer a pass (:func:`lm_launches` of 2 forwards, 2 backwards and 16
+    decode steps) and no GNN kernel."""
     import dataclasses as dc
     from repro_torch.configs import ARCH_IDS, get_reduced
     from repro_torch.models.transformer import forward, init_model, \
         loss_and_grads
     from repro_torch.optim.optimizers import tree_leaves, tree_map
-    zero_counts()
+    total = None
     for arch in ARCH_IDS:
+        zero_counts()
         t0 = time.perf_counter()
         cfg = dc.replace(get_reduced(arch), dtype="float32")
         params = init_model(cfg, torch.Generator().manual_seed(seed), "cpu")
@@ -4455,56 +4531,318 @@ def phase_lm_reduced(seed: int = 0) -> dict:
             bf16.update(top1_agree=agree,
                         max_abs_err=float((dec - full).abs().max()))
         del p16, g16
+        launches = read_counts()
+        check_lm_launches(f"lm_reduced {arch}", launches, lm_launches(
+            cfg, forwards=2, backwards=2, decode_steps=2 * LM_DECODE_STEPS))
+        total = launches if total is None else add_launches(total, launches)
         emit("lm_reduced", arch=arch, name=cfg.name, seq=LM_SEQ,
              params=sum(t.numel() for t in tree_leaves(params)),
              f32_err_of_max=errs, tol_of_max=LM_TOL_OF_MAX, bf16=bf16,
-             f32_s=f32_s, arch_s=time.perf_counter() - t0)
-    launches = read_counts()
-    if any(launches.values()):
-        raise AssertionError(f"lm_reduced launched the port's kernels: "
-                             f"{launches}")
+             f32_s=f32_s, arch_s=time.perf_counter() - t0,
+             attention_launches={k: launches[k] for k in ATTN_KERNELS})
     torch.cuda.empty_cache()
-    return launches
+    return total
+
+
+def attn_cost(kernel: str, b: int, s: int, hq: int, hkv: int, dqk: int,
+              dv: int, causal: bool, window: int, elem: int
+              ) -> tuple[float, float]:
+    """``(bytes, flops)`` one attention kernel needs on these shapes: each
+    operand read once and each result written once (``elem`` bytes an
+    element, lse and delta f32), the products of the visible (q, k) pairs
+    only: the forward's Q K^T and P V; ``bwd_dq``'s Q K^T, dO V^T and
+    dS K; ``bwd_dkdv``'s Q K^T, dO V^T, P^T dO and dS^T Q."""
+    from repro_torch.kernels.flash_attn import visible_pairs
+    pairs = b * hq * visible_pairs(s, causal, window)
+    q_b, k_b = elem * b * s * hq * dqk, elem * b * s * hkv * dqk
+    v_b, o_b = elem * b * s * hkv * dv, elem * b * s * hq * dv
+    row_b = 4 * b * hq * s
+    if kernel == "flash_attention_fwd":
+        return q_b + k_b + v_b + o_b + row_b, 2 * pairs * (dqk + dv)
+    if kernel == "flash_attention_bwd_dq":
+        return (2 * q_b + k_b + v_b + 2 * o_b + 2 * row_b,
+                2 * pairs * (2 * dqk + dv))
+    return (q_b + 2 * k_b + 2 * v_b + o_b + 2 * row_b,
+            2 * pairs * (2 * dqk + 2 * dv))
+
+
+def attn_bound(nbytes: float, flops: float, dtype) -> dict:
+    """``bound_ms`` and ``bound_by`` at HBM's rate and the peak of the
+    inputs' type (bf16 tensor cores, or f32 outside them)."""
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": nbytes, "flops": flops}
+
+
+def attn_stats(got, want) -> dict:
+    """``got`` against the plain version's ``want`` by the rule of
+    ``want``'s dtype (f32 or bf16, the constants above): the largest
+    |error|, ``worst`` (the largest ratio of an element's |error| to its
+    bound: at most 1), ``mean_rel_err`` (the sum of |error| over the sum
+    of |want|) and ``ok``."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    f32 = want.dtype == torch.float32
+    if f32:
+        bound = ATTN_F32_TOL_OF_MAX * w.abs().max()
+    else:
+        bound = ATTN_BF16_ULP * torch.maximum(g.abs(), w.abs()) \
+            + ATTN_BF16_FLOOR_OF_RMS * w.square().mean().sqrt()
+    worst = float((d / bound.clamp_min(1e-30)).max())
+    mean = float(d.sum() / w.abs().sum().clamp_min(1e-30))
+    return {"max_abs_err": float(d.max()), "worst": worst,
+            "mean_rel_err": mean,
+            "ok": worst <= 1.0 and (f32 or mean <= ATTN_BF16_MEAN_TOL)}
+
+
+def attn_check(name: str, got, want) -> dict:
+    """:func:`attn_stats`, raising unless ``ok``."""
+    st = attn_stats(got, want)
+    if not st["ok"]:
+        raise AssertionError(f"{name}: differs from the plain version: {st}")
+    return st
+
+
+def check_flash(name: str, q, k, v, do, causal: bool, window: int) -> dict:
+    """The forward and both backward kernels against the plain versions
+    (their ``q_chunk`` 512), each twice bit for bit: each result's
+    :func:`attn_stats`."""
+    from repro_torch.kernels import flash_attn as fa, ref
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, window)
+    dq, delta = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal, window)
+    dk, dv = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta, causal,
+                                         window)
+    dq2, _ = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal, window)
+    dk2, dv2 = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta, causal,
+                                           window)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in (
+        (o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)))
+    if not bit_equal:
+        raise AssertionError(f"{name}: two launches differ")
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, causal, window)
+    grads = ref.flash_attention_bwd_ref(do, q, k, v, o, lse, causal, window)
+    out = {"o": attn_check(f"{name} o", o, want_o),
+           "lse": attn_check(f"{name} lse", lse, want_lse)}
+    for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        out[key] = attn_check(f"{name} {key}", got, want)
+    return {"errors": out, "bit_equal_twice": bit_equal}
+
+
+def planted_faults(q, k, v, do) -> dict:
+    """The bf16 rules' power at one causal shape: the plain computation
+    done densely in f32 (every score at once), with a fault planted,
+    each result rounded to the inputs' dtype as a kernel's is, against
+    the plain versions.  Each fault must fail :func:`attn_stats` and the
+    dense computation without one must pass.  The faults: o with one
+    64-key tile skipped (its keys out of the softmax), with P rounded to
+    bf16 (no lo part) on every other row, and with the rows past 1,000
+    scaled by 1.1; dq and dk with dS rounded to bf16 on every other row;
+    dv with P rounded so, and with the keys past 1,000 scaled by 1.1."""
+    from repro_torch.kernels import ref
+    b, s, hq, d = q.shape
+    hkv, dt = k.shape[2], q.dtype
+    want_o, lse = ref.flash_attention_ref(q, k, v)
+    want_dq, want_dk, want_dv = ref.flash_attention_bwd_ref(
+        do, q, k, v, want_o, lse)
+    qf = q.float().transpose(1, 2)                               # [B,H,S,D]
+    kf, vf = (ref.expand_kv(x, hq).float().transpose(1, 2) for x in (k, v))
+    dof = do.float().transpose(1, 2)
+    scale = ref.inv_sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    p = (qf @ kf.transpose(-1, -2) * scale).masked_fill(
+        pos[None, :] > pos[:, None], float("-inf")).softmax(-1)
+    odd = (pos % 2 == 1)[:, None]
+    late = torch.where(pos >= 1000, 1.1, 1.0)[None, :, None, None]
+
+    def lo_dropped(x):            # x without its lo part on every other row
+        return torch.where(odd, x.bfloat16().float(), x)
+
+    def rows(x):                  # [B, H, S, D] -> [B, S, H, D] in dt
+        return x.transpose(1, 2).to(dt)
+
+    def group(x):                 # the GQA group's sum, [B, S, Hkv, D]
+        return rows(x.reshape(b, hkv, hq // hkv, s, -1).sum(2))
+    p_tile = p.masked_fill((pos >= 2048) & (pos < 2112), 0.0)
+    p_tile /= p_tile.sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * want_o.float().transpose(
+        1, 2)).sum(-1, keepdim=True))
+    faults = {
+        "o_none": (rows(p @ vf), want_o),
+        "o_kv_tile_skipped": (rows(p_tile @ vf), want_o),
+        "o_p_lo_dropped": (rows(lo_dropped(p) @ vf), want_o),
+        "o_late_rows_x1.1": ((want_o.float() * late).to(dt), want_o),
+        "dq_none": (rows(ds @ kf * scale), want_dq),
+        "dq_ds_lo_dropped": (rows(lo_dropped(ds) @ kf * scale), want_dq),
+        "dk_none": (group(ds.transpose(-1, -2) @ qf * scale), want_dk),
+        "dk_ds_lo_dropped": (group(lo_dropped(ds).transpose(-1, -2) @ qf
+                                   * scale), want_dk),
+        "dv_none": (group(p.transpose(-1, -2) @ dof), want_dv),
+        "dv_p_lo_dropped": (group(lo_dropped(p).transpose(-1, -2) @ dof),
+                            want_dv),
+        "dv_late_keys_x1.1": ((want_dv.float() * late).to(dt), want_dv)}
+    out = {}
+    for key, (got, want) in faults.items():
+        out[key] = attn_stats(got, want)
+        if out[key]["ok"] != key.endswith("_none"):
+            raise AssertionError(f"planted fault {key}: {out[key]}")
+    return out
+
+
+def check_decode(name: str, q, ck, cv, valid) -> dict:
+    from repro_torch.kernels import flash_attn as fa, ref
+    got = fa.decode_attention(q, ck, cv, valid)
+    got2 = fa.decode_attention(q, ck, cv, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(got, got2):
+        raise AssertionError(f"{name}: two launches differ")
+    return {"errors": {"o": attn_check(name, got, ref.decode_attention_ref(
+        q, ck, cv, valid))}, "bit_equal_twice": True}
+
+
+# (name, B, S, Hq, Hkv, Dqk, Dv, causal, window, dtype): qwen3-1.7b at
+# the timed prefill, at lm_train's step (4 x 128) and at lm_spmd's local
+# shard of it (the 2 x 2 mesh: batch over data, heads over model)
+ATTN_FLASH_CASES = (
+    ("qwen3_1_7b_prefill", 1, LM_PREFILL_S, 16, 8, 128, 128, True, 0,
+     torch.bfloat16),
+    ("qwen3_1_7b_train", 4, 128, 16, 8, 128, 128, True, 0, torch.bfloat16),
+    ("qwen3_1_7b_spmd_shard", 2, 128, 8, 4, 128, 128, True, 0,
+     torch.bfloat16),
+    ("deepseek_v3_mla", 1, 1024, 16, 16, 192, 128, True, 0, torch.bfloat16),
+    ("hymba_1_5b_window", 1, LM_PREFILL_S, 25, 5, 64, 64, True, 1024,
+     torch.bfloat16),
+    ("phi3_vision_noncausal", 2, 300, 8, 8, 96, 96, False, 0,
+     torch.bfloat16),
+    ("qwen3_1_7b_f32", 2, LM_SEQ, 16, 8, 128, 128, True, 0, torch.float32),
+    ("deepseek_v3_mla_f32", 1, LM_SEQ, 4, 4, 192, 128, True, 0,
+     torch.float32),
+    ("hymba_1_5b_window_f32", 1, 2048, 25, 5, 64, 64, True, 1024,
+     torch.float32))
+# (name, B, W, Hq, Hkv, D, dtype): serve lm's step, hymba's 1,024-slot ring
+ATTN_DECODE_CASES = (
+    ("qwen3_1_7b_serve", 4, 256, 16, 8, 128, torch.bfloat16),
+    ("hymba_1_5b_ring", 2, 1024, 25, 5, 64, torch.bfloat16),
+    ("qwen3_1_7b_serve_f32", 4, 256, 16, 8, 128, torch.float32))
+ATTN_CHECKS: dict = {}   # phase_attention_kernels', for the kernels line
+
+
+def phase_attention_kernels() -> None:
+    """The transformer zoo's attention kernels against their plain
+    versions on the card (``ATTN_FLASH_CASES``: qwen3-1.7b's 4,096-token
+    prefill, ``lm_train``'s step and ``lm_spmd``'s local shard of it,
+    deepseek-v3's MLA widths 192 / 128, hymba's window 1,024,
+    non-causal, and f32; ``ATTN_DECODE_CASES``: ``serve lm``'s step and
+    hymba's ring, a batch row of no valid slot and a wrapped ring), each
+    launch twice bit for bit; then :func:`planted_faults` at the
+    prefill's inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    flash, decode, prefill = {}, {}, None
+    for name, b, s, hq, hkv, dqk, dv, causal, window, dt in ATTN_FLASH_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+        ins = (rnd(b, s, hq, dqk), rnd(b, s, hkv, dqk), rnd(b, s, hkv, dv),
+               rnd(b, s, hq, dv))
+        flash[name] = check_flash(name, *ins, causal, window)
+        flash[name]["shape"] = [b, s, hq, hkv, dqk, dv, causal, window,
+                                str(dt).removeprefix("torch.")]
+        if name == "qwen3_1_7b_prefill":
+            prefill = ins
+    for name, b, w, hq, hkv, d, dt in ATTN_DECODE_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+        pos = torch.arange(w, device="cuda")
+        rows = [pos < w // 8, pos >= w // 2, pos % 3 > 0,
+                torch.zeros_like(pos, dtype=torch.bool)]
+        valid = torch.stack(rows[:b - 1] + [rows[-1]])
+        decode[name] = check_decode(name, rnd(b, 1, hq, d),
+                                    rnd(b, w, hkv, d), rnd(b, w, hkv, d),
+                                    valid)
+        decode[name]["shape"] = [b, w, hq, hkv, d,
+                                 str(dt).removeprefix("torch.")]
+    faults = planted_faults(*prefill)
+    del prefill
+    ATTN_CHECKS.update(flash=flash, decode=decode)
+    emit("attention_kernels", flash=flash, decode=decode,
+         planted_faults=faults, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
 
 
 def time_attention() -> dict:
-    """``blocked_attention`` (plain torch, the reference's algorithm) at
-    qwen3-1.7b prefill (1 x ``LM_PREFILL_S`` tokens, 16 / 8 heads of 128,
-    bf16) and the ring decode attention at ``serve lm``'s step (4 x 1
-    query over a 256-slot cache), each beside its bound and one
-    ``scaled_dot_product_attention`` call on the same inputs (timed here,
-    used nowhere in the port)."""
+    """The attention kernels at qwen3-1.7b's widths in bf16 (16 / 8 heads
+    of 128): the flash forward and the two backward launches at a
+    ``LM_PREFILL_S``-token causal prefill, the decode kernel at ``serve
+    lm``'s step (4 x 1 query over a 256-slot cache), each beside its
+    plain version (``kernels/ref.py``, called explicitly), its bound and
+    one ``scaled_dot_product_attention`` call on the same inputs (the
+    KV heads expanded beforehand; forward, and forward + backward for the
+    backward pair; timed here, used nowhere in the port).  The plain
+    backward and the library's forward + backward compute dq, dk and dv
+    together: the two backward kernels' lines carry the pair's times
+    (``pair_ms``).  Each kernel's error is the one
+    :func:`phase_attention_kernels` held at these shapes."""
     import torch.nn.functional as F
-    from repro_torch.models.transformer.attention import blocked_attention
-    from repro_torch.models.transformer.blocks import _decode_attn_ring
+    from repro_torch.kernels import flash_attn as fa, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     hq, hkv, hd = 16, 8, 128
+    dt = torch.bfloat16
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dt)
     out = {}
-    s = LM_PREFILL_S
-    q, k, v = rnd(1, s, hq, hd), rnd(1, s, hkv, hd), rnd(1, s, hkv, hd)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kt_e, vt_e = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+    b, s = 1, LM_PREFILL_S
+    q, k, v, do = (rnd(b, s, hq, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd),
+                   rnd(b, s, hq, hd))
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    kt_e, vt_e = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                  for x in (k, v))
     with torch.inference_mode():
-        got = blocked_attention(q, k, v, causal=True)
-        lib = F.scaled_dot_product_attention(qt, kt_e, vt_e, is_causal=True)
-        err = float((got.float() - lib.transpose(1, 2).float()).abs().max())
-        t = time_calls({
-            "plain": lambda: blocked_attention(q, k, v, causal=True),
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        _, delta = fa.flash_attention_bwd_dq(do, q, k, v, o, lse)
+        fwd_t = time_calls({
+            "kernel": lambda: fa.flash_attention_fwd(q, k, v),
             "library": lambda: F.scaled_dot_product_attention(
-                qt, kt_e, vt_e, is_causal=True)}, reps=3)
-    nbytes = 2 * (2 * s * hq * hd + 2 * s * hkv * hd)
-    flops = 2 * 2 * hq * hd * s * (s + 1) / 2      # causal QK^T and PV
-    b_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    out["blocked_attention_prefill"] = {
-        "shape": [1, s, hq, hkv, hd], "dtype": "bfloat16",
-        "plain_ms": t["plain"], "library_ms": t["library"],
-        "bound_ms": b_ms, "bound_by": "operations"
-        if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
-        "max_abs_err_vs_library": err}
+                qt, kt_e, vt_e, is_causal=True)}, reps=20)
+        bwd_t = time_calls({
+            "dq": lambda: fa.flash_attention_bwd_dq(do, q, k, v, o, lse),
+            "dkdv": lambda: fa.flash_attention_bwd_dkdv(do, q, k, v, lse,
+                                                        delta)}, reps=20)
+        plain_t = time_calls({
+            "fwd": lambda: ref.flash_attention_ref(q, k, v),
+            "bwd": lambda: ref.flash_attention_bwd_ref(do, q, k, v, o, lse)},
+            reps=2)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt_e, vt_e)]
+
+    def library_fwd_bwd():
+        y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(y, leaves, dot)
+    lib_fb = time_calls({"library": library_fwd_bwd}, reps=10)["library"]
+    errs = ATTN_CHECKS["flash"]["qwen3_1_7b_prefill"]["errors"]
+    shape = {"shape": [b, s, hq, hkv, hd], "dtype": "bfloat16",
+             "causal": True}
+    pair_ms = bwd_t["dq"] + bwd_t["dkdv"]
+    out["flash_attention_fwd"] = {
+        **shape, "max_abs_err": errs["o"]["max_abs_err"],
+        "ms": fwd_t["kernel"], "plain_ms": plain_t["fwd"],
+        "library_ms": fwd_t["library"],
+        **attn_bound(*attn_cost("flash_attention_fwd", b, s, hq, hkv, hd,
+                                hd, True, 0, 2), dt)}
+    for kernel, key, keys in (("flash_attention_bwd_dq", "dq", ("dq",)),
+                              ("flash_attention_bwd_dkdv", "dkdv",
+                               ("dk", "dv"))):
+        out[kernel] = {
+            **shape, "max_abs_err": max(errs[x]["max_abs_err"] for x in keys),
+            "ms": bwd_t[key], "plain_ms": plain_t["bwd"],
+            "library_ms": lib_fb, "pair_ms": pair_ms,
+            "plain_covers": "dq, dk and dv (one plain backward)",
+            "library_covers": "forward and backward (one autograd call)",
+            **attn_bound(*attn_cost(kernel, b, s, hq, hkv, hd, hd, True, 0,
+                                    2), dt)}
+
     b, w = 4, 256
     qd, ck, cv = rnd(b, 1, hq, hd), rnd(b, w, hkv, hd), rnd(b, w, hkv, hd)
     valid = torch.arange(w, device="cuda")[None].expand(b, w) < 32
@@ -4513,23 +4851,31 @@ def time_attention() -> dict:
                 for x in (ck, cv))
     mask = valid[:, None, None, :]
     with torch.inference_mode():
-        got = _decode_attn_ring(qd, ck, cv, valid)
-        lib = F.scaled_dot_product_attention(qdt, ckt, cvt, attn_mask=mask)
-        err = float((got.float() - lib.transpose(1, 2).float()).abs().max())
         t = time_calls({
-            "plain": lambda: _decode_attn_ring(qd, ck, cv, valid),
+            "kernel": lambda: fa.decode_attention(qd, ck, cv, valid),
+            "plain": lambda: ref.decode_attention_ref(qd, ck, cv, valid),
             "library": lambda: F.scaled_dot_product_attention(
                 qdt, ckt, cvt, attn_mask=mask)}, reps=50)
     nbytes = 2 * (2 * b * w * hkv * hd + 2 * b * hq * hd) + b * w
     flops = 2 * 2 * b * hq * hd * w
-    out["decode_attention_step"] = {
+    out["decode_attention"] = {
         "shape": [b, 1, w, hq, hkv, hd], "dtype": "bfloat16",
-        "per_layer": True, "plain_ms": t["plain"],
-        "library_ms": t["library"],
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / BF16_FLOP_PER_S) * 1e3, "bound_by": "bytes",
-        "max_abs_err_vs_library": err}
+        "per_layer": True,
+        "max_abs_err": ATTN_CHECKS["decode"]["qwen3_1_7b_serve"]["errors"][
+            "o"]["max_abs_err"],
+        "ms": t["kernel"], "plain_ms": t["plain"],
+        "library_ms": t["library"], **attn_bound(nbytes, flops, dt)}
     return out
+
+
+def attention_entries() -> list[dict]:
+    """The kernels line's entries of the attention kernels, from
+    :func:`time_attention`'s run in ``lm_serve``."""
+    return [{"name": k, "route": "cuda",
+             "source": DECODE_SOURCE if k == "decode_attention"
+             else FLASH_SOURCE,
+             "replaces": DECODE_REPLACES if k == "decode_attention"
+             else FLASH_REPLACES, **LM_ATTENTION[k]} for k in ATTN_KERNELS]
 
 
 def phase_lm_serve(seed: int = 0) -> dict:
@@ -4539,8 +4885,11 @@ def phase_lm_serve(seed: int = 0) -> dict:
     greedy steps, tokens/s and the steady step beside its bound (the
     weights read once over HBM) and peak memory; then the same weights in
     f32, batch 1: ``LM_F32_DECODE_STEPS`` decode steps against the card's
-    own prefill within ``LM_F32_TOL_OF_MAX`` of the largest logit.  No
-    launch of the port's kernels."""
+    own prefill within ``LM_F32_TOL_OF_MAX`` of the largest logit.  The
+    decode loop launches the decode kernel once a layer a step and no
+    other kernel of the port (counted over ``decode_lm`` alone); the
+    attention kernels' times (:func:`time_attention`) are kept in
+    ``LM_ATTENTION`` for the kernels line."""
     import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser, decode_lm
@@ -4558,12 +4907,17 @@ def phase_lm_serve(seed: int = 0) -> dict:
                        for t in tree_leaves(params))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     out, detail = decode_lm(cfg, params, args)
+    launches = read_counts()
+    check_lm_launches("lm_serve", launches,
+                      lm_launches(cfg, decode_steps=args.steps))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not out["logits_finite"]:
         raise AssertionError(f"lm_serve: logits not finite: {out}")
     step_ms = detail["step_ms"]
     attention = time_attention()
+    LM_ATTENTION.update(attention)
     fed = torch.from_numpy(detail["tokens"].T.copy()).to("cuda")
     profile = lm_profile("decode", lambda: lm_decode(
         cfg, params, fed, "cuda", LM_PROFILE_STEPS), LM_PROFILE_STEPS)
@@ -4581,10 +4935,6 @@ def phase_lm_serve(seed: int = 0) -> dict:
     err = lm_check("lm_serve", "f32 decode vs prefill", [dec[:, 0]],
                    [full[0]], LM_F32_TOL_OF_MAX)
     del p32, full, dec
-    launches = read_counts()
-    if any(launches.values()):
-        raise AssertionError(f"lm_serve launched the port's kernels: "
-                             f"{launches}")
     torch.cuda.empty_cache()
     emit("lm_serve", argv=LM_SERVE_ARGV, config=cfg.name,
          layers=cfg.num_layers, d_model=cfg.d_model,
@@ -4624,8 +4974,9 @@ def phase_lm_train() -> dict:
     128 --device cuda`` through the CLI's parser and loop
     (``launch.train.train_lm``): finite losses, the last below the
     first, step ms, tokens/s and peak memory (bf16 parameters, gradients
-    and AdamW's two moments, and the activations).  No launch of the
-    port's kernels."""
+    and AdamW's two moments, and the activations).  Each step launches
+    the flash forward and both backward kernels once a layer, and no
+    other kernel of the port."""
     from repro_torch.launch.train import build_parser, lm_config, train_lm
     args = build_parser().parse_args(LM_TRAIN_ARGV)
     cfg = lm_config(args)
@@ -4640,9 +4991,8 @@ def phase_lm_train() -> dict:
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"lm_train: losses {losses}")
     launches = read_counts()
-    if any(launches.values()):
-        raise AssertionError(f"lm_train launched the port's kernels: "
-                             f"{launches}")
+    check_lm_launches("lm_train", launches, lm_launches(
+        cfg, backwards=len(losses)))
     steady_ms = statistics.median(detail["step_ms"][1:])
     from repro_torch.data import synthetic_token_batches
     from repro_torch.models.transformer import train_step_fn
@@ -5813,10 +6163,19 @@ def phase_lm_spmd(name: str, res: list, losses_ref, dryrun: dict | None,
     if min(r["top1_agree"] for r in res) < LM_SPMD_TOP1_MIN:
         raise AssertionError(f"{name}: decode top-1 agreement "
                              f"{[r['top1_agree'] for r in res]}")
-    launches = _summed_launches(name, res)
-    equal = None
+    cfg, _ = lm_spmd_cfg()
+    # rank 0's single-device f32 step and greedy decode, every rank's
+    # sharded f32 step and LM_SPMD_STEPS bf16 steps (the sharded decode is
+    # plain torch)
+    launches = _summed_launches(name, res, add_launches(
+        lm_launches(cfg, backwards=1, decode_steps=LM_SPMD_DECODE_STEPS),
+        lm_launches(cfg, backwards=len(res) * (1 + LM_SPMD_STEPS))))
+    equal = flops_equal = None
     if dryrun is not None:
         want = dryrun["qwen3-1.7b_2x2"]
+        # reported: the attention ops count their formula's FLOPs on the
+        # card and under FakeTensorMode alike
+        flops_equal = want["hlo_flops_per_device"] == r0["flops"]
         equal = (want["collectives"] == r0["collectives"]
                  and want["collective_counts"] == r0["collective_counts"])
         if not equal:
@@ -5844,18 +6203,19 @@ def phase_lm_spmd(name: str, res: list, losses_ref, dryrun: dict | None,
          collectives=[r["collectives"] for r in res],
          collective_counts=[r["collective_counts"] for r in res],
          flops_per_rank=[r["flops"] for r in res],
-         equals_dryrun=equal, init_s=[r["init_s"] for r in res],
+         equals_dryrun=equal, flops_equal_dryrun=flops_equal,
+         init_s=[r["init_s"] for r in res],
          launches=launches, spawn_wall_s=wall_s, card=nvidia_smi())
     return launches
 
 
-def _summed_launches(name: str, res: list) -> dict:
-    """The port's kernel launches summed over the ranks: none on the
-    transformer zoo's paths (its attention, MoE and scans are plain
-    torch)."""
+def _summed_launches(name: str, res: list, want: dict) -> dict:
+    """The port's kernel launches summed over the ranks: the attention
+    kernels' ``want`` (the local shards' attention runs on them; the
+    sharded decode, the MoE and the scans are plain torch) and no GNN
+    kernel."""
     total = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
-    if any(total.values()):
-        raise AssertionError(f"{name} launched the port's kernels: {total}")
+    check_lm_launches(name, total, want)
     return total
 
 
@@ -5999,7 +6359,9 @@ def phase_lm_spmd_moe(name: str, res: list, backend: str,
                               r0["loss_plain"])):
         if not err <= tol * scale:
             raise AssertionError(f"{name}: {what} differs by {err} of {scale}")
-    launches = _summed_launches(name, res)
+    # rank 0's plain-MoE step and every rank's expert-parallel one
+    launches = _summed_launches(name, res, lm_launches(
+        _moe_cfg(), backwards=1 + len(res)))
     s = r0["shapes"]
     model = {"all-to-all": 2 * s["e"] * r0["cap"] * s["d"] * 4,
              "all-gather": 3 * s["e_loc"] * s["d"] * s["f"] * 4}
@@ -6315,7 +6677,9 @@ def main(argv=None) -> None:
     phase_profile()
     # the card-vs-CPU checks, before the phases whose step is host-bound
     checks.finish()
-    # the transformer zoo: plain torch, no kernel of the port on its paths
+    # the transformer zoo: its attention kernels against their plain
+    # versions, then its paths (attention on the kernels, the rest plain)
+    phase_attention_kernels()
     by_path["lm_reduced"] = phase_lm_reduced()
     by_path["lm_serve"] = phase_lm_serve()
     by_path["lm_train"] = phase_lm_train()
@@ -6369,7 +6733,7 @@ def main(argv=None) -> None:
                               ell_cases), gather, gather_bwd, dh,
                weighted_entry("csr_spmm_tail", CSR_SOURCE, TAIL_REPLACES,
                               tails)] + phase_backward(tctx["sp"], gen) \
-        + edge_entries
+        + edge_entries + attention_entries()
     # launches: every path's, each counted from zero over its own run
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()

@@ -261,7 +261,12 @@ class HostFeatureStore:
             return StagedFetch(array=rows, rows=n, nbytes=nbytes,
                                gather_s=time.perf_counter() - t0)
         slot = self._slot(dtype)
+        t_take = time.perf_counter()
         host = slot.take(ids.numel() * shape[-1], dtype).view(-1, shape[-1])
+        # the slot's wait for its last copy and its growth (pinning
+        # hundreds of MB at a first large fetch, 0.1-0.2 s) are no part
+        # of the gather: they would read as a slow fetch
+        t0 += time.perf_counter() - t_take
         if self.cast_dtype is None:
             torch.index_select(self._table, 0, ids, out=host)
         else:

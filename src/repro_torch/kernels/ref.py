@@ -13,15 +13,22 @@ the source stays out of them.  (The JAX package's ``jnp.take`` differs:
 it wraps a negative id and gives a row of NaN past the end.  No pack that
 either package builds carries such an id, so the parity tests never meet
 them.)
+
+Attention (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`,
+:func:`decode_attention_ref`): scores in f32, a masked score set to
+``-1e30`` (not skipped), the result in the query's dtype, as the JAX
+package computes them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["ell_spmm_ref", "ell_spmm_chunked_ref", "ell_spmm_bwd_ref",
            "csr_spmm_ref", "edge_dvals_ref", "edge_softmax_ref",
            "edge_softmax_bwd_ref", "gather_rows_ref", "cache_combine_ref",
-           "masked_mean_ref"]
+           "masked_mean_ref", "flash_attention_ref", "flash_attention_bwd_ref",
+           "decode_attention_ref", "inv_sqrt", "expand_kv"]
 
 _CSR_CHUNK = 1 << 16   # entries per index_add_ in csr_spmm_ref
 
@@ -290,3 +297,255 @@ def masked_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     (zeros when no row is)."""
     m = mask.to(x.dtype)[:, None]
     return (x * m).sum(0) / torch.clamp(m.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# attention (csrc/flash_attn.cu, csrc/decode_attn.cu)
+# ---------------------------------------------------------------------------
+
+_NEG_INF = -1e30
+
+
+def inv_sqrt(d: int) -> float:
+    """``1 / sqrt(d)`` as the f32 value the reference multiplies by."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, nkv, D] -> [B, S, nq, D], each KV head repeated for its
+    group of query heads (``jnp.repeat``: kv head j serves query heads
+    ``j * rep .. (j + 1) * rep - 1``)."""
+    nkv = k.shape[2]
+    if nkv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // nkv, dim=2)
+
+
+def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad dim 1 of [B, S, ...] by ``pad`` rows at the end."""
+    if not pad:
+        return x
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+
+
+def _softmax_step(m, l, acc, q_blk, k_blk, v_blk, mask, scale: float):
+    """One KV step of the running softmax: ``(m, l, acc)`` after the
+    ``[qc, kc]`` score tile of ``q_blk`` against ``k_blk`` (f32)."""
+    sc = torch.einsum("bhqd,bhkd->bhqk", q_blk.float(), k_blk.float()) * scale
+    sc = torch.where(mask, sc, _NEG_INF)
+    m_new = torch.maximum(m, sc.amax(-1))
+    p = torch.exp(sc - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhqk,bhkd->bhqd", p, v_blk.float())
+    return m_new, l_new, acc_new
+
+
+def _run_state(b: int, h: int, qc: int, dv: int, device):
+    return (torch.full((b, h, qc), _NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((b, h, qc), dtype=torch.float32, device=device),
+            torch.zeros((b, h, qc, dv), dtype=torch.float32, device=device))
+
+
+def _owned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` owning its storage with the row-major strides of its shape, as
+    the kernels' outputs and the fake implementations' are: a view, or a
+    contiguous tensor with other strides on a size-1 dimension, makes
+    autograd and DTensor copy where they would not on the card or under
+    ``FakeTensorMode`` (the dry run would count other bytes)."""
+    strides, step = [], 1
+    for n in reversed(x.shape):
+        strides.append(step)
+        step *= n
+    if x._base is None and x.stride() == tuple(reversed(strides)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _finish(outs, lses, b: int, s: int, sq: int, hq: int, dv: int, dtype):
+    """The query chunks' results [n, B, H, c, Dv] and log-sum-exps
+    [n, B, H, c] as ``(o [B, S, H, Dv], lse [B, H, S])``."""
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, sq, hq, dv)
+    lse = torch.stack(lses).permute(1, 2, 0, 3).reshape(b, hq, sq)
+    return _owned(out[:, :s].to(dtype)), _owned(lse[..., :s])
+
+
+def _blocked(q, k, v, causal: bool, q_chunk: int, k_chunk: int):
+    """The JAX package's ``blocked_attention`` loop (a running softmax
+    over KV chunks, a KV step whose every score is masked skipped: it
+    would leave the state as it is)."""
+    b, s, hq, d = q.shape
+    dv = v.shape[-1]
+    k = expand_kv(k, hq)
+    v = expand_kv(v, hq)
+    qc = min(q_chunk, s)
+    kc = min(k_chunk, s)
+    q = _pad_seq(q, (-s) % qc)
+    k = _pad_seq(k, (-s) % kc)
+    v = _pad_seq(v, (-s) % kc)
+    sq, sk = q.shape[1], k.shape[1]
+    nq, nk = sq // qc, sk // kc
+    scale = inv_sqrt(d)
+    dev = q.device
+
+    q_r = q.reshape(b, nq, qc, hq, d).permute(1, 0, 3, 2, 4)   # [nq,B,H,qc,D]
+    k_r = k.reshape(b, nk, kc, hq, d).permute(1, 0, 3, 2, 4)
+    v_r = v.reshape(b, nk, kc, hq, dv).permute(1, 0, 3, 2, 4)
+    kv_valid = (torch.arange(sk, device=dev) < s).reshape(nk, kc)
+    outs, lses = [], []
+    for qi in range(nq):
+        q_pos = qi * qc + torch.arange(qc, device=dev)
+        m, l, acc = _run_state(b, hq, qc, dv, dev)
+        for ki in range(nk):
+            if causal and ki * kc > qi * qc + qc - 1:
+                break                       # every score of the tile masked
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            mask = kv_valid[ki][None, None, None, :]
+            if causal:
+                mask = mask & (k_pos[None, None, None, :]
+                               <= q_pos[None, None, :, None])
+            m, l, acc = _softmax_step(m, l, acc, q_r[qi], k_r[ki], v_r[ki],
+                                      mask, scale)
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+        lses.append(m + torch.log(l))
+    return _finish(outs, lses, b, s, sq, hq, dv, q.dtype)
+
+
+def _banded(q, k, v, window: int, chunk: int):
+    """The JAX package's ``banded_attention`` loop: query chunk i reads
+    only KV chunks ``i - window // chunk .. i`` (one before position 0
+    skipped: every score of it is masked)."""
+    b, s, hq, d = q.shape
+    dv = v.shape[-1]
+    k = expand_kv(k, hq)
+    v = expand_kv(v, hq)
+    c = min(chunk, s)
+    pad = (-s) % c
+    q, k, v = _pad_seq(q, pad), _pad_seq(k, pad), _pad_seq(v, pad)
+    sp = q.shape[1]
+    n = sp // c
+    n_band = min(n - 1, (window + c - 1) // c)    # trailing chunks + diagonal
+    scale = inv_sqrt(d)
+    dev = q.device
+    q_r = q.reshape(b, n, c, hq, d).permute(1, 0, 3, 2, 4)    # [n,B,H,c,D]
+    k_t = k.permute(0, 2, 1, 3)                               # [B,H,S,D]
+    v_t = v.permute(0, 2, 1, 3)
+    outs, lses = [], []
+    for qi in range(n):
+        q_pos = qi * c + torch.arange(c, device=dev)
+        m, l, acc = _run_state(b, hq, c, dv, dev)
+        for off in range(n_band + 1):
+            ki = qi - n_band + off                 # chunk index
+            if ki < 0:
+                continue                           # every score masked
+            start = ki * c
+            k_pos = start + torch.arange(c, device=dev)
+            mask = (k_pos[None, None, None, :] <= q_pos[None, None, :, None])
+            mask &= (q_pos[None, None, :, None] - k_pos[None, None, None, :]
+                     < window)
+            mask &= (k_pos[None, None, None, :] < s)
+            m, l, acc = _softmax_step(m, l, acc, q_r[qi],
+                                      k_t[:, :, start:start + c],
+                                      v_t[:, :, start:start + c], mask, scale)
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+        lses.append(m + torch.log(l))
+    return _finish(outs, lses, b, s, sp, hq, dv, q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        q_chunk: int = 512, k_chunk: int = 512
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention of q [B, S, Hq, Dqk] over k [B, S, Hkv, Dqk], v [B, S,
+    Hkv, Dv] (GQA: ``Hq % Hkv == 0``): ``(o [B, S, Hq, Dv] in q's dtype,
+    lse [B, Hq, S] f32)``, ``lse`` the log-sum-exp of each row's visible
+    scores.  ``window`` 0: the reference's ``blocked_attention`` loop over
+    ``q_chunk`` x ``k_chunk`` tiles (``causal`` or not); else (causal) its
+    ``banded_attention`` loop over ``q_chunk``-row chunks, key j visible
+    to query i when ``0 <= i - j < window``."""
+    if window:
+        if not causal:
+            raise ValueError("a window needs causal attention")
+        return _banded(q, k, v, window, q_chunk)
+    return _blocked(q, k, v, causal, q_chunk, k_chunk)
+
+
+def flash_attention_bwd_ref(do: torch.Tensor, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            q_chunk: int = 512, k_chunk: int = 512
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_ref` from the output's
+    cotangent ``do``, by the CUDA kernels' algorithm over the same tiles:
+    ``P = exp(s - lse)`` recomputed tile by tile (0 where masked),
+    ``Delta = rowsum(do * o)``, ``dS = P * (do v^T - Delta)``, ``dq =
+    scale dS k``, ``dk = scale dS^T q``, ``dv = P^T do``, then dk and dv
+    summed over each KV head's group of query heads.  f32 sums, each
+    result in its operand's dtype."""
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    rep = hq // max(hkv, 1)       # a rank's empty shard: no heads at all
+    scale = inv_sqrt(d)
+    qc = min(q_chunk, s)
+    kc = qc if window else min(k_chunk, s)
+    qf = q.float().transpose(1, 2)                               # [B,H,S,D]
+    kf = expand_kv(k, hq).float().transpose(1, 2)
+    vf = expand_kv(v, hq).float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    delta = (dof * o.float().transpose(1, 2)).sum(-1)            # [B,H,S]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dvv = torch.zeros_like(vf)
+    pos = torch.arange(s, device=q.device)
+    for q0 in range(0, s, qc):
+        q1 = min(s, q0 + qc)
+        lo = max(0, q0 - window + 1) if window else 0
+        hi = q1 if causal else s
+        for k0 in range(lo - lo % kc, hi, kc):
+            k1 = min(s, k0 + kc)
+            qp, kp = pos[q0:q1, None], pos[None, k0:k1]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kp <= qp
+            if window:
+                mask &= qp - kp < window
+            sc = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q0:q1],
+                              kf[:, :, k0:k1]) * scale
+            p = torch.where(mask, torch.exp(sc - lse[:, :, q0:q1, None]), 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, q0:q1],
+                              vf[:, :, k0:k1])
+            ds = p * (dp - delta[:, :, q0:q1, None])
+            dq[:, :, q0:q1] += torch.einsum("bhqk,bhkd->bhqd", ds,
+                                            kf[:, :, k0:k1])
+            dk[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", ds,
+                                            qf[:, :, q0:q1])
+            dvv[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", p,
+                                             dof[:, :, q0:q1])
+    dk = dk.reshape(b, hkv, rep, s, d).sum(2)
+    dvv = dvv.reshape(b, hkv, rep, s, dv).sum(2)
+    return (_owned((dq * scale).transpose(1, 2).to(q.dtype)),
+            _owned((dk * scale).transpose(1, 2).to(k.dtype)),
+            _owned(dvv.transpose(1, 2).to(v.dtype)))
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, valid: torch.Tensor
+                         ) -> torch.Tensor:
+    """One-token attention of q [B, 1, Hq, D] over caches [B, W, Hkv, D]
+    with a per-slot mask ``valid`` [B, W]: the JAX package's
+    ``_decode_attn_ring`` (a masked score set to ``-1e30``, so a row with
+    no valid slot gets the mean of its V rows).  The softmax runs in f32;
+    the result has q's dtype."""
+    hq, hd = q.shape[2], q.shape[3]
+    ck = expand_kv(k_cache, hq)
+    cv = expand_kv(v_cache, hq)
+    sc = torch.einsum("bohd,bshd->bhos", q.float(), ck.float()) * inv_sqrt(hd)
+    sc = torch.where(valid[:, None, None, :], sc, _NEG_INF)
+    w = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhos,bshd->bohd", w, cv.float())
+    return _owned(o.to(q.dtype))

@@ -22,7 +22,11 @@ the manual regions issue.  Per operation it adds
   ``broadcast``): the result bytes and the count, over the functional
   collectives (``_c10d_functional``, what DTensor and
   ``dist.collectives.mesh_*`` issue), the ``c10d`` ops of the
-  process-group API and ``repro_torch::all_to_all``.
+  process-group API and ``repro_torch::all_to_all``;
+- the port's attention ops (``repro_torch::flash_attention``, its
+  backward, ``repro_torch::decode_attention``): one operation each, its
+  FLOPs from the formula registered beside it (``kernels.flash_attn``)
+  and its bytes those of its operands and results, on every device.
 
 DTensor derives each new operation's output shape by running it once on
 fake global-shape tensors (``ShardingPropagator``, on a cache miss); those
@@ -72,7 +76,7 @@ _KINDS = {
     "broadcast": "broadcast",
     "broadcast_": "broadcast",
 }
-_COLL_NAMESPACES = ("_c10d_functional", "c10d", "repro_torch")
+_COLL_NAMESPACES = ("_c10d_functional", "c10d")
 # operations that move no data of their own
 _FREE = {"wait_tensor", "detach", "alias", "lift_fresh", "_unsafe_view"}
 
@@ -153,8 +157,8 @@ class OpCounter(TorchDispatchMode):
         packet = func.overloadpacket
         ns = func.namespace
         name = packet.__name__
-        if ns in _COLL_NAMESPACES:
-            kind = _KINDS.get(name)
+        kind = _KINDS.get(name)
+        if kind is not None or ns in _COLL_NAMESPACES:
             if kind is not None:
                 self.cost.collective_bytes[kind] += _tensor_bytes(out)
                 self.cost.collective_counts[kind] += 1

@@ -35,9 +35,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...kernels.ref import inv_sqrt
 from ...nn import layer_norm, normal_init, rms_norm, zeros_init
-from .attention import (_inv_sqrt, banded_attention, blocked_attention,
-                        rope)
+from .attention import banded_attention, blocked_attention, rope
 from .config import ModelConfig
 from .spmd import (P, block_sp_active as _bsp_active, block_sp_dp as _bsp_dp,
                    constrain_to as _constrain_to, current_spmd,
@@ -221,19 +221,12 @@ def _sharded_attention(q, k, v, window):
 
 def _decode_attn_ring(q, ck, cv, valid):
     """Decode attention over a (possibly ring-buffer) cache with an explicit
-    per-slot validity mask.  q [B,1,Hq,hd], ck/cv [B,W,Hkv,hd]."""
-    b, _, hq, hd = q.shape
-    nkv = ck.shape[2]
+    per-slot validity mask.  q [B,1,Hq,hd], ck/cv [B,W,Hkv,hd]:
+    ``repro_torch::decode_attention`` (the decode kernel on the card, the
+    plain version on the CPU); sharded caches stay plain torch."""
     if is_dtensor(ck):
         return _sharded_decode_attn(q, ck, cv, valid)
-    if nkv != hq:
-        ck = torch.repeat_interleave(ck, hq // nkv, dim=2)
-        cv = torch.repeat_interleave(cv, hq // nkv, dim=2)
-    sc = torch.einsum("bohd,bshd->bhos", q.float(), ck.float()) * _inv_sqrt(hd)
-    sc = torch.where(valid[:, None, None, :], sc, -1e30)
-    w = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhos,bshd->bohd", w, cv.float())
-    return o.to(q.dtype)
+    return torch.ops.repro_torch.decode_attention(q, ck, cv, valid)
 
 
 def _axes_of(entry) -> tuple:
@@ -269,7 +262,7 @@ def _sharded_decode_attn(q, ck, cv, valid):
         ckl = torch.repeat_interleave(ckl, rep, dim=2)
         cvl = torch.repeat_interleave(cvl, rep, dim=2)
     sc = torch.einsum("bohd,bshd->bhos", ql.float(), ckl.float())
-    sc = _all_reduce(sc, _axes_of(kspec[3]), "sum") * _inv_sqrt(hd)
+    sc = _all_reduce(sc, _axes_of(kspec[3]), "sum") * inv_sqrt(hd)
     sc = torch.where(vl[:, None, None, :], sc, -1e30)
     slots = _axes_of(kspec[1])
     if slots:
@@ -326,7 +319,7 @@ def _apply_mla(cfg: ModelConfig, p: dict, x, positions, cache, pos):
     sc = torch.einsum("bohl,bsl->bhos", q_abs, c_cache.float())
     sc = sc + torch.einsum("bohr,bsr->bhos", q_rope.float(),
                            r_cache.float())
-    sc = sc * _inv_sqrt(nope + rdim)
+    sc = sc * inv_sqrt(nope + rdim)
     spos = torch.arange(c_cache.shape[1], device=x.device)[None, None, None, :]
     mask = spos <= pos
     if cfg.attn_window:  # +swa long-context variant

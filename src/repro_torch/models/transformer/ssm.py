@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .attention import _inv_sqrt
+from ...kernels.ref import inv_sqrt
 
 __all__ = ["MlstmState", "mlstm_chunked", "mlstm_step", "selective_scan",
            "selective_scan_step", "SlstmState", "slstm_scan", "slstm_step"]
@@ -58,7 +58,7 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, state: MlstmState | None = None,
         f_gate = F.pad(f_gate, (0, 0, 0, pad), value=30.0)
     sp = q.shape[1]
     n_chunks = sp // c
-    scale = _inv_sqrt(dk)
+    scale = inv_sqrt(dk)
 
     lf = F.logsigmoid(f_gate.float())                       # [B,S,H] <= 0
     li = torch.clamp(i_gate.float(), -20.0, 10.0)

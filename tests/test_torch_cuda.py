@@ -44,19 +44,30 @@ against the CPU's head loop; the profiler's busy time within the wall
 time with ``device_scope`` ranges open.  ``EllAdj.spmm_at`` (trained ELL values) runs
 the ``d_vals`` kernel and a ``d_h`` launch, each against the CPU; GAT's
 stacked gradients stay finite over padding edges.  The host store drops
-an injected fetch before it takes a pinned ring slot; the tracer's
+an injected fetch before it takes a pinned ring slot, and a slot's wait
+and growth stay out of ``gather_s`` (an injected delay shows); the tracer's
 ``device_peak_bytes`` is the allocator's peak and its fence synchronises
 the value's stream (not the card) only when enabled.  The transformer
 zoo's SPMD half: the ``staged`` process group's collectives of CUDA
 tensors equal gloo's of the same CPU tensors, ``shard_params`` places
 each shard on the card, and the op counter counts a matmul of CUDA
-tensors.
+tensors.  The zoo's attention: the flash forward and its two backward
+launches at every listed head width, f32 and bf16, causal or not, with a
+window, GQA groups of 1 to 4 (f32 within 1e-5 of the largest magnitude;
+bf16 within 2^-7 of the larger of the output's and V's, gradients 2^-6:
+P and dS as two bf16 parts, and bf16 rounding), the decode kernel at every
+decode width and groups of 1, 2, 5 and 6 with a row of no valid slot, all
+twice bit for bit; the model's attention on CUDA tensors launching each
+kernel once; unlisted widths, dtypes and a window without causality
+refused; a reduced step traced on ``cuda`` fakes counting what it counts
+on ``cpu`` fakes.
 """
 import numpy as np
 import pytest
 import torch
 
 import dataclasses
+import time
 
 from repro_torch.kernels import cache_gather, csr_spmm, ell_spmm, ops, ref
 from repro_torch.dist import HostFeatureStore
@@ -1101,6 +1112,32 @@ def test_dropped_fetch_leaks_no_ring_slot(card):
     assert store.snapshot()["fetches"] == 0
 
 
+def test_slot_wait_and_growth_are_not_gather_time(card, monkeypatch):
+    """A ring slot's wait for its last copy and its growth (pinning at a
+    first large fetch) stay out of ``gather_s``, which the guard reads for
+    slow fetches; an injected delay still shows in it."""
+    from repro_torch.dist import host_store as hs
+    table = np.arange(400, dtype=np.float32).reshape(100, 4)
+    store = HostFeatureStore(table, prefetch_depth=2, device=card)
+    real_take = hs._Slot.take
+
+    def slow_take(self, numel, dtype):
+        time.sleep(0.2)
+        return real_take(self, numel, dtype)
+    monkeypatch.setattr(hs._Slot, "take", slow_take)
+    sf = store.stage_rows(np.arange(8))
+    assert sf.gather_s < 0.1
+    fp = FaultPlan.parse("fetch_delay@1:delay_s=0.15")
+    store.set_faults(fp)
+    fp.begin_step(1)
+    delayed = store.stage_rows(np.arange(8, 16))
+    fp.end_run()
+    assert 0.15 <= delayed.gather_s < 0.3
+    np.testing.assert_array_equal(store.ready(sf).cpu().numpy(), table[:8])
+    np.testing.assert_array_equal(store.ready(delayed).cpu().numpy(),
+                                  table[8:16])
+
+
 def test_device_peak_bytes_on_card(card):
     torch.cuda.reset_peak_memory_stats(card)
     x = torch.empty(1 << 20, device=card)
@@ -1584,3 +1621,196 @@ def test_edge_dvals_in_pack_order(card):
         torch.cuda.synchronize()
         assert in_order.shape == (4, packs.fwd.nnz)
         assert torch.equal(in_order, by_edge[packs.fwd.perm.long()].t())
+
+
+# ---------------------------------------------------------------------------
+# the transformer zoo's attention (csrc/flash_attn.cu, csrc/decode_attn.cu)
+# ---------------------------------------------------------------------------
+
+# f32: true f32 on both sides, sums in another order
+ATTN_F32_TOL_OF_MAX = 1e-5
+# bf16: the plain versions keep f32 and round each result once; the
+# kernels' f32 results differ from theirs by far less than an ulp (P and
+# dS as two bf16 parts, sums in another order), so an element may round
+# one ulp apart: within 2^-7 of the larger of the two plus 2^-8 of the
+# result's rms, and the mean |error| within 2^-13 of the mean |result|
+ATTN_BF16_ULP = 2.0 ** -7
+ATTN_BF16_FLOOR_OF_RMS = 2.0 ** -8
+ATTN_BF16_MEAN_TOL = 2.0 ** -13
+
+ATTN_CONFIGS = [(True, 0, 4, 2), (False, 0, 4, 4), (True, 50, 4, 1),
+                (True, 0, 6, 2)]
+
+
+def _attn_inputs(card, dtype, b, s, hq, hkv, dqk, dv, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(card, dtype)
+            for shape in ((b, s, hq, dqk), (b, s, hkv, dqk),
+                          (b, s, hkv, dv))]
+
+
+def _close(got, want, tol: float, scale=None) -> float:
+    want = want.float()
+    scale = float(want.abs().max()) if scale is None else scale
+    err = float((got.float() - want).abs().max())
+    assert err <= tol * max(scale, 1e-30), (err, scale)
+    return err
+
+
+def _close_bf16(got, want) -> None:
+    """The bf16 rule above, element by element and on the mean."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bound = ATTN_BF16_ULP * torch.maximum(g.abs(), w.abs()) \
+        + ATTN_BF16_FLOOR_OF_RMS * w.square().mean().sqrt()
+    worst = float((d / bound.clamp_min(1e-30)).max())
+    mean = float(d.sum() / w.abs().sum().clamp_min(1e-30))
+    assert worst <= 1.0 and mean <= ATTN_BF16_MEAN_TOL, (worst, mean)
+
+
+def _close_attn(got, want) -> None:
+    """``got`` against the plain ``want`` by the rule of their dtype."""
+    if want.dtype == torch.float32:
+        _close(got, want, ATTN_F32_TOL_OF_MAX)
+    else:
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(32, 32), (48, 32), (64, 64), (96, 96),
+                                    (128, 128), (192, 128)])
+@pytest.mark.parametrize("config", ATTN_CONFIGS,
+                         ids=["causal_gqa", "noncausal", "band_gqa4",
+                              "causal_gqa3"])
+def test_flash_attention_kernels_match_plain(card, dtype, widths, config):
+    """The forward and both backward launches against the plain versions
+    at every listed width (S = 200: three full 64-row tiles and a ragged
+    one), twice bit for bit."""
+    from repro_torch.kernels import flash_attn as fa
+    causal, window, hq, hkv = config
+    dqk, dv = widths
+    q, k, v = _attn_inputs(card, dtype, 2, 200, hq, hkv, dqk, dv, seed=31)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, window)
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, causal, window, 64, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _close_attn(o, want_o)
+    _close(lse, want_lse, ATTN_F32_TOL_OF_MAX)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(32)
+                     ).to(card, dtype)
+    dq, delta = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal, window)
+    dk, dvv = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta, causal,
+                                          window)
+    dq2, _ = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal, window)
+    dk2, dv2 = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta, causal,
+                                           window)
+    wants = ref.flash_attention_bwd_ref(do, q, k, v, o, lse, causal, window,
+                                        64, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and \
+        torch.equal(dvv, dv2)
+    _close(delta, (do.float() * o.float()).sum(-1).transpose(1, 2),
+           ATTN_F32_TOL_OF_MAX)
+    for got, want in zip((dq, dk, dvv), wants):
+        assert got.shape == want.shape and got.dtype == dtype
+        _close_attn(got, want)
+
+
+def test_flash_attention_op_launches_on_card(card):
+    """``blocked_attention`` / ``banded_attention`` on CUDA tensors go
+    through the op: one forward launch, one of each backward launch, and
+    the gradients of the CPU's plain route."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.transformer import attention as tatt
+    q, k, v = _attn_inputs(card, torch.float32, 1, 130, 4, 2, 64, 64, 33)
+    for fn in (lambda *x: tatt.blocked_attention(*x),
+               lambda *x: tatt.banded_attention(*x, 40, chunk=32)):
+        before = [w.launches for w in (fa.flash_attention_fwd,
+                                       fa.flash_attention_bwd_dq,
+                                       fa.flash_attention_bwd_dkdv)]
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        grads = torch.autograd.grad(out.sum(), ts)
+        cs = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+        want = fn(*cs)
+        wgrads = torch.autograd.grad(want.sum(), cs)
+        after = [w.launches for w in (fa.flash_attention_fwd,
+                                      fa.flash_attention_bwd_dq,
+                                      fa.flash_attention_bwd_dkdv)]
+        assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+        _close(out.cpu(), want.detach(), ATTN_F32_TOL_OF_MAX)
+        for g, w in zip(grads, wgrads):
+            _close(g.cpu(), w, ATTN_F32_TOL_OF_MAX)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("group", [(16, 8), (4, 4), (25, 5), (12, 2)])
+def test_decode_attention_kernel_matches_plain(card, dtype, d, group):
+    """The decode kernel against its plain version over a ring mask with
+    a batch row of no valid slot (the mean of V), twice bit for bit."""
+    from repro_torch.kernels import flash_attn as fa
+    hq, hkv = group
+    b, w = 3, 256
+    g = torch.Generator().manual_seed(34)
+    q = torch.randn((b, 1, hq, d), generator=g).to(card, dtype)
+    ck, cv = (torch.randn((b, w, hkv, d), generator=g).to(card, dtype)
+              for _ in range(2))
+    pos = torch.arange(w, device=card)
+    valid = torch.stack([pos < 40, (pos >= 100) & (pos < 228),
+                         torch.zeros_like(pos, dtype=torch.bool)])
+    got = fa.decode_attention(q, ck, cv, valid)
+    got2 = fa.decode_attention(q, ck, cv, valid)
+    want = ref.decode_attention_ref(q, ck, cv, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got2)
+    assert got.shape == q.shape and got.dtype == dtype
+    _close_attn(got, want)
+
+
+def test_attention_kernels_refuse_unlisted_operands(card):
+    from repro_torch.kernels import flash_attn as fa
+    q, k, v = _attn_inputs(card, torch.float32, 1, 70, 2, 2, 80, 80, 35)
+    with pytest.raises(ValueError, match="not among"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v = _attn_inputs(card, torch.float16, 1, 70, 2, 2, 64, 64, 35)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v = _attn_inputs(card, torch.float32, 1, 70, 2, 2, 64, 64, 35)
+    with pytest.raises(ValueError, match="needs causal"):
+        fa.flash_attention_fwd(q, k, v, False, 16)
+    with pytest.raises(ValueError, match="not among"):
+        fa.decode_attention(q[:, :1, :, :48], k[..., :48], v[..., :48],
+                            torch.ones(1, 70, dtype=torch.bool, device=card))
+    with pytest.raises(ValueError, match="at most"):
+        fa.decode_attention(
+            torch.zeros(1, 1, 9, 64, device=card), k[:, :, :1], v[:, :, :1],
+            torch.ones(1, 70, dtype=torch.bool, device=card))
+
+
+def test_traced_step_counts_equal_on_cuda_and_cpu_fakes(card):
+    """A reduced config's ``loss_and_grads`` traced on fakes (the dry
+    run's tracing): ``OpCounter``'s FLOPs and bytes equal on ``cuda`` and
+    ``cpu`` fakes (the attention ops are one counted operation each)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.hlo_cost import OpCounter
+    from repro_torch.models.transformer import init_model, loss_and_grads
+    from repro_torch.optim.optimizers import tree_map
+    costs = {}
+    for arch in ("qwen3-1.7b", "deepseek-v3-671b", "mixtral-8x7b"):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        shapes = init_model(cfg, None, device="meta")
+        for dev in ("cuda", "cpu"):
+            with FakeTensorMode():
+                params = tree_map(lambda t: torch.empty(
+                    t.shape, dtype=t.dtype, device=dev), shapes)
+                data = {key: torch.zeros((2, 96), dtype=torch.int64,
+                                         device=dev)
+                        for key in ("tokens", "labels")}
+                with OpCounter() as counter:
+                    loss_and_grads(cfg, params, data)
+            costs[arch, dev] = (counter.cost.flops,
+                                counter.cost.bytes_accessed)
+        assert costs[arch, "cuda"] == costs[arch, "cpu"], arch
