@@ -403,6 +403,7 @@ EDGE_SOFTMAX_SOURCE = "src/repro_torch/kernels/csrc/edge_softmax.cu"
 # autodiff (blocked_attention; banded_attention at :127), and its ring
 # decode (no pallas_call)
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
 FLASH_REPLACES = "src/repro/models/transformer/attention.py:59"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attn.cu"
 DECODE_REPLACES = "src/repro/models/transformer/blocks.py:150"
@@ -511,11 +512,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """Every source, one ``nvcc`` each, all at once: the wall seconds and
+    each source's compile seconds."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build()
+    compile_s = build.build()
     emit("build", seconds=time.perf_counter() - t0,
          sources=[f"csrc/{n}.cu" for n in build.SOURCES],
+         compile_s={f"csrc/{n}.cu": t for n, t in compile_s.items()},
          flags=" ".join(build.NVCC_FLAGS))
 
 
@@ -998,16 +1002,35 @@ def sweep_dvals(sp, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def kernel_warps(source: str, fn: str) -> int:
+    """Warps a block of kernel ``fn`` of ``csrc/<source>.cu``: 4 for the
+    ELL forward, the CSR long rows' sums and the flash kernels' bf16
+    blocks (the backward's one warpgroup), 1 for the flash f32 kernels, 8
+    for the others."""
+    if source.startswith("flash_attn"):
+        return 1 if "_f32" in fn else 4
+    if (source in ("ell_spmm", "ell_spmm_bwd") and "sum_stripes" not in fn
+            or "long_rows" in fn):
+        return 4
+    return 8
+
+
 def ptxas_report(names=None) -> None:
     """Each kernel's registers, shared memory and spills as ``nvcc -Xptxas
-    -v`` reports them, and the occupancy its registers allow (4-warp
-    blocks for the ELL forward and the CSR long rows' sums, 8 for the
-    others), for the sources ``names`` (all by default)."""
+    -v`` reports them, and the occupancy its registers allow
+    (:func:`kernel_warps` a block), for the sources ``names`` (all by
+    default); and one ``ptxas_remark`` line per performance remark
+    (C75xx: wgmma serialized)."""
     from repro_torch.kernels import build
     nvcc = build._nvcc()
     cuda_filt = Path(nvcc).with_name("cu++filt")
     demangle = (str(cuda_filt) if cuda_filt.exists()
                 else shutil.which("c++filt"))
+
+    def demangled(fn):
+        return (subprocess.run([demangle, fn], capture_output=True,
+                               text=True).stdout.strip() or fn
+                if demangle else fn)
     flags = [f for f in build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     entry = re.compile(r"Function properties for (\S+)\n\s*\d+ bytes stack "
@@ -1020,22 +1043,23 @@ def ptxas_report(names=None) -> None:
              str(build.BUILD_DIR / f"{name}.ptxas.cubin"),
              str(build.CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=True)
-        for m in entry.finditer(proc.stdout + proc.stderr):
+        text = proc.stdout + proc.stderr
+        for m in entry.finditer(text):
             fn, st, ld, regs, rest = m.groups()
             smem = re.search(r"(\d+) bytes smem", rest)
-            if demangle:
-                fn = subprocess.run([demangle, fn], capture_output=True,
-                                    text=True).stdout.strip() or fn
+            fn = demangled(fn)
             regs = int(regs)
-            warps = (4 if name in ("ell_spmm", "ell_spmm_bwd")
-                     and "sum_stripes" not in fn or "long_rows" in fn
-                     else 8)
+            warps = kernel_warps(name, fn)
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(32, 65536 // (per_warp * warps))
             emit("ptxas", source=f"csrc/{name}.cu", kernel=fn,
                  registers=regs, smem_bytes=int(smem[1]) if smem else 0,
                  spill_stores=int(st), spill_loads=int(ld),
                  warps_per_sm=min(64, blocks * warps))
+        for m in re.finditer(r"\((C75\d\d)\) ([^']*)'(\S+)'", text):
+            code, what, fn = m.groups()
+            emit("ptxas_remark", source=f"csrc/{name}.cu", code=code,
+                 remark=what.strip(), kernel=demangled(fn))
 
 
 # ---------------------------------------------------------------------------
@@ -4566,6 +4590,19 @@ def attn_cost(kernel: str, b: int, s: int, hq: int, hkv: int, dqk: int,
             2 * pairs * (2 * dqk + 2 * dv))
 
 
+def executed_flops(kernel: str, b: int, s: int, hq: int, dqk: int, dv: int,
+                   causal: bool, window: int) -> float:
+    """The FLOPs a bf16 backward kernel executes on the visible pairs, P
+    and dS taken as their two bf16 parts (two products each): ``bwd_dq``'s
+    Q K^T, dO V^T and dS K twice; ``bwd_dkdv``'s K Q^T, V dO^T, P^T dO
+    twice and dS^T Q twice (:func:`attn_cost` counts each product once)."""
+    from repro_torch.kernels.flash_attn import visible_pairs
+    pairs = b * hq * visible_pairs(s, causal, window)
+    if kernel == "flash_attention_bwd_dq":
+        return 2 * pairs * (dqk + dv + 2 * dqk)
+    return 2 * pairs * (dqk + dv + 2 * dv + 2 * dqk)
+
+
 def attn_bound(nbytes: float, flops: float, dtype) -> dict:
     """``bound_ms`` and ``bound_by`` at HBM's rate and the peak of the
     inputs' type (bf16 tensor cores, or f32 outside them)."""
@@ -4767,9 +4804,32 @@ def phase_attention_kernels() -> None:
     faults = planted_faults(*prefill)
     del prefill
     ATTN_CHECKS.update(flash=flash, decode=decode)
+    bwd_attributes({(c[5], c[6], c[9]) for c in ATTN_FLASH_CASES})
     emit("attention_kernels", flash=flash, decode=decode,
          planted_faults=faults, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
+
+
+def bwd_attributes(widths) -> None:
+    """One ``attention_bwd_attributes`` line per backward instantiation at
+    the ``(Dqk, Dv, dtype)`` of ``widths``: registers a thread, the
+    block's shared memory, its local bytes a thread (spills) and threads,
+    from ``cudaFuncGetAttributes`` (``flash_attention_bwd_attributes``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load("flash_attn_bwd").flash_attention_bwd_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    for dqk, dv, dt in sorted(widths, key=str):
+        for which, kernel in enumerate(ATTN_KERNELS[1:3]):
+            out = (ctypes.c_int * 4)()
+            err = fn(dqk, dv, int(dt == torch.bfloat16), which,
+                     ctypes.addressof(out), 0)
+            if err:
+                raise RuntimeError(f"{kernel} attributes: CUDA error {err}")
+            emit("attention_bwd_attributes", kernel=kernel, widths=[dqk, dv],
+                 dtype=str(dt).removeprefix("torch."), registers=out[0],
+                 smem_bytes=out[1], local_bytes=out[2], threads=out[3])
 
 
 def time_attention() -> dict:
@@ -4838,6 +4898,8 @@ def time_attention() -> dict:
             **shape, "max_abs_err": max(errs[x]["max_abs_err"] for x in keys),
             "ms": bwd_t[key], "plain_ms": plain_t["bwd"],
             "library_ms": lib_fb, "pair_ms": pair_ms,
+            "executed_tflops": executed_flops(kernel, b, s, hq, hd, hd, True,
+                                              0) / bwd_t[key] / 1e9,
             "plain_covers": "dq, dk and dv (one plain backward)",
             "library_covers": "forward and backward (one autograd call)",
             **attn_bound(*attn_cost(kernel, b, s, hq, hkv, hd, hd, True, 0,
@@ -4871,9 +4933,11 @@ def time_attention() -> dict:
 def attention_entries() -> list[dict]:
     """The kernels line's entries of the attention kernels, from
     :func:`time_attention`'s run in ``lm_serve``."""
-    return [{"name": k, "route": "cuda",
-             "source": DECODE_SOURCE if k == "decode_attention"
-             else FLASH_SOURCE,
+    sources = {"flash_attention_fwd": FLASH_SOURCE,
+               "flash_attention_bwd_dq": FLASH_BWD_SOURCE,
+               "flash_attention_bwd_dkdv": FLASH_BWD_SOURCE,
+               "decode_attention": DECODE_SOURCE}
+    return [{"name": k, "route": "cuda", "source": sources[k],
              "replaces": DECODE_REPLACES if k == "decode_attention"
              else FLASH_REPLACES, **LM_ATTENTION[k]} for k in ATTN_KERNELS]
 

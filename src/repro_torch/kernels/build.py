@@ -9,8 +9,9 @@ use into its own shared library for ``sm_90a`` (Hopper):
 The library name carries a hash of the source, the headers of ``csrc/``
 and the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.  :func:`build`
-starts one ``nvcc`` per missing source, all at once, and waits for them;
-a failed compile raises with ``nvcc``'s stderr.  Nothing here runs at
+starts one ``nvcc`` per missing source, all at once, waits for them and
+returns each one's seconds; a failed compile raises with ``nvcc``'s
+stderr.  Nothing here runs at
 import time: the CPU tests import every module on a machine without
 ``nvcc``.
 """
@@ -21,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
@@ -29,7 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # <checkout>/build/repro_torch (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ell_spmm", "ell_spmm_bwd", "csr_spmm", "gather_rows",
-           "edge_dvals", "edge_softmax", "flash_attn", "decode_attn")
+           "edge_dvals", "edge_softmax", "flash_attn", "flash_attn_bwd",
+           "decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -56,32 +60,35 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names=SOURCES) -> None:
+def build(names=SOURCES) -> dict[str, float]:
     """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together."""
+    ``nvcc`` process per source, all started together; returns each
+    compiled source's seconds."""
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
-        return
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for name in todo:
+
+    def compile_one(name):
         out = _lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    errors = []
-    for name, tmp, out, proc in procs:
-        _, err = proc.communicate()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode == 0:
             os.replace(tmp, out)
-        else:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed on csrc/{name}.cu "
-                          f"(exit {proc.returncode}):\n{err}")
+            return time.perf_counter() - t0, None
+        tmp.unlink(missing_ok=True)
+        return None, (f"nvcc failed on csrc/{name}.cu "
+                      f"(exit {proc.returncode}):\n{proc.stderr}")
+
+    with ThreadPoolExecutor(len(todo)) as pool:
+        done = dict(zip(todo, pool.map(compile_one, todo)))
+    errors = [err for _, err in done.values() if err]
     if errors:
         raise RuntimeError("\n".join(errors))
+    return {name: sec for name, (sec, _) in done.items()}
 
 
 def load(name: str) -> ctypes.PyDLL:

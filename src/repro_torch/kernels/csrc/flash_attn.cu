@@ -1,5 +1,6 @@
-// Flash attention, forward and backward, for Hopper (sm_90a): causal or
-// not, an optional sliding window, GQA and MLA's unequal widths.
+// Flash attention's forward for Hopper (sm_90a): causal or not, an
+// optional sliding window, GQA and MLA's unequal widths.  The backward is
+// flash_attn_bwd.cu; flash_attn.cuh holds what the two share.
 //
 // For q [B, S, Hq, Dqk], k [B, S, Hkv, Dqk], v [B, S, Hkv, Dv] (the JAX
 // layout, contiguous), rep = Hq / Hkv, query head h reading KV head
@@ -11,52 +12,37 @@
 //   o_i     = sum_j softmax_j(s[i, .]) v_j   over the visible j, divided by
 //             max(l, 1e-20) as the reference does; lse_i = m_i + log(l_i)
 //
-// and the backward from dO, with P = exp(s - lse) recomputed (nothing of
-// size S x S is stored), Delta_i = rowsum(dO_i * o_i) and
-// dS = P * (dO V^T - Delta):
-//
-//   dQ = scale dS K,   dK = scale dS^T Q,   dV = P^T dO
-//
-// dK and dV summed over the rep query heads of a KV head.  Three kernels:
-//  - `fwd`: a block per (q tile, query head, batch row) walks the key tiles
-//    that hold a visible key (tiles wholly outside the causal triangle or
-//    the band are skipped), an online softmax in f32 registers; writes o
-//    (q's dtype) and lse [B, Hq, S] (f32);
-//  - `bwd_dq`: a block per (q tile, query head, batch row) computes and
-//    writes Delta for its rows, walks the same key tiles and writes dQ;
-//  - `bwd_dkdv`: a block per (k tile, KV head, batch row) walks the q tiles
-//    of the group's rep query heads that see one of its keys, reads lse and
-//    Delta, and writes dK and dV.  The group sum is in registers: no
-//    atomics, so two launches give the same bits.
+// `fwd`: a block per (q tile, query head, batch row) walks the key tiles
+// that hold a visible key (tiles wholly outside the causal triangle or the
+// band are skipped), an online softmax in f32 registers; writes o (q's
+// dtype) and lse [B, Hq, S] (f32) for the backward.
 //
 // It replaces no Pallas TPU kernel: the reference's attention is a chunked
 // loop (`lax.map` over query chunks, `lax.scan` over KV chunks,
 // `jax.checkpoint` on each step) that XLA compiles
 // (src/repro/models/transformer/attention.py:59 `blocked_attention`, :127
-// `banded_attention`), and its backward is that loop's autodiff.  The
-// port's plain versions are kernels/ref.py's `flash_attention_ref` (the
-// same loops) and `flash_attention_bwd_ref` (this file's algorithm).
+// `banded_attention`).  The port's plain version is kernels/ref.py's
+// `flash_attention_ref` (the same loops).
 //
 // What bounds it on the H100: operations (qwen3-1.7b's 4,096-token prefill:
 // 69 GFLOP causal forward against 50 MB of q, k, v and o).  Two routes:
 //  - bf16 operands: tensor cores through `mma.sync` m16n8k16 with f32
-//    accumulators.  Q K^T and dO V^T take the bf16 operands as they are
-//    (their products are exact); P V, dS K, dS^T Q and P^T dO take the f32
-//    factor (P or dS) as two bf16 parts, hi = bf16(x) and lo = bf16(x -
-//    hi), two products each: 16 bits of the factor, more than tf32's 11,
-//    and the bf16 one exact, so the result differs from the f32 plain
-//    version by less than its own bf16 rounding.  A warp owns 16 rows of
-//    a 64-row tile (four warps a block); tiles of 64 keys (32 queries in
-//    dK / dV at Dqk 192) go through shared memory by cp.async, two stages
-//    in flight, rows padded by 16 bytes; every fragment is one
-//    `ldmatrix` (`.trans` for the second products' B), the padding
-//    putting its eight rows on distinct banks.  The C fragment of one
-//    product is the A fragment of the next: its two n8 tiles are a k16
-//    step;
+//    accumulators.  Q K^T takes the bf16 operands as they are (its
+//    products are exact); P V takes the f32 factor P as two bf16 parts,
+//    hi = bf16(x) and lo = bf16(x - hi), two products each: 16 bits of the
+//    factor, more than tf32's 11, and the bf16 one exact, so the result
+//    differs from the f32 plain version by less than its own bf16
+//    rounding.  A warp owns 16 rows of a 64-row tile (four warps a block);
+//    tiles of 64 keys go through shared memory by cp.async, two stages in
+//    flight, rows padded by 16 bytes; every fragment is one `ldmatrix`
+//    (`.trans` for P V's B), the padding putting its eight rows on
+//    distinct banks.  The C fragment of Q K^T is the A fragment of P V:
+//    its two n8 tiles are a k16 step;
 //  - f32 operands: true f32 arithmetic on the CUDA cores (no TF32), a
 //    thread a row, the tiles in shared memory (the parity runs and checks
 //    use it; their sizes are small).
-// `wgmma` and TMA are later work.
+// `wgmma` and TMA (csrc/hopper.cuh, as the backward uses them) are later
+// work.
 //
 // Head widths (Dqk, Dv), those of every config of src/repro_torch/configs,
 // full and reduced: (32, 32), (48, 32), (64, 64), (96, 96), (128, 128) and
@@ -66,58 +52,16 @@
 
 #include <cstdint>
 
+#include "flash_attn.cuh"
 #include "on_device.cuh"
 
 namespace {
 
-constexpr float kMasked = -1e30f;
 using bf16 = __nv_bfloat16;
-
-struct Attn {
-  const void* q;
-  const void* k;
-  const void* v;
-  int B, S, Hq, Hkv, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ bool visible(const Attn& a, int i, int j) {
-  return j < a.S && (!a.causal || j <= i) && (a.window == 0 || i - j < a.window);
-}
-
-// key range [lo, hi) a query range [q0, q1) can see
-__device__ __forceinline__ void key_range(const Attn& a, int q0, int q1,
-                                          int& lo, int& hi) {
-  lo = a.window ? max(0, q0 - a.window + 1) : 0;
-  hi = a.causal ? min(a.S, q1) : a.S;
-}
-
-// query range [lo, hi) that sees a key of [k0, k1)
-__device__ __forceinline__ void query_range(const Attn& a, int k0, int k1,
-                                            int& lo, int& hi) {
-  lo = a.causal ? k0 : 0;
-  hi = a.window ? min(a.S, k1 - 1 + a.window) : a.S;
-}
 
 // ---------------------------------------------------------------------------
 // f32: a thread a row, f32 FMAs
 // ---------------------------------------------------------------------------
-
-constexpr int kRowsF32 = 32;    // rows a block (one warp)
-constexpr int kTileF32 = 32;    // keys (queries) a step
-
-// rows [r0, r0 + n) of x [B, S, H, D] at head h into s[n][ld] (zeros past S)
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* s, int ld, const float* x,
-                                              int b, int S, int H, int h,
-                                              int r0, int n) {
-  for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx % D;
-    const int i = r0 + r;
-    s[r * ld + d] =
-        i < S ? x[((static_cast<size_t>(b) * S + i) * H + h) * D + d] : 0.f;
-  }
-}
 
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kRowsF32)
@@ -178,124 +122,12 @@ __global__ void __launch_bounds__(kRowsF32)
   }
 }
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kRowsF32)
-    dq_f32(Attn a, const float* __restrict__ o, const float* __restrict__ dout,
-           const float* __restrict__ lse, float* __restrict__ delta,
-           float* __restrict__ dq) {
-  constexpr int QL = DQK + 1, OL = DV + 1;
-  extern __shared__ float sh[];
-  float* Qs = sh;                              // [rows][QL]
-  float* dQs = Qs + kRowsF32 * QL;             // [rows][QL]
-  float* dOs = dQs + kRowsF32 * QL;            // [rows][OL]
-  float* Ks = dOs + kRowsF32 * OL;             // [tile][DQK]
-  float* Vs = Ks + kTileF32 * DQK;             // [tile][DV]
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv), t = threadIdx.x;
-  const int q0 = qt * kRowsF32, i = q0 + t;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  load_rows_f32<DQK>(Qs, QL, q, b, a.S, a.Hq, h, q0, kRowsF32);
-  load_rows_f32<DV>(dOs, OL, dout, b, a.S, a.Hq, h, q0, kRowsF32);
-  for (int d = 0; d < DQK; ++d) dQs[t * QL + d] = 0.f;
-  __syncthreads();
-  const size_t row = (static_cast<size_t>(b) * a.Hq + h) * a.S + i;
-  float dl = 0.f, ls = 0.f;
-  if (i < a.S) {
-    const float* orow = o + ((static_cast<size_t>(b) * a.S + i) * a.Hq + h) * DV;
-    for (int d = 0; d < DV; ++d) dl = fmaf(dOs[t * OL + d], orow[d], dl);
-    delta[row] = dl;
-    ls = lse[row];
-  }
-  int lo, hi;
-  key_range(a, q0, q0 + kRowsF32, lo, hi);
-  for (int k0 = lo - lo % kTileF32; k0 < hi; k0 += kTileF32) {
-    __syncthreads();
-    load_rows_f32<DQK>(Ks, DQK, k, b, a.S, a.Hkv, hk, k0, kTileF32);
-    load_rows_f32<DV>(Vs, DV, v, b, a.S, a.Hkv, hk, k0, kTileF32);
-    __syncthreads();
-    for (int j = 0; j < kTileF32; ++j) {
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < DQK; ++d) s = fmaf(Qs[t * QL + d], Ks[j * DQK + d], s);
-      for (int d = 0; d < DV; ++d) dp = fmaf(dOs[t * OL + d], Vs[j * DV + d], dp);
-      const float p = visible(a, i, k0 + j) ? expf(s * a.scale - ls) : 0.f;
-      const float ds = p * (dp - dl);
-      for (int d = 0; d < DQK; ++d)
-        dQs[t * QL + d] = fmaf(ds, Ks[j * DQK + d], dQs[t * QL + d]);
-    }
-  }
-  if (i < a.S) {
-    float* out = dq + ((static_cast<size_t>(b) * a.S + i) * a.Hq + h) * DQK;
-    for (int d = 0; d < DQK; ++d) out[d] = dQs[t * QL + d] * a.scale;
-  }
-}
-
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kRowsF32)
-    dkdv_f32(Attn a, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv) {
-  constexpr int QL = DQK + 1, OL = DV + 1;
-  extern __shared__ float sh[];
-  float* Ks = sh;                              // [rows][QL], this block's keys
-  float* dKs = Ks + kRowsF32 * QL;             // [rows][QL]
-  float* Vs = dKs + kRowsF32 * QL;             // [rows][OL]
-  float* dVs = Vs + kRowsF32 * OL;             // [rows][OL]
-  float* Qs = dVs + kRowsF32 * OL;             // [tile][DQK]
-  float* dOs = Qs + kTileF32 * DQK;            // [tile][DV]
-  float* Ls = dOs + kTileF32 * DV;             // [tile]
-  float* Ds = Ls + kTileF32;                   // [tile]
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int rep = a.Hq / a.Hkv, t = threadIdx.x;
-  const int k0 = kt * kRowsF32, j = k0 + t;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  load_rows_f32<DQK>(Ks, QL, k, b, a.S, a.Hkv, hk, k0, kRowsF32);
-  load_rows_f32<DV>(Vs, OL, v, b, a.S, a.Hkv, hk, k0, kRowsF32);
-  for (int d = 0; d < DQK; ++d) dKs[t * QL + d] = 0.f;
-  for (int d = 0; d < DV; ++d) dVs[t * OL + d] = 0.f;
-  int lo, hi;
-  query_range(a, k0, k0 + kRowsF32, lo, hi);
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const size_t hrow = (static_cast<size_t>(b) * a.Hq + h) * a.S;
-    for (int q0 = lo - lo % kTileF32; q0 < hi; q0 += kTileF32) {
-      __syncthreads();
-      load_rows_f32<DQK>(Qs, DQK, q, b, a.S, a.Hq, h, q0, kTileF32);
-      load_rows_f32<DV>(dOs, DV, dout, b, a.S, a.Hq, h, q0, kTileF32);
-      const int qi = q0 + t;
-      Ls[t] = qi < a.S ? lse[hrow + qi] : 0.f;
-      Ds[t] = qi < a.S ? delta[hrow + qi] : 0.f;
-      __syncthreads();
-      for (int n = 0; n < kTileF32; ++n) {
-        float s = 0.f, dp = 0.f;
-        for (int d = 0; d < DQK; ++d) s = fmaf(Qs[n * DQK + d], Ks[t * QL + d], s);
-        for (int d = 0; d < DV; ++d) dp = fmaf(dOs[n * DV + d], Vs[t * OL + d], dp);
-        const bool vis = q0 + n < a.S && visible(a, q0 + n, j);
-        const float p = vis ? expf(s * a.scale - Ls[n]) : 0.f;
-        const float ds = p * (dp - Ds[n]);
-        for (int d = 0; d < DV; ++d)
-          dVs[t * OL + d] = fmaf(p, dOs[n * DV + d], dVs[t * OL + d]);
-        for (int d = 0; d < DQK; ++d)
-          dKs[t * QL + d] = fmaf(ds, Qs[n * DQK + d], dKs[t * QL + d]);
-      }
-    }
-  }
-  if (j < a.S) {
-    const size_t at = (static_cast<size_t>(b) * a.S + j) * a.Hkv + hk;
-    for (int d = 0; d < DQK; ++d) dk[at * DQK + d] = dKs[t * QL + d] * a.scale;
-    for (int d = 0; d < DV; ++d) dv[at * DV + d] = dVs[t * OL + d];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16: mma.sync, four warps of 16 rows a block
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;       // query (key) rows a block
-constexpr int kTile = 64;       // keys a step of fwd / bwd_dq
+constexpr int kRows = 64;       // query rows a block
+constexpr int kTile = 64;       // keys a step
 constexpr int kPad = 8;         // elements a shared row is padded by
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -577,232 +409,9 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(128)
-    dq_bf16(Attn a, const bf16* __restrict__ o, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, float* __restrict__ delta,
-            bf16* __restrict__ dq) {
-  constexpr int QL = DQK + kPad, VL = DV + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);        // [kRows][QL]
-  bf16* dOs = Qs + kRows * QL;                     // [kRows][VL]
-  bf16* Ks = dOs + kRows * VL;                     // [2][kTile][QL]
-  bf16* Vs = Ks + 2 * kTile * QL;                  // [2][kTile][VL]
-  float* Ls = reinterpret_cast<float*>(Vs + 2 * kTile * VL);   // [kRows]
-  float* Ds = Ls + kRows;                                      // [kRows]
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kRows, wr = warp * 16;
-  const int i0 = q0 + wr + g, i1 = i0 + 8;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  int lo, hi;
-  key_range(a, q0, q0 + kRows, lo, hi);
-  const int kt0 = lo / kTile, kt1 = (hi + kTile - 1) / kTile;
-  load_tile<DQK>(Qs, q, b, a.S, a.Hq, h, q0, kRows);
-  load_tile<DV>(dOs, dout, b, a.S, a.Hq, h, q0, kRows);
-  load_tile<DQK>(Ks, k, b, a.S, a.Hkv, hk, kt0 * kTile, kTile);
-  load_tile<DV>(Vs, v, b, a.S, a.Hkv, hk, kt0 * kTile, kTile);
-  cp_commit();
-
-  // Delta = rowsum(dO * o) in f32: two threads a row, half of it each
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int i = q0 + r;
-    float dl = 0.f;
-    if (i < a.S) {
-      const size_t at = ((static_cast<size_t>(b) * a.S + i) * a.Hq + h) * DV;
-      for (int d = half * (DV / 2); d < (half + 1) * (DV / 2); ++d)
-        dl = fmaf(__bfloat162float(dout[at + d]), __bfloat162float(o[at + d]), dl);
-    }
-    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-    const size_t row = (static_cast<size_t>(b) * a.Hq + h) * a.S + i;
-    if (half == 0) {
-      Ds[r] = dl;
-      Ls[r] = i < a.S ? lse[row] : 0.f;
-      if (i < a.S) delta[row] = dl;
-    }
-  }
-  __syncthreads();
-  const float lr[2] = {Ls[wr + g], Ls[wr + g + 8]};
-  const float dr[2] = {Ds[wr + g], Ds[wr + g + 8]};
-
-  float acc[DQK / 8][4];
-  zero(acc);
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_tile<DQK>(Ks + (st ^ 1) * kTile * QL, k, b, a.S, a.Hkv, hk,
-                     (kt + 1) * kTile, kTile);
-      load_tile<DV>(Vs + (st ^ 1) * kTile * VL, v, b, a.S, a.Hkv, hk,
-                    (kt + 1) * kTile, kTile);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + st * kTile * QL;
-    const bf16* Vt = Vs + st * kTile * VL;
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<DQK, kTile>(s, Qs, QL, wr, Kt, QL);
-    mma_abt<DV, kTile>(dp, dOs, VL, wr, Vt, VL);
-    const int k0 = kt * kTile;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? i0 : i1, j = k0 + n * 8 + 2 * t + (e & 1);
-        const float p =
-            visible(a, i, j) ? __expf(s[n][e] * a.scale - lr[e >> 1]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dr[e >> 1]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kTile / 8; n += 2) {
-      uint32_t dh[4], dl[4];
-      c_as_a(dh, dl, dp[n], dp[n + 1]);
-      mma_split<DQK>(acc, dh, dl, Kt, QL, n * 8);
-    }
-    __syncthreads();
-  }
-
-  const float mul[2] = {a.scale, a.scale};
-  store_rows(dq + ((static_cast<size_t>(b) * a.S) * a.Hq + h) * DQK,
-             static_cast<size_t>(a.Hq) * DQK, acc, i0, a.S, mul, t);
-}
-
-// queries a step of bwd_dkdv: fewer at Dqk 192, where dK's and dV's
-// accumulators take 160 registers
-template <int DQK>
-struct DkdvStep {
-  static constexpr int value = DQK > 128 ? 32 : 64;
-};
-
-template <int DQK, int DV>
-__global__ void __launch_bounds__(128)
-    dkdv_bf16(Attn a, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  constexpr int QL = DQK + kPad, VL = DV + kPad, BQ = DkdvStep<DQK>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);        // [kRows][QL]
-  bf16* Vs = Ks + kRows * QL;                      // [kRows][VL]
-  bf16* Qs = Vs + kRows * VL;                      // [2][BQ][QL]
-  bf16* dOs = Qs + 2 * BQ * QL;                    // [2][BQ][VL]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * VL);    // [2][BQ]
-  float* Ds = Ls + 2 * BQ;                                    // [2][BQ]
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int rep = a.Hq / a.Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kRows, wr = warp * 16;
-  const int j0 = k0 + wr + g, j1 = j0 + 8;         // this thread's keys
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  int lo, hi;
-  query_range(a, k0, k0 + kRows, lo, hi);
-  const int qt0 = lo / BQ, nq = max(0, (hi + BQ - 1) / BQ - qt0);
-  const int steps = rep * nq;        // (query head, q tile) pairs, in turn
-
-  // step `it`'s q, dO, lse and Delta tiles into stage `st`
-  auto load_step = [&](int it, int st) {
-    const int h = hk * rep + it / nq, i0 = (qt0 + it % nq) * BQ;
-    load_tile<DQK>(Qs + st * BQ * QL, q, b, a.S, a.Hq, h, i0, BQ);
-    load_tile<DV>(dOs + st * BQ * VL, dout, b, a.S, a.Hq, h, i0, BQ);
-    const size_t hrow = (static_cast<size_t>(b) * a.Hq + h) * a.S;
-    for (int n = threadIdx.x; n < BQ; n += blockDim.x) {
-      const int i = i0 + n;
-      Ls[st * BQ + n] = i < a.S ? lse[hrow + i] : 0.f;
-      Ds[st * BQ + n] = i < a.S ? delta[hrow + i] : 0.f;
-    }
-  };
-  load_tile<DQK>(Ks, k, b, a.S, a.Hkv, hk, k0, kRows);
-  load_tile<DV>(Vs, v, b, a.S, a.Hkv, hk, k0, kRows);
-  if (steps > 0) load_step(0, 0);
-  cp_commit();
-
-  float dka[DQK / 8][4], dva[DV / 8][4];
-  zero(dka);
-  zero(dva);
-
-  for (int it = 0; it < steps; ++it) {
-    const int st = it & 1;
-    if (it + 1 < steps) {
-      load_step(it + 1, st ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + st * BQ * QL;
-    const bf16* dOt = dOs + st * BQ * VL;
-    const float* Lt = Ls + st * BQ;
-    const float* Dt = Ds + st * BQ;
-    const int i0 = (qt0 + it % nq) * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: rows this warp's 16 keys, columns the
-    // step's queries
-    float p[BQ / 8][4], dp[BQ / 8][4];
-    zero(p);
-    zero(dp);
-    mma_abt<DQK, BQ>(p, Ks, QL, wr, Qt, QL);
-    mma_abt<DV, BQ>(dp, Vs, VL, wr, dOt, VL);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), i = i0 + c;
-        const int j = e < 2 ? j0 : j1;
-        const float x = i < a.S && visible(a, i, j)
-                            ? __expf(p[n][e] * a.scale - Lt[c])
-                            : 0.f;
-        p[n][e] = x;
-        dp[n][e] = x * (dp[n][e] - Dt[c]);
-      }
-    }
-    // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < BQ / 8; n += 2) {
-      uint32_t hi_[4], lo_[4];
-      c_as_a(hi_, lo_, p[n], p[n + 1]);
-      mma_split<DV>(dva, hi_, lo_, dOt, VL, n * 8);
-      c_as_a(hi_, lo_, dp[n], dp[n + 1]);
-      mma_split<DQK>(dka, hi_, lo_, Qt, QL, n * 8);
-    }
-    __syncthreads();
-  }
-
-  const size_t stride = static_cast<size_t>(a.Hkv);
-  const size_t base = (static_cast<size_t>(b) * a.S) * a.Hkv + hk;
-  const float kmul[2] = {a.scale, a.scale}, one[2] = {1.f, 1.f};
-  store_rows(dk + base * DQK, stride * DQK, dka, j0, a.S, kmul, t);
-  store_rows(dv + base * DV, stride * DV, dva, j0, a.S, one, t);
-}
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-template <typename K, typename... Args>
-int launch_with_smem(K kernel, dim3 grid, dim3 block, size_t smem,
-                     cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, block, smem, st>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int DQK, int DV>
 int fwd(const Attn& a, void* o, void* lse, bool b16, cudaStream_t st) {
@@ -818,71 +427,6 @@ int fwd(const Attn& a, void* o, void* lse, bool b16, cudaStream_t st) {
                                        kTileF32 * (DQK + DV));
   return launch_with_smem(fwd_f32<DQK, DV>, grid, dim3(kRowsF32), smem, st, a,
                           static_cast<float*>(o), static_cast<float*>(lse));
-}
-
-template <int DQK, int DV>
-int bwd_dq(const Attn& a, const void* o, const void* dout, const void* lse,
-           void* delta, void* dq, bool b16, cudaStream_t st) {
-  if (b16) {
-    const dim3 grid((a.S + kRows - 1) / kRows, a.Hq, a.B);
-    const size_t smem = sizeof(bf16) * (kRows * (DQK + kPad + DV + kPad) +
-                                        2 * kTile * (DQK + kPad + DV + kPad)) +
-                        sizeof(float) * 2 * kRows;
-    return launch_with_smem(dq_bf16<DQK, DV>, grid, dim3(128), smem, st, a,
-                            static_cast<const bf16*>(o),
-                            static_cast<const bf16*>(dout),
-                            static_cast<const float*>(lse),
-                            static_cast<float*>(delta), static_cast<bf16*>(dq));
-  }
-  const dim3 grid((a.S + kRowsF32 - 1) / kRowsF32, a.Hq, a.B);
-  const size_t smem = sizeof(float) * (kRowsF32 * (2 * (DQK + 1) + DV + 1) +
-                                       kTileF32 * (DQK + DV));
-  return launch_with_smem(dq_f32<DQK, DV>, grid, dim3(kRowsF32), smem, st, a,
-                          static_cast<const float*>(o),
-                          static_cast<const float*>(dout),
-                          static_cast<const float*>(lse),
-                          static_cast<float*>(delta), static_cast<float*>(dq));
-}
-
-template <int DQK, int DV>
-int bwd_dkdv(const Attn& a, const void* dout, const void* lse,
-             const void* delta, void* dk, void* dv, bool b16,
-             cudaStream_t st) {
-  if (b16) {
-    constexpr int BQ = DkdvStep<DQK>::value;
-    const dim3 grid((a.S + kRows - 1) / kRows, a.Hkv, a.B);
-    const size_t smem = sizeof(bf16) * (kRows * (DQK + kPad + DV + kPad) +
-                                        2 * BQ * (DQK + kPad + DV + kPad)) +
-                        sizeof(float) * 4 * BQ;
-    return launch_with_smem(dkdv_bf16<DQK, DV>, grid, dim3(128), smem, st, a,
-                            static_cast<const bf16*>(dout),
-                            static_cast<const float*>(lse),
-                            static_cast<const float*>(delta),
-                            static_cast<bf16*>(dk), static_cast<bf16*>(dv));
-  }
-  const dim3 grid((a.S + kRowsF32 - 1) / kRowsF32, a.Hkv, a.B);
-  const size_t smem = sizeof(float) * (kRowsF32 * 2 * (DQK + 1 + DV + 1) +
-                                       kTileF32 * (DQK + DV + 2));
-  return launch_with_smem(dkdv_f32<DQK, DV>, grid, dim3(kRowsF32), smem, st, a,
-                          static_cast<const float*>(dout),
-                          static_cast<const float*>(lse),
-                          static_cast<const float*>(delta),
-                          static_cast<float*>(dk), static_cast<float*>(dv));
-}
-
-// the listed (Dqk, Dv) pairs
-#define BY_WIDTHS(F)                              \
-  if (dqk == 32 && dv == 32) return F(32, 32);    \
-  if (dqk == 48 && dv == 32) return F(48, 32);    \
-  if (dqk == 64 && dv == 64) return F(64, 64);    \
-  if (dqk == 96 && dv == 96) return F(96, 96);    \
-  if (dqk == 128 && dv == 128) return F(128, 128); \
-  if (dqk == 192 && dv == 128) return F(192, 128); \
-  return static_cast<int>(cudaErrorInvalidValue);
-
-bool bad(int B, int S, int Hq, int Hkv, int causal, int window) {
-  return B < 1 || B > 65535 || S < 1 || Hq < 1 || Hq > 65535 || Hkv < 1 ||
-         Hq % Hkv != 0 || window < 0 || (window > 0 && !causal);
 }
 
 }  // namespace
@@ -901,47 +445,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> int {
 #define CALL(DQ, DVV) fwd<DQ, DVV>(a, o, lse, is_bf16 != 0, st)
-    BY_WIDTHS(CALL)
-#undef CALL
-  });
-}
-
-// the operands of the forward, its o and lse, and dO [B, S, Hq, dv] (q's
-// dtype, contiguous); writes delta f32 [B, Hq, S] and dq [B, S, Hq, dqk].
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
-                                      const void* v, const void* o,
-                                      const void* dout, const void* lse,
-                                      void* delta, void* dq, int B, int S,
-                                      int Hq, int Hkv, int dqk, int dv,
-                                      int causal, int window, float scale,
-                                      int is_bf16, int device, void* stream) {
-  if (bad(B, S, Hq, Hkv, causal, window))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a{q, k, v, B, S, Hq, Hkv, causal, window, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() -> int {
-#define CALL(DQ, DVV) bwd_dq<DQ, DVV>(a, o, dout, lse, delta, dq, is_bf16 != 0, st)
-    BY_WIDTHS(CALL)
-#undef CALL
-  });
-}
-
-// the operands of the forward, dO, lse and delta (bwd_dq's); writes dk
-// [B, S, Hkv, dqk] and dv [B, S, Hkv, dv], each summed over its group.
-extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
-                                        const void* v, const void* dout,
-                                        const void* lse, const void* delta,
-                                        void* dk, void* dv_out, int B, int S,
-                                        int Hq, int Hkv, int dqk, int dv,
-                                        int causal, int window, float scale,
-                                        int is_bf16, int device, void* stream) {
-  if (bad(B, S, Hq, Hkv, causal, window))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a{q, k, v, B, S, Hq, Hkv, causal, window, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() -> int {
-#define CALL(DQ, DVV) \
-  bwd_dkdv<DQ, DVV>(a, dout, lse, delta, dk, dv_out, is_bf16 != 0, st)
     BY_WIDTHS(CALL)
 #undef CALL
   });

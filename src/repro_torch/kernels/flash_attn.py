@@ -1,7 +1,8 @@
 """The transformer zoo's attention on the card: ``csrc/flash_attn.cu`` (a
-flash-attention forward and its backward in two launches) and
-``csrc/decode_attn.cu`` (one-token attention over a ring cache), and the
-``torch.library`` ops the model calls on every device.
+flash-attention forward), ``csrc/flash_attn_bwd.cu`` (its backward in two
+launches, on ``wgmma`` and TMA in bf16) and ``csrc/decode_attn.cu``
+(one-token attention over a ring cache), and the ``torch.library`` ops the
+model calls on every device.
 
 Kernel wrappers, each with a plain integer launch counter
 (``<wrapper>.launches``):
@@ -18,9 +19,10 @@ Kernel wrappers, each with a plain integer launch counter
 
 They take f32 or bf16 operands (one dtype) at the head widths of
 :data:`WIDTHS` (flash) and :data:`DECODE_WIDTHS` (decode), copy an operand
-that is not contiguous, and raise on anything else; each launches on the
-current stream of the operands' device without synchronising and raises
-if the launch fails.
+that is not contiguous (the backward's also a q, k, v or do whose storage
+is not 16-byte aligned: its TMA reads them), and raise on anything else;
+each launches on the current stream of the operands' device without
+synchronising and raises if the launch fails.
 
 The ops (``torch.ops.repro_torch.*``):
 
@@ -94,6 +96,14 @@ def _operands(kernel: str, named: dict) -> dict:
     return out
 
 
+def _aligned(ops: dict) -> dict:
+    """``ops`` with a copy of each of q, k, v and do whose storage is not
+    16-byte aligned (a view into a larger tensor): the backward's TMA
+    reads them, and from 16-byte aligned addresses only."""
+    return {n: t.clone() if n in ("q", "k", "v", "do")
+            and t.data_ptr() % 16 else t for n, t in ops.items()}
+
+
 def _shape(kernel: str, q, k, v, causal: bool, window: int):
     """``(B, S, Hq, Hkv, Dqk, Dv)``, checked."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -160,8 +170,8 @@ def flash_attention_bwd_dq(do: torch.Tensor, q: torch.Tensor,
     """``(dq [B, S, Hq, Dqk] in q's dtype, delta [B, Hq, S] f32)`` from
     the forward's operands, its ``o`` and ``lse`` and the cotangent ``do``:
     one launch."""
-    ops = _operands("flash_attention_bwd_dq",
-                    {"q": q, "k": k, "v": v, "o": o, "do": do})
+    ops = _aligned(_operands("flash_attention_bwd_dq",
+                             {"q": q, "k": k, "v": v, "o": o, "do": do}))
     sizes = _sizes(ops["q"], ops["k"], ops["v"], causal, window,
                    "flash_attention_bwd_dq")
     b, s, hq, dqk, dv = sizes[0], sizes[1], sizes[2], sizes[4], sizes[5]
@@ -174,7 +184,8 @@ def flash_attention_bwd_dq(do: torch.Tensor, q: torch.Tensor,
     lse = _lse_like("flash_attention_bwd_dq", lse, b, hq, s, dev)
     dq = torch.empty((b, s, hq, dqk), dtype=q.dtype, device=dev)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    _launch(_entry("flash_attn", "flash_attention_bwd_dq", _BWD_ARGTYPES),
+    _launch(_entry("flash_attn_bwd", "flash_attention_bwd_dq",
+                   _BWD_ARGTYPES),
             dev.index, *(ops[n].data_ptr() for n in ("q", "k", "v", "o",
                                                      "do")),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *sizes)
@@ -191,8 +202,8 @@ def flash_attention_bwd_dkdv(do: torch.Tensor, q: torch.Tensor,
     summed over its KV head's query heads, from the forward's operands,
     ``lse``, ``delta`` (:func:`flash_attention_bwd_dq`'s) and ``do``: one
     launch."""
-    ops = _operands("flash_attention_bwd_dkdv",
-                    {"q": q, "k": k, "v": v, "do": do})
+    ops = _aligned(_operands("flash_attention_bwd_dkdv",
+                             {"q": q, "k": k, "v": v, "do": do}))
     sizes = _sizes(ops["q"], ops["k"], ops["v"], causal, window,
                    "flash_attention_bwd_dkdv")
     b, s, hq, hkv, dqk, dv = sizes[:6]
@@ -205,7 +216,8 @@ def flash_attention_bwd_dkdv(do: torch.Tensor, q: torch.Tensor,
     delta = _lse_like("flash_attention_bwd_dkdv", delta, b, hq, s, dev)
     dk = torch.empty((b, s, hkv, dqk), dtype=k.dtype, device=dev)
     dvv = torch.empty((b, s, hkv, dv), dtype=k.dtype, device=dev)
-    _launch(_entry("flash_attn", "flash_attention_bwd_dkdv", _BWD_ARGTYPES),
+    _launch(_entry("flash_attn_bwd", "flash_attention_bwd_dkdv",
+                   _BWD_ARGTYPES),
             dev.index, *(ops[n].data_ptr() for n in ("q", "k", "v", "do")),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             *sizes)

@@ -55,7 +55,14 @@ tensors.  The zoo's attention: the flash forward and its two backward
 launches at every listed head width, f32 and bf16, causal or not, with a
 window, GQA groups of 1 to 4 (f32 within 1e-5 of the largest magnitude;
 bf16 within 2^-7 of the larger of the output's and V's, gradients 2^-6:
-P and dS as two bf16 parts, and bf16 rounding), the decode kernel at every
+P and dS as two bf16 parts, and bf16 rounding); the backward pair
+(``csrc/flash_attn_bwd.cu``, ``wgmma`` over TMA tiles in bf16) at S
+about its tiles (1, 63, 64, 129, 200, 257), B = 2, every width, group
+and mask, and on bf16 views 2 bytes past a 16-byte boundary;
+``csrc/hopper.cuh``'s primitives each on its own (a TMA tile
+in and out with its swizzle, one tile read by ``wgmma`` K-major from
+shared memory and MN-major beside register A fragments, producer and
+consumer warpgroups after ``setmaxnreg``); the decode kernel at every
 decode width and groups of 1, 2, 5 and 6 with a row of no valid slot, all
 twice bit for bit; the model's attention on CUDA tensors launching each
 kernel once; unlisted widths, dtypes and a window without causality
@@ -1715,6 +1722,208 @@ def test_flash_attention_kernels_match_plain(card, dtype, widths, config):
     for got, want in zip((dq, dk, dvv), wants):
         assert got.shape == want.shape and got.dtype == dtype
         _close_attn(got, want)
+
+
+# S about the backward's tiles (64 keys or queries a warpgroup, 32 queries a
+# step at Dqk 192): one row, a tile less a row, a tile, two tiles and a
+# row, ragged ones
+FLASH_BWD_S = [1, 63, 64, 129, 200, 257]
+FLASH_BWD_CONFIGS = [(True, 0), (False, 0), (True, 50)]
+FLASH_BWD_GROUPS = [1, 2, 3, 4]
+
+
+def _close_bf16_ties(got, want) -> None:
+    """bf16 dv at S = 1: the one key has P = 1 up to the last bit of the
+    recomputed score, and dv sums the group's dO rows, whose sum lands on
+    a bf16 rounding tie for a large share of its elements; each side
+    breaks those ties by its own last bit.  The element rule holds; the
+    mean rule, whose power is against faults below an ulp spread over many
+    elements (P's lo part, 0 here), has none at S = 1."""
+    g, w = got.float(), want.float()
+    bound = ATTN_BF16_ULP * torch.maximum(g.abs(), w.abs()) \
+        + ATTN_BF16_FLOOR_OF_RMS * w.square().mean().sqrt()
+    assert float(((g - w).abs() / bound.clamp_min(1e-30)).max()) <= 1.0
+
+
+def _close_cancelled(got, want, terms: float) -> None:
+    """A gradient that is exactly 0 (at S = 1 the one key gives dP =
+    Delta, so dS = 0): each side holds only its own rounding of that
+    cancellation, so both stay within one bf16 ulp (2^-7) of the size of
+    the terms that cancel, ``terms``."""
+    assert float(got.float().abs().max()) <= ATTN_BF16_ULP * terms
+    assert float(want.float().abs().max()) <= ATTN_BF16_ULP * terms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(32, 32), (48, 32), (64, 64), (96, 96),
+                                    (128, 128), (192, 128)])
+@pytest.mark.parametrize("s", FLASH_BWD_S)
+@pytest.mark.parametrize("config", FLASH_BWD_CONFIGS,
+                         ids=["causal", "noncausal", "band50"])
+def test_flash_attention_bwd_tiles_match_plain(card, dtype, widths, s,
+                                               config):
+    """The backward pair (``csrc/flash_attn_bwd.cu``: ``wgmma`` over TMA
+    tiles in bf16) against the plain version at S about its tiles, B = 2,
+    GQA groups of 1 to 4 over 2 KV heads, every width, causal, non-causal
+    and banded, each twice bit for bit; the TMA's zero rows past S and
+    the next batch row's must not leak into dk / dv."""
+    from repro_torch.kernels import flash_attn as fa
+    causal, window = config
+    dqk, dv = widths
+    hkv = 2
+    for group in FLASH_BWD_GROUPS:
+        q, k, v = _attn_inputs(card, dtype, 2, s, group * hkv, hkv, dqk, dv,
+                               seed=36 + group)
+        do = torch.randn((2, s, group * hkv, dv),
+                         generator=torch.Generator().manual_seed(40 + group)
+                         ).to(card, dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+        dq, delta = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal,
+                                              window)
+        dk, dvv = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta, causal,
+                                              window)
+        dq2, delta2 = fa.flash_attention_bwd_dq(do, q, k, v, o, lse, causal,
+                                                window)
+        dk2, dv2 = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta,
+                                               causal, window)
+        wants = ref.flash_attention_bwd_ref(do, q, k, v, o, lse, causal,
+                                            window, 64, 64)
+        torch.cuda.synchronize()
+        case = (group, tuple(q.shape))
+        assert torch.equal(dq, dq2) and torch.equal(delta, delta2), case
+        assert torch.equal(dk, dk2) and torch.equal(dvv, dv2), case
+        _close(delta, (do.float() * o.float()).sum(-1).transpose(1, 2),
+               ATTN_F32_TOL_OF_MAX)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dvv), wants):
+            assert got.shape == want.shape and got.dtype == dtype, name
+            if s == 1 and name != "dv":
+                terms = float((do.float() * v.float().repeat_interleave(
+                    group, 2)).abs().sum(-1).max())
+                # dq sums one key's dS k, dk the group's dS q
+                scale = float(ref.inv_sqrt(dqk)) * float(
+                    (k if name == "dq" else q).float().abs().max()) * (
+                    1 if name == "dq" else group)
+                _close_cancelled(got, want, terms * scale)
+            elif s == 1 and dtype == torch.bfloat16:
+                _close_bf16_ties(got, want)
+            else:
+                _close_attn(got, want)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` as a view into a flat buffer at an odd element
+    offset: contiguous, its storage 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("widths", [(64, 64), (192, 128)])
+def test_flash_attention_bwd_misaligned_operands(card, widths):
+    """bf16 q, k, v, do and o that are views 2 bytes past a 16-byte
+    boundary (the TMA reads only from 16-byte aligned addresses): the
+    backward pair copies what its TMA reads and gives the same bits as on
+    aligned copies of the same values."""
+    from repro_torch.kernels import flash_attn as fa
+    dqk, dv = widths
+    q, k, v = _attn_inputs(card, torch.bfloat16, 2, 129, 4, 2, dqk, dv,
+                           seed=44)
+    do = torch.randn((2, 129, 4, dv), generator=torch.Generator(
+    ).manual_seed(45)).to(card, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    views = [_misaligned(x) for x in (q, k, v, do, o)]
+    assert all(x.data_ptr() % 16 for x in views)
+    mq, mk, mv, mdo, mo = views
+    dq, delta = fa.flash_attention_bwd_dq(do, q, k, v, o, lse)
+    dk, dvv = fa.flash_attention_bwd_dkdv(do, q, k, v, lse, delta)
+    mdq, mdelta = fa.flash_attention_bwd_dq(mdo, mq, mk, mv, mo, lse)
+    mdk, mdv = fa.flash_attention_bwd_dkdv(mdo, mq, mk, mv, lse, mdelta)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, mdq) and torch.equal(delta, mdelta)
+    assert torch.equal(dk, mdk) and torch.equal(dvv, mdv)
+
+
+def _probe(name: str, argtypes):
+    import ctypes
+    from repro_torch.kernels import build
+    fn = getattr(build.load("hopper_probe"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _swizzled(tile: torch.Tensor) -> torch.Tensor:
+    """A tile [boxes, rows, 64] as the 128-byte swizzle stores it: the
+    8-element chunk k of row r at chunk k ^ (r % 8)."""
+    rows = tile.shape[1]
+    col = torch.arange(64)
+    out = torch.empty_like(tile)
+    for r in range(rows):
+        out[:, r, ((col // 8) ^ (r % 8)) * 8 + col % 8] = tile[:, r]
+    return out
+
+
+@pytest.mark.parametrize("d,rows,s0", [(32, 64, 0), (48, 64, 150),
+                                       (96, 32, 190), (128, 64, 136),
+                                       (192, 128, 100)])
+def test_hopper_tma_tile_roundtrip(card, d, rows, s0):
+    """One TMA tile of x [2, 200, 3, d] (hopper.cuh's ``tile_map``: boxes
+    of [rows][64], 128-byte swizzle) into shared memory under an
+    mbarrier, its bytes as stored, and a TMA store of it back: zeros past
+    d and past S (not the next batch row), each row's chunks swizzled, the
+    store writing only the tile's rows inside the tensor."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _probe("hopper_probe_tma", [P] * 3 + [I] * 9 + [P])
+    b, s, h = 2, 200, 3
+    x = torch.randn((b, s, h, d), generator=torch.Generator().manual_seed(7)
+                    ).to(card, torch.bfloat16)
+    boxes = (d + 63) // 64
+    back = torch.zeros_like(x)
+    raw = torch.empty((boxes, rows, 64), dtype=torch.bfloat16, device=card)
+    err = fn(x.data_ptr(), back.data_ptr(), raw.data_ptr(), b, s, h, d, rows,
+             s0, 1, 1, card.index or 0,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    tile = torch.zeros((rows, boxes * 64), dtype=torch.bfloat16)
+    n = min(rows, s - s0)
+    tile[:n, :d] = x[1, s0:s0 + n, 1].cpu()
+    tile = tile.reshape(rows, boxes, 64).transpose(0, 1)
+    assert torch.equal(raw.cpu(), _swizzled(tile))
+    want = torch.zeros_like(x)
+    want[1, s0:s0 + n, 1] = x[1, s0:s0 + n, 1]
+    assert torch.equal(back, want)
+
+
+@pytest.mark.parametrize("r,dt", [(64, 64), (64, 128), (64, 192), (32, 192),
+                                  (32, 48)])
+def test_hopper_wgmma_two_readings_of_one_tile(card, r, dt):
+    """One bf16 tile t [r][dt] brought by TMA (a producer warpgroup after
+    ``setmaxnreg`` down) and read by ``wgmma`` twice (a consumer
+    warpgroup after ``setmaxnreg`` up): K-major as B of a1 t^T (A from
+    shared memory, m64n{r}k16 over dt / 16 k-steps across its 64-column
+    boxes) and MN-major as B of a2 t (A from registers, m64n64k16 a box),
+    against ``torch.matmul`` of the same tiles in f32 (the products are
+    exact, the sums in another order)."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _probe("hopper_probe_wgmma", [P] * 5 + [I] * 3 + [P])
+    g = torch.Generator().manual_seed(8)
+    t, a1, a2 = (torch.randn(shape, generator=g).to(card, torch.bfloat16)
+                 for shape in ((r, dt), (64, dt), (64, r)))
+    boxes = (dt + 63) // 64
+    c1 = torch.empty((64, r), device=card)
+    c2 = torch.full((64, 64 * boxes), float("nan"), device=card)
+    err = fn(t.data_ptr(), a1.data_ptr(), a2.data_ptr(), c1.data_ptr(),
+             c2.data_ptr(), r, dt, card.index or 0,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _close(c1, a1.float() @ t.float().T, ATTN_F32_TOL_OF_MAX)
+    _close(c2[:, :dt], a2.float() @ t.float(), ATTN_F32_TOL_OF_MAX)
+    assert torch.equal(c2[:, dt:], torch.zeros_like(c2[:, dt:]))
 
 
 def test_flash_attention_op_launches_on_card(card):
